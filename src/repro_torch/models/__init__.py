@@ -1,0 +1,6 @@
+from repro_torch.models.transformer import (cache_from_prefill, decode_step,
+                                            forward, init_cache, init_params,
+                                            param_shapes)
+
+__all__ = ["cache_from_prefill", "decode_step", "forward", "init_cache",
+           "init_params", "param_shapes"]

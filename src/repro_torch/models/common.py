@@ -1,0 +1,44 @@
+"""Shared numeric building blocks (norm, init, activation)."""
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+import torch.nn.functional as F
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5
+             ) -> torch.Tensor:
+    """RMSNorm with fp32 internals and the scale cast to fp32; output in
+    x's dtype."""
+    xf = x.float()
+    var = xf.square().mean(dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * scale.float()).to(x.dtype)
+
+
+def _truncated_normal(gen: torch.Generator, shape: Sequence[int]
+                      ) -> torch.Tensor:
+    """Standard normal truncated to [-3, 3], float32, on the generator's
+    device."""
+    t = torch.empty(tuple(shape), dtype=torch.float32, device=gen.device)
+    return torch.nn.init.trunc_normal_(t, 0.0, 1.0, -3.0, 3.0, generator=gen)
+
+
+def dense_init(gen: torch.Generator, shape: Sequence[int], fan_in: int, *,
+               scale: float = 1.0) -> torch.Tensor:
+    """Truncated-normal fan-in init, std = scale / sqrt(fan_in), bfloat16."""
+    return _truncated_normal(gen, shape).mul_(scale / fan_in ** 0.5).to(
+        torch.bfloat16)
+
+
+def embed_init(gen: torch.Generator, shape: Sequence[int]) -> torch.Tensor:
+    return _truncated_normal(gen, shape).mul_(0.02).to(torch.bfloat16)
+
+
+def act(name: str, x: torch.Tensor) -> torch.Tensor:
+    if name == "swiglu":  # caller handles the gate; this is the inner nonlinearity
+        return F.silu(x)
+    if name == "gelu":    # jax.nn.gelu defaults to the tanh approximation
+        return F.gelu(x, approximate="tanh")
+    raise ValueError(name)

@@ -1,0 +1,259 @@
+"""The port's kernels' plain versions against the JAX package's oracles and
+Pallas kernels (interpret mode), dispatch by device, and -- on a card only
+-- the hand-written CUDA kernels against their plain versions.
+
+Inputs are drawn with numpy from a fixed seed; bfloat16 inputs are rounded
+once in torch and handed to JAX through float32, which is exact, so both
+sides see the same bits.  Tolerances are the JAX package's own kernel
+tolerances: 2e-5 in float32, 2e-2 in bfloat16 (tests/test_kernels.py,
+tests/test_flash_decode.py).
+
+JAX is imported by the ``jx`` fixture, not at module level: the card's
+machine has no JAX, and the ``gpu`` class runs there.
+"""
+from types import SimpleNamespace
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import LAUNCHES, dispatch
+from repro_torch.kernels.flash_attention import attention_ref, flash_attention
+from repro_torch.kernels.flash_decode import (flash_decode_gqa, gqa_decode_ref,
+                                              gqa_decode_splitk)
+
+DTYPES = {"float32": (torch.float32, 2e-5), "bfloat16": (torch.bfloat16, 2e-2)}
+
+# the shapes of tests/test_kernels.py::test_flash_attention_sweep
+ATTN_CASES = [
+    (2, 128, 128, 4, 2, 64, True, 0),
+    (1, 256, 256, 8, 8, 32, True, 64),        # MHA + sliding window
+    (2, 64, 192, 4, 1, 64, False, 0),         # MQA, cross-length
+    (1, 96, 96, 6, 3, 128, True, 0),          # non-pow2 seq, G = 3
+    (1, 128, 128, 4, 4, 64, True, 32),
+]
+
+BLOCK_S = 256            # the CUDA kernel's cache block
+
+
+@pytest.fixture(scope="module")
+def jx():
+    """The JAX package's kernels and oracles."""
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from repro.kernels.flash_attention import attention_ref as jax_ref
+    from repro.kernels.flash_attention import flash_attention
+    from repro.kernels.flash_decode import flash_decode_gqa
+    from repro.kernels.flash_decode import ref as fd_ref
+    return SimpleNamespace(jnp=jnp, attention_ref=jax_ref,
+                           flash_attention=flash_attention,
+                           flash_decode_gqa=flash_decode_gqa, fd_ref=fd_ref)
+
+
+def _to_jax(jx, t):
+    """A torch tensor as a JAX array of the same dtype and bits."""
+    return jx.jnp.asarray(t.float().numpy()).astype(str(t.dtype)[6:])
+
+
+def _f32(x):
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(x).astype(np.float32)
+
+
+def _randn(rng, shape, dtype):
+    return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)
+                            ).to(DTYPES[dtype][0])
+
+
+def _attn_inputs(case, dtype, seed=0):
+    b, sq, sk, H, K, D, _, _ = case
+    rng = np.random.default_rng(seed)
+    return [_randn(rng, s, dtype) for s in
+            ((b, sq, H, D), (b, sk, K, D), (b, sk, K, D))]
+
+
+def _decode_inputs(b, S, H, K, D, dtype, seed=0):
+    """Ring-shaped validity (row i sees a different prefix), plus a fully
+    masked cache block in row 0 where the cache has more than one block."""
+    rng = np.random.default_rng(seed)
+    qkv = [_randn(rng, s, dtype) for s in
+           ((b, 1, H, D), (b, S, K, D), (b, S, K, D))]
+    pos = rng.integers(1, 2 * S, size=b)
+    age = (pos[:, None] % S - np.arange(S)[None, :]) % S
+    valid = age <= np.minimum(pos[:, None], S - 1)
+    if S > BLOCK_S:
+        valid[0, BLOCK_S:2 * BLOCK_S] = False
+        valid[0, 0] = True               # the row itself keeps a valid entry
+    return qkv, valid
+
+
+# --------------------------------------------------------------- attention --
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("case", ATTN_CASES)
+def test_attention_ref_matches_jax_ref(jx, case, dtype):
+    causal, window = case[6], case[7]
+    q, k, v = _attn_inputs(case, dtype)
+    want = jx.attention_ref(*(_to_jax(jx, t) for t in (q, k, v)),
+                            causal=causal, window=window)
+    got = attention_ref(q, k, v, causal=causal, window=window)
+    assert got.dtype == q.dtype and got.shape == q.shape
+    tol = DTYPES[dtype][1]
+    np.testing.assert_allclose(_f32(got), _f32(want), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("case", [ATTN_CASES[1], ATTN_CASES[3]])
+def test_attention_ref_matches_pallas_kernel(jx, case, dtype):
+    causal, window = case[6], case[7]
+    q, k, v = _attn_inputs(case, dtype, seed=1)
+    want = jx.flash_attention(*(_to_jax(jx, t) for t in (q, k, v)),
+                              causal=causal, window=window, block_q=64,
+                              block_k=64, interpret=True)
+    got = attention_ref(q, k, v, causal=causal, window=window)
+    tol = DTYPES[dtype][1]
+    np.testing.assert_allclose(_f32(got), _f32(want), atol=tol, rtol=tol)
+
+
+# ------------------------------------------------------------------ decode --
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("S", [48, 300, 640])
+def test_decode_refs_match_jax(jx, S, dtype):
+    (q, k, v), valid = _decode_inputs(3, S, 8, 2, 32, dtype)
+    jargs = [_to_jax(jx, t) for t in (q, k, v)] + [jx.jnp.asarray(valid)]
+    tvalid = torch.from_numpy(valid)
+    tol = DTYPES[dtype][1]
+
+    ref = gqa_decode_ref(q, k, v, tvalid)
+    np.testing.assert_allclose(_f32(ref), _f32(jx.fd_ref.gqa_decode_ref(*jargs)),
+                               atol=tol, rtol=tol)
+    split = gqa_decode_splitk(q, k, v, tvalid, block_s=BLOCK_S)
+    np.testing.assert_allclose(
+        _f32(split), _f32(jx.fd_ref.gqa_decode_splitk(*jargs, block_s=BLOCK_S)),
+        atol=tol, rtol=tol)
+    pallas = jx.flash_decode_gqa(*jargs, block_s=BLOCK_S, interpret=True)
+    np.testing.assert_allclose(_f32(split), _f32(pallas), atol=tol, rtol=tol)
+    np.testing.assert_allclose(_f32(ref), _f32(split), atol=tol, rtol=tol)
+
+
+def test_all_invalid_row_follows_split_kv(jx):
+    """A row with no valid entry: the split-KV merge gives 0 (the kernel's
+    semantics), the whole-cache softmax the mean of V."""
+    (q, k, v), _ = _decode_inputs(2, 300, 4, 2, 32, "float32")
+    valid = np.ones((2, 300), bool)
+    valid[1] = False
+    split = gqa_decode_splitk(q, k, v, torch.from_numpy(valid),
+                              block_s=BLOCK_S)
+    assert torch.all(split[1] == 0)
+    pallas = jx.flash_decode_gqa(*(_to_jax(jx, t) for t in (q, k, v)),
+                                 jx.jnp.asarray(valid), block_s=BLOCK_S,
+                                 interpret=True)
+    np.testing.assert_allclose(_f32(split), _f32(pallas), atol=2e-5,
+                               rtol=2e-5)
+    ref = gqa_decode_ref(q, k, v, torch.from_numpy(valid))
+    mean_v = v[1].mean(dim=0).repeat_interleave(2, dim=0)      # (H, D)
+    np.testing.assert_allclose(_f32(ref[1, 0]), _f32(mean_v), atol=2e-5)
+
+
+# ---------------------------------------------------------------- dispatch --
+
+def test_dispatch_on_cpu_runs_the_plain_versions():
+    before = dict(LAUNCHES)
+    q, k, v = _attn_inputs(ATTN_CASES[1], "bfloat16")
+    assert torch.equal(dispatch.attention(q, k, v, window=64),
+                       attention_ref(q, k, v, window=64))
+    (dq, dk, dv), valid = _decode_inputs(2, 300, 8, 2, 32, "float32")
+    valid = torch.from_numpy(valid)
+    assert torch.equal(dispatch.flash_decode(dq, dk, dv, valid),
+                       gqa_decode_ref(dq, dk, dv, valid))
+    with dispatch.force("ref"):
+        assert torch.equal(dispatch.flash_decode(dq, dk, dv, valid),
+                           gqa_decode_ref(dq, dk, dv, valid))
+    assert LAUNCHES == before
+
+
+def test_kernels_refuse_what_they_do_not_take():
+    q, k, v = _attn_inputs(ATTN_CASES[0], "float32")
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention(q, k, v)
+    (dq, dk, dv), _ = _decode_inputs(2, 48, 8, 2, 32, "float32")
+    valid = torch.ones((2, 48), dtype=torch.bool)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_decode_gqa(dq, dk, dv, valid)
+    with pytest.raises(ValueError):
+        with dispatch.force("kernel"):
+            pass
+    with pytest.raises(ValueError, match="device"):
+        dispatch.attention(q.to("meta"), k.to("meta"), v.to("meta"))
+
+
+# ------------------------------------------------------------- on the card --
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernels run only there")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+class TestKernelsOnCard:
+    @pytest.mark.parametrize("dtype", list(DTYPES))
+    @pytest.mark.parametrize("case", ATTN_CASES)
+    def test_flash_attention_matches_plain(self, cuda, case, dtype):
+        causal, window = case[6], case[7]
+        q, k, v = (t.to(cuda) for t in _attn_inputs(case, dtype))
+        n = LAUNCHES["flash_attention"]
+        got = flash_attention(q, k, v, causal=causal, window=window)
+        assert LAUNCHES["flash_attention"] == n + 1
+        want = attention_ref(q, k, v, causal=causal, window=window)
+        tol = DTYPES[dtype][1]
+        torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                                   rtol=tol)
+        with dispatch.force("ref"):
+            assert torch.equal(dispatch.attention(q, k, v, causal=causal,
+                                                  window=window), want)
+        assert torch.equal(dispatch.attention(q, k, v, causal=causal,
+                                              window=window), got)
+
+    @pytest.mark.parametrize("dtype", list(DTYPES))
+    @pytest.mark.parametrize("S", [48, 300, 544, 640])
+    def test_flash_decode_matches_plain(self, cuda, S, dtype):
+        (q, k, v), valid = _decode_inputs(3, S, 24, 8, 128, dtype)
+        q, k, v = q.to(cuda), k.to(cuda), v.to(cuda)
+        valid = torch.from_numpy(valid).to(cuda)
+        valid[2] = False                       # one all-invalid row
+        n = LAUNCHES["flash_decode_gqa"]
+        got = flash_decode_gqa(q, k, v, valid)
+        assert LAUNCHES["flash_decode_gqa"] == n + 1
+        want = gqa_decode_splitk(q, k, v, valid, block_s=BLOCK_S)
+        tol = DTYPES[dtype][1]
+        torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                                   rtol=tol)
+        assert torch.all(got[2] == 0)
+        ref = gqa_decode_ref(q[:2], k[:2], v[:2], valid[:2])
+        torch.testing.assert_close(got[:2].float(), ref.float(), atol=tol,
+                                   rtol=tol)
+
+    def test_flash_decode_never_reads_masked_slots(self, cuda):
+        """Non-finite K and V in masked slots leave the output unchanged:
+        the kernel reads neither for a masked row."""
+        (q, k, v), valid = _decode_inputs(3, 640, 24, 8, 128, "bfloat16")
+        q, k, v = q.to(cuda), k.to(cuda), v.to(cuda)
+        valid = torch.from_numpy(valid).to(cuda)
+        clean = flash_decode_gqa(q, k, v, valid)
+        k_bad, v_bad = k.clone(), v.clone()
+        k_bad[~valid] = float("nan")
+        v_bad[~valid] = float("inf")
+        assert torch.equal(flash_decode_gqa(q, k_bad, v_bad, valid), clean)
+
+    def test_kernels_raise_on_unsupported_head_dim(self, cuda):
+        q = torch.zeros((1, 8, 2, 48), device=cuda)
+        with pytest.raises(ValueError, match="head dim"):
+            flash_attention(q, q, q)
+        with pytest.raises(ValueError, match="head dim"):
+            flash_decode_gqa(q[:, :1], q, q,
+                             torch.ones((1, 8), dtype=torch.bool, device=cuda))

@@ -1,0 +1,198 @@
+"""The port's model functions against the JAX package's, on the smoke
+configs of llama3.2-3b and starcoder2-3b (sliding window 16, so ring caches
+wrap).
+
+Parameters come from the JAX package's ``init_params``, cast to float32 on
+both sides and handed over as numpy arrays through
+``repro_torch.interop.params_from_numpy``.  The whole-model tolerance is
+1e-4 absolute and relative in float32: the two frameworks sum the same
+products in different orders through two layers (the observed gap is a few
+1e-6).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs.registry import smoke_config as jax_smoke_config
+from repro.models import attention as jax_attn
+from repro.models import common as jax_common
+from repro.models import decode_step as jax_decode_step
+from repro.models import forward as jax_forward
+from repro.models import init_params as jax_init_params
+from repro.models.transformer import cache_from_prefill as jax_cache_from_prefill
+from repro_torch.configs import smoke_config
+from repro_torch.interop import params_from_numpy
+from repro_torch.models import (cache_from_prefill, decode_step, forward,
+                                init_params)
+from repro_torch.models.attention import apply_rope
+from repro_torch.models.common import rms_norm
+
+ARCHS = ["llama3.2-3b", "starcoder2-3b"]
+TOL = dict(atol=1e-4, rtol=1e-4)
+
+
+def _np(x):
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(jnp.asarray(x).astype(jnp.float32))
+
+
+@pytest.fixture(scope="module", params=ARCHS)
+def fp32_pair(request):
+    """(jax cfg, jax params, port cfg, port params), float32 both sides."""
+    arch = request.param
+    jcfg = jax_smoke_config(arch)
+    jparams = jax.tree.map(lambda a: a.astype(jnp.float32),
+                           jax_init_params(jcfg, jax.random.PRNGKey(0)))
+    cfg = smoke_config(arch)
+    params = params_from_numpy(cfg, jax.tree.map(np.asarray, jparams),
+                               device="cpu", dtype=torch.float32)
+    return jcfg, jparams, cfg, params
+
+
+def _tokens(cfg, b, s, seed=0):
+    return np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (b, s)).astype(np.int32)
+
+
+# ----------------------------------------------------------- building blocks --
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rms_norm_matches_jax(dtype):
+    rng = np.random.default_rng(0)
+    x = jnp.asarray(rng.standard_normal((3, 5, 64)).astype(np.float32) * 3
+                    ).astype(dtype)
+    scale = jnp.asarray(rng.standard_normal(64).astype(np.float32)).astype(dtype)
+    want = jax_common.rms_norm(x, scale, 1e-5)
+    got = rms_norm(torch.tensor(_np(x)).to(getattr(torch, dtype)),
+                   torch.tensor(_np(scale)).to(getattr(torch, dtype)), 1e-5)
+    assert str(got.dtype).endswith(dtype)
+    tol = 2e-5 if dtype == "float32" else 2e-2
+    np.testing.assert_allclose(_np(got), _np(want), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("per_row", [False, True])
+def test_apply_rope_matches_jax(per_row):
+    rng = np.random.default_rng(1)
+    x = rng.standard_normal((2, 6, 4, 32)).astype(np.float32)
+    pos = (np.array([[3], [40]]) + np.arange(6)[None] if per_row
+           else np.arange(6) + 7)
+    want = jax_attn.apply_rope(jnp.asarray(x), jnp.asarray(pos, jnp.int32),
+                               5e5)
+    got = apply_rope(torch.from_numpy(x), torch.from_numpy(pos), 5e5)
+    np.testing.assert_allclose(_np(got), _np(want), atol=2e-5, rtol=2e-5)
+
+
+def test_init_params_tree_matches_jax_shapes():
+    for arch in ARCHS:
+        want = jax.eval_shape(
+            lambda k, a=arch: jax_init_params(jax_smoke_config(a), k),
+            jax.ShapeDtypeStruct((2,), jnp.uint32))
+        got = init_params(smoke_config(arch), 0, device="cpu")
+        flat_want = {jax.tree_util.keystr(p): (tuple(l.shape), str(l.dtype))
+                     for p, l in jax.tree_util.tree_leaves_with_path(want)}
+        flat_got = {jax.tree_util.keystr(p): (tuple(l.shape),
+                                              str(l.dtype).split(".")[-1])
+                    for p, l in jax.tree_util.tree_leaves_with_path(got)}
+        assert flat_got == flat_want
+
+
+def test_init_params_is_seeded():
+    cfg = smoke_config("llama3.2-3b")
+    a = init_params(cfg, 3, device="cpu")
+    b = init_params(cfg, 3, device="cpu")
+    c = init_params(cfg, 4, device="cpu")
+    assert torch.equal(a["embed"], b["embed"])
+    assert not torch.equal(a["embed"], c["embed"])
+    wo = a["blocks"]["sub0"]["mixer"]["wo"].float()
+    # fan-in of wo (H, hd, d) is H, as in the JAX package's dense_init
+    expect = (1 / np.sqrt(2 * cfg.num_layers)) / np.sqrt(cfg.num_heads)
+    # a standard normal truncated at +-3 has std 0.9866
+    assert abs(wo.std().item() / expect - 0.9866) < 0.02
+
+
+def test_params_from_numpy_rejects_a_wrong_tree():
+    cfg = smoke_config("llama3.2-3b")
+    tree = jax.tree.map(lambda a: np.asarray(a, np.float32), jax_init_params(
+        jax_smoke_config("llama3.2-3b"), jax.random.PRNGKey(0)))
+    tree["final_norm"] = np.ones(7, np.float32)
+    with pytest.raises(ValueError, match="final_norm"):
+        params_from_numpy(cfg, tree, device="cpu")
+    del tree["final_norm"]
+    with pytest.raises(ValueError, match="keys"):
+        params_from_numpy(cfg, tree, device="cpu")
+
+
+# ------------------------------------------------------------ whole model --
+
+def test_forward_matches_jax(fp32_pair):
+    jcfg, jparams, cfg, params = fp32_pair
+    toks = _tokens(cfg, 2, 12)
+    jl, _, jc = jax_forward(jcfg, jparams, {"tokens": jnp.asarray(toks)},
+                            want_cache=True)
+    tl, tc = forward(cfg, params, {"tokens": torch.from_numpy(toks)},
+                     want_cache=True)
+    np.testing.assert_allclose(_np(tl), _np(jl), **TOL)
+    for name in ("k", "v"):
+        np.testing.assert_allclose(_np(tc["sub0"][name]),
+                                   _np(jc["sub0"][name]), **TOL)
+    last, _ = forward(cfg, params, {"tokens": torch.from_numpy(toks)},
+                      last_only=True)
+    np.testing.assert_allclose(_np(last), _np(tl[:, -1:]), **TOL)
+
+
+@pytest.mark.parametrize("per_row", [False, True])
+def test_decode_step_matches_jax(fp32_pair, per_row):
+    """Prefill 12 tokens into a 24-token cache (a 16-slot ring for
+    starcoder2), then 8 decode steps: starcoder2's ring wraps at 16."""
+    jcfg, jparams, cfg, params = fp32_pair
+    toks = _tokens(cfg, 2, 12, seed=1)
+    _, _, jc = jax_forward(jcfg, jparams, {"tokens": jnp.asarray(toks)},
+                           want_cache=True)
+    jcache = jax_cache_from_prefill(jcfg, jc, 24)
+    _, tc = forward(cfg, params, {"tokens": torch.from_numpy(toks)},
+                    want_cache=True)
+    tcache = cache_from_prefill(cfg, tc, 24)
+    new = _tokens(cfg, 2, 8, seed=2)
+    offset = np.array([0, 3]) if per_row else 0      # rows apart by 3
+    for i in range(8):
+        pos = 12 + i + offset
+        jpos = jnp.asarray(pos, jnp.int32)
+        tpos = torch.from_numpy(pos) if per_row else int(pos)
+        jl, jcache = jax_decode_step(jcfg, jparams,
+                                     jnp.asarray(new[:, i:i + 1]), jcache, jpos)
+        tl, tcache = decode_step(cfg, params, torch.from_numpy(new[:, i:i + 1]),
+                                 tcache, tpos)
+        np.testing.assert_allclose(_np(tl), _np(jl), **TOL)
+    for name in ("k", "v"):
+        np.testing.assert_allclose(_np(tcache["sub0"][name]),
+                                   _np(jcache["sub0"][name]), **TOL)
+
+
+def test_ring_holds_a_prompt_longer_than_the_window():
+    """A 20-token prompt into starcoder2's 16-slot ring: decoding the next
+    token gives the logits of a full forward over the 21 tokens.  (The
+    JAX package's cache_from_prefill keeps the last 16 positions at slots
+    0..15, which agrees only when the prompt length is a multiple of 16.)"""
+    cfg = smoke_config("starcoder2-3b")
+    params = jax.tree.map(lambda t: t.float(), init_params(cfg, 0, device="cpu"))
+    toks = torch.from_numpy(_tokens(cfg, 2, 21, seed=3))
+    _, tc = forward(cfg, params, {"tokens": toks[:, :20]}, want_cache=True)
+    cache = cache_from_prefill(cfg, tc, 24)
+    assert cache["sub0"]["k"].shape[2] == cfg.sliding_window
+    got, _ = decode_step(cfg, params, toks[:, 20:], cache, 20)
+    want, _ = forward(cfg, params, {"tokens": toks}, last_only=True)
+    np.testing.assert_allclose(_np(got), _np(want), **TOL)
+
+
+def test_cache_from_prefill_does_not_alias(fp32_pair):
+    _, _, cfg, params = fp32_pair
+    toks = torch.from_numpy(_tokens(cfg, 1, 16))
+    _, tc = forward(cfg, params, {"tokens": toks}, want_cache=True)
+    ring = cache_from_prefill(cfg, tc, 16)
+    assert ring["sub0"]["k"].data_ptr() != tc["sub0"]["k"].data_ptr()
+    before = tc["sub0"]["k"].clone()
+    decode_step(cfg, params, toks[:, :1], ring, 16)
+    assert torch.equal(tc["sub0"]["k"], before)

@@ -1,0 +1,130 @@
+"""The port's serving engine: greedy tokens against the JAX package's
+``greedy_decode``, the batchers against the port's own per-request greedy
+decoding, request admission checks and the serve driver, all on the CPU.
+
+The greedy comparison with JAX runs in float32, one request per call on
+both sides: float32 products on this CPU give a row different bits at
+batch 1 and batch > 1, so co-batching would move the tokens.  The batcher
+comparisons run in bfloat16, whose CPU products are batch-invariant, as
+the JAX package's own batcher tests do (tests/test_serve_plane.py).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs.registry import smoke_config as jax_smoke_config
+from repro.models import init_params as jax_init_params
+from repro.serve import greedy_decode as jax_greedy_decode
+from repro_torch.configs import smoke_config
+from repro_torch.interop import params_from_numpy
+from repro_torch.launch import serve as serve_main
+from repro_torch.models import init_params
+from repro_torch.serve import (ContinuousBatcher, DisaggregatedBatcher,
+                               ServeRequest, greedy_decode)
+
+ARCHS = ["llama3.2-3b", "starcoder2-3b"]
+BATCHERS = [ContinuousBatcher, DisaggregatedBatcher]
+
+
+def _prompts(cfg, n, s, seed):
+    return torch.from_numpy(np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (n, s)))
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_fp32_greedy_matches_jax(arch):
+    """Prompt 12 into a 24-token cache, 10 new tokens: starcoder2's
+    16-slot ring wraps during decode."""
+    jcfg = jax_smoke_config(arch)
+    jparams = jax.tree.map(lambda a: a.astype(jnp.float32),
+                           jax_init_params(jcfg, jax.random.PRNGKey(0)))
+    cfg = smoke_config(arch)
+    params = params_from_numpy(cfg, jax.tree.map(np.asarray, jparams),
+                               device="cpu", dtype=torch.float32)
+    prompts = _prompts(cfg, 2, 12, seed=7)
+    for i in range(prompts.shape[0]):
+        want = jax_greedy_decode(jcfg, jparams,
+                                 jnp.asarray(prompts[i:i + 1].numpy(),
+                                             jnp.int32), 10, 24)
+        got = greedy_decode(cfg, params, prompts[i:i + 1], 10, 24)
+        assert got.tolist() == np.asarray(want).tolist()
+
+
+@pytest.fixture(scope="module")
+def llama_bf16():
+    cfg = smoke_config("llama3.2-3b")
+    return cfg, init_params(cfg, 0, device="cpu")
+
+
+def _greedy_each(cfg, params, prompts, gens, cache_len):
+    return {i: greedy_decode(cfg, params, prompts[i:i + 1], gens[i],
+                             cache_len)[0].tolist()
+            for i in range(prompts.shape[0])}
+
+
+@pytest.mark.parametrize("batcher", BATCHERS)
+def test_batcher_matches_greedy(llama_bf16, batcher):
+    """4 requests through 2 slots: admissions land mid-decode of other rows
+    and every slot is reused."""
+    cfg, params = llama_bf16
+    prompts = _prompts(cfg, 4, 8, seed=3)
+    want = _greedy_each(cfg, params, prompts, [5] * 4, 16)
+    cb = batcher(cfg, params, slots=2, cache_len=16)
+    for i in range(4):
+        cb.submit(ServeRequest(i, prompts[i], 5))
+    assert cb.run() == want
+    assert cb.prefills == 4
+    assert cb.decode_steps >= 8
+
+
+@pytest.mark.parametrize("batcher", BATCHERS)
+def test_batcher_staggered_and_unequal(llama_bf16, batcher):
+    """Requests submitted while the batch is mid-flight, with unequal token
+    budgets (slots free at different steps)."""
+    cfg, params = llama_bf16
+    prompts = _prompts(cfg, 3, 8, seed=5)
+    gens = [5, 2, 4]
+    want = _greedy_each(cfg, params, prompts, gens, 16)
+    cb = batcher(cfg, params, slots=2, cache_len=16)
+    cb.submit(ServeRequest(0, prompts[0], gens[0]))
+    cb.step()
+    cb.submit(ServeRequest(1, prompts[1], gens[1]))
+    cb.step()
+    cb.submit(ServeRequest(2, prompts[2], gens[2]))
+    assert cb.run() == want
+
+
+def test_disaggregated_splices_every_row(llama_bf16):
+    cfg, params = llama_bf16
+    prompts = _prompts(cfg, 3, 8, seed=9)
+    cb = DisaggregatedBatcher(cfg, params, slots=2, cache_len=16)
+    for i in range(3):
+        cb.submit(ServeRequest(i, prompts[i], 3))
+    out = cb.run()
+    assert sorted(out) == [0, 1, 2] and cb.handoffs == 3 and cb.prefills == 3
+
+
+@pytest.mark.parametrize("batcher", BATCHERS)
+def test_oversized_prompt_is_rejected(llama_bf16, batcher):
+    cfg, params = llama_bf16
+    cb = batcher(cfg, params, slots=2, cache_len=16)
+    with pytest.raises(ValueError, match="cannot fit"):
+        cb.submit(ServeRequest(0, _prompts(cfg, 1, 12, seed=0)[0], 5))
+    assert not cb.pending
+
+
+@pytest.mark.parametrize("extra", [[], ["--continuous", "3"],
+                                   ["--continuous", "3", "--disaggregated"]])
+def test_serve_driver_runs_on_cpu(extra, capsys):
+    out = serve_main.main(["--arch", "llama3.2-3b", "--smoke", "--device",
+                           "cpu", "--batch", "2", "--prompt-len", "8",
+                           "--gen", "4", *extra])
+    printed = capsys.readouterr().out
+    assert "device=cpu" in printed and "tok/s" in printed
+    if extra:
+        assert sorted(out) == [0, 1, 2]
+        assert all(len(t) == 4 for t in out.values())
+    else:
+        assert tuple(out.shape) == (2, 4)
