@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path on one NVIDIA card.
+"""Drive the PyTorch port's serving and training paths on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -8,17 +8,26 @@ Phases, each printing its lines before the last:
 1. the card (``nvidia-smi`` name and power limit) and the build of the
    hand-written kernels from ``src/repro_torch/kernels/csrc``;
 2. each kernel against its plain PyTorch version on the card, at the shapes
-   the serving path gives it and at edge cases (window, sq != sk, float32,
-   a ragged cache tail, a fully masked cache block, an all-invalid row),
-   with its time, the plain version's, one PyTorch library call's and the
-   card's bound for the same work;
+   the two paths give it and at edge cases (window, GQA, sq != sk,
+   float32, ragged tails, a fully masked cache block, an all-invalid row),
+   the attention backward also against autograd through the plain forward
+   and run twice for bit-identical gradients, with its time, the plain
+   version's, one PyTorch library call's and the card's bound for the same
+   work;
 3. llama3.2-3b at full width in bfloat16 with random weights from a seed:
-   (a) batch prefill + greedy decode -- the main path, run with the launch
-   counts set to 0 just before and read just after, then a torch.profiler
-   trace of one prefill and one decode step for the device's busy time and
-   idle share and the largest kernels; (b) its logits against
-   the same path on the plain versions; (c) 16 requests through the
-   continuous and the disaggregated batchers.
+   (a) batch prefill + greedy decode -- the serving path, run with the
+   launch counts set to 0 just before and read just after, then a
+   torch.profiler trace of one prefill and one decode step for the
+   device's busy time and idle share and the largest kernels; (b) its
+   logits against the same path on the plain versions; (c) 16 requests
+   through the continuous and the disaggregated batchers;
+4. gpt2-350m at full width (24 layers, bf16 params, fp32 Adam state) --
+   the training path, ``repro_torch.launch.train.train`` with global batch
+   8, sequence 1024, microbatch 1 and block remat, 1 warm-up + 12 timed
+   steps with the launch counts set to 0 just before and read just after:
+   step time, tokens/s, MFU, peak device memory over step 1, the loss
+   falling; a torch.profiler trace of one step; one microbatch's loss and
+   grad norm against the plain versions.
 
 Then one JSON line of per-kernel numbers and, last, the JSON result line.
 Any failed check raises and the script exits non-zero.  Without a CUDA
@@ -26,6 +35,7 @@ card, or without the repository around it, it exits non-zero and prints
 no result.
 """
 import json
+import math
 import os
 import subprocess
 import sys
@@ -37,11 +47,29 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
-# (bytes/s, bf16 dense FLOP/s) from NVIDIA's data sheets, by nvidia-smi name
-PEAKS = {"H100 80GB HBM3": (3.35e12, 989e12),     # SXM5
-         "H100 PCIe": (2.0e12, 756e12),
-         "H100 NVL": (3.9e12, 835e12)}
+# (bytes/s, bf16 dense FLOP/s, fp32 non-tensor FLOP/s) from NVIDIA's data
+# sheets, by nvidia-smi name
+PEAKS = {"H100 80GB HBM3": (3.35e12, 989e12, 67e12),     # SXM5
+         "H100 PCIe": (2.0e12, 756e12, 51e12),
+         "H100 NVL": (3.9e12, 835e12, 60e12)}
 BF16_TOL, FP32_TOL = 2e-2, 2e-5
+# The attention backward against its plain versions: max|d| <= tol *
+# max|ref| per gradient, tol as the forward's -- bf16: both round their
+# float32 sums to bf16 once (2^-8 relative steps), and the kernel's D_i is
+# rowsum(dO O) from the bf16 output where autograd's is exact; fp32: the
+# sums run in other orders.
+# Adam against its plain version: the JAX package's kernel tolerance.
+ADAM_ATOL, ADAM_RTOL = 1e-6, 1e-5
+# Training kernel path against the plain path over one full-width
+# microbatch: the forward kernel rounds p to bf16 before PV where the plain
+# version keeps float32, and 24 layers carry those one-step bf16
+# differences into the loss (a mean over 1023 tokens, which averages them)
+# and into every gradient (the grad norm is dominated by the largest).  A
+# wrong mask, head mapping or gradient term moves either by its own scale.
+LOSS_RTOL, GNORM_RTOL = 1e-2, 5e-2
+# The JAX package's exact_peak_bytes(gpt2-350m, 8, 1024, d=1, t=1, zero=1,
+# microbatch=1) for the training cell, printed beside the card's peak.
+JAX_PREDICTED_PEAK = 8_691_153_715
 # Kernel path vs plain path, max |logit delta| / max |logit|, bf16 at full
 # width: the two paths round attention differently (p to bf16 before PV in
 # the kernels, float32 throughout in the plain versions; bf16 steps are
@@ -85,9 +113,9 @@ def time_ms(fn, flush, iters=20):
 
 def device_profile(fn, n):
     """Device time per call of fn() over n calls, from a torch.profiler
-    trace: (busy ms, [(kernel name, ms)] largest first).  Busy is the sum of
-    the device events' durations; the path runs on one stream, so they do
-    not overlap."""
+    trace: (busy ms, [(kernel name, ms)] largest first, device events per
+    call).  Busy is the sum of the device events' durations; the path runs
+    on one stream, so they do not overlap."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -95,15 +123,24 @@ def device_profile(fn, n):
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     kernels = sorted(((e.key, e.self_device_time_total / 1e3 / n)
-                      for e in prof.key_averages()
-                      if e.device_type == DeviceType.CUDA), key=lambda r: -r[1])
-    return sum(ms for _, ms in kernels), kernels
+                      for e in events), key=lambda r: -r[1])
+    return (sum(ms for _, ms in kernels), kernels,
+            sum(e.count for e in events) / n)
 
 
-def bound(nbytes, flops, peaks):
-    t_bytes, t_ops = nbytes / peaks[0], flops / peaks[1]
+def bound(nbytes, flops, peaks, rate=None):
+    """(ms, "bytes" or "operations"): the larger of the bytes over the
+    memory rate and the flops over ``rate`` (default: bf16 tensor cores)."""
+    t_bytes, t_ops = nbytes / peaks[0], flops / (rate or peaks[1])
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def rel_max_err(got, want):
+    """max|got - want| / max|want|, in float32."""
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max()).item()
 
 
 def close(got, want, tol):
@@ -120,7 +157,10 @@ def ring_valid(gen, b, S):
 
 
 def phase_kernels(peaks, flush):
-    from repro_torch.kernels.flash_attention import attention_ref, flash_attention
+    from repro_torch.kernels.flash_attention import (attention_lse_ref,
+                                                     attention_ref,
+                                                     flash_attention,
+                                                     flash_attention_lse)
     from repro_torch.kernels.flash_decode import (flash_decode_gqa,
                                                   gqa_decode_ref,
                                                   gqa_decode_splitk)
@@ -141,14 +181,19 @@ def phase_kernels(peaks, flush):
     for name, b, sq, sk, H, K, D, causal, window, dt in attn_cases:
         q, k, v = randn(b, sq, H, D, dtype=dt), randn(b, sk, K, D, dtype=dt), \
             randn(b, sk, K, D, dtype=dt)
-        got = flash_attention(q, k, v, causal=causal, window=window)
+        got, lse = flash_attention_lse(q, k, v, causal=causal, window=window)
         want = attention_ref(q, k, v, causal=causal, window=window)
         tol = BF16_TOL if dt == bf16 else FP32_TOL
         ok, err = close(got, want, tol)
+        # lse is float32 from float32 scores whatever the inputs' dtype
+        ok_lse, err_lse = close(lse, attention_lse_ref(
+            q, k, causal=causal, window=window), FP32_TOL)
         print(f"kernel flash_attention {name} b={b} sq={sq} sk={sk} H={H} K={K}"
               f" D={D} causal={causal} window={window} {str(dt)[6:]}:"
-              f" max_abs_err={err:.3e} tol={tol:g} {'ok' if ok else 'FAIL'}")
-        check(ok, f"flash_attention {name} disagrees with its plain version")
+              f" max_abs_err={err:.3e} tol={tol:g}, lse max_abs_err="
+              f"{err_lse:.3e} tol={FP32_TOL:g} {'ok' if ok and ok_lse else 'FAIL'}")
+        check(ok and ok_lse,
+              f"flash_attention {name} disagrees with its plain version")
         if name != "prefill":
             continue
         pos_q = torch.arange(sq, device="cuda")[:, None]
@@ -219,10 +264,138 @@ def phase_kernels(peaks, flush):
             bound_ms=bound_ms, bound_by=bound_by,
             library_ms=time_ms(lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, attn_mask=mask, enable_gqa=True), flush))
+    rows.update(phase_attention_bwd(peaks, flush, randn))
+    rows.update(phase_adam(peaks, flush, gen))
     for r in rows.values():
         print(f"time {r['name']}: kernel {r['ms']:.4f} ms,"
-              f" plain {r['plain_ms']:.4f} ms, sdpa {r['library_ms']:.4f} ms,"
+              f" plain {r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms,"
               f" bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    return rows
+
+
+def phase_attention_bwd(peaks, flush, randn):
+    from repro_torch.kernels.flash_attention import (attention_bwd_ref,
+                                                     attention_ref,
+                                                     flash_attention_bwd,
+                                                     flash_attention_lse)
+    bf16, f32 = torch.bfloat16, torch.float32
+    rows = {}
+    for name, b, sq, sk, H, K, D, causal, window, dt in [
+            ("train", 1, 1024, 1024, 16, 16, 64, True, 0, bf16),
+            ("window64", 2, 512, 512, 24, 8, 128, True, 64, bf16),
+            ("gqa", 2, 512, 512, 24, 8, 128, True, 0, bf16),
+            ("noncausal_sq!=sk", 2, 96, 200, 8, 2, 64, False, 0, bf16),
+            ("fp32_D32", 2, 160, 160, 8, 4, 32, True, 0, f32),
+            ("ragged", 2, 100, 100, 8, 4, 64, True, 0, bf16)]:
+        kw = dict(causal=causal, window=window)
+        q, k, v = randn(b, sq, H, D, dtype=dt), randn(b, sk, K, D, dtype=dt), \
+            randn(b, sk, K, D, dtype=dt)
+        do = randn(b, sq, H, D, dtype=dt)
+        o, lse = flash_attention_lse(q, k, v, **kw)
+        got = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+        again = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+        same = all(torch.equal(a, c) for a, c in zip(got, again))
+        explicit = attention_bwd_ref(q, k, v, o, lse, do, **kw)
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        attention_ref(*leaves, **kw).backward(do)
+        tol = BF16_TOL if dt == bf16 else FP32_TOL
+        err = max(rel_max_err(g, e) for g, e in zip(got, explicit))
+        err_ag = max(rel_max_err(g, t.grad) for g, t in zip(got, leaves))
+        ok = err <= tol and err_ag <= tol and same
+        print(f"kernel flash_attention_bwd {name} b={b} sq={sq} sk={sk} H={H}"
+              f" K={K} D={D} causal={causal} window={window} {str(dt)[6:]}:"
+              f" max|d|/max|ref| {err:.3e} (explicit), {err_ag:.3e}"
+              f" (autograd) tol={tol:g}, bit-identical rerun {same}"
+              f" {'ok' if ok else 'FAIL'}")
+        check(ok, f"flash_attention_bwd {name} disagrees with its plain"
+                  f" versions or is not deterministic")
+        if name != "train":
+            continue
+        pairs = sq * (sq + 1) // 2
+        nbytes = 2 * (4 * q.numel() + 2 * k.numel() + 2 * v.numel()) \
+            + 4 * lse.numel()
+        # the gradient's five products (S, dP, dV, dK, dQ) over the causal
+        # pairs: 2.5x the forward's two
+        bound_ms, bound_by = bound(nbytes, 10 * D * b * H * pairs, peaks)
+        qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True)
+                      for t in (q, k, v))
+        dot = do.transpose(1, 2).contiguous()
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                  enable_gqa=True)
+
+        def sdpa_fwd_bwd():
+            torch.autograd.grad(sdpa(), (qt, kt, vt), dot)
+
+        fwd_bwd_ms = time_ms(sdpa_fwd_bwd, flush)
+        fwd_ms = time_ms(lambda: sdpa().detach(), flush)
+        rows["flash_attention_bwd"] = dict(
+            name="flash_attention_bwd", route="cuda",
+            source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+            replaces="src/repro/kernels/flash_attention/flash_attention.py:78"
+                     " (its gradient)",
+            max_abs_err=max((g.float() - e.float()).abs().max().item()
+                            for g, e in zip(got, explicit)),
+            ms=time_ms(lambda: flash_attention_bwd(q, k, v, o, lse, do, **kw),
+                       flush),
+            plain_ms=time_ms(lambda: attention_bwd_ref(q, k, v, o, lse, do,
+                                                       **kw), flush),
+            bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=fwd_bwd_ms - fwd_ms)
+        print(f"time flash_attention_bwd library: sdpa forward+backward"
+              f" {fwd_bwd_ms:.4f} ms minus forward {fwd_ms:.4f} ms")
+    return rows
+
+
+def phase_adam(peaks, flush, gen):
+    from repro_torch.kernels.adam_update import adam_ref, adam_update
+    rows = {}
+    kw = dict(lr=1e-3, beta1=0.9, beta2=0.95, eps=1e-8, wd=0.1, c1=0.5,
+              c2=0.2)
+    for shape in [(37,), (1000,), (64, 130), (4096,), (24, 1024, 4096)]:
+        g = torch.randn(shape, generator=gen, device="cuda")
+        m = torch.randn(shape, generator=gen, device="cuda") * 0.1
+        v = torch.randn(shape, generator=gen, device="cuda").abs() * 0.01
+        mp = torch.randn(shape, generator=gen, device="cuda")
+        want = adam_ref(g, m, v, mp, **kw)
+        param = torch.empty(shape, dtype=torch.bfloat16, device="cuda")
+        adam_update(g, m, v, mp, param, **kw)
+        errs = [(a - w).abs().max().item() for a, w in zip((m, v, mp), want)]
+        ok = all(bool(((a - w).abs() <= ADAM_ATOL + ADAM_RTOL * w.abs()).all())
+                 for a, w in zip((m, v, mp), want))
+        ok = ok and torch.equal(param, mp.to(torch.bfloat16))
+        print(f"kernel adam_update n={g.numel()} shape={shape}: max_abs_err"
+              f" m {errs[0]:.3e} v {errs[1]:.3e} master {errs[2]:.3e}"
+              f" atol={ADAM_ATOL:g} rtol={ADAM_RTOL:g}, param = bf16(master')"
+              f" {'ok' if ok else 'FAIL'}")
+        check(ok, f"adam_update n={g.numel()} disagrees with its plain version")
+        if len(shape) < 3:
+            continue
+        n = g.numel()
+        # reads g, m, v, master; writes m, v, master and the bf16 param;
+        # ~15 float32 operations an element on the CUDA cores
+        bound_ms, bound_by = bound(30 * n, 15 * n, peaks, rate=peaks[2])
+        w = g.clone().requires_grad_(True)
+        w.grad = g
+        opt = torch.optim.AdamW([w], lr=1e-3, betas=(0.9, 0.95), eps=1e-8,
+                                weight_decay=0.1, fused=True)
+        opt.step()                       # creates its m and v
+        rows["adam_update"] = dict(
+            name="adam_update", route="cuda",
+            source="src/repro_torch/kernels/csrc/adam_update.cu",
+            replaces="src/repro/kernels/adam_update/adam_update.py:40",
+            max_abs_err=max(errs),
+            ms=time_ms(lambda: adam_update(g, m, v, mp, param, **kw), flush),
+            plain_ms=time_ms(lambda: adam_ref(g, m, v, mp, **kw), flush),
+            bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=time_ms(opt.step, flush))
+        print(f"time adam_update inputs: one leaf of {n} parameters"
+              f" (gpt2-350m's ffn.w1), {30 * n} bytes; library is"
+              f" torch.optim.AdamW(fused=True).step() on the same float32"
+              f" leaf, which updates m, v and the weights but writes no bf16"
+              f" copy")
+        del opt, w
     return rows
 
 
@@ -288,7 +461,7 @@ def phase_model():
              2, (t1 - t0) * 1e3),
             ("decode step", lambda: serve_step(cfg, params, tok, cache, s),
              8, (t2 - t1) * 1e3 / (new - 1))):
-        busy, kernels = device_profile(fn, n)
+        busy, kernels, _ = device_profile(fn, n)
         if busy == 0:
             print(f"(a) trace {what}: the profiler saw no device time;"
                   " idle share not measured")
@@ -337,6 +510,85 @@ def phase_model():
     return launches
 
 
+def phase_train(peaks):
+    from repro_torch.configs import TrainConfig, get_arch
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.kernels import LAUNCHES, dispatch, reset_launches
+    from repro_torch.launch.train import loss_fell, to_device, train
+    from repro_torch.models import param_count
+    from repro_torch.train import accumulate_grads, build_train_step
+    from repro_torch.train.optimizer import global_norm
+    cfg = get_arch("gpt2-350m")
+    n_params = param_count(cfg)
+    check(n_params == 353_503_232, f"gpt2-350m has {n_params} parameters")
+    b, s, steps = 8, 1024, 13             # 1 warm-up + 12 timed steps
+    tc = TrainConfig(global_batch=b, seq_len=s, microbatch=1, steps=steps,
+                     warmup_steps=1, remat="block", seed=0)
+    print(f"model {cfg.name}: {cfg.num_layers} layers d_model={cfg.d_model}"
+          f" heads={cfg.num_heads}/{cfg.num_kv_heads} d_ff={cfg.d_ff}"
+          f" vocab={cfg.vocab_size} params={n_params}; train global_batch={b}"
+          f" seq={s} microbatch=1 remat=block, {steps} steps")
+    reset_launches()
+    out = train(cfg, tc, device="cuda", log_every=1,
+                log=lambda line: print(f"(t) {line}"))
+    launches = dict(LAUNCHES)
+    n_micro = out["n_micro"]
+    want = {"flash_attention": 2 * cfg.num_layers * n_micro * steps,
+            "flash_attention_bwd": cfg.num_layers * n_micro * steps,
+            "adam_update": 10 * steps, "flash_decode_gqa": 0}
+    losses, step_s = out["losses"], out["step_s"][1:]
+    step_ms = 1e3 * sum(step_s) / len(step_s)
+    tokens = b * s
+    pairs = s * (s + 1) // 2
+    attn_flops = 12 * cfg.num_layers * b * cfg.num_heads * cfg.head_dim * pairs
+    mfu = (6 * n_params * tokens + attn_flops) / (step_ms * 1e-3 * peaks[1])
+    print(f"(t) train: {len(step_s)} timed steps, step {step_ms:.2f} ms (min"
+          f" {1e3 * min(step_s):.2f}, max {1e3 * max(step_s):.2f}),"
+          f" {tokens / (step_ms * 1e-3):.1f} tokens/s, MFU {mfu:.4f}"
+          f" ((6 N tokens + {attn_flops:.3e} attention flops) / (step x"
+          f" {peaks[1]:.3g})), launches {launches}")
+    peak = out["peak_bytes"]
+    print(f"(t) peak device memory over step 1: {peak} B"
+          f" ({peak / 2**30:.3f} GiB); the JAX package's exact_peak_bytes"
+          f" prediction for the cell: {JAX_PREDICTED_PEAK} B"
+          f" ({JAX_PREDICTED_PEAK / 2**30:.3f} GiB)")
+    check(all(math.isfinite(x) for x in losses), f"non-finite loss {losses}")
+    check(loss_fell(losses), f"loss did not fall: {losses}")
+    check(launches == want, f"training path launch counts {launches} != {want}")
+
+    # the device's busy time in one step against its wall time above
+    state = out["state"]
+    step, _ = build_train_step(cfg, tc, b, s)
+    batch = to_device(next(SyntheticTokens(cfg, b, s, seed=1)), "cuda")
+    busy, kernels, n_events = device_profile(lambda: step(state, batch), 1)
+    if busy == 0:
+        print("(t) trace step: the profiler saw no device time; idle share"
+              " not measured")
+    else:
+        top = "; ".join(f"{k[:48]} {ms:.3f}" for k, ms in kernels[:10])
+        print(f"(t) trace step: device busy {busy:.2f} ms of {step_ms:.2f} ms"
+              f" wall, idle share {1 - busy / step_ms:.3f}, {n_events:.0f}"
+              f" device events ({(step_ms - busy) * 1e3 / n_events:.1f} us of"
+              f" idle per event); top kernels (ms per step): {top}")
+
+    # one full-width microbatch, kernel path against the plain path
+    micro = {k: t[:1] for k, t in batch.items()}
+    res = []
+    for impl in (None, "ref"):
+        with dispatch.force(impl):
+            grads, loss = accumulate_grads(cfg, tc, state["params"], micro, 1)
+            res.append((loss.item(), global_norm(grads).item()))
+        del grads
+    (lk, gk), (lp, gp) = res
+    rl, rg = abs(lk - lp) / abs(lp), abs(gk - gp) / abs(gp)
+    print(f"(t) kernel vs plain path, one microbatch b=1 s={s}: loss {lk:.6f}"
+          f" vs {lp:.6f} (rel {rl:.3e}, tol {LOSS_RTOL:g}), grad norm"
+          f" {gk:.6f} vs {gp:.6f} (rel {rg:.3e}, tol {GNORM_RTOL:g})")
+    check(rl <= LOSS_RTOL and rg <= GNORM_RTOL,
+          "training kernel path differs from the plain path")
+    return launches
+
+
 def _leaves(tree):
     for v in tree.values():
         yield from (_leaves(v) if isinstance(v, dict) else (v,))
@@ -366,10 +618,15 @@ def main():
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
     rows = phase_kernels(peaks, flush)
     del flush
-    launches = phase_model()
+    serve_launches = phase_model()
+    train_launches = phase_train(peaks)
+    # launches: the sum over the two main-path runs, serving and training
     for kname, row in rows.items():
-        row["launches"] = launches[kname]
-    print(json.dumps({"kernels": [rows["flash_attention"], rows["flash_decode_gqa"]]}))
+        row["launches"] = serve_launches[kname] + train_launches[kname]
+    print(f"total wall time {time.perf_counter() - t0:.1f}s")
+    print(json.dumps({"kernels": [rows[k] for k in (
+        "flash_attention", "flash_attention_bwd", "flash_decode_gqa",
+        "adam_update")]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))
     return 0

@@ -1,8 +1,9 @@
-"""Model configuration dataclass.
+"""Model and training configuration dataclasses.
 
-The port keeps its own copy of the JAX package's ``ModelConfig``, field for
-field and with the same derived properties, so that it imports nothing of
-``repro``.  ``tests/test_torch_isolation.py`` holds the two copies equal.
+The port keeps its own copies of the JAX package's ``ModelConfig`` and
+``TrainConfig``, field for field and with the same derived properties, so
+that it imports nothing of ``repro``.  ``tests/test_torch_isolation.py``
+holds the copies equal.
 """
 from __future__ import annotations
 
@@ -109,3 +110,23 @@ class ModelConfig:
     def scaled(self, **kw) -> "ModelConfig":
         """A reduced variant of the same family (for smoke tests)."""
         return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    global_batch: int = 256
+    seq_len: int = 4096
+    microbatch: int = 0              # per-data-shard microbatch (0 = auto)
+    learning_rate: float = 3e-4
+    weight_decay: float = 0.1
+    beta1: float = 0.9
+    beta2: float = 0.95
+    eps: float = 1e-8
+    warmup_steps: int = 100
+    steps: int = 1000
+    zero: int = 1                    # 0: replicated opt state over data;
+                                     # 1: opt state sharded over data;
+                                     # 3: params also sharded over data
+                                     # (no effect on one device)
+    remat: str = "block"             # none | block (checkpoint each layer block)
+    seed: int = 0

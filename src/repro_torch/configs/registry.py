@@ -1,16 +1,18 @@
 """Architecture registry: ``--arch <id>`` -> ModelConfig, plus reduced smoke
-variants.  The port serves the dense GQA archs only: llama3.2-3b (full
-attention) and starcoder2-3b (sliding window, which exercises the ring
-cache)."""
+variants.  The port runs the dense GQA archs only: llama3.2-3b (full
+attention), starcoder2-3b (sliding window, which exercises the ring cache)
+and gpt2-350m (MHA with GELU and tied embeddings, the paper's
+memory-validation model, which the port trains)."""
 from __future__ import annotations
 
 from typing import Dict
 
-from repro_torch.configs import llama3_2_3b, starcoder2_3b
+from repro_torch.configs import gpt2_350m, llama3_2_3b, starcoder2_3b
 from repro_torch.configs.base import ModelConfig
 
 ARCHS: Dict[str, ModelConfig] = {m.CONFIG.name: m.CONFIG
-                                 for m in (llama3_2_3b, starcoder2_3b)}
+                                 for m in (llama3_2_3b, starcoder2_3b,
+                                           gpt2_350m)}
 
 
 def get_arch(name: str) -> ModelConfig:

@@ -25,6 +25,11 @@
 // (no padded copy).  Tiles are visited in reverse q order so the longest
 // causal rows start first.  Tensor-core MMA (wgmma), TMA staging and warp
 // specialisation are left for the PR that makes this fast.
+//
+// For training it also writes each row's log-sum-exp, lse = m + log(l) in
+// float32 (b, H, sq) and in the scaled units of the scores, from which the
+// backward (flash_attention_bwd.cu) recomputes P; a row the mask leaves
+// with no key gets NEG_INF.  The serving path passes a null pointer.
 #include <stdint.h>
 
 #include "common.cuh"
@@ -49,9 +54,9 @@ constexpr int smem_floats() {
 template <typename T, int D>
 __global__ void __launch_bounds__(NT, 2)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ o, int sq,
-                       int sk, int H, int K, int causal, int window,
-                       float scale) {
+                       const T* __restrict__ v, T* __restrict__ o,
+                       float* __restrict__ lse, int sq, int sk, int H, int K,
+                       int causal, int window, float scale) {
   constexpr int LD = D + 1;   // padded row stride of the q and k tiles
   constexpr int DPT = D / 4;  // output columns per thread
   extern __shared__ float smem[];
@@ -154,13 +159,15 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     T* orow = o + (((size_t)b * sq + qrow) * H + h) * D;
 #pragma unroll
     for (int i = 0; i < DPT; ++i) orow[g + 4 * i] = from_f<T>(acc[i] / den);
+    if (lse != nullptr && g == 0)
+      lse[((size_t)b * H + h) * sq + qrow] = l_i > 0.f ? m_i + logf(l_i) : NEG_INF;
   }
 }
 
 template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int b,
-                   int sq, int sk, int H, int K, int causal, int window,
-                   float scale, cudaStream_t stream) {
+cudaError_t launch(const void* q, const void* k, const void* v, void* o,
+                   float* lse, int b, int sq, int sk, int H, int K, int causal,
+                   int window, float scale, cudaStream_t stream) {
   const int smem = smem_floats<D>() * (int)sizeof(float);
   auto kern = flash_attention_kernel<T, D>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -170,18 +177,18 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int b,
   kern<<<grid, NT, smem, stream>>>(static_cast<const T*>(q),
                                    static_cast<const T*>(k),
                                    static_cast<const T*>(v), static_cast<T*>(o),
-                                   sq, sk, H, K, causal, window, scale);
+                                   lse, sq, sk, H, K, causal, window, scale);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch_d(int D, const void* q, const void* k, const void* v,
-                     void* o, int b, int sq, int sk, int H, int K, int causal,
-                     int window, float scale, cudaStream_t stream) {
+                     void* o, float* lse, int b, int sq, int sk, int H, int K,
+                     int causal, int window, float scale, cudaStream_t stream) {
   switch (D) {
-    case 32: return launch<T, 32>(q, k, v, o, b, sq, sk, H, K, causal, window, scale, stream);
-    case 64: return launch<T, 64>(q, k, v, o, b, sq, sk, H, K, causal, window, scale, stream);
-    case 128: return launch<T, 128>(q, k, v, o, b, sq, sk, H, K, causal, window, scale, stream);
+    case 32: return launch<T, 32>(q, k, v, o, lse, b, sq, sk, H, K, causal, window, scale, stream);
+    case 64: return launch<T, 64>(q, k, v, o, lse, b, sq, sk, H, K, causal, window, scale, stream);
+    case 128: return launch<T, 128>(q, k, v, o, lse, b, sq, sk, H, K, causal, window, scale, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -189,16 +196,18 @@ cudaError_t launch_d(int D, const void* q, const void* k, const void* v,
 }  // namespace
 
 // q (b, sq, H, D), k/v (b, sk, K, D), o (b, sq, H, D), all contiguous and of
-// one dtype.  Returns the cudaError_t of the launch (0 on success).
+// one dtype; lse (b, H, sq) float32, or null where it is not wanted.
+// Returns the cudaError_t of the launch (0 on success).
 extern "C" int repro_flash_attention(const void* q, const void* k,
-                                     const void* v, void* o, int b, int sq,
-                                     int sk, int H, int K, int D, int dtype,
-                                     int causal, int window, float scale,
-                                     void* stream) {
+                                     const void* v, void* o, void* lse, int b,
+                                     int sq, int sk, int H, int K, int D,
+                                     int dtype, int causal, int window,
+                                     float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   if (dtype == 0)
-    return (int)launch_d<float>(D, q, k, v, o, b, sq, sk, H, K, causal, window, scale, s);
+    return (int)launch_d<float>(D, q, k, v, o, l, b, sq, sk, H, K, causal, window, scale, s);
   if (dtype == 1)
-    return (int)launch_d<__nv_bfloat16>(D, q, k, v, o, b, sq, sk, H, K, causal, window, scale, s);
+    return (int)launch_d<__nv_bfloat16>(D, q, k, v, o, l, b, sq, sk, H, K, causal, window, scale, s);
   return (int)cudaErrorInvalidValue;
 }

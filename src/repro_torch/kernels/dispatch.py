@@ -1,8 +1,11 @@
 """Kernel dispatch: the ops the model calls, chosen by the device of the
 input tensors.
 
-* a CUDA tensor goes to the hand-written kernel, which launches or raises;
-* a CPU tensor goes to the plain PyTorch version in the kernel's ``ref.py``.
+* a CUDA tensor goes to the hand-written kernel, which launches or raises
+  (attention that must be differentiated goes through the autograd op
+  whose forward and backward are kernels);
+* a CPU tensor goes to the plain PyTorch version in the kernel's ``ref.py``
+  (whose gradient, where one is taken, is PyTorch's autograd).
 
 There is no environment variable, no fallback on error and no capability
 check: a card the kernel was not built for fails loudly.  ``force("ref")``
@@ -16,7 +19,10 @@ from typing import Iterator, Optional
 
 import torch
 
-from repro_torch.kernels.flash_attention import attention_ref, flash_attention
+from repro_torch.kernels.adam_update import adam_ref, adam_update
+from repro_torch.kernels.flash_attention import (attention_ref,
+                                                 flash_attention,
+                                                 flash_attention_trainable)
 from repro_torch.kernels.flash_decode import flash_decode_gqa, gqa_decode_ref
 
 _forced_ref = False
@@ -48,7 +54,13 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, window: int = 0,
               softmax_scale: Optional[float] = None) -> torch.Tensor:
     """q: (b, sq, H, D); k, v: (b, sk, K, D), H = K*G.  Returns (b, sq, H, D)."""
-    fn = flash_attention if _use_kernel(q) else attention_ref
+    if not _use_kernel(q):
+        fn = attention_ref
+    elif torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                      or v.requires_grad):
+        fn = flash_attention_trainable
+    else:
+        fn = flash_attention
     return fn(q, k, v, causal=causal, window=window,
               softmax_scale=softmax_scale)
 
@@ -62,3 +74,22 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
     Returns (b, 1, H, D)."""
     fn = flash_decode_gqa if _use_kernel(q) else gqa_decode_ref
     return fn(q, k_cache, v_cache, valid, softmax_scale=softmax_scale)
+
+
+@torch.no_grad()
+def adam_update_leaf(g: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
+                     master: torch.Tensor, param: torch.Tensor, *, lr: float,
+                     beta1: float, beta2: float, eps: float, wd: float,
+                     c1: float, c2: float) -> None:
+    """One mixed-precision Adam step on one parameter leaf, in place: fp32
+    m, v, master <- m', v', master' and param <- master' in param's dtype.
+    (The JAX package's ``adam_update_leaf`` returns new arrays instead.)"""
+    kw = dict(lr=lr, beta1=beta1, beta2=beta2, eps=eps, wd=wd, c1=c1, c2=c2)
+    if _use_kernel(g):
+        adam_update(g, m, v, master, param, **kw)
+        return
+    m2, v2, master2, _ = adam_ref(g, m, v, master, **kw)
+    m.copy_(m2)
+    v.copy_(v2)
+    master.copy_(master2)
+    param.copy_(master2)

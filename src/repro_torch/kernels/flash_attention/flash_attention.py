@@ -1,5 +1,6 @@
-"""Wrapper of the hand-written flash attention kernel
-(``csrc/flash_attention.cu``): checks, allocation, launch, launch count.
+"""Wrappers of the hand-written flash attention kernels
+(``csrc/flash_attention.cu``, forward, and ``csrc/flash_attention_bwd.cu``,
+backward): checks, allocation, launch, launch count.
 
 It takes CUDA tensors only and raises on anything the kernel does not
 take; ``repro_torch.kernels.dispatch.attention`` sends CPU tensors to the
@@ -9,7 +10,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -24,8 +25,16 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 @functools.cache
 def _kernel():
     fn = _build.load("flash_attention").repro_flash_attention
-    fn.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+    fn.argtypes = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                    ctypes.c_float, _P]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def _bwd_kernel():
+    fn = _build.load("flash_attention_bwd").repro_flash_attention_bwd
+    fn.argtypes = [_P] * 10 + [_I] * 9 + [ctypes.c_float, _P]
     fn.restype = ctypes.c_int
     return fn
 
@@ -54,6 +63,29 @@ def _check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("flash_attention takes contiguous q, k, v")
 
 
+def _scale(D: int, softmax_scale: Optional[float]) -> float:
+    return float(softmax_scale if softmax_scale is not None else D ** -0.5)
+
+
+def _forward(q, k, v, causal, window, softmax_scale, want_lse):
+    _check_inputs(q, k, v, window)
+    b, sq, H, D = q.shape
+    _, sk, K, _ = k.shape
+    o = torch.empty_like(q)
+    lse = (torch.empty((b, H, sq), dtype=torch.float32, device=q.device)
+           if want_lse else None)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = _kernel()(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        lse.data_ptr() if want_lse else None, b, sq, sk, H, K, D,
+        DTYPE_CODES[q.dtype], int(causal), int(window),
+        _scale(D, softmax_scale), stream)
+    if err:
+        raise RuntimeError(f"flash_attention launch failed: CUDA error {err}")
+    LAUNCHES["flash_attention"] += 1
+    return o, lse
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     softmax_scale: Optional[float] = None) -> torch.Tensor:
@@ -61,17 +93,51 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     positions both start at 0.  Returns (b, sq, H, D) in q's dtype.  A
     query row the mask leaves with no key (a window with sq >= sk + window)
     gives 0, where the plain version gives the mean of V."""
+    return _forward(q, k, v, causal, window, softmax_scale, False)[0]
+
+
+def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True, window: int = 0,
+                        softmax_scale: Optional[float] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``flash_attention`` that also returns each row's log-sum-exp of the
+    masked scaled scores, float32 (b, H, sq), NEG_INF for a row with no
+    live key: what the backward needs.  One launch of the same kernel."""
+    return _forward(q, k, v, causal, window, softmax_scale, True)
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                        *, causal: bool = True, window: int = 0,
+                        softmax_scale: Optional[float] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Gradients (dq, dk, dv) of the attention whose forward gave o and lse,
+    for the output gradient do (b, sq, H, D).  Deterministic: no atomics."""
     _check_inputs(q, k, v, window)
     b, sq, H, D = q.shape
     _, sk, K, _ = k.shape
-    scale = softmax_scale if softmax_scale is not None else D ** -0.5
-    o = torch.empty_like(q)
+    if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype \
+            or do.dtype != q.dtype or o.device != q.device \
+            or do.device != q.device:
+        raise ValueError(f"o and do must match q {tuple(q.shape)} {q.dtype}, "
+                         f"got {tuple(o.shape)} {o.dtype}, "
+                         f"{tuple(do.shape)} {do.dtype}")
+    if lse.shape != (b, H, sq) or lse.dtype != torch.float32 \
+            or lse.device != q.device:
+        raise ValueError(f"lse must be float32 {(b, H, sq)} on {q.device}, "
+                         f"got {lse.dtype} {tuple(lse.shape)} on {lse.device}")
+    if not (o.is_contiguous() and do.is_contiguous() and lse.is_contiguous()):
+        raise ValueError("flash_attention_bwd takes contiguous o, do, lse")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    di = torch.empty((b, H, sq), dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = _kernel()(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, sq, sk, H,
-        K, D, DTYPE_CODES[q.dtype], int(causal), int(window), float(scale),
-        stream)
+    err = _bwd_kernel()(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), di.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), b, sq, sk, H, K, D,
+        DTYPE_CODES[q.dtype], int(causal), int(window),
+        _scale(D, softmax_scale), stream)
     if err:
-        raise RuntimeError(f"flash_attention launch failed: CUDA error {err}")
-    LAUNCHES["flash_attention"] += 1
-    return o
+        raise RuntimeError(f"flash_attention_bwd launch failed: CUDA error {err}")
+    LAUNCHES["flash_attention_bwd"] += 1
+    return dq, dk, dv

@@ -1,5 +1,6 @@
 """Model assembly for the dense GQA transformer: init, full-sequence forward
-(prefill), ring caches and single-token decode.
+(train / prefill) with optional per-layer rematerialisation, the training
+loss, ring caches and single-token decode.
 
 The parameter tree is the JAX package's: ``embed`` (V, d), ``final_norm``
 (d,), ``lm_head`` (d, V) unless the embeddings are tied, and
@@ -11,9 +12,10 @@ no MoE, no SSM, no MLA.
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
@@ -79,9 +81,24 @@ def init_params(cfg: ModelConfig, seed: int, device="cuda") -> Params:
     return _map_tree(init, param_shapes(cfg))
 
 
-def layer_params(blocks: Params, i: int) -> Params:
-    """Layer i's slice of the stacked block parameters (views, no copy)."""
-    return _map_tree(lambda _, leaf: leaf[i], blocks)
+def _leaves(tree: dict):
+    for v in tree.values():
+        yield from (_leaves(v) if isinstance(v, dict) else (v,))
+
+
+def param_count(cfg: ModelConfig) -> int:
+    """Exact parameter count (no allocation)."""
+    return sum(math.prod(shape) for shape in _leaves(param_shapes(cfg)))
+
+
+def layer_params(blocks: Params) -> List[Params]:
+    """Each layer's slice of the stacked block parameters (views, no copy),
+    from one ``unbind`` per leaf: its backward is one ``stack`` per leaf,
+    where indexing each layer would fill and add a zero tensor the size of
+    the whole stacked leaf for every layer."""
+    per_leaf = _map_tree(lambda _, leaf: leaf.unbind(0), blocks)
+    n = len(next(_leaves(per_leaf)))
+    return [_map_tree(lambda _, views: views[i], per_leaf) for i in range(n)]
 
 
 # ------------------------------------------------------------- forward ------
@@ -107,27 +124,36 @@ def _head(cfg: ModelConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
     return x @ head if head is not None else x @ params["embed"].T
 
 
+def _block(cfg: ModelConfig, p: Params, x: torch.Tensor,
+           positions: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    h = rms_norm(x, p["norm1"], cfg.norm_eps)
+    out, kv = attn.gqa_attend_train(cfg, p["mixer"], h, positions)
+    return _ffn_residual(cfg, p, x + out), kv
+
+
 def forward(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
-            *, want_cache: bool = False, last_only: bool = False
-            ) -> Tuple[torch.Tensor, Optional[Cache]]:
-    """Full-sequence forward (prefill).
+            *, want_cache: bool = False, last_only: bool = False,
+            remat: bool = False) -> Tuple[torch.Tensor, Optional[Cache]]:
+    """Full-sequence forward (train / prefill).
 
     batch: tokens (b, s) integer.  Returns (logits (b, s, V), cache or
     None); the cache holds the stacked k/v (nb, b, s, K, hd).  (The JAX
     package's forward also returns an aux loss, which is 0 without MoE.)
     ``last_only`` computes the logits of the last position only (b, 1, V),
-    which is all a prefill needs.
+    which is all a prefill needs.  ``remat`` checkpoints each layer (the
+    JAX package's ``jax.checkpoint(block_body)``): the backward recomputes
+    a layer's activations from its input instead of keeping them.
     """
     _check_supported(cfg)
     x = params["embed"][batch["tokens"]]              # (b, s, d)
     positions = torch.arange(x.shape[1], device=x.device)
-    blocks = params["blocks"]["sub0"]
     ks, vs = [], []
-    for i in range(cfg.num_layers):
-        p = layer_params(blocks, i)
-        h = rms_norm(x, p["norm1"], cfg.norm_eps)
-        out, kv = attn.gqa_attend_train(cfg, p["mixer"], h, positions)
-        x = _ffn_residual(cfg, p, x + out)
+    for p in layer_params(params["blocks"]["sub0"]):
+        if remat:
+            x, kv = checkpoint(_block, cfg, p, x, positions,
+                               use_reentrant=False)
+        else:
+            x, kv = _block(cfg, p, x, positions)
         if want_cache:
             ks.append(kv["k"])
             vs.append(kv["v"])
@@ -137,6 +163,18 @@ def forward(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
     caches = ({"sub0": {"k": torch.stack(ks), "v": torch.stack(vs)}}
               if want_cache else None)
     return logits, caches
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean token cross-entropy in fp32.  logits: (..., V); labels: (...)."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, labels[..., None].long())[..., 0]
+    nll = lse - gold
+    if mask is not None:
+        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.mean(nll)
 
 
 # -------------------------------------------------------------- decode ------
@@ -192,9 +230,7 @@ def decode_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     x = params["embed"][tokens]                        # (b, 1, d)
     sub = cache["sub0"]
     ring = attn.ring_index(pos, sub["k"].shape[2], x.shape[0], x.device)
-    blocks = params["blocks"]["sub0"]
-    for i in range(cfg.num_layers):
-        p = layer_params(blocks, i)
+    for i, p in enumerate(layer_params(params["blocks"]["sub0"])):
         h = rms_norm(x, p["norm1"], cfg.norm_eps)
         out, _ = attn.gqa_attend_decode(
             cfg, p["mixer"], h, {"k": sub["k"][i], "v": sub["v"][i]}, ring)

@@ -40,6 +40,8 @@ def test_importing_the_port_loads_no_jax():
     result = json.loads(out.stdout.strip().splitlines()[-1])
     assert "repro_torch.serve.engine" in result["imported"]
     assert "repro_torch.kernels.dispatch" in result["imported"]
+    assert "repro_torch.train.train_loop" in result["imported"]
+    assert "repro_torch.launch.train" in result["imported"]
     assert result["bad"] == []
 
 
@@ -63,6 +65,17 @@ def test_model_config_fields_match():
     theirs = [(f.name, f.type, f.default)
               for f in dataclasses.fields(jax_base.ModelConfig)]
     assert ours == theirs
+
+
+def test_train_config_fields_match():
+    ours = [(f.name, f.type, f.default) for f in dataclasses.fields(base.TrainConfig)]
+    theirs = [(f.name, f.type, f.default)
+              for f in dataclasses.fields(jax_base.TrainConfig)]
+    assert ours == theirs
+
+
+def test_configs_cover_the_trained_arch():
+    assert "gpt2-350m" in registry.ARCHS
 
 
 @pytest.mark.parametrize("arch", sorted(registry.ARCHS))

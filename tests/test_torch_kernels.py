@@ -1,6 +1,8 @@
 """The port's kernels' plain versions against the JAX package's oracles and
 Pallas kernels (interpret mode), dispatch by device, and -- on a card only
--- the hand-written CUDA kernels against their plain versions.
+-- the hand-written CUDA kernels against their plain versions.  (The
+training path's plain versions -- Adam, the attention gradient and
+log-sum-exp -- are held against JAX in tests/test_torch_train.py.)
 
 Inputs are drawn with numpy from a fixed seed; bfloat16 inputs are rounded
 once in torch and handed to JAX through float32, which is exact, so both
@@ -18,7 +20,13 @@ import pytest
 import torch
 
 from repro_torch.kernels import LAUNCHES, dispatch
-from repro_torch.kernels.flash_attention import attention_ref, flash_attention
+from repro_torch.kernels.adam_update import adam_ref, adam_update
+from repro_torch.kernels.flash_attention import (attention_bwd_ref,
+                                                 attention_lse_ref,
+                                                 attention_ref,
+                                                 flash_attention,
+                                                 flash_attention_bwd,
+                                                 flash_attention_lse)
 from repro_torch.kernels.flash_decode import (flash_decode_gqa, gqa_decode_ref,
                                               gqa_decode_splitk)
 
@@ -174,6 +182,24 @@ def test_dispatch_on_cpu_runs_the_plain_versions():
     assert LAUNCHES == before
 
 
+def test_dispatch_on_cpu_differentiates_the_plain_version():
+    """With grad on, a CPU tensor still takes attention_ref, whose gradient
+    is PyTorch's autograd; it agrees with the explicit backward formulas."""
+    before = dict(LAUNCHES)
+    q, k, v = (t.requires_grad_(True) for t in
+               _attn_inputs(ATTN_CASES[1], "float32"))
+    do = _randn(np.random.default_rng(5), q.shape, "float32")
+    o = dispatch.attention(q, k, v, window=64)
+    assert torch.equal(o, attention_ref(q, k, v, window=64))
+    o.backward(do)
+    with torch.no_grad():
+        want = attention_bwd_ref(q, k, v, o, attention_lse_ref(q, k, window=64),
+                                 do, window=64)
+    for got, w in zip((q.grad, k.grad, v.grad), want):
+        torch.testing.assert_close(got, w, atol=2e-5, rtol=2e-5)
+    assert LAUNCHES == before
+
+
 def test_kernels_refuse_what_they_do_not_take():
     q, k, v = _attn_inputs(ATTN_CASES[0], "float32")
     with pytest.raises(ValueError, match="CUDA"):
@@ -182,6 +208,15 @@ def test_kernels_refuse_what_they_do_not_take():
     valid = torch.ones((2, 48), dtype=torch.bool)
     with pytest.raises(ValueError, match="CUDA"):
         flash_decode_gqa(dq, dk, dv, valid)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_lse(q, k, v)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_bwd(q, k, v, q, torch.zeros(q.shape[0], q.shape[2],
+                                                    q.shape[1]), q)
+    g = torch.zeros(8)
+    with pytest.raises(ValueError, match="CUDA"):
+        adam_update(g, g, g, g, g, lr=1e-3, beta1=0.9, beta2=0.95, eps=1e-8,
+                    wd=0.0, c1=0.1, c2=0.05)
     with pytest.raises(ValueError):
         with dispatch.force("kernel"):
             pass
@@ -257,3 +292,86 @@ class TestKernelsOnCard:
         with pytest.raises(ValueError, match="head dim"):
             flash_decode_gqa(q[:, :1], q, q,
                              torch.ones((1, 8), dtype=torch.bool, device=cuda))
+
+    # ------------------------------------------------------ training path --
+
+    @pytest.mark.parametrize("dtype", list(DTYPES))
+    @pytest.mark.parametrize("case", ATTN_CASES)
+    def test_flash_attention_lse_matches_plain(self, cuda, case, dtype):
+        """lse is float32 from float32 scores in either dtype: 2e-5."""
+        causal, window = case[6], case[7]
+        q, k, v = (t.to(cuda) for t in _attn_inputs(case, dtype))
+        o, lse = flash_attention_lse(q, k, v, causal=causal, window=window)
+        assert torch.equal(o, flash_attention(q, k, v, causal=causal,
+                                              window=window))
+        want = attention_lse_ref(q, k, causal=causal, window=window)
+        assert lse.dtype == torch.float32 and lse.shape == want.shape
+        torch.testing.assert_close(lse, want, atol=2e-5, rtol=2e-5)
+
+    @pytest.mark.parametrize("dtype", list(DTYPES))
+    @pytest.mark.parametrize("case", ATTN_CASES)
+    def test_flash_attention_bwd_matches_plain(self, cuda, case, dtype):
+        """max|d| <= tol * max|ref| against the explicit formulas on the same
+        o and lse, tol the forward's (2e-2 bf16: the kernel rounds dq, dk,
+        dv to bf16 once, the plain version once; 2e-5 fp32: sum order)."""
+        causal, window = case[6], case[7]
+        kw = dict(causal=causal, window=window)
+        q, k, v = (t.to(cuda) for t in _attn_inputs(case, dtype))
+        do = _randn(np.random.default_rng(6), q.shape, dtype).to(cuda)
+        o, lse = flash_attention_lse(q, k, v, **kw)
+        n = LAUNCHES["flash_attention_bwd"]
+        got = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+        assert LAUNCHES["flash_attention_bwd"] == n + 1
+        want = attention_bwd_ref(q, k, v, o, lse, do, **kw)
+        tol = DTYPES[dtype][1]
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and g.shape == w.shape
+            err = (g.float() - w.float()).abs().max()
+            assert err <= tol * w.float().abs().max(), err
+        assert all(torch.equal(a, b) for a, b in
+                   zip(got, flash_attention_bwd(q, k, v, o, lse, do, **kw)))
+
+    def test_trainable_attention_goes_through_both_kernels(self, cuda):
+        q, k, v = (t.to(cuda).requires_grad_(True)
+                   for t in _attn_inputs(ATTN_CASES[3], "bfloat16"))
+        do = _randn(np.random.default_rng(7), q.shape, "bfloat16").to(cuda)
+        before = dict(LAUNCHES)
+        o = dispatch.attention(q, k, v)
+        o.backward(do)
+        assert LAUNCHES["flash_attention"] == before["flash_attention"] + 1
+        assert LAUNCHES["flash_attention_bwd"] == \
+            before["flash_attention_bwd"] + 1
+        with torch.no_grad():
+            o2, lse = flash_attention_lse(q, k, v)
+            want = flash_attention_bwd(q, k, v, o2, lse, do)
+        for g, w in zip((q.grad, k.grad, v.grad), want):
+            assert torch.equal(g, w)
+
+    @pytest.mark.parametrize("param_dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("shape", [(37,), (1000,), (64, 130), (4096,)])
+    def test_adam_update_matches_plain(self, cuda, shape, param_dtype):
+        rng = np.random.default_rng(2)
+        g = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+        m = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)) * 0.1
+        v = torch.from_numpy(np.abs(rng.standard_normal(shape)).astype(np.float32)) * 0.01
+        mp = torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+        g, m, v, mp = (t.to(cuda) for t in (g, m, v, mp))
+        kw = dict(lr=1e-3, beta1=0.9, beta2=0.95, eps=1e-8, wd=0.1, c1=0.5,
+                  c2=0.2)
+        want = adam_ref(g, m, v, mp, **kw)
+        param = torch.empty(shape, dtype=param_dtype, device=cuda)
+        n = LAUNCHES["adam_update"]
+        adam_update(g, m, v, mp, param, **kw)
+        assert LAUNCHES["adam_update"] == n + 1
+        for got, w in zip((m, v, mp), want[:3]):
+            torch.testing.assert_close(got, w, atol=1e-6, rtol=1e-5)
+        # the parameter is the kernel's own master' rounded to its dtype
+        assert torch.equal(param, mp.to(param_dtype))
+
+    def test_adam_update_refuses_unaligned(self, cuda):
+        buf = torch.zeros(17, device=cuda)
+        t = buf[1:]
+        with pytest.raises(ValueError, match="aligned"):
+            adam_update(t, t.clone(), t.clone(), t.clone(), t.clone(), lr=1e-3,
+                        beta1=0.9, beta2=0.95, eps=1e-8, wd=0.0, c1=0.1,
+                        c2=0.05)
