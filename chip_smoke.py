@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving and training paths on one NVIDIA card.
+"""Drive the PyTorch port's serving paths (llama3.2-3b, deepseek-v2-236b)
+and its training path (gpt2-350m) on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -9,11 +10,12 @@ Phases, each printing its lines before the last:
    hand-written kernels from ``src/repro_torch/kernels/csrc``;
 2. each kernel against its plain PyTorch version on the card, at the shapes
    the two paths give it and at edge cases (window, GQA, sq != sk,
-   float32, ragged tails, a fully masked cache block, an all-invalid row),
-   the attention backward also against autograd through the plain forward
-   and run twice for bit-identical gradients, with its time, the plain
-   version's, one PyTorch library call's and the card's bound for the same
-   work;
+   float32, ragged tails, a fully masked cache block, an all-invalid row,
+   the MLA decode at deepseek-v2's widths and at its smoke config's, the
+   forward attention at the MLA head dims 192 and 48), the attention
+   backward also against autograd through the plain forward and run twice
+   for bit-identical gradients, with its time, the plain version's, one
+   PyTorch library call's and the card's bound for the same work;
 3. llama3.2-3b at full width in bfloat16 with random weights from a seed:
    (a) batch prefill + greedy decode -- the serving path, run with the
    launch counts set to 0 just before and read just after, then a
@@ -21,7 +23,14 @@ Phases, each printing its lines before the last:
    device's busy time and idle share and the largest kernels; (b) its
    logits against the same path on the plain versions; (c) 16 requests
    through the continuous and the disaggregated batchers;
-4. gpt2-350m at full width (24 layers, bf16 params, fp32 Adam state) --
+4. deepseek-v2-236b at its published widths and 4 of its 60 layers (all
+   60 do not fit one card), bf16 weights with a float32 router, random
+   from a seed: the same (a) serving run and trace, through MLA prefill
+   (flash attention at head dim 192) and the absorbed MLA decode kernel;
+   (b) layer 0's MLA output, prefill and first decode step, against the
+   plain versions, then the whole model's logits and the share of routing
+   choices the two paths agree on; (c) the two batchers;
+5. gpt2-350m at full width (24 layers, bf16 params, fp32 Adam state) --
    the training path, ``repro_torch.launch.train.train`` with global batch
    8, sequence 1024, microbatch 1 and block remat, 1 warm-up + 12 timed
    steps with the launch counts set to 0 just before and read just after:
@@ -29,11 +38,13 @@ Phases, each printing its lines before the last:
    falling; a torch.profiler trace of one step; one microbatch's loss and
    grad norm against the plain versions.
 
-Then one JSON line of per-kernel numbers and, last, the JSON result line.
+Each phase prints its wall time.  Then one JSON line of per-kernel
+numbers and, last, the JSON result line.
 Any failed check raises and the script exits non-zero.  Without a CUDA
 card, or without the repository around it, it exits non-zero and prints
 no result.
 """
+import gc
 import json
 import math
 import os
@@ -78,10 +89,25 @@ JAX_PREDICTED_PEAK = 8_691_153_715
 # the logits by the order of their own scale.
 LOGITS_TOL = 5e-2
 
+# deepseek-v2 kernel path vs plain path, max |logit delta|, absolute: the
+# two paths round attention differently (as for llama above), and a bf16
+# difference in a router's input can flip a near-tied top-6 choice, which
+# swaps one expert's whole output for a token.  The JAX package's own
+# MoE/MLA check loosens to the same atol 0.8 for this reason
+# (tests/test_models.py:38-43).  Layer 0's MLA output has no routing in
+# front of it and is held at the kernels' own 2e-2 of max |ref|.
+DEEPSEEK_LOGITS_ATOL = 0.8
+DEEPSEEK_LAYERS = 4
+
 SPIN_CYCLES = 2_000_000    # ~1 ms at the H100's ~2 GHz: covers a call's host work
 
 PREFILL = dict(b=8, s=512, H=24, K=8, D=128)
 DECODE = dict(b=8, S=544, H=24, K=8, D=128)
+# deepseek-v2's MLA at b=8, prompt 512 + 32 new tokens: prefill attention at
+# qk head dim dn + dr = 192 (H = K = 128), decode over latent width r = 512
+# and rope width dr = 64
+MLA_PREFILL = dict(b=8, s=512, H=128, D=192)
+MLA_DECODE = dict(b=8, S=544, H=128, r=512, dr=64)
 
 
 def check(cond, msg):
@@ -264,12 +290,118 @@ def phase_kernels(peaks, flush):
             bound_ms=bound_ms, bound_by=bound_by,
             library_ms=time_ms(lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, attn_mask=mask, enable_gqa=True), flush))
+    rows.update(phase_mla_kernels(peaks, flush, gen, randn))
     rows.update(phase_attention_bwd(peaks, flush, randn))
     rows.update(phase_adam(peaks, flush, gen))
     for r in rows.values():
         print(f"time {r['name']}: kernel {r['ms']:.4f} ms,"
               f" plain {r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms,"
               f" bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    return rows
+
+
+def phase_mla_kernels(peaks, flush, gen, randn):
+    """The MLA decode kernel and the forward attention at the MLA head dims
+    against their plain versions; the decode's row for the kernels line and
+    the D=192 attention's times on a line of their own."""
+    from repro_torch.kernels.flash_attention import attention_ref, flash_attention
+    from repro_torch.kernels.flash_decode import (flash_decode_mla,
+                                                  mla_decode_ref,
+                                                  mla_decode_splitk)
+    bf16, f32 = torch.bfloat16, torch.float32
+    rows = {}
+    d = MLA_DECODE
+    for name, b, S, H, r, dr, dt in [
+            ("decode_ring", d["b"], d["S"], d["H"], d["r"], d["dr"], bf16),
+            ("fp32", d["b"], d["S"], d["H"], d["r"], d["dr"], f32),
+            ("smoke_dims", 8, 544, 8, 32, 16, bf16),
+            ("smoke_dims_fp32", 3, 300, 8, 32, 16, f32),
+            ("masked_block_S700", 4, 700, 128, 512, 64, bf16),
+            ("invalid_row_H20", 4, 300, 20, 512, 16, f32)]:
+        q_lat, q_rope = randn(b, H, r, dtype=dt), randn(b, H, dr, dtype=dt)
+        c_kv, k_rope = randn(b, S, r, dtype=dt), randn(b, S, dr, dtype=dt)
+        valid = ring_valid(gen, b, S)            # ragged: a position per row
+        if name.startswith("masked_block"):
+            valid[:, 256:512] = False
+            valid[:, 0] = True
+        if name.startswith("invalid_row"):
+            valid[1] = False
+        denom = math.sqrt(128 + dr)
+        args = (q_lat, q_rope, c_kv, k_rope, valid)
+        got = flash_decode_mla(*args, denom=denom)
+        want = mla_decode_splitk(*args, denom=denom, block_s=256)
+        live = valid.any(dim=1)
+        ref = mla_decode_ref(*(t[live] for t in args), denom=denom)
+        tol = BF16_TOL if dt == bf16 else FP32_TOL
+        err, err_ref = rel_max_err(got, want), rel_max_err(got[live], ref)
+        ok = err <= tol and err_ref <= tol and bool((got[~live] == 0).all())
+        print(f"kernel flash_decode_mla {name} b={b} S={S} H={H} r={r} dr={dr}"
+              f" {str(dt)[6:]}: max|d|/max|ref| {err:.3e} (split-KV plain),"
+              f" {err_ref:.3e} (whole-cache plain) tol={tol:g}"
+              f" {'ok' if ok else 'FAIL'}")
+        check(ok, f"flash_decode_mla {name} disagrees with its plain versions")
+        if name != "decode_ring":
+            continue
+        # the function needs the queries, the valid rows of c_kv and k_rope
+        # and the mask, and writes o_lat; per valid row and head it does
+        # 2(r + dr) flops of scores and 2r of p.c_kv
+        n_valid = int(valid.sum())
+        nbytes = (2 * (q_lat.numel() + q_rope.numel() + got.numel())
+                  + 2 * (r + dr) * n_valid + valid.numel())
+        bound_ms, bound_by = bound(nbytes, H * n_valid * (4 * r + 2 * dr),
+                                   peaks)
+        print(f"time flash_decode_mla inputs: {n_valid} of {b * S} cache rows"
+              f" valid, {nbytes} bytes needed; library is SDPA on the MQA"
+              f" form (one shared key [c_kv | k_rope], value c_kv)")
+        qm = torch.cat([q_lat, q_rope], dim=-1)[:, :, None]   # (b, H, 1, r+dr)
+        km = torch.cat([c_kv, k_rope], dim=-1)[:, None]       # (b, 1, S, r+dr)
+        vm = c_kv[:, None]
+        mask = valid[:, None, None, :]
+        rows["flash_decode_mla"] = dict(
+            name="flash_decode_mla", route="cuda",
+            source="src/repro_torch/kernels/csrc/flash_decode_mla.cu",
+            replaces="src/repro/kernels/flash_decode/flash_decode.py:158",
+            max_abs_err=(got.float() - want.float()).abs().max().item(),
+            ms=time_ms(lambda: flash_decode_mla(*args, denom=denom), flush),
+            plain_ms=time_ms(lambda: mla_decode_ref(*args, denom=denom), flush),
+            bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                qm, km, vm, attn_mask=mask, scale=1.0 / denom,
+                enable_gqa=True), flush))
+
+    p = MLA_PREFILL
+    for name, b, s, H, D, dt in [("mla_prefill", p["b"], p["s"], p["H"], p["D"], bf16),
+                                 ("smoke_dims", 2, 512, 8, 48, bf16),
+                                 ("fp32_ragged", 2, 100, 8, 48, f32),
+                                 ("fp32_ragged", 2, 100, 8, 192, f32)]:
+        q, k, v = (randn(b, s, H, D, dtype=dt) for _ in range(3))
+        scale = D ** -0.5
+        got = flash_attention(q, k, v, causal=True, softmax_scale=scale)
+        want = attention_ref(q, k, v, causal=True, softmax_scale=scale)
+        tol = BF16_TOL if dt == bf16 else FP32_TOL
+        err = rel_max_err(got, want)
+        print(f"kernel flash_attention {name} b={b} s={s} H=K={H} D={D} causal"
+              f" {str(dt)[6:]}: max|d|/max|ref| {err:.3e} tol={tol:g}"
+              f" {'ok' if err <= tol else 'FAIL'}")
+        check(err <= tol, f"flash_attention D={D} {name} disagrees with its"
+                          f" plain version")
+        if name != "mla_prefill":
+            continue
+        nbytes = 2 * 4 * q.numel()
+        bound_ms, bound_by = bound(nbytes, 4 * D * b * H * (s * (s + 1) // 2),
+                                   peaks)
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        ms = time_ms(lambda: flash_attention(q, k, v, causal=True,
+                                             softmax_scale=scale), flush)
+        plain_ms = time_ms(lambda: attention_ref(q, k, v, causal=True,
+                                                 softmax_scale=scale), flush)
+        library_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, scale=scale), flush)
+        print(f"time flash_attention D=192 (deepseek-v2 MLA prefill b={b}"
+              f" s={s} H=K={H}, {nbytes} bytes): kernel {ms:.4f} ms, plain"
+              f" {plain_ms:.4f} ms, library {library_ms:.4f} ms (SDPA), bound"
+              f" {bound_ms:.4f} ms ({bound_by}), max_abs_err"
+              f" {(got.float() - want.float()).abs().max().item():.3e}")
     return rows
 
 
@@ -399,25 +531,15 @@ def phase_adam(peaks, flush, gen):
     return rows
 
 
-def phase_model():
-    from repro_torch.configs import get_arch
-    from repro_torch.kernels import LAUNCHES, dispatch, reset_launches
-    from repro_torch.models import init_params
-    from repro_torch.serve import (ContinuousBatcher, DisaggregatedBatcher,
-                                   ServeRequest, greedy_decode, prefill,
-                                   serve_step)
-    cfg = get_arch("llama3.2-3b")
-    t0 = time.perf_counter()
-    params = init_params(cfg, 0, device="cuda")
-    torch.cuda.synchronize()
-    n_params = sum(t.numel() for t in _leaves(params))
-    print(f"model {cfg.name}: {cfg.num_layers} layers d_model={cfg.d_model}"
-          f" heads={cfg.num_heads}/{cfg.num_kv_heads} vocab={cfg.vocab_size}"
-          f" params={n_params} bf16 init {time.perf_counter() - t0:.1f}s")
-    b, s, new = 8, 512, 32
+def serve_main_path(cfg, params, prompt, new, want_launches):
+    """(a) batch prefill + greedy decode with the launch counts set to 0
+    just before and read just after, after a warm-up run; then a
+    torch.profiler trace of one prefill and one decode step.  Returns
+    (tokens, launches)."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.serve import prefill, serve_step
+    b, s = prompt.shape
     cache_len = s + new
-    gen = torch.Generator(device="cuda").manual_seed(2)
-    prompt = torch.randint(0, cfg.vocab_size, (b, s), generator=gen, device="cuda")
 
     def run_main():
         logits, cache = prefill(cfg, params, {"tokens": prompt}, cache_len)
@@ -448,9 +570,8 @@ def phase_model():
           and bool(torch.isfinite(last_logits.float()).all())
           and bool(((toks >= 0) & (toks < cfg.vocab_size)).all()),
           "main path produced malformed tokens or non-finite logits")
-    check(launches["flash_attention"] == cfg.num_layers
-          and launches["flash_decode_gqa"] == cfg.num_layers * (new - 1),
-          f"main path launch counts {launches}")
+    check(launches == want_launches,
+          f"main path launch counts {launches} != {want_launches}")
 
     # the device's busy time in one prefill and one decode step, against
     # their wall time above; the profiled runs are not counted in launches
@@ -470,6 +591,59 @@ def phase_model():
         print(f"(a) trace {what}: device busy {busy:.4f} ms of {wall_ms:.4f} ms"
               f" wall, idle share {1 - busy / wall_ms:.3f}; top kernels (ms per"
               f" call): {top}")
+    return toks, launches
+
+
+def serve_batchers(cfg, params, prompts, new):
+    """(c) the requests through 8 slots of the continuous and the
+    disaggregated batchers, against per-request greedy decoding (the share
+    that agrees is reported, not required)."""
+    from repro_torch.serve import (ContinuousBatcher, DisaggregatedBatcher,
+                                   ServeRequest, greedy_decode)
+    n, s = prompts.shape
+    cache_len = s + new
+    want = {i: greedy_decode(cfg, params, prompts[i:i + 1], new, cache_len)[0].tolist()
+            for i in range(n)}
+    for cls in (ContinuousBatcher, DisaggregatedBatcher):
+        cb = cls(cfg, params, slots=8, cache_len=cache_len)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(n):
+            cb.submit(ServeRequest(i, prompts[i], new))
+        out = cb.run()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        n_tok = sum(len(t) for t in out.values())
+        same = sum(out[i] == want[i] for i in range(n)) / n
+        print(f"(c) {cls.__name__}: {len(out)} requests, {n_tok} tokens,"
+              f" {cb.decode_steps} decode steps, {dt:.3f}s {n_tok / dt:.1f} tok/s,"
+              f" share equal to per-request greedy {same:.3f}")
+        check(sorted(out) == list(range(n))
+              and all(len(t) == new for t in out.values()),
+              f"{cls.__name__} did not serve all {n} requests")
+
+
+def phase_model():
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import LAUNCHES, dispatch
+    from repro_torch.models import init_params
+    from repro_torch.serve import prefill, serve_step
+    cfg = get_arch("llama3.2-3b")
+    t0 = time.perf_counter()
+    params = init_params(cfg, 0, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"model {cfg.name}: {cfg.num_layers} layers d_model={cfg.d_model}"
+          f" heads={cfg.num_heads}/{cfg.num_kv_heads} vocab={cfg.vocab_size}"
+          f" params={n_params} bf16 init {time.perf_counter() - t0:.1f}s")
+    b, s, new = 8, 512, 32
+    cache_len = s + new
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    prompt = torch.randint(0, cfg.vocab_size, (b, s), generator=gen, device="cuda")
+    want = dict.fromkeys(LAUNCHES, 0)
+    want.update(flash_attention=cfg.num_layers,
+                flash_decode_gqa=cfg.num_layers * (new - 1))
+    toks, launches = serve_main_path(cfg, params, prompt, new, want)
 
     # (b) kernel path against the plain path: prefill logits, first decode
     def first_two():
@@ -488,25 +662,108 @@ def phase_model():
 
     # (c) 16 requests through 8 slots, against per-request greedy decoding
     prompts = torch.randint(0, cfg.vocab_size, (16, s), generator=gen, device="cuda")
-    want = {i: greedy_decode(cfg, params, prompts[i:i + 1], new, cache_len)[0].tolist()
-            for i in range(16)}
-    for cls in (ContinuousBatcher, DisaggregatedBatcher):
-        cb = cls(cfg, params, slots=8, cache_len=cache_len)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for i in range(16):
-            cb.submit(ServeRequest(i, prompts[i], new))
-        out = cb.run()
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        n_tok = sum(len(t) for t in out.values())
-        same = sum(out[i] == want[i] for i in range(16)) / 16
-        print(f"(c) {cls.__name__}: {len(out)} requests, {n_tok} tokens,"
-              f" {cb.decode_steps} decode steps, {dt:.3f}s {n_tok / dt:.1f} tok/s,"
-              f" share equal to per-request greedy {same:.3f}")
-        check(sorted(out) == list(range(16))
-              and all(len(t) == new for t in out.values()),
-              f"{cls.__name__} did not serve all 16 requests")
+    serve_batchers(cfg, params, prompts, new)
+    return launches
+
+
+def phase_deepseek():
+    """deepseek-v2-236b, published widths, DEEPSEEK_LAYERS of 60 layers."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import LAUNCHES, dispatch
+    from repro_torch.models import attention as attn
+    from repro_torch.models import init_params, moe, param_count
+    from repro_torch.models.common import rms_norm
+    from repro_torch.models.transformer import cache_from_prefill
+    from repro_torch.serve import prefill, serve_step
+    cfg = get_arch("deepseek-v2-236b").scaled(num_layers=DEEPSEEK_LAYERS)
+    n_params = param_count(cfg)
+    check(n_params == 16_937_047_040, f"deepseek-v2 at 4 layers has {n_params}"
+                                      f" parameters")
+    t0 = time.perf_counter()
+    params = init_params(cfg, 0, device="cuda")
+    torch.cuda.synchronize()
+    n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    print(f"model {cfg.name}: {cfg.num_layers} of 60 layers, d_model={cfg.d_model}"
+          f" heads={cfg.num_heads} MLA q_lora={cfg.q_lora_rank}"
+          f" kv_lora={cfg.kv_lora_rank} dn/dr/dv={cfg.qk_nope_head_dim}/"
+          f"{cfg.qk_rope_head_dim}/{cfg.v_head_dim} experts={cfg.num_experts}"
+          f" routed top-{cfg.top_k} + {cfg.num_shared_experts} shared of"
+          f" d_ff {cfg.moe_d_ff} vocab={cfg.vocab_size} params={n_params}"
+          f" ({n_bytes} bytes, bf16 with a float32 router), init"
+          f" {time.perf_counter() - t0:.1f}s")
+    b, s, new = 8, 512, 32
+    cache_len = s + new
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    prompt = torch.randint(0, cfg.vocab_size, (b, s), generator=gen, device="cuda")
+    want = dict.fromkeys(LAUNCHES, 0)
+    want.update(flash_attention=cfg.num_layers,
+                flash_decode_mla=cfg.num_layers * (new - 1))
+    toks, launches = serve_main_path(cfg, params, prompt, new, want)
+
+    # (b1) layer 0's MLA, which no routing precedes: prefill output, and the
+    # first decode step over the cache that prefill wrote
+    p0 = {k: v[0] for k, v in params["blocks"]["sub0"]["mixer"].items()}
+    norm1 = params["blocks"]["sub0"]["norm1"][0]
+    h = rms_norm(params["embed"][prompt], norm1, cfg.norm_eps)
+    h_new = rms_norm(params["embed"][toks[:, :1]], norm1, cfg.norm_eps)
+    positions = torch.arange(s, device="cuda")
+
+    def layer0():
+        with torch.inference_mode():
+            out, kv = attn.mla_attend_train(cfg, p0, h, positions)
+            ring = cache_from_prefill(cfg, {"sub0": {k: t[None] for k, t in
+                                                     kv.items()}}, cache_len)
+            step, _ = attn.mla_attend_decode(
+                cfg, p0, h_new, {k: t[0] for k, t in ring["sub0"].items()},
+                attn.ring_index(s, cache_len, b, "cuda"))
+        return out, step
+
+    kern = layer0()
+    with dispatch.force("ref"):
+        plain = layer0()
+    rel = [rel_max_err(a, c) for a, c in zip(kern, plain)]
+    print(f"(b) layer 0 MLA, kernel vs plain: prefill max|d|/max|ref|"
+          f" {rel[0]:.3e}, first decode step {rel[1]:.3e}, tol {BF16_TOL:g}")
+    check(max(rel) <= BF16_TOL, "layer 0's MLA differs from the plain path")
+
+    # (b2) the whole model: prefill logits and the first decode step's, and
+    # the routing choices (each token's top-k set) of both paths
+    routes = []
+    inner = moe.moe_ffn
+
+    def spy(cfg_, p, x):
+        probs = torch.softmax(x.float() @ p["router"], dim=-1)
+        routes.append(torch.topk(probs, cfg_.top_k, dim=-1).indices.sort(-1).values)
+        return inner(cfg_, p, x)
+
+    def first_two():
+        routes.clear()
+        logits, cache = prefill(cfg, params, {"tokens": prompt}, cache_len)
+        step, _ = serve_step(cfg, params, toks[:, :1], cache, s)
+        return logits[:, -1].float(), step[:, -1].float(), list(routes)
+
+    moe.moe_ffn = spy
+    try:
+        kern = first_two()
+        with dispatch.force("ref"):
+            plain = first_two()
+    finally:
+        moe.moe_ffn = inner
+    agree = (sum(int((a == c).all(-1).sum()) for a, c in zip(kern[2], plain[2]))
+             / sum(a.shape[0] * a.shape[1] for a in kern[2]))
+    dl = [(a - c).abs().max().item() for a, c in zip(kern[:2], plain[:2])]
+    scale = max(c.abs().max().item() for c in plain[:2])
+    print(f"(b) kernel vs plain path: prefill max|dlogit| {dl[0]:.3e},"
+          f" first decode {dl[1]:.3e} (max|logit| {scale:.3f}), atol"
+          f" {DEEPSEEK_LOGITS_ATOL:g}; share of routing choices (a token's"
+          f" top-{cfg.top_k} set in one layer, prefill and first decode step)"
+          f" equal on both paths: {agree:.4f}")
+    check(max(dl) <= DEEPSEEK_LOGITS_ATOL,
+          "deepseek-v2 kernel path logits differ from the plain path")
+
+    # (c) 16 requests through 8 slots
+    prompts = torch.randint(0, cfg.vocab_size, (16, s), generator=gen, device="cuda")
+    serve_batchers(cfg, params, prompts, new)
     return launches
 
 
@@ -535,7 +792,8 @@ def phase_train(peaks):
     n_micro = out["n_micro"]
     want = {"flash_attention": 2 * cfg.num_layers * n_micro * steps,
             "flash_attention_bwd": cfg.num_layers * n_micro * steps,
-            "adam_update": 10 * steps, "flash_decode_gqa": 0}
+            "adam_update": 10 * steps, "flash_decode_gqa": 0,
+            "flash_decode_mla": 0}
     losses, step_s = out["losses"], out["step_s"][1:]
     step_ms = 1e3 * sum(step_s) / len(step_s)
     tokens = b * s
@@ -589,6 +847,17 @@ def phase_train(peaks):
     return launches
 
 
+def timed_phase(name, fn):
+    """Run one phase, print its wall time, and free what it left on the
+    card (its weights) before the next phase starts."""
+    t0 = time.perf_counter()
+    out = fn()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase {name}: {time.perf_counter() - t0:.1f}s wall")
+    return out
+
+
 def _leaves(tree):
     for v in tree.values():
         yield from (_leaves(v) if isinstance(v, dict) else (v,))
@@ -616,17 +885,18 @@ def main():
           f" | kernels built in {build_s:.1f}s")
 
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
-    rows = phase_kernels(peaks, flush)
+    rows = timed_phase("kernels", lambda: phase_kernels(peaks, flush))
     del flush
-    serve_launches = phase_model()
-    train_launches = phase_train(peaks)
-    # launches: the sum over the two main-path runs, serving and training
+    # launches: the sum over the three main-path runs, each counted from 0
+    path_launches = [timed_phase("llama3.2-3b serving", phase_model),
+                     timed_phase("deepseek-v2-236b serving", phase_deepseek),
+                     timed_phase("gpt2-350m training", lambda: phase_train(peaks))]
     for kname, row in rows.items():
-        row["launches"] = serve_launches[kname] + train_launches[kname]
+        row["launches"] = sum(launches[kname] for launches in path_launches)
     print(f"total wall time {time.perf_counter() - t0:.1f}s")
     print(json.dumps({"kernels": [rows[k] for k in (
         "flash_attention", "flash_attention_bwd", "flash_decode_gqa",
-        "adam_update")]}))
+        "flash_decode_mla", "adam_update")]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))
     return 0

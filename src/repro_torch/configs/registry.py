@@ -1,18 +1,20 @@
 """Architecture registry: ``--arch <id>`` -> ModelConfig, plus reduced smoke
-variants.  The port runs the dense GQA archs only: llama3.2-3b (full
-attention), starcoder2-3b (sliding window, which exercises the ring cache)
-and gpt2-350m (MHA with GELU and tied embeddings, the paper's
-memory-validation model, which the port trains)."""
+variants.  The port runs llama3.2-3b (full attention), starcoder2-3b
+(sliding window, which exercises the ring cache), gpt2-350m (MHA with GELU
+and tied embeddings, the paper's memory-validation model, which the port
+trains) and deepseek-v2-236b (MLA attention and a MoE FFN on every layer,
+which the port serves)."""
 from __future__ import annotations
 
 from typing import Dict
 
-from repro_torch.configs import gpt2_350m, llama3_2_3b, starcoder2_3b
+from repro_torch.configs import (deepseek_v2_236b, gpt2_350m, llama3_2_3b,
+                                 starcoder2_3b)
 from repro_torch.configs.base import ModelConfig
 
 ARCHS: Dict[str, ModelConfig] = {m.CONFIG.name: m.CONFIG
                                  for m in (llama3_2_3b, starcoder2_3b,
-                                           gpt2_350m)}
+                                           gpt2_350m, deepseek_v2_236b)}
 
 
 def get_arch(name: str) -> ModelConfig:
@@ -22,8 +24,9 @@ def get_arch(name: str) -> ModelConfig:
 
 
 def smoke_config(name: str) -> ModelConfig:
-    """Reduced variant of the same family: <=2 layers*period, d_model<=512
-    (the JAX package's ``smoke_config``, restricted to dense GQA archs)."""
+    """Reduced variant of the same family: <=2 layers*period, d_model<=512,
+    <=4 experts (the JAX package's ``smoke_config``, restricted to the
+    attention-only archs the port runs)."""
     cfg = get_arch(name)
     kw = dict(
         name=cfg.name + "-smoke",
@@ -35,8 +38,16 @@ def smoke_config(name: str) -> ModelConfig:
     )
     if cfg.num_kv_heads == cfg.num_heads:       # keep MHA archs MHA
         kw["num_kv_heads"] = 8
+    if cfg.attention == "mla":
+        kw.update(q_lora_rank=64, kv_lora_rank=32, qk_nope_head_dim=32,
+                  qk_rope_head_dim=16, v_head_dim=32, num_kv_heads=8)
     if cfg.d_ff:
         kw["d_ff"] = 512
+    if cfg.num_experts:
+        kw["num_experts"] = 4
+        kw["num_shared_experts"] = min(cfg.num_shared_experts, 1)
+        kw["top_k"] = 2
+        kw["moe_d_ff"] = 128
     if cfg.sliding_window:
         kw["sliding_window"] = 16
     period = cfg.block_period

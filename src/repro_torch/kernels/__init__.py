@@ -8,7 +8,8 @@ before any submodule is imported.
 from typing import Dict
 
 LAUNCHES: Dict[str, int] = {"flash_attention": 0, "flash_attention_bwd": 0,
-                            "flash_decode_gqa": 0, "adam_update": 0}
+                            "flash_decode_gqa": 0, "flash_decode_mla": 0,
+                            "adam_update": 0}
 
 
 def reset_launches() -> None:

@@ -26,6 +26,13 @@
 // causal rows start first.  Tensor-core MMA (wgmma), TMA staging and warp
 // specialisation are left for the PR that makes this fast.
 //
+// Head dims 32, 64 and 128 serve the GQA models; 48 and 192 are the MLA
+// prefill's qk width dn + dr (deepseek-v2's smoke and full widths), whose v
+// arrives zero-padded to that width.  At D = 192 a block's shared memory is
+// 107,136 bytes, so two blocks (the launch bound) still fit an SM's 228 KB;
+// at deepseek-v2's prefill (b=8, s=512, H=K=128, bf16) a call moves ~805 MB
+// (~240 us at 3.35 TB/s), the bound, against ~1.0e11 causal FLOPs.
+//
 // For training it also writes each row's log-sum-exp, lse = m + log(l) in
 // float32 (b, H, sq) and in the scaled units of the scores, from which the
 // backward (flash_attention_bwd.cu) recomputes P; a row the mask leaves
@@ -187,8 +194,10 @@ cudaError_t launch_d(int D, const void* q, const void* k, const void* v,
                      int causal, int window, float scale, cudaStream_t stream) {
   switch (D) {
     case 32: return launch<T, 32>(q, k, v, o, lse, b, sq, sk, H, K, causal, window, scale, stream);
+    case 48: return launch<T, 48>(q, k, v, o, lse, b, sq, sk, H, K, causal, window, scale, stream);
     case 64: return launch<T, 64>(q, k, v, o, lse, b, sq, sk, H, K, causal, window, scale, stream);
     case 128: return launch<T, 128>(q, k, v, o, lse, b, sq, sk, H, K, causal, window, scale, stream);
+    case 192: return launch<T, 192>(q, k, v, o, lse, b, sq, sk, H, K, causal, window, scale, stream);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -23,7 +23,9 @@ from repro_torch.kernels.adam_update import adam_ref, adam_update
 from repro_torch.kernels.flash_attention import (attention_ref,
                                                  flash_attention,
                                                  flash_attention_trainable)
-from repro_torch.kernels.flash_decode import flash_decode_gqa, gqa_decode_ref
+from repro_torch.kernels.flash_decode import (flash_decode_gqa,
+                                              flash_decode_mla,
+                                              gqa_decode_ref, mla_decode_ref)
 
 _forced_ref = False
 
@@ -74,6 +76,18 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
     Returns (b, 1, H, D)."""
     fn = flash_decode_gqa if _use_kernel(q) else gqa_decode_ref
     return fn(q, k_cache, v_cache, valid, softmax_scale=softmax_scale)
+
+
+def mla_flash_decode(q_lat: torch.Tensor, q_rope: torch.Tensor,
+                     c_kv: torch.Tensor, k_rope: torch.Tensor,
+                     valid: torch.Tensor, *, denom: float) -> torch.Tensor:
+    """Matrix-absorbed MLA decode attention in latent space.
+
+    q_lat: (b, H, r); q_rope: (b, H, dr); c_kv: (b, S, r); k_rope:
+    (b, S, dr); valid: (b, S) bool; denom = sqrt(dn + dr).  Returns o_lat
+    (b, H, r)."""
+    fn = flash_decode_mla if _use_kernel(q_lat) else mla_decode_ref
+    return fn(q_lat, q_rope, c_kv, k_rope, valid, denom=denom)
 
 
 @torch.no_grad()

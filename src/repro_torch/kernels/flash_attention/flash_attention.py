@@ -16,7 +16,9 @@ import torch
 
 from repro_torch.kernels import LAUNCHES, _build
 
-HEAD_DIMS = (32, 64, 128)
+# head dims each kernel was instantiated for (the switch in its .cu file)
+FWD_HEAD_DIMS = (32, 48, 64, 128, 192)
+BWD_HEAD_DIMS = (32, 64, 128)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -40,11 +42,9 @@ def _bwd_kernel():
 
 
 def _check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  window: int) -> None:
-    if not (q.is_cuda and k.device == q.device and v.device == q.device):
-        raise ValueError("flash_attention takes CUDA tensors on one device")
+                  window: int, head_dims: Tuple[int, ...], name: str) -> None:
     if q.dtype not in DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"flash_attention takes float32 or bfloat16 q, k, v of "
+        raise TypeError(f"{name} takes float32 or bfloat16 q, k, v of "
                         f"one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
     if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
         raise ValueError(f"shapes q (b,sq,H,D), k = v (b,sk,K,D), got "
@@ -55,12 +55,14 @@ def _check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} do not "
                          f"agree on batch or head dim, or H is not a "
                          f"multiple of K")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"head dim {D} not in {HEAD_DIMS}")
+    if D not in head_dims:
+        raise ValueError(f"{name}: head dim {D} not in {head_dims}")
     if sq == 0 or sk == 0 or window < 0:
         raise ValueError(f"empty sequence or negative window ({sq}, {sk}, {window})")
+    if not (q.is_cuda and k.device == q.device and v.device == q.device):
+        raise ValueError(f"{name} takes CUDA tensors on one device")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("flash_attention takes contiguous q, k, v")
+        raise ValueError(f"{name} takes contiguous q, k, v")
 
 
 def _scale(D: int, softmax_scale: Optional[float]) -> float:
@@ -68,7 +70,7 @@ def _scale(D: int, softmax_scale: Optional[float]) -> float:
 
 
 def _forward(q, k, v, causal, window, softmax_scale, want_lse):
-    _check_inputs(q, k, v, window)
+    _check_inputs(q, k, v, window, FWD_HEAD_DIMS, "flash_attention")
     b, sq, H, D = q.shape
     _, sk, K, _ = k.shape
     o = torch.empty_like(q)
@@ -113,7 +115,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Gradients (dq, dk, dv) of the attention whose forward gave o and lse,
     for the output gradient do (b, sq, H, D).  Deterministic: no atomics."""
-    _check_inputs(q, k, v, window)
+    _check_inputs(q, k, v, window, BWD_HEAD_DIMS, "flash_attention_bwd")
     b, sq, H, D = q.shape
     _, sk, K, _ = k.shape
     if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype \

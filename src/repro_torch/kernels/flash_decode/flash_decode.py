@@ -16,8 +16,9 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import LAUNCHES, _build
-from repro_torch.kernels.flash_attention.flash_attention import (DTYPE_CODES,
-                                                                 HEAD_DIMS)
+from repro_torch.kernels.flash_attention.flash_attention import DTYPE_CODES
+
+HEAD_DIMS = (32, 64, 128)     # the head dims flash_decode.cu instantiates
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
@@ -43,8 +44,6 @@ def _block_s() -> int:
 def _check_inputs(q: torch.Tensor, k_cache: torch.Tensor,
                   v_cache: torch.Tensor, valid: torch.Tensor) -> None:
     tensors = (q, k_cache, v_cache, valid)
-    if not (q.is_cuda and all(t.device == q.device for t in tensors)):
-        raise ValueError("flash_decode_gqa takes CUDA tensors on one device")
     if (q.dtype not in DTYPE_CODES or k_cache.dtype != q.dtype
             or v_cache.dtype != q.dtype):
         raise TypeError(f"flash_decode_gqa takes float32 or bfloat16 q and "
@@ -64,7 +63,9 @@ def _check_inputs(q: torch.Tensor, k_cache: torch.Tensor,
         raise ValueError(f"q {tuple(q.shape)}, caches {tuple(k_cache.shape)} "
                          f"and valid {tuple(valid.shape)} do not agree")
     if D not in HEAD_DIMS:
-        raise ValueError(f"head dim {D} not in {HEAD_DIMS}")
+        raise ValueError(f"flash_decode_gqa: head dim {D} not in {HEAD_DIMS}")
+    if not (q.is_cuda and all(t.device == q.device for t in tensors)):
+        raise ValueError("flash_decode_gqa takes CUDA tensors on one device")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("flash_decode_gqa takes contiguous tensors")
 

@@ -1,15 +1,17 @@
-"""Plain PyTorch versions of the split-KV flash decode kernel.
+"""Plain PyTorch versions of the split-KV flash decode kernels, GQA and
+MLA.
 
-``gqa_decode_ref`` is the whole-cache softmax, expression for expression the
-JAX package's ``gqa_decode_ref``: the score product runs in the inputs'
-dtype and is widened to float32 afterwards.  It is the CPU path of
-``dispatch.flash_decode``.
+``gqa_decode_ref`` and ``mla_decode_ref`` are the whole-cache softmax,
+expression for expression the JAX package's: the score products run in the
+inputs' dtype and are widened to float32 afterwards.  They are the CPU
+paths of ``dispatch.flash_decode`` and ``dispatch.mla_flash_decode``.
 
-``gqa_decode_splitk`` is the two-pass split-KV computation the kernel does:
-one (acc, m, l) partial per cache block, masked rows giving p = 0, then the
-running-max merge.  The two differ on a row with no valid entry: the
-whole-cache softmax returns the mean of V there, the split-KV merge returns
-0 (l = 0 gives 0 / 1e-30).  The kernel follows the split-KV semantics.
+``gqa_decode_splitk`` and ``mla_decode_splitk`` are the two-pass split-KV
+computation the kernels do: one (acc, m, l) partial per cache block, masked
+rows giving p = 0, then the running-max merge.  The two differ on a row
+with no valid entry: the whole-cache softmax returns the mean of V (of
+c_kv for MLA) there, the split-KV merge returns 0 (l = 0 gives 0 / 1e-30).
+The kernels follow the split-KV semantics.
 """
 from __future__ import annotations
 
@@ -77,3 +79,44 @@ def gqa_decode_splitk(q: torch.Tensor, k_cache: torch.Tensor,
     out = _combine_partials(torch.stack(accs, 1), torch.stack(ms, 1),
                             torch.stack(ls, 1))
     return out.to(v_cache.dtype).reshape(b, 1, H, D)
+
+
+def mla_decode_ref(q_lat: torch.Tensor, q_rope: torch.Tensor,
+                   c_kv: torch.Tensor, k_rope: torch.Tensor,
+                   valid: torch.Tensor, *, denom: float) -> torch.Tensor:
+    """Matrix-absorbed MLA decode attention in latent space.
+
+    q_lat: (b, H, r); q_rope: (b, H, dr); c_kv: (b, S, r); k_rope:
+    (b, S, dr); valid: (b, S) bool; denom = sqrt(dn + dr).  Returns o_lat
+    (b, H, r) in c_kv's dtype."""
+    s_nope = torch.einsum("bhr,bsr->bhs", q_lat, c_kv)
+    s_rope = torch.einsum("bhd,bsd->bhs", q_rope, k_rope)
+    scores = (s_nope + s_rope).float() / denom
+    scores = torch.where(valid[:, None, :], scores, NEG_INF)
+    pr = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhs,bsr->bhr", pr.to(c_kv.dtype), c_kv)
+
+
+def mla_decode_splitk(q_lat: torch.Tensor, q_rope: torch.Tensor,
+                      c_kv: torch.Tensor, k_rope: torch.Tensor,
+                      valid: torch.Tensor, *, denom: float,
+                      block_s: int) -> torch.Tensor:
+    """Split-KV MLA latent decode: one (acc, m, l) partial per cache block
+    of ``block_s`` rows, then the two-pass merge.  A row with no valid
+    entry gives 0."""
+    accs, ms, ls = [], [], []
+    for s0 in range(0, c_kv.shape[1], block_s):
+        cb = c_kv[:, s0:s0 + block_s]
+        rb = k_rope[:, s0:s0 + block_s]
+        ok = valid[:, None, s0:s0 + block_s]
+        s = (torch.einsum("bhr,bsr->bhs", q_lat, cb)
+             + torch.einsum("bhd,bsd->bhs", q_rope, rb)).float() / denom
+        s = torch.where(ok, s, NEG_INF)
+        m = s.amax(dim=-1)                          # (b, H)
+        p = torch.where(ok, torch.exp(s - m[..., None]), 0.0)
+        ls.append(p.sum(dim=-1))
+        accs.append(torch.einsum("bhs,bsr->bhr", p.to(cb.dtype), cb).float())
+        ms.append(m)
+    out = _combine_partials(torch.stack(accs, 1), torch.stack(ms, 1),
+                            torch.stack(ls, 1))
+    return out.to(c_kv.dtype)

@@ -4,6 +4,12 @@
         --batch 8 --prompt-len 512 --gen 32            # on the card
     PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-3b \
         --smoke --device cpu                           # plain versions
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch deepseek-v2-236b --smoke --device cpu   # MLA + MoE
+
+``--arch`` takes every arch of ``repro_torch.configs.registry``; at full
+depth deepseek-v2-236b does not fit one card (``chip_smoke.py`` serves it
+at 4 of its 60 layers).
 
 Timing protocol: one prefill and one decode step run before the clock
 starts (on the card this also builds and loads the kernels), then prefill

@@ -1,22 +1,26 @@
-"""RoPE and the GQA attention layer: full-sequence (prefill) attention and
-single-token decode over a ring KV cache.
+"""RoPE and the attention layers, GQA and MLA: full-sequence (prefill)
+attention and single-token decode over a ring cache.
 
-Weights keep the JAX package's layouts -- ``wq`` (d, H, hd), ``wk``/``wv``
-(d, K, hd), ``wo`` (H, hd, d) -- so parameters convert leaf for leaf.  The
-attention itself goes through ``repro_torch.kernels.dispatch``: the
-hand-written kernels for CUDA tensors, the plain versions for CPU tensors.
+Weights keep the JAX package's layouts -- GQA ``wq`` (d, H, hd),
+``wk``/``wv`` (d, K, hd), ``wo`` (H, hd, d); MLA as in ``mla_param_shapes``
+-- so parameters convert leaf for leaf.  The attention itself goes through
+``repro_torch.kernels.dispatch``: the hand-written kernels for CUDA
+tensors, the plain versions for CPU tensors.
 
-Decode writes the new token's k/v into the cache **in place** (the JAX
+Decode writes the new token's cache entries **in place** (the JAX
 functions return a new cache): no decode step copies the cache.
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, Tuple, Union
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import dispatch
+from repro_torch.models.common import rms_norm
 
 Pos = Union[int, torch.Tensor]
 
@@ -124,3 +128,87 @@ def gqa_attend_decode(cfg: ModelConfig, p: dict, x: torch.Tensor,
     v_cache[rows, slot] = v[:, 0]
     o = dispatch.flash_decode(q, k_cache, v_cache, valid)
     return _out_project(o, p["wo"]), cache
+
+
+# ----------------------------------------------------------------- MLA ------
+# DeepSeek-V2 multi-head latent attention [arXiv:2405.04434].  The cache
+# holds only the compressed latent c_kv (kv_lora_rank) and one shared RoPE
+# key (qk_rope_head_dim) per position; decode absorbs W^UK into the query
+# and W^UV into the output, so the per-head K/V are never built for it.
+
+def mla_param_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
+    d, H = cfg.d_model, cfg.num_heads
+    r_q, r_kv = cfg.q_lora_rank, cfg.kv_lora_rank
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    return {"wq_a": (d, r_q), "q_ln": (r_q,), "wq_b": (r_q, H, dn + dr),
+            "wkv_a": (d, r_kv + dr), "kv_ln": (r_kv,), "wk_b": (r_kv, H, dn),
+            "wv_b": (r_kv, H, dv), "wo": (H, dv, d)}
+
+
+def _mla_q(cfg: ModelConfig, p: dict, x: torch.Tensor,
+           positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(q_nope (b, s, H, dn), q_rope (b, s, H, dr)); RoPE on the dr slice."""
+    dn = cfg.qk_nope_head_dim
+    cq = rms_norm(x @ p["wq_a"], p["q_ln"], cfg.norm_eps)
+    q = _project(cq, p["wq_b"])
+    return q[..., :dn], apply_rope(q[..., dn:], positions, cfg.rope_theta)
+
+
+def _mla_latent(cfg: ModelConfig, p: dict, x: torch.Tensor,
+                positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(c_kv (b, s, r), k_rope (b, s, dr)): the normed latent and the one
+    RoPE key head all query heads share."""
+    r_kv = cfg.kv_lora_rank
+    kv = x @ p["wkv_a"]                                # (b, s, r + dr)
+    c_kv = rms_norm(kv[..., :r_kv], p["kv_ln"], cfg.norm_eps)
+    k_rope = apply_rope(kv[..., None, r_kv:], positions, cfg.rope_theta)
+    return c_kv, k_rope[..., 0, :]
+
+
+def mla_attend_train(cfg: ModelConfig, p: dict, x: torch.Tensor,
+                     positions: torch.Tensor
+                     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Full-sequence (prefill) MLA: per-head k/v from the latent, q and k
+    concatenated to width dn + dr with the shared RoPE key broadcast over
+    the heads, v zero-padded to that width so one attention call serves,
+    and the output sliced back to dv.  Returns (out, {c_kv, k_rope})."""
+    b, s, _ = x.shape
+    H = cfg.num_heads
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    q_nope, q_rope = _mla_q(cfg, p, x, positions)
+    c_kv, k_rope = _mla_latent(cfg, p, x, positions)
+    k_nope = _project(c_kv, p["wk_b"])
+    v = _project(c_kv, p["wv_b"])
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(b, s, H, dr)], dim=-1)
+    v = F.pad(v, (0, dn + dr - dv))
+    o = dispatch.attention(q, k, v, causal=True,
+                           softmax_scale=1.0 / math.sqrt(dn + dr))
+    return (_out_project(o[..., :dv], p["wo"]),
+            {"c_kv": c_kv, "k_rope": k_rope})
+
+
+def mla_attend_decode(cfg: ModelConfig, p: dict, x: torch.Tensor,
+                      cache: Dict[str, torch.Tensor], ring: tuple
+                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Matrix-absorbed MLA decode: scores and values in latent space.
+
+    x: (b, 1, d); cache: {'c_kv' (b, S, r), 'k_rope' (b, S, dr)}; ring:
+    ``ring_index(pos, S, b, device)`` as for ``gqa_attend_decode``.  The
+    new latent and RoPE key are written into ``cache`` in place; the
+    returned cache is the same tensors."""
+    b = x.shape[0]
+    dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    positions, slot, valid = ring
+    q_nope, q_rope = _mla_q(cfg, p, x, positions)
+    c_new, kr_new = _mla_latent(cfg, p, x, positions)
+    rows = torch.arange(b, device=x.device) if isinstance(slot, torch.Tensor) \
+        else slice(None)
+    cache["c_kv"][rows, slot] = c_new[:, 0]
+    cache["k_rope"][rows, slot] = kr_new[:, 0]
+    q_lat = torch.einsum("bhd,rhd->bhr", q_nope[:, 0], p["wk_b"])
+    o_lat = dispatch.mla_flash_decode(
+        q_lat.contiguous(), q_rope[:, 0].contiguous(), cache["c_kv"],
+        cache["k_rope"], valid, denom=math.sqrt(dn + dr))
+    o = torch.einsum("bhr,rhd->bhd", o_lat, p["wv_b"])
+    return _out_project(o[:, None], p["wo"]), cache

@@ -1,7 +1,7 @@
 """Shared numeric building blocks (norm, init, activation)."""
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -26,14 +26,23 @@ def _truncated_normal(gen: torch.Generator, shape: Sequence[int]
 
 
 def dense_init(gen: torch.Generator, shape: Sequence[int], fan_in: int, *,
-               scale: float = 1.0) -> torch.Tensor:
-    """Truncated-normal fan-in init, std = scale / sqrt(fan_in), bfloat16."""
-    return _truncated_normal(gen, shape).mul_(scale / fan_in ** 0.5).to(
-        torch.bfloat16)
+               scale: float = 1.0, dtype: torch.dtype = torch.bfloat16
+               ) -> torch.Tensor:
+    """Truncated-normal fan-in init, std = scale / sqrt(fan_in)."""
+    return _truncated_normal(gen, shape).mul_(scale / fan_in ** 0.5).to(dtype)
 
 
 def embed_init(gen: torch.Generator, shape: Sequence[int]) -> torch.Tensor:
     return _truncated_normal(gen, shape).mul_(0.02).to(torch.bfloat16)
+
+
+def mlp(variant: str, x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
+        w3: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The dense FFN: silu(x w1) * (x w3) for ``swiglu``, else gelu(x w1);
+    then w2."""
+    h = x @ w1
+    h = act("swiglu", h) * (x @ w3) if variant == "swiglu" else act("gelu", h)
+    return h @ w2
 
 
 def act(name: str, x: torch.Tensor) -> torch.Tensor:

@@ -1,13 +1,15 @@
-"""Model assembly for the dense GQA transformer: init, full-sequence forward
-(train / prefill) with optional per-layer rematerialisation, the training
-loss, ring caches and single-token decode.
+"""Model assembly for the attention transformers: init, full-sequence
+forward (train / prefill) with optional per-layer rematerialisation, the
+training loss, ring caches and single-token decode.
 
 The parameter tree is the JAX package's: ``embed`` (V, d), ``final_norm``
 (d,), ``lm_head`` (d, V) unless the embeddings are tied, and
 ``blocks.sub0`` whose leaves are stacked along a leading ``n_blocks`` axis
-(``norm1``, ``mixer.{wq,wk,wv,wo}``, ``norm2``, ``ffn.{w1,w2[,w3]}``).  The
-forward walks the stacked layers in a Python loop.  Dense attention only:
-no MoE, no SSM, no MLA.
+(``norm1``, ``mixer`` -- GQA ``{wq,wk,wv,wo}`` or MLA, see
+``attention.mla_param_shapes`` --, ``norm2``, ``ffn`` -- dense
+``{w1,w2[,w3]}`` or MoE, see ``moe.moe_param_shapes``).  The forward walks
+the stacked layers in a Python loop.  GQA and MLA attention, dense and MoE
+FFNs on every layer (block period 1); no SSM, hybrid or modal prefix.
 """
 from __future__ import annotations
 
@@ -19,17 +21,32 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
-from repro_torch.models.common import act, dense_init, embed_init, rms_norm
+from repro_torch.models import moe as moe_mod
+from repro_torch.models.common import dense_init, embed_init, mlp, rms_norm
 
 Params = Dict[str, Any]
 Cache = Dict[str, Any]
 
+# leaves kept in float32 whatever the parameters' dtype (moe.py:37 of the
+# JAX package: the router's logits and softmax run in float32)
+FP32_LEAVES = ("router",)
+NORM_LEAVES = ("norm1", "norm2", "final_norm", "q_ln", "kv_ln")
+
 
 def _check_supported(cfg: ModelConfig) -> None:
-    if (cfg.attention != "gqa" or cfg.block_period != 1 or cfg.num_experts
-            or cfg.family == "ssm" or cfg.num_modal_tokens):
+    if (cfg.attention not in ("gqa", "mla") or cfg.block_period != 1
+            or cfg.family in ("ssm", "hybrid") or cfg.attn_layer_period
+            or cfg.num_modal_tokens):
         raise NotImplementedError(
-            f"{cfg.name}: the port serves dense GQA text models only")
+            f"{cfg.name}: the port runs GQA or MLA text models whose layers "
+            f"all have the same kind (block period 1)")
+
+
+def _layer_has_ffn(cfg: ModelConfig) -> bool:
+    """Whether the (one) sub-layer of a block has an FFN: a MoE layer
+    always, a dense one when d_ff > 0 (transformer.py:44-47 of the JAX
+    package, at block period 1)."""
+    return cfg.layer_is_moe(0) or cfg.d_ff > 0
 
 
 def _map_tree(fn: Callable, tree: dict, path: Tuple[str, ...] = ()) -> dict:
@@ -41,16 +58,21 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, Any]:
     """The parameter tree with a shape at each leaf."""
     _check_supported(cfg)
     nb, d, f = cfg.num_layers, cfg.d_model, cfg.d_ff
+    mixer = (attn.mla_param_shapes(cfg) if cfg.attention == "mla"
+             else attn.gqa_param_shapes(cfg))
     sub: Dict[str, Any] = {
         "norm1": (nb, d),
-        "mixer": {k: (nb, *s) for k, s in attn.gqa_param_shapes(cfg).items()},
+        "mixer": {k: (nb, *s) for k, s in mixer.items()},
     }
-    if f:
-        ffn = {"w1": (nb, d, f), "w2": (nb, f, d)}
-        if cfg.mlp_variant == "swiglu":
-            ffn["w3"] = (nb, d, f)
+    if _layer_has_ffn(cfg):
+        if cfg.layer_is_moe(0):
+            ffn = moe_mod.moe_param_shapes(cfg)
+        else:
+            ffn = {"w1": (d, f), "w2": (f, d)}
+            if cfg.mlp_variant == "swiglu":
+                ffn["w3"] = (d, f)
         sub["norm2"] = (nb, d)
-        sub["ffn"] = ffn
+        sub["ffn"] = {k: (nb, *s) for k, s in ffn.items()}
     shapes = {"embed": (cfg.vocab_size, d), "blocks": {"sub0": sub},
               "final_norm": (d,)}
     if not cfg.tie_embeddings:
@@ -59,24 +81,31 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, Any]:
 
 
 def init_params(cfg: ModelConfig, seed: int, device="cuda") -> Params:
-    """Random bfloat16 parameters drawn on ``device`` from a generator
-    seeded with ``seed``: norms at 1, embeddings N(0, 0.02) truncated at 3
-    sigma, every matrix truncated-normal with std = scale / sqrt(fan_in),
-    fan_in being the first per-layer axis and scale 1/sqrt(2L) on the output
-    projections ``wo`` and ``w2`` -- the JAX package's recipe (its random
-    numbers differ)."""
+    """Random parameters drawn on ``device`` from a generator seeded with
+    ``seed``, bfloat16 but the float32 ``FP32_LEAVES``: norms at 1,
+    embeddings N(0, 0.02) truncated at 3 sigma, every matrix
+    truncated-normal with std = scale / sqrt(fan_in), fan_in being the first
+    per-layer axis (the second for the experts' stacked ``w1``/``w2``/``w3``)
+    and scale 1/sqrt(2L) on the output projections ``wo``, ``w2`` and
+    ``shared_w2`` -- the JAX package's recipe (its random numbers
+    differ)."""
     gen = torch.Generator(device=device).manual_seed(seed)
     out_scale = 1.0 / math.sqrt(2 * cfg.num_layers)
 
     def init(path, shape):
         name = path[-1]
-        if name.startswith("norm") or name == "final_norm":
+        if name in NORM_LEAVES:
             return torch.ones(shape, dtype=torch.bfloat16, device=device)
         if name == "embed":
             return embed_init(gen, shape)
-        fan_in = shape[1] if path[0] == "blocks" else shape[0]
-        scale = out_scale if name in ("wo", "w2") else 1.0
-        return dense_init(gen, shape, fan_in, scale=scale)
+        in_axis = 0
+        if path[0] == "blocks":                 # (nb, ...) stacked leaves
+            expert = cfg.num_experts and path[-2] == "ffn" and \
+                name in ("w1", "w2", "w3")
+            in_axis = 2 if expert else 1
+        scale = out_scale if name in ("wo", "w2", "shared_w2") else 1.0
+        dtype = torch.float32 if name in FP32_LEAVES else torch.bfloat16
+        return dense_init(gen, shape, shape[in_axis], scale=scale, dtype=dtype)
 
     return _map_tree(init, param_shapes(cfg))
 
@@ -103,19 +132,17 @@ def layer_params(blocks: Params) -> List[Params]:
 
 # ------------------------------------------------------------- forward ------
 
-def _mlp_apply(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
-    h = x @ p["w1"]
-    if cfg.mlp_variant == "swiglu":
-        h = act("swiglu", h) * (x @ p["w3"])
-    else:
-        h = act("gelu", h)
-    return h @ p["w2"]
-
-
 def _ffn_residual(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
-    if not cfg.d_ff:
+    if not _layer_has_ffn(cfg):
         return x
-    return x + _mlp_apply(cfg, p["ffn"], rms_norm(x, p["norm2"], cfg.norm_eps))
+    h = rms_norm(x, p["norm2"], cfg.norm_eps)
+    if cfg.layer_is_moe(0):
+        # the aux loss stays at moe_ffn until the port trains MoE models
+        out, _ = moe_mod.moe_ffn(cfg, p["ffn"], h)
+    else:
+        ffn = p["ffn"]
+        out = mlp(cfg.mlp_variant, h, ffn["w1"], ffn["w2"], ffn.get("w3"))
+    return x + out
 
 
 def _head(cfg: ModelConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
@@ -127,7 +154,9 @@ def _head(cfg: ModelConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
 def _block(cfg: ModelConfig, p: Params, x: torch.Tensor,
            positions: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
-    out, kv = attn.gqa_attend_train(cfg, p["mixer"], h, positions)
+    attend = (attn.mla_attend_train if cfg.attention == "mla"
+              else attn.gqa_attend_train)
+    out, kv = attend(cfg, p["mixer"], h, positions)
     return _ffn_residual(cfg, p, x + out), kv
 
 
@@ -137,8 +166,9 @@ def forward(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
     """Full-sequence forward (train / prefill).
 
     batch: tokens (b, s) integer.  Returns (logits (b, s, V), cache or
-    None); the cache holds the stacked k/v (nb, b, s, K, hd).  (The JAX
-    package's forward also returns an aux loss, which is 0 without MoE.)
+    None); the cache holds each layer's cache entries stacked: k/v
+    (nb, b, s, K, hd) for GQA, c_kv (nb, b, s, r) and k_rope (nb, b, s, dr)
+    for MLA.  (The JAX package's forward also returns the MoE aux loss.)
     ``last_only`` computes the logits of the last position only (b, 1, V),
     which is all a prefill needs.  ``remat`` checkpoints each layer (the
     JAX package's ``jax.checkpoint(block_body)``): the backward recomputes
@@ -147,7 +177,7 @@ def forward(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
     _check_supported(cfg)
     x = params["embed"][batch["tokens"]]              # (b, s, d)
     positions = torch.arange(x.shape[1], device=x.device)
-    ks, vs = [], []
+    entries: Dict[str, List[torch.Tensor]] = {}
     for p in layer_params(params["blocks"]["sub0"]):
         if remat:
             x, kv = checkpoint(_block, cfg, p, x, positions,
@@ -155,12 +185,12 @@ def forward(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
         else:
             x, kv = _block(cfg, p, x, positions)
         if want_cache:
-            ks.append(kv["k"])
-            vs.append(kv["v"])
+            for name, t in kv.items():
+                entries.setdefault(name, []).append(t)
     if last_only:
         x = x[:, -1:]
     logits = _head(cfg, params, x)
-    caches = ({"sub0": {"k": torch.stack(ks), "v": torch.stack(vs)}}
+    caches = ({"sub0": {name: torch.stack(ts) for name, ts in entries.items()}}
               if want_cache else None)
     return logits, caches
 
@@ -186,19 +216,27 @@ def cache_slots(cfg: ModelConfig, cache_len: int) -> int:
 
 def init_cache(cfg: ModelConfig, batch_size: int, cache_len: int,
                dtype: torch.dtype = torch.bfloat16, device="cuda") -> Cache:
-    """Zero-initialised decode cache of ring buffers (nb, b, S, K, hd)."""
+    """Zero-initialised decode cache of ring buffers: k/v (nb, b, S, K, hd)
+    for GQA, c_kv (nb, b, S, r) and k_rope (nb, b, S, dr) for MLA."""
     _check_supported(cfg)
-    shape = (cfg.num_layers, batch_size, cache_slots(cfg, cache_len),
-             cfg.num_kv_heads, cfg.head_dim)
-    return {"sub0": {"k": torch.zeros(shape, dtype=dtype, device=device),
-                     "v": torch.zeros(shape, dtype=dtype, device=device)}}
+    nb, b = cfg.num_layers, batch_size
+    if cfg.attention == "mla":
+        shapes = {"c_kv": (nb, b, cache_len, cfg.kv_lora_rank),
+                  "k_rope": (nb, b, cache_len, cfg.qk_rope_head_dim)}
+    else:
+        shape = (nb, b, cache_slots(cfg, cache_len), cfg.num_kv_heads,
+                 cfg.head_dim)
+        shapes = {"k": shape, "v": shape}
+    return {"sub0": {name: torch.zeros(shape, dtype=dtype, device=device)
+                     for name, shape in shapes.items()}}
 
 
 def cache_from_prefill(cfg: ModelConfig, prefill_caches: Cache,
                        cache_len: int) -> Cache:
-    """Ring caches from the stacked prefill k/v (nb, b, s, ...), in fresh
-    storage that never aliases the prefill output (decode writes it in
-    place).
+    """Ring caches from the stacked prefill entries (nb, b, s, ...), in
+    fresh storage that never aliases the prefill output (decode writes it
+    in place).  The sliding window bounds the GQA k/v rings only, as in
+    the JAX package; MLA's c_kv/k_rope rings hold ``cache_len`` slots.
 
     Position p goes to slot p % S.  When the prompt is longer than the
     ring (s > S), the last S positions are kept, each at its own slot; the
@@ -210,7 +248,7 @@ def cache_from_prefill(cfg: ModelConfig, prefill_caches: Cache,
         conv = {}
         for name, arr in sub.items():
             s = arr.shape[2]
-            S = cache_slots(cfg, cache_len)
+            S = cache_slots(cfg, cache_len) if name in ("k", "v") else cache_len
             if s >= S:
                 conv[name] = torch.roll(arr[:, :, s - S:], (s - S) % S, dims=2)
             else:
@@ -229,10 +267,13 @@ def decode_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     the same tensors are returned."""
     x = params["embed"][tokens]                        # (b, 1, d)
     sub = cache["sub0"]
-    ring = attn.ring_index(pos, sub["k"].shape[2], x.shape[0], x.device)
+    S = next(iter(sub.values())).shape[2]              # ring slots, any leaf
+    ring = attn.ring_index(pos, S, x.shape[0], x.device)
+    attend = (attn.mla_attend_decode if cfg.attention == "mla"
+              else attn.gqa_attend_decode)
     for i, p in enumerate(layer_params(params["blocks"]["sub0"])):
         h = rms_norm(x, p["norm1"], cfg.norm_eps)
-        out, _ = attn.gqa_attend_decode(
-            cfg, p["mixer"], h, {"k": sub["k"][i], "v": sub["v"][i]}, ring)
+        out, _ = attend(cfg, p["mixer"], h,
+                        {name: t[i] for name, t in sub.items()}, ring)
         x = _ffn_residual(cfg, p, x + out)
     return _head(cfg, params, x), cache

@@ -27,8 +27,11 @@ from repro_torch.kernels.flash_attention import (attention_bwd_ref,
                                                  flash_attention,
                                                  flash_attention_bwd,
                                                  flash_attention_lse)
-from repro_torch.kernels.flash_decode import (flash_decode_gqa, gqa_decode_ref,
-                                              gqa_decode_splitk)
+from repro_torch.kernels.flash_decode import (flash_decode_gqa,
+                                              flash_decode_mla, gqa_decode_ref,
+                                              gqa_decode_splitk,
+                                              mla_decode_ref,
+                                              mla_decode_splitk)
 
 DTYPES = {"float32": (torch.float32, 2e-5), "bfloat16": (torch.bfloat16, 2e-2)}
 
@@ -224,6 +227,31 @@ def test_kernels_refuse_what_they_do_not_take():
         dispatch.attention(q.to("meta"), k.to("meta"), v.to("meta"))
 
 
+def test_wrappers_reject_head_dims_they_were_not_built_for():
+    """Each wrapper checks its own tuple of head dims before it looks at
+    the device, so this holds on the CPU: the forward takes the MLA widths
+    48 and 192 (and then refuses the CPU tensor), the backward and the GQA
+    decode do not, and the MLA decode takes r in (32, 512), dr in (16, 64)."""
+    q = torch.zeros((1, 8, 2, 192))
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention(q, q, q)
+    with pytest.raises(ValueError, match="head dim 160"):
+        flash_attention(*(torch.zeros((1, 8, 2, 160)),) * 3)
+    with pytest.raises(ValueError, match="flash_attention_bwd: head dim 192"):
+        flash_attention_bwd(q, q, q, q, torch.zeros((1, 2, 8)), q)
+    with pytest.raises(ValueError, match="flash_decode_gqa: head dim 192"):
+        flash_decode_gqa(q[:, :1], q, q, torch.ones((1, 8), dtype=torch.bool))
+    valid = torch.ones((1, 8), dtype=torch.bool)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_decode_mla(torch.zeros(1, 2, 512), torch.zeros(1, 2, 64),
+                         torch.zeros(1, 8, 512), torch.zeros(1, 8, 64), valid,
+                         denom=1.0)
+    with pytest.raises(ValueError, match="latent dim 64"):
+        flash_decode_mla(torch.zeros(1, 2, 64), torch.zeros(1, 2, 16),
+                         torch.zeros(1, 8, 64), torch.zeros(1, 8, 16), valid,
+                         denom=1.0)
+
+
 # ------------------------------------------------------------- on the card --
 
 @pytest.fixture
@@ -286,12 +314,85 @@ class TestKernelsOnCard:
         assert torch.equal(flash_decode_gqa(q, k_bad, v_bad, valid), clean)
 
     def test_kernels_raise_on_unsupported_head_dim(self, cuda):
-        q = torch.zeros((1, 8, 2, 48), device=cuda)
+        q = torch.zeros((1, 8, 2, 160), device=cuda)
         with pytest.raises(ValueError, match="head dim"):
             flash_attention(q, q, q)
+        q = torch.zeros((1, 8, 2, 48), device=cuda)
         with pytest.raises(ValueError, match="head dim"):
             flash_decode_gqa(q[:, :1], q, q,
                              torch.ones((1, 8), dtype=torch.bool, device=cuda))
+
+    @pytest.mark.parametrize("dtype", list(DTYPES))
+    @pytest.mark.parametrize("D", [48, 192])
+    def test_flash_attention_at_mla_head_dims(self, cuda, D, dtype):
+        """The MLA prefill's widths: MHA, causal, scale 1/sqrt(D), a ragged
+        q tile (s = 100)."""
+        q, k, v = (t.to(cuda) for t in _attn_inputs(
+            (2, 100, 100, 8, 8, D, True, 0), dtype))
+        got = flash_attention(q, k, v, softmax_scale=D ** -0.5)
+        want = attention_ref(q, k, v, softmax_scale=D ** -0.5)
+        err = (got.float() - want.float()).abs().max()
+        assert err <= DTYPES[dtype][1] * want.float().abs().max(), err
+
+    @pytest.mark.parametrize("dtype", list(DTYPES))
+    @pytest.mark.parametrize("dims", [(8, 32, 16), (128, 512, 64),
+                                      (20, 512, 16)])
+    @pytest.mark.parametrize("S", [48, 300, 544, 640])
+    def test_flash_decode_mla_matches_plain(self, cuda, S, dims, dtype):
+        """Ring validity per row, a fully masked cache block (S > 512) and
+        an all-invalid row; max|d| <= tol * max|ref|."""
+        H, r, dr = dims
+        rng = np.random.default_rng(8)
+        args = [_randn(rng, s, dtype).to(cuda) for s in
+                ((3, H, r), (3, H, dr), (3, S, r), (3, S, dr))]
+        _, valid = _decode_inputs(3, S, 1, 1, 32, "float32", seed=9)
+        valid = torch.from_numpy(valid).to(cuda)
+        valid[2] = False
+        denom = (128 + dr) ** 0.5
+        n = LAUNCHES["flash_decode_mla"]
+        got = flash_decode_mla(*args, valid, denom=denom)
+        assert LAUNCHES["flash_decode_mla"] == n + 1
+        assert got.dtype == args[2].dtype and got.shape == args[0].shape
+        tol = DTYPES[dtype][1]
+        want = mla_decode_splitk(*args, valid, denom=denom, block_s=BLOCK_S)
+        assert (got.float() - want.float()).abs().max() <= \
+            tol * want.float().abs().max()
+        assert torch.all(got[2] == 0)
+        ref = mla_decode_ref(*(a[:2] for a in args), valid[:2], denom=denom)
+        assert (got[:2].float() - ref.float()).abs().max() <= \
+            tol * ref.float().abs().max()
+        with dispatch.force("ref"):
+            assert torch.equal(dispatch.mla_flash_decode(
+                *args, valid, denom=denom), mla_decode_ref(
+                    *args, valid, denom=denom))
+        assert torch.equal(dispatch.mla_flash_decode(*args, valid,
+                                                     denom=denom), got)
+
+    def test_flash_decode_mla_refuses_unaligned(self, cuda):
+        buf = torch.zeros(1 + 8 * 512, dtype=torch.bfloat16, device=cuda)
+        c_kv = buf[1:].view(1, 8, 512)
+        with pytest.raises(ValueError, match="aligned"):
+            flash_decode_mla(torch.zeros(1, 2, 512, dtype=torch.bfloat16,
+                                         device=cuda),
+                             torch.zeros(1, 2, 64, dtype=torch.bfloat16,
+                                         device=cuda),
+                             c_kv, torch.zeros(1, 8, 64, dtype=torch.bfloat16,
+                                               device=cuda),
+                             torch.ones((1, 8), dtype=torch.bool, device=cuda),
+                             denom=1.0)
+
+    def test_flash_decode_mla_never_reads_masked_slots(self, cuda):
+        rng = np.random.default_rng(10)
+        args = [_randn(rng, s, "bfloat16").to(cuda) for s in
+                ((3, 128, 512), (3, 128, 64), (3, 640, 512), (3, 640, 64))]
+        _, valid = _decode_inputs(3, 640, 1, 1, 32, "float32", seed=11)
+        valid = torch.from_numpy(valid).to(cuda)
+        clean = flash_decode_mla(*args, valid, denom=14.0)
+        c_bad, k_bad = args[2].clone(), args[3].clone()
+        c_bad[~valid] = float("nan")
+        k_bad[~valid] = float("inf")
+        assert torch.equal(flash_decode_mla(args[0], args[1], c_bad, k_bad,
+                                            valid, denom=14.0), clean)
 
     # ------------------------------------------------------ training path --
 

@@ -1,6 +1,7 @@
 """The port's model functions against the JAX package's, on the smoke
-configs of llama3.2-3b and starcoder2-3b (sliding window 16, so ring caches
-wrap).
+configs of llama3.2-3b, starcoder2-3b (sliding window 16, so ring caches
+wrap) and deepseek-v2-236b (MLA attention with a latent ring cache, a MoE
+FFN on every layer).
 
 Parameters come from the JAX package's ``init_params``, cast to float32 on
 both sides and handed over as numpy arrays through
@@ -25,11 +26,11 @@ from repro.models.transformer import cache_from_prefill as jax_cache_from_prefil
 from repro_torch.configs import smoke_config
 from repro_torch.interop import params_from_numpy
 from repro_torch.models import (cache_from_prefill, decode_step, forward,
-                                init_params)
+                                init_params, param_shapes)
 from repro_torch.models.attention import apply_rope
 from repro_torch.models.common import rms_norm
 
-ARCHS = ["llama3.2-3b", "starcoder2-3b"]
+ARCHS = ["llama3.2-3b", "starcoder2-3b", "deepseek-v2-236b"]
 TOL = dict(atol=1e-4, rtol=1e-4)
 
 
@@ -113,6 +114,52 @@ def test_init_params_is_seeded():
     assert abs(wo.std().item() / expect - 0.9866) < 0.02
 
 
+def test_init_params_follows_the_jax_recipe_for_mla_and_moe():
+    """deepseek-v2's smoke config: the MLA norms q_ln/kv_ln at 1, the
+    router float32 with fan-in d, the stacked experts (nb, E, d, f) with
+    fan-in on axis 2, and 1/sqrt(2L) on w2 and shared_w2 (moe.py:37-49 and
+    attention.py:320-335 of the JAX package)."""
+    cfg = smoke_config("deepseek-v2-236b")
+    sub = init_params(cfg, 5, device="cpu")["blocks"]["sub0"]
+    for name in ("q_ln", "kv_ln"):
+        leaf = sub["mixer"][name]
+        assert leaf.dtype == torch.bfloat16 and torch.all(leaf == 1)
+    ffn = sub["ffn"]
+    assert ffn["router"].dtype == torch.float32
+    assert all(t.dtype == torch.bfloat16 for k, t in ffn.items()
+               if k != "router")
+    out = 1 / np.sqrt(2 * cfg.num_layers)
+    d, f = cfg.d_model, cfg.moe_d_ff
+    fs = cfg.num_shared_experts * f
+    # (leaf, expected std before truncation, tolerance on the ratio from the
+    # sample size: the router has 2,048 entries, the others >= 65,536)
+    for leaf, std, tol in ((ffn["router"], 1 / np.sqrt(d), 0.05),
+                           (ffn["w1"], 1 / np.sqrt(d), 0.02),
+                           (ffn["w3"], 1 / np.sqrt(d), 0.02),
+                           (ffn["w2"], out / np.sqrt(f), 0.02),
+                           (ffn["shared_w1"], 1 / np.sqrt(d), 0.02),
+                           (ffn["shared_w2"], out / np.sqrt(fs), 0.02),
+                           (sub["mixer"]["wk_b"],
+                            1 / np.sqrt(cfg.kv_lora_rank), 0.02)):
+        # a standard normal truncated at +-3 has std 0.9866
+        assert abs(leaf.float().std().item() / std - 0.9866) < tol
+
+
+def test_params_from_numpy_keeps_the_router_float32():
+    """A float32 tree of deepseek-v2's smoke shapes: every leaf is cast to
+    bf16 but the router, which keeps its float32 values bit for bit."""
+    cfg = smoke_config("deepseek-v2-236b")
+    rng = np.random.default_rng(0)
+    tree = jax.tree.map(lambda shape: rng.standard_normal(shape).astype(
+        np.float32), param_shapes(cfg), is_leaf=lambda x: isinstance(x, tuple))
+    params = params_from_numpy(cfg, tree, device="cpu")
+    ffn = params["blocks"]["sub0"]["ffn"]
+    assert ffn["router"].dtype == torch.float32
+    assert np.array_equal(ffn["router"].numpy(),
+                          tree["blocks"]["sub0"]["ffn"]["router"])
+    assert ffn["w1"].dtype == torch.bfloat16
+
+
 def test_params_from_numpy_rejects_a_wrong_tree():
     cfg = smoke_config("llama3.2-3b")
     tree = jax.tree.map(lambda a: np.asarray(a, np.float32), jax_init_params(
@@ -135,7 +182,8 @@ def test_forward_matches_jax(fp32_pair):
     tl, tc = forward(cfg, params, {"tokens": torch.from_numpy(toks)},
                      want_cache=True)
     np.testing.assert_allclose(_np(tl), _np(jl), **TOL)
-    for name in ("k", "v"):
+    assert set(tc["sub0"]) == set(jc["sub0"])
+    for name in jc["sub0"]:
         np.testing.assert_allclose(_np(tc["sub0"][name]),
                                    _np(jc["sub0"][name]), **TOL)
     last, _ = forward(cfg, params, {"tokens": torch.from_numpy(toks)},
@@ -166,7 +214,7 @@ def test_decode_step_matches_jax(fp32_pair, per_row):
         tl, tcache = decode_step(cfg, params, torch.from_numpy(new[:, i:i + 1]),
                                  tcache, tpos)
         np.testing.assert_allclose(_np(tl), _np(jl), **TOL)
-    for name in ("k", "v"):
+    for name in jcache["sub0"]:
         np.testing.assert_allclose(_np(tcache["sub0"][name]),
                                    _np(jcache["sub0"][name]), **TOL)
 
@@ -192,7 +240,8 @@ def test_cache_from_prefill_does_not_alias(fp32_pair):
     toks = torch.from_numpy(_tokens(cfg, 1, 16))
     _, tc = forward(cfg, params, {"tokens": toks}, want_cache=True)
     ring = cache_from_prefill(cfg, tc, 16)
-    assert ring["sub0"]["k"].data_ptr() != tc["sub0"]["k"].data_ptr()
-    before = tc["sub0"]["k"].clone()
+    name = next(iter(tc["sub0"]))                  # k, or MLA's c_kv
+    assert ring["sub0"][name].data_ptr() != tc["sub0"][name].data_ptr()
+    before = tc["sub0"][name].clone()
     decode_step(cfg, params, toks[:, :1], ring, 16)
-    assert torch.equal(tc["sub0"]["k"], before)
+    assert torch.equal(tc["sub0"][name], before)

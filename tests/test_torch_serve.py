@@ -24,7 +24,7 @@ from repro_torch.models import init_params
 from repro_torch.serve import (ContinuousBatcher, DisaggregatedBatcher,
                                ServeRequest, greedy_decode)
 
-ARCHS = ["llama3.2-3b", "starcoder2-3b"]
+ARCHS = ["llama3.2-3b", "starcoder2-3b", "deepseek-v2-236b"]
 BATCHERS = [ContinuousBatcher, DisaggregatedBatcher]
 
 
@@ -115,6 +115,31 @@ def test_oversized_prompt_is_rejected(llama_bf16, batcher):
     assert not cb.pending
 
 
+@pytest.fixture(scope="module")
+def deepseek_bf16():
+    cfg = smoke_config("deepseek-v2-236b")
+    return cfg, init_params(cfg, 0, device="cpu")
+
+
+@pytest.mark.parametrize("batcher", BATCHERS)
+def test_deepseek_batcher_matches_greedy(deepseek_bf16, batcher):
+    """MLA latent rings and a MoE FFN through the batchers: 4 requests with
+    unequal budgets through 2 slots, the last submitted mid-flight.  The
+    MoE dispatch is row-local, so a row's tokens do not depend on its
+    neighbours (idle slots included)."""
+    cfg, params = deepseek_bf16
+    prompts = _prompts(cfg, 4, 8, seed=11)
+    gens = [5, 3, 4, 2]
+    want = _greedy_each(cfg, params, prompts, gens, 16)
+    cb = batcher(cfg, params, slots=2, cache_len=16)
+    for i in range(3):
+        cb.submit(ServeRequest(i, prompts[i], gens[i]))
+    cb.step()
+    cb.submit(ServeRequest(3, prompts[3], gens[3]))
+    assert cb.run() == want
+    assert set(cb.cache["sub0"]) == {"c_kv", "k_rope"}
+
+
 @pytest.mark.parametrize("extra", [[], ["--continuous", "3"],
                                    ["--continuous", "3", "--disaggregated"]])
 def test_serve_driver_runs_on_cpu(extra, capsys):
@@ -126,5 +151,18 @@ def test_serve_driver_runs_on_cpu(extra, capsys):
     if extra:
         assert sorted(out) == [0, 1, 2]
         assert all(len(t) == 4 for t in out.values())
+    else:
+        assert tuple(out.shape) == (2, 4)
+
+
+@pytest.mark.parametrize("extra", [[], ["--continuous", "3", "--disaggregated"]])
+def test_serve_driver_runs_deepseek_on_cpu(extra, capsys):
+    out = serve_main.main(["--arch", "deepseek-v2-236b", "--smoke", "--device",
+                           "cpu", "--batch", "2", "--prompt-len", "8",
+                           "--gen", "4", *extra])
+    printed = capsys.readouterr().out
+    assert "arch=deepseek-v2-236b-smoke device=cpu" in printed
+    if extra:
+        assert sorted(out) == [0, 1, 2]
     else:
         assert tuple(out.shape) == (2, 4)
