@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving paths (llama3.2-3b, deepseek-v2-236b)
-and its training path (gpt2-350m) on one NVIDIA card.
+"""Drive the PyTorch port's serving paths (llama3.2-3b, deepseek-v2-236b,
+mamba2-130m) and its training path (gpt2-350m) on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -9,20 +9,24 @@ Phases, each printing its lines before the last:
 1. the card (``nvidia-smi`` name and power limit) and the build of the
    hand-written kernels from ``src/repro_torch/kernels/csrc``;
 2. each kernel against its plain PyTorch version on the card, at the shapes
-   the two paths give it and at edge cases (window, GQA, sq != sk,
+   the main paths give it and at edge cases (window, GQA, sq != sk,
    float32, ragged tails, a fully masked cache block, an all-invalid row,
    the MLA decode at deepseek-v2's widths and at its smoke config's, the
-   forward attention at the MLA head dims 192 and 48), the attention
-   backward also against autograd through the plain forward and run twice
-   for bit-identical gradients, with its time, the plain version's, one
-   PyTorch library call's and the card's bound for the same work;
+   forward attention at the MLA head dims 192 and 48, the SSD scan at
+   mamba2-130m's prefill, at a 32k prompt, at a ragged length, in float32
+   and at its smoke widths), the attention backward also against autograd
+   through the plain forward and run twice for bit-identical gradients,
+   with its time, the plain version's, one PyTorch library call's (none
+   computes the SSD scan) and the card's bound for the same work;
 3. llama3.2-3b at full width in bfloat16 with random weights from a seed:
    (a) batch prefill + greedy decode -- the serving path, run with the
    launch counts set to 0 just before and read just after, then a
    torch.profiler trace of one prefill and one decode step for the
    device's busy time and idle share and the largest kernels; (b) its
    logits against the same path on the plain versions; (c) 16 requests
-   through the continuous and the disaggregated batchers;
+   through the continuous and the disaggregated batchers, against
+   per-request greedy decoding, and one decode step alone against the same
+   step as a row of a batch of 8;
 4. deepseek-v2-236b at its published widths and 4 of its 60 layers (all
    60 do not fit one card), bf16 weights with a float32 router, random
    from a seed: the same (a) serving run and trace, through MLA prefill
@@ -30,7 +34,15 @@ Phases, each printing its lines before the last:
    (b) layer 0's MLA output, prefill and first decode step, against the
    plain versions, then the whole model's logits and the share of routing
    choices the two paths agree on; (c) the two batchers;
-5. gpt2-350m at full width (24 layers, bf16 params, fp32 Adam state) --
+5. mamba2-130m at full width and depth (24 Mamba2 layers, d_model 768,
+   24 SSD heads of 64, state 128), bf16 with float32 A_log/D/dt_bias,
+   random from a seed: the same (a) serving run and trace, through the
+   ``ssd_scan`` kernel once a layer a prefill (the decode step is plain
+   PyTorch, as in the JAX package); (a') one timed prefill of one 32,768-
+   token prompt; (b) layer 0's mixer output and final SSD state, then the
+   whole model's prefill and first decode logits, against the plain path;
+   (c) the two batchers;
+6. gpt2-350m at full width (24 layers, bf16 params, fp32 Adam state) --
    the training path, ``repro_torch.launch.train.train`` with global batch
    8, sequence 1024, microbatch 1 and block remat, 1 warm-up + 12 timed
    steps with the launch counts set to 0 just before and read just after:
@@ -99,6 +111,19 @@ LOGITS_TOL = 5e-2
 DEEPSEEK_LOGITS_ATOL = 0.8
 DEEPSEEK_LAYERS = 4
 
+# The SSD scan against its plain version, elementwise |d| <= tol + tol |ref|
+# on y and on the final state: the JAX package's own SSD kernel tolerances
+# (tests/test_kernels.py:57).  The kernel walks 64-row chunks and the plain
+# version 128-row ones, which is exact in math, so they differ by float32
+# sums in other orders and, in bf16, by y rounded once on each side.
+SSD_BF16_TOL, SSD_FP32_TOL = 5e-2, 2e-3
+# mamba2-130m kernel path vs plain path, max |d| / max |ref|: layer 0's
+# mixer output and final state, and the whole model's logits.  The two
+# paths chunk the scan differently and round y to bf16 on different sums;
+# 24 residual layers carry such one-step differences to the logits.  A
+# wrong decay, mask or state carry moves them by their own scale.
+MAMBA2_TOL = 5e-2
+
 SPIN_CYCLES = 2_000_000    # ~1 ms at the H100's ~2 GHz: covers a call's host work
 
 PREFILL = dict(b=8, s=512, H=24, K=8, D=128)
@@ -108,6 +133,10 @@ DECODE = dict(b=8, S=544, H=24, K=8, D=128)
 # and rope width dr = 64
 MLA_PREFILL = dict(b=8, s=512, H=128, D=192)
 MLA_DECODE = dict(b=8, S=544, H=128, r=512, dr=64)
+# mamba2-130m's SSD scan at b=8, prompt 512 (24 heads of P=64, state N=128),
+# and at one 32,768-token prompt, the JAX package's prefill_32k length
+SSD_PREFILL = dict(b=8, s=512, h=24, P=64, N=128)
+SSD_LONG = dict(b=1, s=32_768, h=24, P=64, N=128)
 
 
 def check(cond, msg):
@@ -293,9 +322,12 @@ def phase_kernels(peaks, flush):
     rows.update(phase_mla_kernels(peaks, flush, gen, randn))
     rows.update(phase_attention_bwd(peaks, flush, randn))
     rows.update(phase_adam(peaks, flush, gen))
+    rows.update(phase_ssd_kernel(peaks, flush, gen))
     for r in rows.values():
+        library = ("none" if r["library_ms"] is None
+                   else f"{r['library_ms']:.4f} ms")
         print(f"time {r['name']}: kernel {r['ms']:.4f} ms,"
-              f" plain {r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms,"
+              f" plain {r['plain_ms']:.4f} ms, library {library},"
               f" bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
     return rows
 
@@ -531,6 +563,71 @@ def phase_adam(peaks, flush, gen):
     return rows
 
 
+def phase_ssd_kernel(peaks, flush, gen):
+    """The SSD scan against its plain version at the serving path's shape
+    and at edge cases; its row for the kernels line, and the 32k prompt's
+    times on a line of their own."""
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_ref
+    from repro_torch.kernels.ssd_scan.ssd_scan import chunk
+    bf16, f32 = torch.bfloat16, torch.float32
+    rows = {}
+    p, q = SSD_PREFILL, SSD_LONG
+    for name, b, s, h, P, N, dt in [
+            ("prefill", p["b"], p["s"], p["h"], p["P"], p["N"], bf16),
+            ("prefill_32k", q["b"], q["s"], q["h"], q["P"], q["N"], bf16),
+            ("ragged", 2, 1000, 24, 64, 128, bf16),
+            ("fp32_ragged", 2, 1000, 24, 64, 128, f32),
+            ("smoke_dims", 2, 200, 16, 32, 16, bf16),
+            ("smoke_dims_fp32", 3, 77, 16, 32, 16, f32)]:
+        # the JAX package's kernel sweep's inputs (tests/test_kernels.py:44-52)
+        x = torch.randn(b, s, h, P, generator=gen, device="cuda").to(dt)
+        dt_raw = (torch.randn(b, s, h, generator=gen, device="cuda") * 0.5).to(dt)
+        A_log = torch.randn(h, generator=gen, device="cuda") * 0.3
+        B = torch.randn(b, s, N, generator=gen, device="cuda").to(dt)
+        C = torch.randn(b, s, N, generator=gen, device="cuda").to(dt)
+        D = torch.randn(h, generator=gen, device="cuda")
+        dt_bias = torch.full((h,), 0.1, device="cuda")
+        args = (x, dt_raw, A_log, B, C, D, dt_bias)
+        got = ssd_scan(*args)
+        want = ssd_scan_ref(*args)
+        tol = SSD_BF16_TOL if dt == bf16 else SSD_FP32_TOL
+        (ok_y, err_y), (ok_s, err_s) = (close(g, w, tol)
+                                        for g, w in zip(got, want))
+        print(f"kernel ssd_scan {name} b={b} s={s} h={h} P={P} N={N}"
+              f" {str(dt)[6:]}: y max_abs_err={err_y:.3e} (max|ref|"
+              f" {want[0].float().abs().max().item():.3f}), state"
+              f" max_abs_err={err_s:.3e} (max|ref|"
+              f" {want[1].abs().max().item():.3f}) tol={tol:g}"
+              f" {'ok' if ok_y and ok_s else 'FAIL'}")
+        check(ok_y and ok_s, f"ssd_scan {name} disagrees with its plain version")
+        if not name.startswith("prefill"):
+            continue
+        # reads x, dt_raw, B, C and the (h,) vectors, writes y and the
+        # float32 state; products of the chunked form at the kernel's chunk
+        # L: C.B^T (2 L^2 N), W.x (2 L^2 P), C.state and the state update
+        # (2 L N P each) per (batch, head, chunk)
+        L = chunk()
+        nbytes = (x.element_size() * (2 * x.numel() + dt_raw.numel()
+                                      + B.numel() + C.numel())
+                  + 4 * (want[1].numel() + 3 * h))
+        flops = b * h * -(-s // L) * (2 * L * L * (N + P) + 4 * L * N * P)
+        bound_ms, bound_by = bound(nbytes, flops, peaks)
+        ms = time_ms(lambda: ssd_scan(*args), flush)
+        plain_ms = time_ms(lambda: ssd_scan_ref(*args), flush)
+        print(f"time ssd_scan {name} inputs: {nbytes} bytes, {flops} flops of"
+              f" the chunked form at L={L}: kernel {ms:.4f} ms, plain"
+              f" {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by});"
+              f" no PyTorch call computes the scan")
+        if name == "prefill":
+            rows["ssd_scan"] = dict(
+                name="ssd_scan", route="cuda",
+                source="src/repro_torch/kernels/csrc/ssd_scan.cu",
+                replaces="src/repro/kernels/ssd_scan/ssd_scan.py:76",
+                max_abs_err=max(err_y, err_s), ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+    return rows
+
+
 def serve_main_path(cfg, params, prompt, new, want_launches):
     """(a) batch prefill + greedy decode with the launch counts set to 0
     just before and read just after, after a warm-up run; then a
@@ -597,9 +694,14 @@ def serve_main_path(cfg, params, prompt, new, want_launches):
 def serve_batchers(cfg, params, prompts, new):
     """(c) the requests through 8 slots of the continuous and the
     disaggregated batchers, against per-request greedy decoding (the share
-    that agrees is reported, not required)."""
+    that agrees, and where the others first differ, are reported, not
+    required); then the first decode step of requests 0-7, each alone
+    against the same rows as one batch of 8 (what the batchers run), which
+    measures how far a step's logits depend on the batch around a row on
+    this card."""
     from repro_torch.serve import (ContinuousBatcher, DisaggregatedBatcher,
-                                   ServeRequest, greedy_decode)
+                                   ServeRequest, greedy_decode, prefill,
+                                   serve_step)
     n, s = prompts.shape
     cache_len = s + new
     want = {i: greedy_decode(cfg, params, prompts[i:i + 1], new, cache_len)[0].tolist()
@@ -614,13 +716,26 @@ def serve_batchers(cfg, params, prompts, new):
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         n_tok = sum(len(t) for t in out.values())
-        same = sum(out[i] == want[i] for i in range(n)) / n
-        print(f"(c) {cls.__name__}: {len(out)} requests, {n_tok} tokens,"
-              f" {cb.decode_steps} decode steps, {dt:.3f}s {n_tok / dt:.1f} tok/s,"
-              f" share equal to per-request greedy {same:.3f}")
         check(sorted(out) == list(range(n))
               and all(len(t) == new for t in out.values()),
               f"{cls.__name__} did not serve all {n} requests")
+        same = sum(out[i] == want[i] for i in range(n)) / n
+        first = [next(k for k, (a, c) in enumerate(zip(out[i], want[i])) if a != c)
+                 for i in range(n) if out[i] != want[i]]
+        print(f"(c) {cls.__name__}: {len(out)} requests, {n_tok} tokens,"
+              f" {cb.decode_steps} decode steps, {dt:.3f}s {n_tok / dt:.1f} tok/s,"
+              f" share equal to per-request greedy {same:.3f}; the others"
+              f" first differ at token {first}")
+    caches = [prefill(cfg, params, {"tokens": prompts[i:i + 1]}, cache_len)[1]
+              for i in range(8)]
+    batch = {j: {k: torch.cat([c[j][k] for c in caches], dim=1) for k in sub}
+             for j, sub in caches[0].items()}
+    tok = torch.tensor([[want[i][0]] for i in range(8)], device="cuda")
+    alone = torch.cat([serve_step(cfg, params, tok[i:i + 1], caches[i], s)[0]
+                       for i in range(8)])
+    together, _ = serve_step(cfg, params, tok, batch, s)
+    print(f"(c) first decode step of requests 0-7, each alone vs as one batch"
+          f" of 8: max|dlogit|/max|logit| {rel_max_err(together, alone):.3e}")
 
 
 def phase_model():
@@ -767,6 +882,103 @@ def phase_deepseek():
     return launches
 
 
+def phase_mamba2():
+    """mamba2-130m at full width and depth."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import LAUNCHES, dispatch, reset_launches
+    from repro_torch.models import init_params, param_count
+    from repro_torch.models.common import rms_norm
+    from repro_torch.models.mamba2 import mamba2_forward
+    from repro_torch.serve import prefill, serve_step
+    cfg = get_arch("mamba2-130m")
+    n_params = param_count(cfg)
+    check(n_params == 167_598_528, f"mamba2-130m has {n_params} parameters")
+    t0 = time.perf_counter()
+    params = init_params(cfg, 0, device="cuda")
+    torch.cuda.synchronize()
+    n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    print(f"model {cfg.name}: {cfg.num_layers} layers d_model={cfg.d_model}"
+          f" d_inner={cfg.d_inner} ssd heads={cfg.n_ssm_heads} of"
+          f" P={cfg.ssm_head_dim} state N={cfg.ssm_state} conv={cfg.ssm_conv}"
+          f" vocab={cfg.vocab_size} params={n_params} ({n_bytes} bytes, bf16"
+          f" with float32 A_log/D/dt_bias), init {time.perf_counter() - t0:.1f}s")
+    b, s, new = 8, 512, 32
+    cache_len = s + new
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    prompt = torch.randint(0, cfg.vocab_size, (b, s), generator=gen, device="cuda")
+    want = dict.fromkeys(LAUNCHES, 0)
+    want.update(ssd_scan=cfg.num_layers)
+    toks, launches = serve_main_path(cfg, params, prompt, new, want)
+
+    # (a') one prompt of 32,768 tokens, timed after a warm-up prefill
+    s_long = SSD_LONG["s"]
+    long_prompt = torch.randint(0, cfg.vocab_size, (1, s_long), generator=gen,
+                                device="cuda")
+    prefill(cfg, params, {"tokens": long_prompt}, s_long + 1)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    logits, _ = prefill(cfg, params, {"tokens": long_prompt}, s_long + 1)
+    torch.cuda.synchronize()
+    dt_long = time.perf_counter() - t0
+    print(f"(a') prefill b=1 prompt={s_long}: {dt_long:.4f}s"
+          f" {s_long / dt_long:.1f} tok/s, launches {dict(LAUNCHES)}")
+    check(LAUNCHES["ssd_scan"] == cfg.num_layers
+          and bool(torch.isfinite(logits.float()).all()),
+          "the 32k prefill did not run the kernel once a layer or gave"
+          " non-finite logits")
+
+    # (b1) layer 0's mixer: output and final SSD state, kernel vs plain
+    p0 = {k: v[0] for k, v in params["blocks"]["sub0"]["mixer"].items()}
+    h = rms_norm(params["embed"][prompt], params["blocks"]["sub0"]["norm1"][0],
+                 cfg.norm_eps)
+
+    def layer0():
+        with torch.inference_mode():
+            out, cache = mamba2_forward(cfg, p0, h)
+        return out, cache["ssd"]
+
+    kern = layer0()
+    with dispatch.force("ref"):
+        plain = layer0()
+    rel = [rel_max_err(a, c) for a, c in zip(kern, plain)]
+    print(f"(b) layer 0 Mamba2 mixer, kernel vs plain: output max|d|/max|ref|"
+          f" {rel[0]:.3e}, final SSD state {rel[1]:.3e}, tol {MAMBA2_TOL:g}")
+    check(max(rel) <= MAMBA2_TOL, "layer 0's Mamba2 mixer differs from the"
+                                  " plain path")
+
+    # (b2) the whole model: prefill logits and the first decode step's
+    def first_two():
+        logits, cache = prefill(cfg, params, {"tokens": prompt}, cache_len)
+        step, _ = serve_step(cfg, params, toks[:, :1], cache, s)
+        return logits[:, -1].float(), step[:, -1].float()
+
+    kern = first_two()
+    with dispatch.force("ref"):
+        plain = first_two()
+    rel = [rel_max_err(a, c) for a, c in zip(kern, plain)]
+    print(f"(b) kernel vs plain path: prefill max|dlogit|/max|logit|={rel[0]:.3e},"
+          f" first decode {rel[1]:.3e}, tol {MAMBA2_TOL:g}")
+    check(max(rel) <= MAMBA2_TOL, "mamba2 kernel path logits differ from the"
+                                  " plain path")
+
+    # (c) 16 requests through 8 slots; then the decode step's one product
+    # whose sum order depends on the batch: C . state in float32 (a cuBLAS
+    # batched product), one row at a time against 8 rows at once
+    prompts = torch.randint(0, cfg.vocab_size, (16, s), generator=gen, device="cuda")
+    serve_batchers(cfg, params, prompts, new)
+    C = torch.randn(8, cfg.ssm_state, generator=gen, device="cuda")
+    state = torch.randn(8, cfg.n_ssm_heads, cfg.ssm_head_dim, cfg.ssm_state,
+                        generator=gen, device="cuda")
+    one = torch.cat([torch.einsum("bn,bhpn->bhp", C[i:i + 1], state[i:i + 1])
+                     for i in range(8)])
+    eight = torch.einsum("bn,bhpn->bhp", C, state)
+    print(f"(c) mamba2_decode's float32 C . state at batch 8 vs one row at a"
+          f" time: max|d| {(eight - one).abs().max().item():.3e}, bit-identical"
+          f" {torch.equal(eight, one)}")
+    return launches
+
+
 def phase_train(peaks):
     from repro_torch.configs import TrainConfig, get_arch
     from repro_torch.data import SyntheticTokens
@@ -793,7 +1005,7 @@ def phase_train(peaks):
     want = {"flash_attention": 2 * cfg.num_layers * n_micro * steps,
             "flash_attention_bwd": cfg.num_layers * n_micro * steps,
             "adam_update": 10 * steps, "flash_decode_gqa": 0,
-            "flash_decode_mla": 0}
+            "flash_decode_mla": 0, "ssd_scan": 0}
     losses, step_s = out["losses"], out["step_s"][1:]
     step_ms = 1e3 * sum(step_s) / len(step_s)
     tokens = b * s
@@ -887,16 +1099,17 @@ def main():
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
     rows = timed_phase("kernels", lambda: phase_kernels(peaks, flush))
     del flush
-    # launches: the sum over the three main-path runs, each counted from 0
+    # launches: the sum over the four main-path runs, each counted from 0
     path_launches = [timed_phase("llama3.2-3b serving", phase_model),
                      timed_phase("deepseek-v2-236b serving", phase_deepseek),
+                     timed_phase("mamba2-130m serving", phase_mamba2),
                      timed_phase("gpt2-350m training", lambda: phase_train(peaks))]
     for kname, row in rows.items():
         row["launches"] = sum(launches[kname] for launches in path_launches)
     print(f"total wall time {time.perf_counter() - t0:.1f}s")
     print(json.dumps({"kernels": [rows[k] for k in (
         "flash_attention", "flash_attention_bwd", "flash_decode_gqa",
-        "flash_decode_mla", "adam_update")]}))
+        "flash_decode_mla", "adam_update", "ssd_scan")]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))
     return 0

@@ -15,7 +15,7 @@ hold the kernel path against the plain path on the card.
 from __future__ import annotations
 
 from contextlib import contextmanager
-from typing import Iterator, Optional
+from typing import Iterator, Optional, Tuple
 
 import torch
 
@@ -26,6 +26,7 @@ from repro_torch.kernels.flash_attention import (attention_ref,
 from repro_torch.kernels.flash_decode import (flash_decode_gqa,
                                               flash_decode_mla,
                                               gqa_decode_ref, mla_decode_ref)
+from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_ref
 
 _forced_ref = False
 
@@ -88,6 +89,20 @@ def mla_flash_decode(q_lat: torch.Tensor, q_rope: torch.Tensor,
     (b, H, r)."""
     fn = flash_decode_mla if _use_kernel(q_lat) else mla_decode_ref
     return fn(q_lat, q_rope, c_kv, k_rope, valid, denom=denom)
+
+
+def ssd(x: torch.Tensor, dt_raw: torch.Tensor, A_log: torch.Tensor,
+        B: torch.Tensor, C: torch.Tensor, D: torch.Tensor,
+        dt_bias: torch.Tensor, *, chunk: int = 128
+        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mamba2 SSD scan, one B/C group.  x: (b, s, h, p); dt_raw
+    (pre-softplus): (b, s, h); A_log, D, dt_bias: (h,) float32; B, C:
+    (b, s, n).  Returns (y (b, s, h, p) in x's dtype, final state
+    (b, h, p, n) float32).  ``chunk`` is the plain version's chunk length;
+    the kernel walks chunks of its own length (chunking is exact in math)."""
+    if _use_kernel(x):
+        return ssd_scan(x, dt_raw, A_log, B, C, D, dt_bias)
+    return ssd_scan_ref(x, dt_raw, A_log, B, C, D, dt_bias, chunk=chunk)
 
 
 @torch.no_grad()

@@ -6,6 +6,8 @@
         --smoke --device cpu                           # plain versions
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch deepseek-v2-236b --smoke --device cpu   # MLA + MoE
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch mamba2-130m --smoke --device cpu        # Mamba2 SSD
 
 ``--arch`` takes every arch of ``repro_torch.configs.registry``; at full
 depth deepseek-v2-236b does not fit one card (``chip_smoke.py`` serves it

@@ -1,4 +1,4 @@
-"""Shared numeric building blocks (norm, init, activation)."""
+"""Shared numeric building blocks (norms, init, activation)."""
 from __future__ import annotations
 
 from typing import Optional, Sequence
@@ -15,6 +15,13 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5
     var = xf.square().mean(dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
     return (y * scale.float()).to(x.dtype)
+
+
+def gated_rms_norm(x: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
+                   eps: float = 1e-5) -> torch.Tensor:
+    """Mamba2's gated norm: RMSNorm(x * silu(z)), the gate computed in fp32
+    and rounded to x's dtype before the product."""
+    return rms_norm(x * F.silu(z.float()).to(x.dtype), scale, eps)
 
 
 def _truncated_normal(gen: torch.Generator, shape: Sequence[int]

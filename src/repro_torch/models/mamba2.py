@@ -1,0 +1,112 @@
+"""Mamba2 SSD (state-space duality) mixer [arXiv:2405.21060], the JAX
+package's ``models/mamba2.py`` in PyTorch.
+
+The full-sequence scan goes through ``repro_torch.kernels.dispatch.ssd``:
+the hand-written ``ssd_scan`` kernel for a CUDA tensor, the plain chunked
+scan for a CPU tensor.  Layout follows the Mamba2 reference: projections
+to z, [x | B | C] and dt, a depthwise causal conv over [x | B | C], SSD
+with a scalar A per head, the gated RMSNorm, out_proj.  One B/C group.
+The single-token decode step is plain PyTorch, as in the JAX package.
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import dispatch
+from repro_torch.models.common import gated_rms_norm
+
+Params = Dict[str, torch.Tensor]
+
+
+def mamba2_param_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
+    """One layer's mixer leaves (mamba2.py:24-46 of the JAX package): the
+    projections split by role -- [z | x], [B | C], dt -- the conv weights
+    and biases of x and of [B | C], the float32 A_log, D and dt_bias, the
+    gated norm's scale and out_proj."""
+    d, di, n, h = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads
+    return {"in_zx": (d, 2 * di), "in_bc": (d, 2 * n), "in_dt": (d, h),
+            "conv_x_w": (cfg.ssm_conv, di), "conv_x_b": (di,),
+            "conv_bc_w": (cfg.ssm_conv, 2 * n), "conv_bc_b": (2 * n,),
+            "A_log": (h,), "D": (h,), "dt_bias": (h,), "norm": (di,),
+            "out_proj": (di, d)}
+
+
+def _project(cfg: ModelConfig, p: Params, x: torch.Tensor
+             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """x: (b, s, d) -> z (b, s, di), xBC (b, s, di + 2n) pre-conv, dt_raw
+    (b, s, h)."""
+    di = cfg.d_inner
+    zx = x @ p["in_zx"]
+    return (zx[..., :di], torch.cat([zx[..., di:], x @ p["in_bc"]], dim=-1),
+            x @ p["in_dt"])
+
+
+def _conv_params(p: Params) -> Tuple[torch.Tensor, torch.Tensor]:
+    return (torch.cat([p["conv_x_w"], p["conv_bc_w"]], dim=1),
+            torch.cat([p["conv_x_b"], p["conv_bc_b"]], dim=0))
+
+
+def _causal_conv(xBC: torch.Tensor, w: torch.Tensor, b: torch.Tensor
+                 ) -> torch.Tensor:
+    """Depthwise causal conv1d, then silu in float32.  xBC: (batch, s, ch);
+    w: (width, ch); b: (ch,)."""
+    width, s = w.shape[0], xBC.shape[1]
+    pad = F.pad(xBC, (0, 0, width - 1, 0))
+    out = pad[:, :s] * w[0]
+    for i in range(1, width):
+        out = out + pad[:, i:i + s] * w[i]
+    return F.silu((out + b).float()).to(xBC.dtype)
+
+
+def mamba2_forward(cfg: ModelConfig, p: Params, x: torch.Tensor
+                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Full-sequence forward.  x: (b, s, d).  Returns (out (b, s, d), the
+    decode cache: conv, the last w - 1 *pre-conv* xBC rows (b, w - 1, ch),
+    left-padded with zeros when s < w - 1, and ssd, the final state
+    (b, h, p, n) float32)."""
+    b, s, _ = x.shape
+    di, n, h, hp = cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads, cfg.ssm_head_dim
+    w = cfg.ssm_conv
+    z, xBC, dt_raw = _project(cfg, p, x)
+    conv_state = (xBC[:, s - (w - 1):] if s >= w - 1
+                  else F.pad(xBC, (0, 0, w - 1 - s, 0)))
+    xBC = _causal_conv(xBC, *_conv_params(p))
+    # the kernel takes contiguous tensors: split the conv output's channels
+    xs = xBC[..., :di].reshape(b, s, h, hp).contiguous()
+    B = xBC[..., di:di + n].contiguous()
+    C = xBC[..., di + n:].contiguous()
+    y, state = dispatch.ssd(xs, dt_raw, p["A_log"], B, C, p["D"],
+                            p["dt_bias"])
+    y = gated_rms_norm(y.reshape(b, s, di), z, p["norm"], cfg.norm_eps)
+    return y @ p["out_proj"], {"conv": conv_state, "ssd": state.float()}
+
+
+def mamba2_decode(cfg: ModelConfig, p: Params, x: torch.Tensor,
+                  cache: Dict[str, torch.Tensor]
+                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Single-token step.  x: (b, 1, d); cache: conv (b, w - 1, ch), ssd
+    (b, h, p, n) float32.  Returns (out (b, 1, d), the new cache in fresh
+    tensors)."""
+    b = x.shape[0]
+    di, n, h, hp = cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads, cfg.ssm_head_dim
+    z, xBC_new, dt_raw = _project(cfg, p, x)                   # (b, 1, *)
+    window = torch.cat([cache["conv"], xBC_new], dim=1)        # (b, w, ch)
+    conv_w, conv_b = _conv_params(p)
+    conv_out = torch.sum(window * conv_w[None], dim=1, keepdim=True)
+    xBC = F.silu((conv_out + conv_b).float()).to(x.dtype)
+    xs = xBC[..., :di].reshape(b, h, hp)
+    B = xBC[:, 0, di:di + n]                                   # (b, n)
+    C = xBC[:, 0, di + n:]
+    dt = F.softplus(dt_raw[:, 0].float() + p["dt_bias"])       # (b, h)
+    dA = torch.exp(dt * -torch.exp(p["A_log"]))                # (b, h)
+    state = cache["ssd"] * dA[:, :, None, None] + torch.einsum(
+        "bh,bn,bhp->bhpn", dt, B.float(), xs.float())
+    y = (torch.einsum("bn,bhpn->bhp", C.float(), state)
+         + p["D"][None, :, None] * xs.float())
+    y = gated_rms_norm(y.reshape(b, 1, di).to(x.dtype), z, p["norm"],
+                       cfg.norm_eps)
+    return y @ p["out_proj"], {"conv": window[:, 1:], "ssd": state}

@@ -1,15 +1,18 @@
-"""Model assembly for the attention transformers: init, full-sequence
-forward (train / prefill) with optional per-layer rematerialisation, the
-training loss, ring caches and single-token decode.
+"""Model assembly for the attention transformers and Mamba2: init,
+full-sequence forward (train / prefill) with optional per-layer
+rematerialisation, the training loss, decode caches and single-token
+decode.
 
 The parameter tree is the JAX package's: ``embed`` (V, d), ``final_norm``
 (d,), ``lm_head`` (d, V) unless the embeddings are tied, and
 ``blocks.sub0`` whose leaves are stacked along a leading ``n_blocks`` axis
-(``norm1``, ``mixer`` -- GQA ``{wq,wk,wv,wo}`` or MLA, see
-``attention.mla_param_shapes`` --, ``norm2``, ``ffn`` -- dense
-``{w1,w2[,w3]}`` or MoE, see ``moe.moe_param_shapes``).  The forward walks
-the stacked layers in a Python loop.  GQA and MLA attention, dense and MoE
-FFNs on every layer (block period 1); no SSM, hybrid or modal prefix.
+(``norm1``, ``mixer`` -- GQA ``{wq,wk,wv,wo}``, MLA (see
+``attention.mla_param_shapes``) or Mamba2 (see
+``mamba2.mamba2_param_shapes``) --, ``norm2``, ``ffn`` -- dense
+``{w1,w2[,w3]}`` or MoE, see ``moe.moe_param_shapes``; a Mamba2 layer has
+no FFN).  The forward walks the stacked layers in a Python loop.  GQA and
+MLA attention, dense and MoE FFNs, or Mamba2 mixers, the same kind on
+every layer (block period 1); no hybrid or modal prefix.
 """
 from __future__ import annotations
 
@@ -21,25 +24,35 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import mamba2
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.common import dense_init, embed_init, mlp, rms_norm
 
 Params = Dict[str, Any]
 Cache = Dict[str, Any]
 
-# leaves kept in float32 whatever the parameters' dtype (moe.py:37 of the
-# JAX package: the router's logits and softmax run in float32)
-FP32_LEAVES = ("router",)
-NORM_LEAVES = ("norm1", "norm2", "final_norm", "q_ln", "kv_ln")
+# leaves kept in float32 whatever the parameters' dtype: the MoE router
+# (moe.py:37 of the JAX package: its logits and softmax run in float32) and
+# Mamba2's A_log, D and dt_bias (mamba2.py:38-40)
+FP32_LEAVES = ("router", "A_log", "D", "dt_bias")
+NORM_LEAVES = ("norm1", "norm2", "final_norm", "q_ln", "kv_ln", "norm")
+# Mamba2's per-channel and per-head leaves, which init_mamba2 sets by rule
+# rather than by the fan-in draw (mamba2.py:24-46 of the JAX package)
+SSM_VECTORS = ("conv_x_b", "conv_bc_b", "A_log", "D", "dt_bias")
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    if (cfg.attention not in ("gqa", "mla") or cfg.block_period != 1
-            or cfg.family in ("ssm", "hybrid") or cfg.attn_layer_period
-            or cfg.num_modal_tokens):
+    ssm = cfg.family == "ssm"
+    if ((cfg.attention not in ("gqa", "mla") and not ssm)
+            or cfg.block_period != 1 or cfg.family == "hybrid"
+            or cfg.attn_layer_period or cfg.num_modal_tokens):
         raise NotImplementedError(
-            f"{cfg.name}: the port runs GQA or MLA text models whose layers "
-            f"all have the same kind (block period 1)")
+            f"{cfg.name}: the port runs GQA, MLA or Mamba2 text models whose "
+            f"layers all have the same kind (block period 1)")
+
+
+def _is_ssm(cfg: ModelConfig) -> bool:
+    return cfg.layer_kind(0) == "ssm"
 
 
 def _layer_has_ffn(cfg: ModelConfig) -> bool:
@@ -58,8 +71,12 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, Any]:
     """The parameter tree with a shape at each leaf."""
     _check_supported(cfg)
     nb, d, f = cfg.num_layers, cfg.d_model, cfg.d_ff
-    mixer = (attn.mla_param_shapes(cfg) if cfg.attention == "mla"
-             else attn.gqa_param_shapes(cfg))
+    if _is_ssm(cfg):
+        mixer = mamba2.mamba2_param_shapes(cfg)
+    elif cfg.attention == "mla":
+        mixer = attn.mla_param_shapes(cfg)
+    else:
+        mixer = attn.gqa_param_shapes(cfg)
     sub: Dict[str, Any] = {
         "norm1": (nb, d),
         "mixer": {k: (nb, *s) for k, s in mixer.items()},
@@ -85,10 +102,12 @@ def init_params(cfg: ModelConfig, seed: int, device="cuda") -> Params:
     ``seed``, bfloat16 but the float32 ``FP32_LEAVES``: norms at 1,
     embeddings N(0, 0.02) truncated at 3 sigma, every matrix
     truncated-normal with std = scale / sqrt(fan_in), fan_in being the first
-    per-layer axis (the second for the experts' stacked ``w1``/``w2``/``w3``)
-    and scale 1/sqrt(2L) on the output projections ``wo``, ``w2`` and
-    ``shared_w2`` -- the JAX package's recipe (its random numbers
-    differ)."""
+    per-layer axis (the second for the experts' stacked ``w1``/``w2``/``w3``;
+    the conv width for Mamba2's conv weights) and scale 1/sqrt(2L) on the
+    output projections ``wo``, ``w2``, ``shared_w2`` and ``out_proj``; Mamba2's
+    conv biases at 0, A_log = log(linspace(1, 16, h)), D at 1 and dt_bias
+    the inverse softplus of a dt drawn log-uniform in [1e-3, 0.1] -- the
+    JAX package's recipe (its random numbers differ)."""
     gen = torch.Generator(device=device).manual_seed(seed)
     out_scale = 1.0 / math.sqrt(2 * cfg.num_layers)
 
@@ -98,16 +117,37 @@ def init_params(cfg: ModelConfig, seed: int, device="cuda") -> Params:
             return torch.ones(shape, dtype=torch.bfloat16, device=device)
         if name == "embed":
             return embed_init(gen, shape)
+        if name in SSM_VECTORS:
+            return _init_ssm_vector(gen, name, shape)
         in_axis = 0
         if path[0] == "blocks":                 # (nb, ...) stacked leaves
             expert = cfg.num_experts and path[-2] == "ffn" and \
                 name in ("w1", "w2", "w3")
             in_axis = 2 if expert else 1
-        scale = out_scale if name in ("wo", "w2", "shared_w2") else 1.0
+        scale = (out_scale if name in ("wo", "w2", "shared_w2", "out_proj")
+                 else 1.0)
         dtype = torch.float32 if name in FP32_LEAVES else torch.bfloat16
         return dense_init(gen, shape, shape[in_axis], scale=scale, dtype=dtype)
 
     return _map_tree(init, param_shapes(cfg))
+
+
+def _init_ssm_vector(gen: torch.Generator, name: str, shape: Tuple[int, ...]
+                     ) -> torch.Tensor:
+    """One of ``SSM_VECTORS``, stacked (nb, ...): conv biases 0 (bf16),
+    A_log = log(linspace(1, 16, h)), D = 1 and dt_bias the inverse softplus
+    of a dt drawn log-uniform in [1e-3, 0.1] (float32)."""
+    device = gen.device
+    if name == "A_log":
+        return torch.log(torch.linspace(1.0, 16.0, shape[-1], device=device)
+                         ).expand(shape).contiguous()
+    if name == "D":
+        return torch.ones(shape, dtype=torch.float32, device=device)
+    if name == "dt_bias":
+        u = torch.rand(shape, generator=gen, device=device)
+        dt = torch.exp(u * (math.log(0.1) - math.log(1e-3)) + math.log(1e-3))
+        return dt + torch.log(-torch.expm1(-dt))       # inverse softplus
+    return torch.zeros(shape, dtype=torch.bfloat16, device=device)
 
 
 def _leaves(tree: dict):
@@ -154,10 +194,13 @@ def _head(cfg: ModelConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
 def _block(cfg: ModelConfig, p: Params, x: torch.Tensor,
            positions: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
-    attend = (attn.mla_attend_train if cfg.attention == "mla"
-              else attn.gqa_attend_train)
-    out, kv = attend(cfg, p["mixer"], h, positions)
-    return _ffn_residual(cfg, p, x + out), kv
+    if _is_ssm(cfg):
+        out, cache = mamba2.mamba2_forward(cfg, p["mixer"], h)
+    elif cfg.attention == "mla":
+        out, cache = attn.mla_attend_train(cfg, p["mixer"], h, positions)
+    else:
+        out, cache = attn.gqa_attend_train(cfg, p["mixer"], h, positions)
+    return _ffn_residual(cfg, p, x + out), cache
 
 
 def forward(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
@@ -168,7 +211,8 @@ def forward(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
     batch: tokens (b, s) integer.  Returns (logits (b, s, V), cache or
     None); the cache holds each layer's cache entries stacked: k/v
     (nb, b, s, K, hd) for GQA, c_kv (nb, b, s, r) and k_rope (nb, b, s, dr)
-    for MLA.  (The JAX package's forward also returns the MoE aux loss.)
+    for MLA, conv (nb, b, w - 1, di + 2n) and ssd (nb, b, h, p, n) float32
+    for Mamba2.  (The JAX package's forward also returns the MoE aux loss.)
     ``last_only`` computes the logits of the last position only (b, 1, V),
     which is all a prefill needs.  ``remat`` checkpoints each layer (the
     JAX package's ``jax.checkpoint(block_body)``): the backward recomputes
@@ -180,12 +224,12 @@ def forward(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
     entries: Dict[str, List[torch.Tensor]] = {}
     for p in layer_params(params["blocks"]["sub0"]):
         if remat:
-            x, kv = checkpoint(_block, cfg, p, x, positions,
-                               use_reentrant=False)
+            x, cache = checkpoint(_block, cfg, p, x, positions,
+                                  use_reentrant=False)
         else:
-            x, kv = _block(cfg, p, x, positions)
+            x, cache = _block(cfg, p, x, positions)
         if want_cache:
-            for name, t in kv.items():
+            for name, t in cache.items():
                 entries.setdefault(name, []).append(t)
     if last_only:
         x = x[:, -1:]
@@ -216,10 +260,20 @@ def cache_slots(cfg: ModelConfig, cache_len: int) -> int:
 
 def init_cache(cfg: ModelConfig, batch_size: int, cache_len: int,
                dtype: torch.dtype = torch.bfloat16, device="cuda") -> Cache:
-    """Zero-initialised decode cache of ring buffers: k/v (nb, b, S, K, hd)
-    for GQA, c_kv (nb, b, S, r) and k_rope (nb, b, S, dr) for MLA."""
+    """Zero-initialised decode cache: ring buffers k/v (nb, b, S, K, hd) for
+    GQA, c_kv (nb, b, S, r) and k_rope (nb, b, S, dr) for MLA; for Mamba2
+    the conv window (nb, b, w - 1, di + 2n) in ``dtype`` and the SSD state
+    (nb, b, h, p, n) always in float32, whatever ``cache_len``."""
     _check_supported(cfg)
     nb, b = cfg.num_layers, batch_size
+    if _is_ssm(cfg):
+        ch = cfg.d_inner + 2 * cfg.ssm_state
+        return {"sub0": {
+            "conv": torch.zeros((nb, b, cfg.ssm_conv - 1, ch), dtype=dtype,
+                                device=device),
+            "ssd": torch.zeros((nb, b, cfg.n_ssm_heads, cfg.ssm_head_dim,
+                                cfg.ssm_state), dtype=torch.float32,
+                               device=device)}}
     if cfg.attention == "mla":
         shapes = {"c_kv": (nb, b, cache_len, cfg.kv_lora_rank),
                   "k_rope": (nb, b, cache_len, cfg.qk_rope_head_dim)}
@@ -237,6 +291,8 @@ def cache_from_prefill(cfg: ModelConfig, prefill_caches: Cache,
     fresh storage that never aliases the prefill output (decode writes it
     in place).  The sliding window bounds the GQA k/v rings only, as in
     the JAX package; MLA's c_kv/k_rope rings hold ``cache_len`` slots.
+    Mamba2's conv window and SSD state have no sequence axis and are
+    copied as they are.
 
     Position p goes to slot p % S.  When the prompt is longer than the
     ring (s > S), the last S positions are kept, each at its own slot; the
@@ -245,6 +301,9 @@ def cache_from_prefill(cfg: ModelConfig, prefill_caches: Cache,
     """
     out = {}
     for j_name, sub in prefill_caches.items():
+        if "ssd" in sub:
+            out[j_name] = {name: arr.clone() for name, arr in sub.items()}
+            continue
         conv = {}
         for name, arr in sub.items():
             s = arr.shape[2]
@@ -264,16 +323,24 @@ def decode_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     """One-token decode.  tokens: (b, 1) integer; pos: int (absolute
     position of the incoming token) or (b,) tensor of per-row positions.
     Returns (logits (b, 1, V), cache); the cache is updated in place and
-    the same tensors are returned."""
+    the same tensors are returned.  A Mamba2 layer does not read ``pos``:
+    its state holds the whole past."""
     x = params["embed"][tokens]                        # (b, 1, d)
     sub = cache["sub0"]
-    S = next(iter(sub.values())).shape[2]              # ring slots, any leaf
-    ring = attn.ring_index(pos, S, x.shape[0], x.device)
-    attend = (attn.mla_attend_decode if cfg.attention == "mla"
-              else attn.gqa_attend_decode)
+    ssm = _is_ssm(cfg)
+    if not ssm:
+        S = sub["c_kv" if cfg.attention == "mla" else "k"].shape[2]
+        ring = attn.ring_index(pos, S, x.shape[0], x.device)
+        attend = (attn.mla_attend_decode if cfg.attention == "mla"
+                  else attn.gqa_attend_decode)
     for i, p in enumerate(layer_params(params["blocks"]["sub0"])):
         h = rms_norm(x, p["norm1"], cfg.norm_eps)
-        out, _ = attend(cfg, p["mixer"], h,
-                        {name: t[i] for name, t in sub.items()}, ring)
+        layer_cache = {name: t[i] for name, t in sub.items()}
+        if ssm:
+            out, new = mamba2.mamba2_decode(cfg, p["mixer"], h, layer_cache)
+            for name, t in new.items():
+                layer_cache[name].copy_(t)
+        else:
+            out, _ = attend(cfg, p["mixer"], h, layer_cache, ring)
         x = _ffn_residual(cfg, p, x + out)
     return _head(cfg, params, x), cache

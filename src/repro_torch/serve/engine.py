@@ -135,7 +135,9 @@ class ContinuousBatcher:
     def _splice(self, slot: int, req: ServeRequest, tok: int,
                 row_cache: Any) -> None:
         """Copy a prefilled cache row + first token into ``slot`` (axis 1 is
-        the batch axis of every (nb, b, ...) cache leaf)."""
+        the batch axis of every (nb, b, ...) cache leaf; a Mamba2 row's conv
+        window and float32 state are copied whole, into leaves of their own
+        dtypes, so the copy is exact)."""
         for j_name, sub in row_cache.items():
             for name, row in sub.items():
                 self.cache[j_name][name][:, slot] = row[:, 0]

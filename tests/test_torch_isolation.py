@@ -42,6 +42,8 @@ def test_importing_the_port_loads_no_jax():
     assert "repro_torch.kernels.dispatch" in result["imported"]
     assert "repro_torch.train.train_loop" in result["imported"]
     assert "repro_torch.launch.train" in result["imported"]
+    assert "repro_torch.models.mamba2" in result["imported"]
+    assert "repro_torch.kernels.ssd_scan.ssd_scan" in result["imported"]
     assert result["bad"] == []
 
 

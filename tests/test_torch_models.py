@@ -1,7 +1,8 @@
 """The port's model functions against the JAX package's, on the smoke
 configs of llama3.2-3b, starcoder2-3b (sliding window 16, so ring caches
-wrap) and deepseek-v2-236b (MLA attention with a latent ring cache, a MoE
-FFN on every layer).
+wrap), deepseek-v2-236b (MLA attention with a latent ring cache, a MoE
+FFN on every layer) and mamba2-130m (Mamba2 SSD layers with a conv window
+and a float32 state for a cache).
 
 Parameters come from the JAX package's ``init_params``, cast to float32 on
 both sides and handed over as numpy arrays through
@@ -17,6 +18,7 @@ import pytest
 import torch
 
 from repro.configs.registry import smoke_config as jax_smoke_config
+from repro.kernels import dispatch as jax_dispatch
 from repro.models import attention as jax_attn
 from repro.models import common as jax_common
 from repro.models import decode_step as jax_decode_step
@@ -26,11 +28,11 @@ from repro.models.transformer import cache_from_prefill as jax_cache_from_prefil
 from repro_torch.configs import smoke_config
 from repro_torch.interop import params_from_numpy
 from repro_torch.models import (cache_from_prefill, decode_step, forward,
-                                init_params, param_shapes)
+                                init_cache, init_params, param_shapes)
 from repro_torch.models.attention import apply_rope
 from repro_torch.models.common import rms_norm
 
-ARCHS = ["llama3.2-3b", "starcoder2-3b", "deepseek-v2-236b"]
+ARCHS = ["llama3.2-3b", "starcoder2-3b", "deepseek-v2-236b", "mamba2-130m"]
 TOL = dict(atol=1e-4, rtol=1e-4)
 
 
@@ -160,6 +162,22 @@ def test_params_from_numpy_keeps_the_router_float32():
     assert ffn["w1"].dtype == torch.bfloat16
 
 
+def test_params_from_numpy_keeps_the_ssm_vectors_float32():
+    """mamba2-130m's smoke shapes: A_log, D and dt_bias are float32 in the
+    JAX package (mamba2.py:38-40) and keep their values bit for bit; the
+    matrices and the gated norm are cast to bf16."""
+    cfg = smoke_config("mamba2-130m")
+    rng = np.random.default_rng(1)
+    tree = jax.tree.map(lambda shape: rng.standard_normal(shape).astype(
+        np.float32), param_shapes(cfg), is_leaf=lambda x: isinstance(x, tuple))
+    mixer = params_from_numpy(cfg, tree, device="cpu")["blocks"]["sub0"]["mixer"]
+    for name in ("A_log", "D", "dt_bias"):
+        assert mixer[name].dtype == torch.float32
+        assert np.array_equal(mixer[name].numpy(),
+                              tree["blocks"]["sub0"]["mixer"][name])
+    assert mixer["in_zx"].dtype == mixer["norm"].dtype == torch.bfloat16
+
+
 def test_params_from_numpy_rejects_a_wrong_tree():
     cfg = smoke_config("llama3.2-3b")
     tree = jax.tree.map(lambda a: np.asarray(a, np.float32), jax_init_params(
@@ -245,3 +263,51 @@ def test_cache_from_prefill_does_not_alias(fp32_pair):
     before = tc["sub0"][name].clone()
     decode_step(cfg, params, toks[:, :1], ring, 16)
     assert torch.equal(tc["sub0"][name], before)
+
+
+def test_mamba2_cache_has_no_sequence_axis():
+    """init_cache gives Mamba2 a conv window of w - 1 rows in the cache
+    dtype and an always-float32 state, whatever the cache length; both
+    other kinds are refused in a hybrid or modal config."""
+    cfg = smoke_config("mamba2-130m")
+    cache = init_cache(cfg, 3, 1000, dtype=torch.bfloat16, device="cpu")["sub0"]
+    ch = cfg.d_inner + 2 * cfg.ssm_state
+    assert tuple(cache["conv"].shape) == (2, 3, cfg.ssm_conv - 1, ch)
+    assert cache["conv"].dtype == torch.bfloat16
+    assert tuple(cache["ssd"].shape) == (2, 3, cfg.n_ssm_heads,
+                                         cfg.ssm_head_dim, cfg.ssm_state)
+    assert cache["ssd"].dtype == torch.float32
+    for bad in (cfg.scaled(family="hybrid", attn_layer_period=2,
+                           num_layers=2),
+                cfg.scaled(num_modal_tokens=8)):
+        with pytest.raises(NotImplementedError):
+            param_shapes(bad)
+
+
+def test_mamba2_forward_at_a_ragged_prompt_matches_the_pallas_path():
+    """The whole mamba2 smoke model at prompt 200, which the JAX package's
+    CPU path refuses (200 % 128 != 0): held against the JAX forward with
+    its SSD op forced to the Pallas kernel in interpret mode, and prefill
+    of 200 + one decode step against the forward over 201 tokens."""
+    jcfg = jax_smoke_config("mamba2-130m")
+    jparams = jax.tree.map(lambda a: a.astype(jnp.float32),
+                           jax_init_params(jcfg, jax.random.PRNGKey(0)))
+    cfg = smoke_config("mamba2-130m")
+    params = params_from_numpy(cfg, jax.tree.map(np.asarray, jparams),
+                               device="cpu", dtype=torch.float32)
+    toks = _tokens(cfg, 1, 201, seed=4)
+    with jax_dispatch.force("pallas"):
+        jl, _, jc = jax_forward(jcfg, jparams,
+                                {"tokens": jnp.asarray(toks[:, :200])},
+                                want_cache=True)
+    tl, tc = forward(cfg, params, {"tokens": torch.from_numpy(toks[:, :200])},
+                     want_cache=True)
+    np.testing.assert_allclose(_np(tl), _np(jl), **TOL)
+    for name in jc["sub0"]:
+        np.testing.assert_allclose(_np(tc["sub0"][name]),
+                                   _np(jc["sub0"][name]), **TOL)
+    step, _ = decode_step(cfg, params, torch.from_numpy(toks[:, 200:]),
+                          cache_from_prefill(cfg, tc, 201), 200)
+    full, _ = forward(cfg, params, {"tokens": torch.from_numpy(toks)},
+                      last_only=True)
+    np.testing.assert_allclose(_np(step), _np(full), **TOL)

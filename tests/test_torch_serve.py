@@ -24,7 +24,7 @@ from repro_torch.models import init_params
 from repro_torch.serve import (ContinuousBatcher, DisaggregatedBatcher,
                                ServeRequest, greedy_decode)
 
-ARCHS = ["llama3.2-3b", "starcoder2-3b", "deepseek-v2-236b"]
+ARCHS = ["llama3.2-3b", "starcoder2-3b", "deepseek-v2-236b", "mamba2-130m"]
 BATCHERS = [ContinuousBatcher, DisaggregatedBatcher]
 
 
@@ -140,6 +140,51 @@ def test_deepseek_batcher_matches_greedy(deepseek_bf16, batcher):
     assert set(cb.cache["sub0"]) == {"c_kv", "k_rope"}
 
 
+@pytest.fixture(scope="module")
+def mamba2_bf16():
+    cfg = smoke_config("mamba2-130m")
+    return cfg, init_params(cfg, 0, device="cpu")
+
+
+@pytest.mark.parametrize("batcher", BATCHERS)
+def test_mamba2_batcher_matches_greedy(mamba2_bf16, batcher):
+    """Mamba2's conv windows and float32 states through the batchers: 4
+    requests with unequal budgets and prompt lengths 1, 2, 8 and 8 (the
+    first two shorter than the conv window) through 2 slots, the last
+    submitted mid-flight.  A slot's state is overwritten whole at each
+    admission, so what an earlier tenant left there cannot leak."""
+    cfg, params = mamba2_bf16
+    prompts = _prompts(cfg, 4, 8, seed=13)
+    lengths, gens = [1, 2, 8, 8], [5, 3, 4, 2]
+    want = {i: greedy_decode(cfg, params, prompts[i:i + 1, :lengths[i]],
+                             gens[i], 16)[0].tolist() for i in range(4)}
+    cb = batcher(cfg, params, slots=2, cache_len=16)
+    for i in range(3):
+        cb.submit(ServeRequest(i, prompts[i, :lengths[i]], gens[i]))
+    cb.step()
+    cb.submit(ServeRequest(3, prompts[3, :lengths[3]], gens[3]))
+    assert cb.run() == want
+    assert set(cb.cache["sub0"]) == {"conv", "ssd"}
+
+
+def test_mamba2_splice_copies_the_state_exactly(mamba2_bf16):
+    """A prefilled row spliced into a bf16 batcher's cache: the conv window
+    keeps its bf16 bits and the SSD state its float32 bits (the ssd leaf
+    is float32 whatever the cache dtype)."""
+    cfg, params = mamba2_bf16
+    cb = ContinuousBatcher(cfg, params, slots=3, cache_len=16)
+    req = ServeRequest(0, _prompts(cfg, 1, 7, seed=17)[0], 4)
+    with torch.inference_mode():                 # as step() runs it
+        tok, row = cb._prefill_one(req)
+        cb._splice(1, req, tok, row)
+    for name in ("conv", "ssd"):
+        got, want = cb.cache["sub0"][name][:, 1], row["sub0"][name][:, 0]
+        assert got.dtype == want.dtype
+        assert torch.equal(got, want)
+    assert cb.cache["sub0"]["ssd"].dtype == torch.float32
+    assert bool((cb.cache["sub0"]["ssd"][:, 1] != 0).any())
+
+
 @pytest.mark.parametrize("extra", [[], ["--continuous", "3"],
                                    ["--continuous", "3", "--disaggregated"]])
 def test_serve_driver_runs_on_cpu(extra, capsys):
@@ -162,6 +207,19 @@ def test_serve_driver_runs_deepseek_on_cpu(extra, capsys):
                            "--gen", "4", *extra])
     printed = capsys.readouterr().out
     assert "arch=deepseek-v2-236b-smoke device=cpu" in printed
+    if extra:
+        assert sorted(out) == [0, 1, 2]
+    else:
+        assert tuple(out.shape) == (2, 4)
+
+
+@pytest.mark.parametrize("extra", [[], ["--continuous", "3", "--disaggregated"]])
+def test_serve_driver_runs_mamba2_on_cpu(extra, capsys):
+    out = serve_main.main(["--arch", "mamba2-130m", "--smoke", "--device",
+                           "cpu", "--batch", "2", "--prompt-len", "8",
+                           "--gen", "4", *extra])
+    printed = capsys.readouterr().out
+    assert "arch=mamba2-130m-smoke device=cpu" in printed
     if extra:
         assert sorted(out) == [0, 1, 2]
     else:

@@ -1,0 +1,239 @@
+"""The port's SSD scan: its plain versions against the JAX package's Pallas
+kernel (interpret mode) and its ``ssd_ref`` oracle, dispatch by device, the
+wrapper's checks, and -- on a card only -- the hand-written CUDA kernel
+against its plain version.
+
+Inputs are drawn with numpy from a fixed seed; bfloat16 inputs are rounded
+once in torch and handed to JAX through float32, which is exact, so both
+sides see the same bits.  Tolerances are the JAX package's own SSD kernel
+tolerances, 2e-3 in float32 and 5e-2 in bfloat16, absolute and relative
+(tests/test_kernels.py::test_ssd_scan_sweep).
+
+JAX is imported by the ``jx`` fixture, not at module level: the card's
+machine has no JAX, and the ``gpu`` class runs there.
+"""
+from types import SimpleNamespace
+
+import numpy as np
+import pytest
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import LAUNCHES, dispatch
+from repro_torch.kernels.ssd_scan import (ssd_chunked, ssd_naive, ssd_scan,
+                                          ssd_scan_ref)
+from repro_torch.kernels.ssd_scan.ssd_scan import SHAPES
+
+DTYPES = {"float32": (torch.float32, 2e-3), "bfloat16": (torch.bfloat16, 5e-2)}
+
+# the shapes of tests/test_kernels.py::test_ssd_scan_sweep: (b, s, h, p, n,
+# chunk)
+SSD_CASES = [
+    (2, 128, 3, 32, 16, 32),
+    (1, 100, 2, 16, 8, 32),                   # padded tail chunk
+    (2, 256, 4, 64, 128, 128),                # production-like dims
+    (1, 64, 24, 64, 128, 64),                 # mamba2-130m head count
+]
+# a length the JAX package's chunked scan refuses at chunk 128 (200 % 128)
+RAGGED = (2, 200, 3, 32, 16, 128)
+
+
+@pytest.fixture(scope="module")
+def jx():
+    """The JAX package's SSD kernel, oracle and chunked scan."""
+    pytest.importorskip("jax")
+    import jax
+    import jax.numpy as jnp
+    from repro.kernels.ssd_scan import ssd_ref, ssd_scan as pallas_ssd_scan
+    from repro.models.mamba2 import ssd_chunked as jax_ssd_chunked
+    return SimpleNamespace(jax=jax, jnp=jnp, ssd_ref=ssd_ref,
+                           ssd_scan=pallas_ssd_scan,
+                           ssd_chunked=jax_ssd_chunked)
+
+
+def _inputs(b, s, h, p, n, dtype, seed=1, device="cpu"):
+    """x, dt_raw, A_log, B, C, D, dt_bias as in the JAX sweep: x, B, C
+    standard normal, dt_raw N(0, 0.25), A_log N(0, 0.09), D N(0, 1) and
+    dt_bias 0.1; x, dt_raw, B, C rounded to ``dtype``, the rest float32."""
+    rng = np.random.default_rng(seed)
+    dt = DTYPES[dtype][0]
+
+    def arr(shape, scale=1.0, to=dt):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)
+                                * scale).to(device=device, dtype=to)
+
+    x = arr((b, s, h, p))
+    dt_raw = arr((b, s, h), 0.5)
+    A_log = arr((h,), 0.3, torch.float32)
+    B, C = arr((b, s, n)), arr((b, s, n))
+    D = arr((h,), 1.0, torch.float32)
+    dt_bias = torch.full((h,), 0.1, device=device)
+    return x, dt_raw, A_log, B, C, D, dt_bias
+
+
+def _to_jax(jx, t):
+    """A torch tensor as a JAX array of the same dtype and bits."""
+    return jx.jnp.asarray(t.float().numpy()).astype(str(t.dtype)[6:])
+
+
+def _f32(x):
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(x, np.float32)
+
+
+def _jax_oracle(jx, args):
+    """The JAX package's sequential recurrence on the inputs widened to
+    float32, after the same softplus and A = -exp(A_log)."""
+    jnp = jx.jnp
+    x, dt_raw, A_log, B, C, D, dt_bias = (_to_jax(jx, t) for t in args)
+    dt = jx.jax.nn.softplus(dt_raw.astype(jnp.float32) + dt_bias)
+    return jx.ssd_ref(x.astype(jnp.float32), dt, -jnp.exp(A_log),
+                      B.astype(jnp.float32), C.astype(jnp.float32), D)
+
+
+def _assert_close(got, want, tol):
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(_f32(g), _f32(w), atol=tol, rtol=tol)
+
+
+# ------------------------------------------------ plain versions vs JAX --
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("case", SSD_CASES + [RAGGED],
+                         ids=lambda c: "b{}_s{}_h{}_p{}_n{}_L{}".format(*c))
+def test_ssd_scan_ref_matches_pallas_kernel(jx, case, dtype):
+    b, s, h, p, n, chunk = case
+    args = _inputs(b, s, h, p, n, dtype)
+    got = ssd_scan_ref(*args, chunk=chunk)
+    want = jx.ssd_scan(*(_to_jax(jx, t) for t in args), chunk=chunk,
+                       interpret=True)
+    assert got[0].dtype == args[0].dtype and got[1].dtype == torch.float32
+    assert tuple(got[1].shape) == (b, h, p, n)
+    _assert_close(got, want, DTYPES[dtype][1])
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("case", SSD_CASES + [RAGGED],
+                         ids=lambda c: "b{}_s{}_h{}_p{}_n{}_L{}".format(*c))
+def test_ssd_scan_ref_matches_the_recurrence(jx, case, dtype):
+    b, s, h, p, n, chunk = case
+    args = _inputs(b, s, h, p, n, dtype, seed=2)
+    _assert_close(ssd_scan_ref(*args, chunk=chunk), _jax_oracle(jx, args),
+                  DTYPES[dtype][1])
+
+
+def test_the_reference_chunked_scan_refuses_a_ragged_length(jx):
+    """Where the port pads (above), the JAX package's ``ssd_chunked`` --
+    its CPU path for the SSD op -- asserts s % chunk == 0."""
+    b, s, h, p, n, chunk = RAGGED
+    x, dt_raw, A_log, B, C, D, dt_bias = (
+        _to_jax(jx, t) for t in _inputs(b, s, h, p, n, "float32"))
+    with pytest.raises(AssertionError):
+        jx.ssd_chunked(x, jx.jax.nn.softplus(dt_raw + dt_bias),
+                       -jx.jnp.exp(A_log), B, C, D, chunk=chunk)
+
+
+def test_ssd_naive_matches_jax_ssd_ref(jx):
+    x, dt_raw, A_log, B, C, D, dt_bias = _inputs(2, 37, 3, 16, 8, "float32")
+    dt = F.softplus(dt_raw + dt_bias)
+    got = ssd_naive(x, dt, -torch.exp(A_log), B, C, D)
+    _assert_close(got, _jax_oracle(jx, (x, dt_raw, A_log, B, C, D, dt_bias)),
+                  1e-5)
+
+
+@pytest.mark.parametrize("chunk", [1, 16, 64, 100, 128, 512])
+def test_ssd_chunked_is_exact_at_any_chunk(chunk):
+    """Chunking, the padded tail included, is exact in math: at s=100 every
+    chunk length agrees with the recurrence to float32 rounding."""
+    x, dt_raw, A_log, B, C, D, dt_bias = _inputs(2, 100, 3, 16, 8, "float32")
+    dt = F.softplus(dt_raw + dt_bias)
+    A = -torch.exp(A_log)
+    _assert_close(ssd_chunked(x, dt, A, B, C, D, chunk=chunk),
+                  ssd_naive(x, dt, A, B, C, D), 1e-4)
+
+
+# ---------------------------------------------------------------- dispatch --
+
+def test_dispatch_ssd_on_cpu_runs_the_plain_version():
+    before = dict(LAUNCHES)
+    args = _inputs(1, 100, 2, 32, 16, "bfloat16")
+    want = ssd_scan_ref(*args)
+    for got in (dispatch.ssd(*args), ssd_scan_ref(*args, chunk=128)):
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+    with dispatch.force("ref"):
+        got = dispatch.ssd(*args, chunk=32)
+    assert all(torch.equal(g, w) for g, w in
+               zip(got, ssd_scan_ref(*args, chunk=32)))
+    assert LAUNCHES == before
+
+
+def test_ssd_scan_refuses_what_it_does_not_take():
+    """Shape, dtype and (P, N) checks come before the device check, so
+    they hold on the CPU; a supported CPU call is refused for its device."""
+    args = list(_inputs(1, 8, 2, 64, 128, "float32"))
+    with pytest.raises(ValueError, match="CUDA"):
+        ssd_scan(*args)
+    with pytest.raises(ValueError, match=r"\(16, 8\) not in"):
+        ssd_scan(*_inputs(1, 8, 2, 16, 8, "float32"))
+    bad = list(args)
+    bad[3] = bad[3].to(torch.bfloat16)                    # B
+    with pytest.raises(TypeError, match="one dtype"):
+        ssd_scan(*bad)
+    bad = list(args)
+    bad[2] = bad[2].to(torch.bfloat16)                    # A_log
+    with pytest.raises(TypeError, match="float32 A_log"):
+        ssd_scan(*bad)
+    bad = list(args)
+    bad[1] = bad[1][:, :4]                                # dt_raw
+    with pytest.raises(ValueError, match="do not agree"):
+        ssd_scan(*bad)
+    assert set(SHAPES) == {(32, 16), (64, 128)}
+
+
+# ------------------------------------------------------------- on the card --
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernels run only there")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+class TestSsdScanOnCard:
+    @pytest.mark.parametrize("dtype", list(DTYPES))
+    @pytest.mark.parametrize("shape", [(8, 512, 24, 64, 128),   # the prefill
+                                       (2, 1000, 24, 64, 128),  # ragged
+                                       (2, 200, 16, 32, 16),    # smoke widths
+                                       (3, 1, 4, 32, 16)])      # one row
+    def test_ssd_scan_matches_plain(self, cuda, shape, dtype):
+        args = _inputs(*shape, dtype, device=cuda)
+        before = LAUNCHES["ssd_scan"]
+        got = ssd_scan(*args)
+        torch.cuda.synchronize()
+        assert LAUNCHES["ssd_scan"] == before + 1
+        want = ssd_scan_ref(*args)
+        tol = DTYPES[dtype][1]
+        for g, w in zip(got, want):
+            assert torch.isfinite(g).all()
+            torch.testing.assert_close(g.float(), w.float(), atol=tol,
+                                       rtol=tol)
+
+    def test_dispatch_on_cuda_launches_the_kernel(self, cuda):
+        args = _inputs(1, 64, 24, 64, 128, "bfloat16", device=cuda)
+        before = LAUNCHES["ssd_scan"]
+        y, state = dispatch.ssd(*args)
+        assert LAUNCHES["ssd_scan"] == before + 1
+        with dispatch.force("ref"):
+            dispatch.ssd(*args)
+        assert LAUNCHES["ssd_scan"] == before + 1
+        assert y.dtype == torch.bfloat16 and state.dtype == torch.float32
+
+    def test_ssd_scan_refuses_unsupported_widths(self, cuda):
+        with pytest.raises(ValueError, match=r"\(16, 8\) not in"):
+            ssd_scan(*_inputs(1, 8, 2, 16, 8, "float32", device=cuda))
+        args = list(_inputs(1, 8, 2, 32, 16, "float32", device=cuda))
+        args[0] = args[0].transpose(1, 2).contiguous().transpose(1, 2)
+        with pytest.raises(ValueError, match="contiguous"):
+            ssd_scan(*args)
