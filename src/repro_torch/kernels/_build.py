@@ -37,7 +37,9 @@ def sources() -> list:
     return sorted(p.stem for p in CSRC.glob("*.cu"))
 
 
-def _library(name: str) -> Path:
+def library(name: str) -> Path:
+    """Where ``csrc/<name>.cu``'s library is (or will be) built; the
+    ``nvcc``/``ptxas`` output of its build sits beside it as ``.log``."""
     h = hashlib.sha256()
     for path in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
         h.update(path.name.encode())
@@ -54,7 +56,7 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     jobs = {}
     for name in names:
-        lib = _library(name)
+        lib = library(name)
         if lib.exists():
             continue
         tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
@@ -80,7 +82,7 @@ def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built first if missing."""
     lib = _LIBS.get(name)
     if lib is None:
-        path = _library(name)
+        path = library(name)
         if not path.exists():
             build([name])
         lib = _LIBS[name] = ctypes.CDLL(str(path))

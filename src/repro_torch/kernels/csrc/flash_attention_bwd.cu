@@ -16,31 +16,52 @@
 // s=1024, H=K=16, D=64, causal, bf16) the function needs ~5.4e9 flops
 // (2.5x the forward's) against ~17 MB of traffic (q, k, v, o, dO, lse in;
 // dq, dk, dv out): ~5.4 us at 989 TFLOP/s, so the floor is the tensor
-// cores.  This first version does its arithmetic in float32 on the CUDA
-// cores and is bound by the shared-memory loads that feed its FMAs (about
-// five 4-byte loads for four FMAs), far above that floor, like the forward.
+// cores.  This design does 7 products where FlashAttention-2 does 5 (S
+// and dP are recomputed in both passes, the price of having no atomics),
+// so its own floor is 1.4x that.
 //
-// Design, with no atomics, so the gradients are bit-identical from run to
-// run:
+// Three kernels, with no atomics, so the gradients are bit-identical from
+// run to run:
 // * bwd_dot_kernel: one warp per (batch, query row, head) computes D_i.
-// * bwd_dkdv_kernel: one block of 256 threads per (k tile of 32 keys, KV
-//   head, batch) holds its K and V tile in shared memory and walks the G
-//   query heads of its KV head and, for each, the 32-row q tiles inside the
-//   band.  dK and dV of its 32 keys stay in registers (thread t owns key
-//   t/8 and columns t%8 + 8i) across all of them, so GQA's sum over the
-//   group happens in registers, never in device memory.
-// * bwd_dq_kernel: one block per (q tile of 32 rows, head, batch) walks the
-//   k tiles inside the band and keeps dQ of its rows in registers.
-// Both recompute P and dS for their tile pair the same way (scores()):
-// thread t owns score row t/8 and columns t%8 + 8j.  Rows and keys past sq
-// and sk are loaded as zeros and masked in-kernel (no padded copy); a row
-// the mask leaves with no key (lse = NEG_INF) gets P = 0 and so zero
-// gradients.  All sums are float32; tiles are float32 in shared memory with
-// rows padded by one word against bank conflicts.  Tensor-core MMA and TMA
-// staging are left for the PR that makes this fast.
+// * dK, dV: one block per (k tile of 64 keys, KV head, batch) walks the G
+//   query heads of its KV head and, for each, the q tiles inside the band.
+//   dK and dV of its keys stay in float32 registers across all of them, so
+//   GQA's sum over the group happens in registers, never in device memory.
+// * dQ: one block per (q tile, head, batch) walks the k tiles inside the
+//   band and keeps dQ of its rows in registers.
+//
+// bfloat16 bodies, on the tensor cores (mma.sync.m16n8k16 through
+// ldmatrix, mma.cuh): four warps, each owning 16 keys (dK, dV) or 16 query
+// rows (dQ).  The dK/dV block computes S^T = K Q^T and dP^T = V dO^T for
+// its keys against a q tile (64 rows; 32 at D = 128, to keep dK, dV, S^T
+// and dP^T in 255 registers), P^T and dS^T in float32 registers, rounds
+// them to bf16 in registers -- as FlashAttention-2 does -- and feeds them
+// as the A fragments of dV += P^T dO and dK += dS^T Q (dO and Q through
+// ldmatrix.trans).  The dQ block computes S and dP for its rows against
+// each 64-key tile and dQ += dS K the same way.  Q/dO (and lse, D_i) tiles
+// in the dK/dV block, K/V tiles in the dQ block, stream through a
+// two-stage cp.async ring of XOR-swizzled tiles; the block's own K/V (or
+// Q/dO) are staged once.  The mask is evaluated only on tile pairs that
+// cross the diagonal, the window's edge, sq or sk; rows and keys past sq
+// and sk are zero-filled by the copy and never stored.  A row the mask
+// leaves with no key (lse = NEG_INF) gets P = 0 and so zero gradients.
+// The gradients leave through the warp's own rows of a staged tile as
+// 16-byte stores.  Registers: up to 252 a thread at D = 64 and 128 (no
+// spills).  On an H100 at the training shape the three kernels together
+// take about what PyTorch's FlashAttention-2 backward takes, with two
+// more products; cuDNN's (PyTorch's default) is faster still.
+//
+// float32 keeps the first version's bodies on the CUDA cores, chosen by
+// the template type (TF32 cannot hold the 2e-5 the float32 callers are
+// held to): 256 threads, 32 x 32 float32 tiles with rows padded by one
+// word, thread t owning score row t/8 and columns t%8 + 8j, P and dS
+// through shared memory.  No main path runs it on the card.
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
@@ -48,6 +69,7 @@ using repro::from_f;
 using repro::to_f;
 using repro::warp_sum;
 
+// the float32 bodies' tiles
 constexpr int BQ = 32;        // query rows per tile
 constexpr int BK = 32;        // keys per tile
 constexpr int NT = 256;       // threads: 8 per score row / per key
@@ -145,6 +167,8 @@ __device__ __forceinline__ void load_rows(float* lse_s, float* Di_s,
     Di_s[threadIdx.x] = qi < sq ? Di[off] : 0.f;
   }
 }
+
+// ------------------------------------------------- float32, CUDA cores --
 
 template <typename T, int D>
 __global__ void __launch_bounds__(NT)
@@ -280,6 +304,265 @@ bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ---------------------------------------------------------------- bf16 --
+
+using repro::bf16;
+using repro::Tile;
+
+constexpr int MMA_THREADS = 128;  // four warps
+constexpr int MMA_KEYS = 64;      // keys per k tile
+constexpr int MMA_ROWS = 64;      // query rows of a dQ block
+constexpr float LOG2E = 1.4426950408889634f;
+
+// query rows per q tile of the dK/dV block
+template <int D>
+struct DkdvRows {
+  static constexpr int value = D <= 64 ? 64 : 32;
+};
+
+template <int D>
+constexpr int dkdv_smem_bytes() {
+  constexpr int QR = DkdvRows<D>::value;
+  return (2 * Tile<D>::elems(MMA_KEYS) + 4 * Tile<D>::elems(QR)) * (int)sizeof(bf16) +
+         4 * QR * (int)sizeof(float);
+}
+
+template <int D>
+constexpr int dq_smem_bytes() {
+  return (2 * Tile<D>::elems(MMA_ROWS) + 4 * Tile<D>::elems(MMA_KEYS)) * (int)sizeof(bf16);
+}
+
+template <int D>
+__global__ void __launch_bounds__(MMA_THREADS)
+bwd_dkdv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
+             const bf16* __restrict__ v, const bf16* __restrict__ dout,
+             const float* __restrict__ lse, const float* __restrict__ Di,
+             bf16* __restrict__ dk, bf16* __restrict__ dv, int sq, int sk, int H,
+             int K, int causal, int window, float scale) {
+  constexpr int KEYS = MMA_KEYS, QR = DkdvRows<D>::value, THREADS = MMA_THREADS;
+  constexpr int KE = Tile<D>::elems(KEYS), QE = Tile<D>::elems(QR);
+  extern __shared__ uint4 smem_mma[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem_mma);          // (KEYS, D)
+  bf16* Vs = Ks + KE;                                     // (KEYS, D)
+  bf16* Qs = Vs + KE;                                     // 2 stages of (QR, D)
+  bf16* dOs = Qs + 2 * QE;                                // 2 stages of (QR, D)
+  float* lse_s = reinterpret_cast<float*>(dOs + 2 * QE);  // 2 stages of (QR)
+  float* Di_s = lse_s + 2 * QR;                           // 2 stages of (QR)
+
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int k0 = blockIdx.x * KEYS;
+  const int kh = blockIdx.y;
+  const int b = blockIdx.z;
+  const int G = H / K;
+  const long long qstride = (long long)H * D, kstride = (long long)K * D;
+  const bf16* kb = k + ((size_t)b * sk * K + kh) * D;
+  const bf16* vb = v + ((size_t)b * sk * K + kh) * D;
+
+  // the q tiles whose rows see a key of this tile: row i sees key j iff
+  // j <= i (causal) and i < j + window (window); for each of the G heads
+  const int qt_first = causal ? k0 / QR : 0;
+  const int q_end = window ? min(sq, k0 + KEYS - 1 + window) : sq;
+  const int nq = max(0, (q_end + QR - 1) / QR - qt_first);
+  const int n_it = G * nq;
+
+  // step `it` (head kh * G + it / nq, q tile qt_first + it % nq) into stage st
+  auto load_step = [&](int it, int st) {
+    const int hh = kh * G + it / nq;
+    const int q0 = (qt_first + it % nq) * QR;
+    const size_t off = ((size_t)b * sq * H + hh) * D;
+    repro::load_tile<D, QR, THREADS>(Qs + st * QE, q + off, qstride, q0, sq);
+    repro::load_tile<D, QR, THREADS>(dOs + st * QE, dout + off, qstride, q0, sq);
+    if (threadIdx.x < QR) {
+      const int qi = q0 + threadIdx.x;
+      const size_t r = ((size_t)b * H + hh) * sq + (qi < sq ? qi : 0);
+      repro::cp_async4(lse_s + st * QR + threadIdx.x, lse + r, qi < sq);
+      repro::cp_async4(Di_s + st * QR + threadIdx.x, Di + r, qi < sq);
+    }
+  };
+
+  repro::load_tile<D, KEYS, THREADS>(Ks, kb, kstride, k0, sk);
+  repro::load_tile<D, KEYS, THREADS>(Vs, vb, kstride, k0, sk);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (i < n_it) load_step(i, i);
+    repro::cp_async_commit();
+  }
+
+  float dk_acc[D / 8][4], dv_acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
+  const int key0 = k0 + 16 * w + g;  // this thread's keys: key0 and key0 + 8
+  const float sl2 = scale * LOG2E;
+
+  for (int it = 0; it < n_it; ++it) {
+    const int st = it & 1;
+    repro::cp_async_wait<1>();
+    __syncthreads();
+    const int q0 = (qt_first + it % nq) * QR;
+    const bf16* Qt = Qs + st * QE;
+    const bf16* dOt = dOs + st * QE;
+    const float* lt = lse_s + st * QR;
+    const float* dt = Di_s + st * QR;
+
+    float s[QR / 8][4], dp[QR / 8][4];
+#pragma unroll
+    for (int n = 0; n < QR / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+    repro::mma_abt<D, QR / 8>(s, Ks, 16 * w, Qt, lane);    // S^T = K Q^T
+    repro::mma_abt<D, QR / 8>(dp, Vs, 16 * w, dOt, lane);  // dP^T = V dO^T
+
+    const bool edge = q0 + QR > sq || k0 + KEYS > sk || (causal && k0 + KEYS - 1 > q0) ||
+                      (window && k0 <= q0 + QR - 1 - window);
+#pragma unroll
+    for (int n = 0; n < QR / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int ql = 8 * n + 2 * t + (e & 1);  // the column's query row in the tile
+        float p = exp2f(s[n][e] * sl2 - lt[ql] * LOG2E);
+        if (edge) {
+          const int qi = q0 + ql, kp = key0 + 8 * (e >> 1);
+          const bool live = qi < sq && kp < sk && (!causal || kp <= qi) &&
+                            (!window || kp > qi - window);
+          p = live ? p : 0.f;  // a select: p may be inf off the band
+        }
+        s[n][e] = p;
+        dp[n][e] = p * (dp[n][e] - dt[ql]);
+      }
+    uint32_t pa[QR / 16][4], da[QR / 16][4];
+    repro::c_to_a<QR / 8>(pa, s);
+    repro::c_to_a<QR / 8>(da, dp);
+    repro::mma_ab<D, QR / 16>(dv_acc, pa, dOt, lane);  // dV += P^T dO
+    repro::mma_ab<D, QR / 16>(dk_acc, da, Qt, lane);   // dK += dS^T Q
+
+    __syncthreads();  // every warp is done with this stage
+    if (it + 2 < n_it) load_step(it + 2, st);
+    repro::cp_async_commit();
+  }
+
+  repro::cp_async_wait<0>();  // with no q tile, K and V may still be arriving
+  __syncthreads();
+  // through the warp's own rows of the K and V tiles, which no other warp reads
+  const size_t off = ((size_t)b * sk * K + kh) * D;
+  repro::store_rows<D>(dk_acc, scale, scale, Ks, 16 * w, dk + off, kstride, k0 + 16 * w, sk,
+                       lane);
+  repro::store_rows<D>(dv_acc, 1.f, 1.f, Vs, 16 * w, dv + off, kstride, k0 + 16 * w, sk, lane);
+}
+
+template <int D>
+__global__ void __launch_bounds__(MMA_THREADS)
+bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
+           const bf16* __restrict__ v, const bf16* __restrict__ dout,
+           const float* __restrict__ lse, const float* __restrict__ Di,
+           bf16* __restrict__ dq, int sq, int sk, int H, int K, int causal,
+           int window, float scale) {
+  constexpr int KEYS = MMA_KEYS, ROWS = MMA_ROWS, THREADS = MMA_THREADS;
+  constexpr int QE = Tile<D>::elems(ROWS), KE = Tile<D>::elems(KEYS);
+  extern __shared__ uint4 smem_mma[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_mma);  // (ROWS, D)
+  bf16* dOs = Qs + QE;                            // (ROWS, D)
+  bf16* Ks = dOs + QE;                            // 2 stages of (KEYS, D)
+  bf16* Vs = Ks + 2 * KE;                         // 2 stages of (KEYS, D)
+
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int qt = gridDim.x - 1 - blockIdx.x;  // longest causal rows first
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int kh = h / (H / K);
+  const int q0 = qt * ROWS;
+  const int q_last = min(q0 + ROWS, sq) - 1;
+  const int n_kt = (sk + KEYS - 1) / KEYS;
+  const int kt_end = causal ? min(n_kt, q_last / KEYS + 1) : n_kt;
+  const int kt_begin = (window && q0 - window + 1 > 0) ? (q0 - window + 1) / KEYS : 0;
+
+  const long long qstride = (long long)H * D, kstride = (long long)K * D;
+  const size_t qoff = ((size_t)b * sq * H + h) * D;
+  const bf16* kb = k + ((size_t)b * sk * K + kh) * D;
+  const bf16* vb = v + ((size_t)b * sk * K + kh) * D;
+
+  repro::load_tile<D, ROWS, THREADS>(Qs, q + qoff, qstride, q0, sq);
+  repro::load_tile<D, ROWS, THREADS>(dOs, dout + qoff, qstride, q0, sq);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (kt_begin + i < kt_end) {
+      repro::load_tile<D, KEYS, THREADS>(Ks + i * KE, kb, kstride, (kt_begin + i) * KEYS, sk);
+      repro::load_tile<D, KEYS, THREADS>(Vs + i * KE, vb, kstride, (kt_begin + i) * KEYS, sk);
+    }
+    repro::cp_async_commit();
+  }
+
+  // lse (in log2 units) and D_i of this thread's rows, row0 and row0 + 8;
+  // rows past sq are never stored
+  const int row0 = q0 + 16 * w + g;
+  float l2[2], di[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qi = row0 + 8 * i;
+    const size_t r = ((size_t)b * H + h) * sq + qi;
+    l2[i] = qi < sq ? lse[r] * LOG2E : 0.f;
+    di[i] = qi < sq ? Di[r] : 0.f;
+  }
+  float dq_acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq_acc[n][e] = 0.f;
+  const float sl2 = scale * LOG2E;
+
+  for (int kt = kt_begin; kt < kt_end; ++kt) {
+    const int st = (kt - kt_begin) & 1;
+    repro::cp_async_wait<1>();
+    __syncthreads();
+    const bf16* Kt = Ks + st * KE;
+    const bf16* Vt = Vs + st * KE;
+
+    float s[KEYS / 8][4], dp[KEYS / 8][4];
+#pragma unroll
+    for (int n = 0; n < KEYS / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+    repro::mma_abt<D, KEYS / 8>(s, Qs, 16 * w, Kt, lane);    // S = Q K^T
+    repro::mma_abt<D, KEYS / 8>(dp, dOs, 16 * w, Vt, lane);  // dP = dO V^T
+
+    const int k0 = kt * KEYS;
+    const bool edge = q0 + ROWS > sq || k0 + KEYS > sk || (causal && k0 + KEYS - 1 > q0) ||
+                      (window && k0 <= q_last - window);
+#pragma unroll
+    for (int n = 0; n < KEYS / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float p = exp2f(s[n][e] * sl2 - l2[e >> 1]);
+        if (edge) {
+          const int kp = k0 + 8 * n + 2 * t + (e & 1);
+          const int qi = row0 + 8 * (e >> 1);
+          const bool live = qi < sq && kp < sk && (!causal || kp <= qi) &&
+                            (!window || kp > qi - window);
+          p = live ? p : 0.f;  // a select: p may be inf off the band
+        }
+        dp[n][e] = p * (dp[n][e] - di[e >> 1]);
+      }
+    uint32_t da[KEYS / 16][4];
+    repro::c_to_a<KEYS / 8>(da, dp);
+    repro::mma_ab<D, KEYS / 16>(dq_acc, da, Kt, lane);  // dQ += dS K
+
+    __syncthreads();  // every warp is done with this stage
+    if (kt + 2 < kt_end) {
+      repro::load_tile<D, KEYS, THREADS>(Ks + st * KE, kb, kstride, (kt + 2) * KEYS, sk);
+      repro::load_tile<D, KEYS, THREADS>(Vs + st * KE, vb, kstride, (kt + 2) * KEYS, sk);
+    }
+    repro::cp_async_commit();
+  }
+
+  repro::cp_async_wait<0>();  // with no k tile, Q may still be arriving
+  __syncthreads();
+  repro::store_rows<D>(dq_acc, scale, scale, Qs, 16 * w, dq + qoff, qstride, q0 + 16 * w, sq,
+                       lane);
+}
+
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
                    const void* dout, const float* lse, float* Di, void* dq,
@@ -292,25 +575,48 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  const int smem = smem_floats<D>() * (int)sizeof(float);
-  auto dkdv = bwd_dkdv_kernel<T, D>;
-  err = cudaFuncSetAttribute(dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  dkdv<<<dim3((sk + BK - 1) / BK, K, b), NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout), lse, Di,
-      static_cast<T*>(dk), static_cast<T*>(dv), sq, sk, H, K, causal, window,
-      scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
+  if constexpr (std::is_same<T, float>::value) {
+    const int smem = smem_floats<D>() * (int)sizeof(float);
+    auto dkdv = bwd_dkdv_kernel<T, D>;
+    err = cudaFuncSetAttribute(dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    dkdv<<<dim3((sk + BK - 1) / BK, K, b), NT, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const T*>(dout), lse, Di,
+        static_cast<T*>(dk), static_cast<T*>(dv), sq, sk, H, K, causal, window,
+        scale);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
 
-  auto dqk = bwd_dq_kernel<T, D>;
-  err = cudaFuncSetAttribute(dqk, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  dqk<<<dim3((sq + BQ - 1) / BQ, H, b), NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout), lse, Di,
-      static_cast<T*>(dq), sq, sk, H, K, causal, window, scale);
+    auto dqk = bwd_dq_kernel<T, D>;
+    err = cudaFuncSetAttribute(dqk, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    dqk<<<dim3((sq + BQ - 1) / BQ, H, b), NT, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const T*>(dout), lse, Di,
+        static_cast<T*>(dq), sq, sk, H, K, causal, window, scale);
+  } else {
+    constexpr int dkdv_smem = dkdv_smem_bytes<D>();
+    auto dkdv = bwd_dkdv_mma<D>;
+    err = cudaFuncSetAttribute(dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, dkdv_smem);
+    if (err != cudaSuccess) return err;
+    dkdv<<<dim3((sk + MMA_KEYS - 1) / MMA_KEYS, K, b), MMA_THREADS, dkdv_smem, stream>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+        static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse, Di,
+        static_cast<bf16*>(dk), static_cast<bf16*>(dv), sq, sk, H, K, causal, window,
+        scale);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+
+    constexpr int dq_smem = dq_smem_bytes<D>();
+    auto dqk = bwd_dq_mma<D>;
+    err = cudaFuncSetAttribute(dqk, cudaFuncAttributeMaxDynamicSharedMemorySize, dq_smem);
+    if (err != cudaSuccess) return err;
+    dqk<<<dim3((sq + MMA_ROWS - 1) / MMA_ROWS, H, b), MMA_THREADS, dq_smem, stream>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+        static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse, Di,
+        static_cast<bf16*>(dq), sq, sk, H, K, causal, window, scale);
+  }
   return cudaGetLastError();
 }
 
@@ -330,8 +636,8 @@ cudaError_t launch_d(int D, const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// q, o, dout, dq (b, sq, H, D); k, v, dk, dv (b, sk, K, D), all contiguous
-// and of one dtype; lse (b, H, sq) float32 from the forward kernel; Di
+// q, o, dout, dq (b, sq, H, D); k, v, dk, dv (b, sk, K, D), all contiguous,
+// 16-byte aligned and of one dtype; lse (b, H, sq) float32 from the forward kernel; Di
 // (b, H, sq) float32 scratch.  Returns the cudaError_t of the first launch
 // that failed (0 on success).
 extern "C" int repro_flash_attention_bwd(const void* q, const void* k,

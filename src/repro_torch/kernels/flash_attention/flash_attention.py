@@ -42,7 +42,10 @@ def _bwd_kernel():
 
 
 def _check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  window: int, head_dims: Tuple[int, ...], name: str) -> None:
+                  window: int, head_dims: Tuple[int, ...], name: str,
+                  **more: torch.Tensor) -> None:
+    """Raises on what the kernel does not take; ``more`` names the other
+    tensors whose base pointers it copies from (the backward's o, do)."""
     if q.dtype not in DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"{name} takes float32 or bfloat16 q, k, v of "
                         f"one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
@@ -59,6 +62,12 @@ def _check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"{name}: head dim {D} not in {head_dims}")
     if sq == 0 or sk == 0 or window < 0:
         raise ValueError(f"empty sequence or negative window ({sq}, {sk}, {window})")
+    # the kernels copy rows with 16-byte cp.async: a view at a storage
+    # offset may start off that grid
+    for arg, t in dict(q=q, k=k, v=v, **more).items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} takes 16-byte aligned tensors, got {arg} "
+                             f"at data_ptr {t.data_ptr():#x}")
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError(f"{name} takes CUDA tensors on one device")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
@@ -115,7 +124,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Gradients (dq, dk, dv) of the attention whose forward gave o and lse,
     for the output gradient do (b, sq, H, D).  Deterministic: no atomics."""
-    _check_inputs(q, k, v, window, BWD_HEAD_DIMS, "flash_attention_bwd")
+    _check_inputs(q, k, v, window, BWD_HEAD_DIMS, "flash_attention_bwd",
+                  o=o, do=do)
     b, sq, H, D = q.shape
     _, sk, K, _ = k.shape
     if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype \

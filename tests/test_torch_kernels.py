@@ -35,14 +35,26 @@ from repro_torch.kernels.flash_decode import (flash_decode_gqa,
 
 DTYPES = {"float32": (torch.float32, 2e-5), "bfloat16": (torch.bfloat16, 2e-2)}
 
-# the shapes of tests/test_kernels.py::test_flash_attention_sweep
+# the shapes of tests/test_kernels.py::test_flash_attention_sweep, then
+# lengths, windows and GQA groups across the bf16 kernels' 64-row q tiles
+# and 64-key k tiles
 ATTN_CASES = [
     (2, 128, 128, 4, 2, 64, True, 0),
     (1, 256, 256, 8, 8, 32, True, 64),        # MHA + sliding window
     (2, 64, 192, 4, 1, 64, False, 0),         # MQA, cross-length
     (1, 96, 96, 6, 3, 128, True, 0),          # non-pow2 seq, G = 3
     (1, 128, 128, 4, 4, 64, True, 32),
+    (1, 1, 1, 4, 2, 64, True, 0),             # one query, one key
+    (1, 63, 63, 8, 8, 32, True, 0),           # one partial tile
+    (2, 65, 65, 6, 2, 64, True, 32),          # a row past a tile, window 32
+    (1, 129, 129, 16, 16, 128, True, 0),      # H = K = 16, G = 1
+    (1, 200, 200, 8, 1, 64, True, 64),        # G = 8, window 64
+    (2, 100, 260, 4, 2, 128, False, 0),       # sq != sk, ragged k tile
 ]
+# a single key gives dq = dk = 0 in exact arithmetic, so a tolerance
+# relative to max |ref| would hold the kernel to the plain version's
+# float32 rounding noise (~1e-7) there
+BWD_CASES = [c for c in ATTN_CASES if c[2] > 1]
 
 BLOCK_S = 256            # the CUDA kernel's cache block
 
@@ -252,6 +264,30 @@ def test_wrappers_reject_head_dims_they_were_not_built_for():
                          denom=1.0)
 
 
+def test_wrappers_reject_unaligned_tensors():
+    """The kernels copy rows with 16-byte cp.async: a contiguous view at a
+    storage offset off that grid is refused, for q, k, v and the backward's
+    o and do, before the wrapper looks at the device."""
+    good = torch.zeros((2, 8, 2, 64), dtype=torch.bfloat16)
+    bad = torch.zeros(1 + good.numel(), dtype=torch.bfloat16)[1:].view(good.shape)
+    assert bad.is_contiguous() and bad.data_ptr() % 16 == 2
+    for i, arg in enumerate("qkv"):
+        args = [good, good, good]
+        args[i] = bad
+        for fn in (flash_attention, flash_attention_lse):
+            with pytest.raises(ValueError, match=f"16-byte aligned tensors, got {arg}"):
+                fn(*args)
+        with pytest.raises(ValueError, match=f"16-byte aligned tensors, got {arg}"):
+            flash_attention_bwd(*args, good, torch.zeros((2, 2, 8)), good)
+    lse = torch.zeros((2, 2, 8))
+    with pytest.raises(ValueError, match="16-byte aligned tensors, got o"):
+        flash_attention_bwd(good, good, good, bad, lse, good)
+    with pytest.raises(ValueError, match="16-byte aligned tensors, got do"):
+        flash_attention_bwd(good, good, good, good, lse, bad)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_bwd(good, good, good, good, lse, good)
+
+
 # ------------------------------------------------------------- on the card --
 
 @pytest.fixture
@@ -324,15 +360,20 @@ class TestKernelsOnCard:
 
     @pytest.mark.parametrize("dtype", list(DTYPES))
     @pytest.mark.parametrize("D", [48, 192])
-    def test_flash_attention_at_mla_head_dims(self, cuda, D, dtype):
+    @pytest.mark.parametrize("s", [100, 200])
+    def test_flash_attention_at_mla_head_dims(self, cuda, s, D, dtype):
         """The MLA prefill's widths: MHA, causal, scale 1/sqrt(D), a ragged
-        q tile (s = 100)."""
+        q tile (s = 100; s = 200 also crosses D = 192's 128-row q tile),
+        and the lse at 2e-5."""
         q, k, v = (t.to(cuda) for t in _attn_inputs(
-            (2, 100, 100, 8, 8, D, True, 0), dtype))
-        got = flash_attention(q, k, v, softmax_scale=D ** -0.5)
+            (2, s, s, 8, 8, D, True, 0), dtype))
+        got, lse = flash_attention_lse(q, k, v, softmax_scale=D ** -0.5)
         want = attention_ref(q, k, v, softmax_scale=D ** -0.5)
         err = (got.float() - want.float()).abs().max()
         assert err <= DTYPES[dtype][1] * want.float().abs().max(), err
+        torch.testing.assert_close(
+            lse, attention_lse_ref(q, k, softmax_scale=D ** -0.5), atol=2e-5,
+            rtol=2e-5)
 
     @pytest.mark.parametrize("dtype", list(DTYPES))
     @pytest.mark.parametrize("dims", [(8, 32, 16), (128, 512, 64),
@@ -410,11 +451,13 @@ class TestKernelsOnCard:
         torch.testing.assert_close(lse, want, atol=2e-5, rtol=2e-5)
 
     @pytest.mark.parametrize("dtype", list(DTYPES))
-    @pytest.mark.parametrize("case", ATTN_CASES)
+    @pytest.mark.parametrize("case", BWD_CASES)
     def test_flash_attention_bwd_matches_plain(self, cuda, case, dtype):
         """max|d| <= tol * max|ref| against the explicit formulas on the same
-        o and lse, tol the forward's (2e-2 bf16: the kernel rounds dq, dk,
-        dv to bf16 once, the plain version once; 2e-5 fp32: sum order)."""
+        o and lse and against autograd through the plain forward, tol the
+        forward's (2e-2 bf16: the kernel rounds P and dS to bf16 for the
+        tensor cores and dq, dk, dv once, the plain versions once; 2e-5
+        fp32: sum order)."""
         causal, window = case[6], case[7]
         kw = dict(causal=causal, window=window)
         q, k, v = (t.to(cuda) for t in _attn_inputs(case, dtype))
@@ -424,11 +467,15 @@ class TestKernelsOnCard:
         got = flash_attention_bwd(q, k, v, o, lse, do, **kw)
         assert LAUNCHES["flash_attention_bwd"] == n + 1
         want = attention_bwd_ref(q, k, v, o, lse, do, **kw)
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        attention_ref(*leaves, **kw).backward(do)
         tol = DTYPES[dtype][1]
-        for g, w in zip(got, want):
+        for g, w, leaf in zip(got, want, leaves):
             assert g.dtype == w.dtype and g.shape == w.shape
             err = (g.float() - w.float()).abs().max()
             assert err <= tol * w.float().abs().max(), err
+            err = (g.float() - leaf.grad.float()).abs().max()
+            assert err <= tol * leaf.grad.float().abs().max(), err
         assert all(torch.equal(a, b) for a, b in
                    zip(got, flash_attention_bwd(q, k, v, o, lse, do, **kw)))
 
