@@ -10,14 +10,16 @@ Phases, each printing its lines before the last:
    hand-written kernels from ``src/repro_torch/kernels/csrc``: each
    kernel's registers, spills and static shared memory from the ptxas log
    and its tensor-core instructions from ``cuobjdump -sass`` (every bf16
-   attention body at every head dim must have some, and the gradient
+   attention and SSD body at every width must have some, and the gradient
    kernels no atomics);
 2. each kernel against its plain PyTorch version on the card, at the shapes
    the main paths give it and at edge cases (window, GQA, sq != sk,
-   float32, ragged tails, a fully masked cache block, an all-invalid row,
+   float32, ragged tails, two fully masked splits of the decode kernel's
+   own size, an all-invalid row,
    the MLA decode at deepseek-v2's widths and at its smoke config's, the
    forward attention at the MLA head dims 192 and 48, the SSD scan at
-   mamba2-130m's prefill, at a 32k prompt, at a ragged length, in float32
+   mamba2-130m's prefill, at a 32k prompt, at a ragged length, at b=1
+   lengths of several segments, one ending inside a segment, in float32
    and at its smoke widths), the attention backward also against autograd
    through the plain forward and run twice for bit-identical gradients,
    with its time, the plain version's, one PyTorch library call's (none
@@ -59,6 +61,15 @@ numbers and, last, the JSON result line.
 Any failed check raises and the script exits non-zero.  Without a CUDA
 card, or without the repository around it, it exits non-zero and prints
 no result.
+
+    python3 chip_smoke.py --ab OTHER_CHECKOUT
+
+times the kernels this PR's line of work redesigned (``ssd_scan`` at the
+b=8 prefill and at 32k, ``flash_decode_gqa`` at the decode shape) in
+another checkout of the repository and in this one, in turns (other,
+this, this, other), each in a process of its own that builds its own
+tree's kernels (``--time-kernels``, with ``--src`` naming the tree), and
+prints each turn's times.
 """
 import gc
 import json
@@ -72,7 +83,9 @@ import time
 from collections import Counter
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-sys.path.insert(0, os.path.join(ROOT, "src"))
+SRC = (sys.argv[sys.argv.index("--src") + 1] if "--src" in sys.argv
+       else os.path.join(ROOT, "src"))
+sys.path.insert(0, SRC)
 
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
@@ -120,9 +133,10 @@ DEEPSEEK_LAYERS = 4
 
 # The SSD scan against its plain version, elementwise |d| <= tol + tol |ref|
 # on y and on the final state: the JAX package's own SSD kernel tolerances
-# (tests/test_kernels.py:57).  The kernel walks 64-row chunks and the plain
-# version 128-row ones, which is exact in math, so they differ by float32
-# sums in other orders and, in bf16, by y rounded once on each side.
+# (tests/test_kernels.py:57).  The kernel chunks at 64 rows in segments and
+# the plain version at 128 rows, which is exact in math, so they differ by
+# float32 sums in other orders, in bf16 by the kernel's products (bf16 hi +
+# lo halves, ~16 bits) and by y rounded once on each side.
 SSD_BF16_TOL, SSD_FP32_TOL = 5e-2, 2e-3
 # mamba2-130m kernel path vs plain path, max |d| / max |ref|: layer 0's
 # mixer output and final state, and the whole model's logits.  The two
@@ -131,10 +145,14 @@ SSD_BF16_TOL, SSD_FP32_TOL = 5e-2, 2e-3
 # wrong decay, mask or state carry moves them by their own scale.
 MAMBA2_TOL = 5e-2
 
-# The attention kernels' bf16 bodies, which must run on the tensor cores:
-# by source, the kernel names and the head dims each is instantiated for.
-MMA_KERNELS = {"flash_attention": (("flash_attention_mma",), (32, 48, 64, 128, 192)),
-               "flash_attention_bwd": (("bwd_dkdv_mma", "bwd_dq_mma"), (32, 64, 128))}
+# The bf16 bodies that must run on the tensor cores: by source, groups of
+# (kernel names, first template argument of each instantiation) -- the
+# attention kernels' head dims, the SSD product kernel's state width N and
+# the SSD segment and scan kernels' head dim P.
+MMA_KERNELS = {"flash_attention": [(("flash_attention_mma",), (32, 48, 64, 128, 192))],
+               "flash_attention_bwd": [(("bwd_dkdv_mma", "bwd_dq_mma"), (32, 64, 128))],
+               "ssd_scan": [(("ssd_cb",), (16, 128)),
+                            (("ssd_seg_state", "ssd_chunk_scan"), (32, 64))]}
 
 SPIN_CYCLES = 2_000_000    # ~1 ms at the H100's ~2 GHz: covers a call's host work
 
@@ -226,8 +244,9 @@ def report_build():
     """Per kernel of every source: registers, spills and static shared
     memory from the ptxas log (dynamic shared memory is set at launch),
     and tensor-core instructions from the SASS.  Fails unless every bf16
-    attention body at every head dim has HMMA (or HGMMA) instructions and
-    the gradient kernels have no atomics."""
+    body of MMA_KERNELS (attention at every head dim, the SSD scan's at
+    both widths) has HMMA (or HGMMA) instructions and the gradient kernels
+    have no atomics."""
     from repro_torch.kernels import _build
     for src in _build.sources():
         lib = _build.library(src)
@@ -248,18 +267,18 @@ def report_build():
             check(atomics == 0, "the attention backward uses atomics")
         if src not in MMA_KERNELS:
             continue
-        names, dims = MMA_KERNELS[src]
         labels = Counter()
         for mangled, ops in sass.items():
             labels[demangle(mangled)] += ops["HMMA"] + ops["HGMMA"]
-        for name in names:
-            for D in dims:
-                n = sum(c for label, c in labels.items()
-                        if label.startswith(f"{name}<{D}>") or
-                        label.startswith(f"{name}<{D},"))
-                print(f"sass {src}: {name} D={D} bf16: {n} HMMA/HGMMA"
-                      f" {'ok' if n > 0 else 'FAIL'}")
-                check(n > 0, f"{name} at D={D} has no tensor-core instruction")
+        for names, dims in MMA_KERNELS[src]:
+            for name in names:
+                for D in dims:
+                    n = sum(c for label, c in labels.items()
+                            if label.startswith(f"{name}<{D}>") or
+                            label.startswith(f"{name}<{D},"))
+                    print(f"sass {src}: {name}<{D}> bf16: {n} HMMA/HGMMA"
+                          f" {'ok' if n > 0 else 'FAIL'}")
+                    check(n > 0, f"{name}<{D}> has no tensor-core instruction")
 
 
 def time_ms(fn, flush, iters=20):
@@ -337,6 +356,7 @@ def phase_kernels(peaks, flush):
     from repro_torch.kernels.flash_decode import (flash_decode_gqa,
                                                   gqa_decode_ref,
                                                   gqa_decode_splitk)
+    from repro_torch.kernels.flash_decode.flash_decode import block_s
     gen = torch.Generator(device="cuda").manual_seed(1)
 
     def randn(*shape, dtype):
@@ -395,13 +415,14 @@ def phase_kernels(peaks, flush):
         q, k, v = randn(b, 1, H, D, dtype=dt), randn(b, S, K, D, dtype=dt), \
             randn(b, S, K, D, dtype=dt)
         valid = ring_valid(gen, b, S)
-        if name == "masked_block":
-            valid[:, 256:512] = False
+        bs = block_s(k)                  # the kernel's split of this cache
+        if name == "masked_block":       # two whole splits masked
+            valid[:, bs:3 * bs] = False
             valid[:, 0] = True
         if name == "invalid_row":
             valid[1] = False
         got = flash_decode_gqa(q, k, v, valid)
-        want = gqa_decode_splitk(q, k, v, valid, block_s=256)
+        want = gqa_decode_splitk(q, k, v, valid, block_s=bs)
         tol = BF16_TOL if dt == bf16 else FP32_TOL
         ok, err = close(got, want, tol)
         if name == "invalid_row":
@@ -412,7 +433,8 @@ def phase_kernels(peaks, flush):
         else:
             ok_ref, _ = close(got, gqa_decode_ref(q, k, v, valid), tol)
         print(f"kernel flash_decode_gqa {name} b={b} S={S} H={H} K={K} D={D}"
-              f" {str(dt)[6:]}: max_abs_err={err:.3e} (vs split-KV plain)"
+              f" {str(dt)[6:]}, {bs}-row splits: max_abs_err={err:.3e} (vs"
+              f" split-KV plain at the kernel's split)"
               f" tol={tol:g} {'ok' if ok and ok_ref else 'FAIL'}")
         check(ok and ok_ref,
               f"flash_decode_gqa {name} disagrees with its plain versions")
@@ -426,6 +448,10 @@ def phase_kernels(peaks, flush):
         bound_ms, bound_by = bound(nbytes, 4 * D * H * n_valid, peaks)
         print(f"time flash_decode_gqa inputs: {n_valid} of {b * S} cache rows"
               f" valid, {nbytes} bytes needed")
+        # the call's two kernels, partials and merge, from a trace
+        _, split_ms, _ = device_profile(lambda: flash_decode_gqa(q, k, v, valid), 20)
+        print("time flash_decode_gqa kernels (ms per call, traced, L2 warm): "
+              + "; ".join(f"{kn[:40]} {ms:.4f}" for kn, ms in split_ms))
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         mask = valid[:, None, None, :]
         rows["flash_decode_gqa"] = dict(
@@ -691,7 +717,7 @@ def phase_ssd_kernel(peaks, flush, gen):
     and at edge cases; its row for the kernels line, and the 32k prompt's
     times on a line of their own."""
     from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_ref
-    from repro_torch.kernels.ssd_scan.ssd_scan import chunk
+    from repro_torch.kernels.ssd_scan.ssd_scan import chunk, segment_chunks
     bf16, f32 = torch.bfloat16, torch.float32
     rows = {}
     p, q = SSD_PREFILL, SSD_LONG
@@ -699,6 +725,8 @@ def phase_ssd_kernel(peaks, flush, gen):
             ("prefill", p["b"], p["s"], p["h"], p["P"], p["N"], bf16),
             ("prefill_32k", q["b"], q["s"], q["h"], q["P"], q["N"], bf16),
             ("ragged", 2, 1000, 24, 64, 128, bf16),
+            ("segments_b1", 1, 4096, 24, 64, 128, bf16),
+            ("mid_segment_b1", 1, 4000, 24, 64, 128, bf16),
             ("fp32_ragged", 2, 1000, 24, 64, 128, f32),
             ("smoke_dims", 2, 200, 16, 32, 16, bf16),
             ("smoke_dims_fp32", 3, 77, 16, 32, 16, f32)]:
@@ -716,8 +744,10 @@ def phase_ssd_kernel(peaks, flush, gen):
         tol = SSD_BF16_TOL if dt == bf16 else SSD_FP32_TOL
         (ok_y, err_y), (ok_s, err_s) = (close(g, w, tol)
                                         for g, w in zip(got, want))
+        seg = (f", segments of {segment_chunks(x) * chunk()} rows"
+               if dt == bf16 else "")
         print(f"kernel ssd_scan {name} b={b} s={s} h={h} P={P} N={N}"
-              f" {str(dt)[6:]}: y max_abs_err={err_y:.3e} (max|ref|"
+              f" {str(dt)[6:]}{seg}: y max_abs_err={err_y:.3e} (max|ref|"
               f" {want[0].float().abs().max().item():.3f}), state"
               f" max_abs_err={err_s:.3e} (max|ref|"
               f" {want[1].abs().max().item():.3f}) tol={tol:g}"
@@ -741,6 +771,9 @@ def phase_ssd_kernel(peaks, flush, gen):
               f" the chunked form at L={L}: kernel {ms:.4f} ms, plain"
               f" {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by});"
               f" no PyTorch call computes the scan")
+        _, parts, _ = device_profile(lambda: ssd_scan(*args), 10)
+        print(f"time ssd_scan {name} kernels (ms per call, traced, L2 warm): "
+              + "; ".join(f"{kn[:40]} {t:.4f}" for kn, t in parts))
         if name == "prefill":
             rows["ssd_scan"] = dict(
                 name="ssd_scan", route="cuda",
@@ -1182,6 +1215,59 @@ def phase_train(peaks):
     return launches
 
 
+def time_kernels():
+    """--time-kernels: the redesigned kernels' times at their main-path
+    shapes, from whichever tree ``--src`` names, on one JSON line."""
+    from repro_torch.kernels.flash_decode import flash_decode_gqa
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    out = {}
+    for name, shape in (("ssd_scan prefill", SSD_PREFILL),
+                        ("ssd_scan prefill_32k", SSD_LONG)):
+        b, s, h, P, N = (shape[k] for k in ("b", "s", "h", "P", "N"))
+        args = (torch.randn(b, s, h, P, generator=gen, device="cuda").bfloat16(),
+                (torch.randn(b, s, h, generator=gen, device="cuda") * 0.5).bfloat16(),
+                torch.randn(h, generator=gen, device="cuda") * 0.3,
+                torch.randn(b, s, N, generator=gen, device="cuda").bfloat16(),
+                torch.randn(b, s, N, generator=gen, device="cuda").bfloat16(),
+                torch.randn(h, generator=gen, device="cuda"),
+                torch.full((h,), 0.1, device="cuda"))
+        out[name] = time_ms(lambda: ssd_scan(*args), flush)
+    d = DECODE
+    q = torch.randn(d["b"], 1, d["H"], d["D"], generator=gen, device="cuda").bfloat16()
+    k, v = (torch.randn(d["b"], d["S"], d["K"], d["D"], generator=gen,
+                        device="cuda").bfloat16() for _ in range(2))
+    valid = ring_valid(gen, d["b"], d["S"])
+    out["flash_decode_gqa decode_ring"] = time_ms(
+        lambda: flash_decode_gqa(q, k, v, valid), flush)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    out["SDPA decode_ring"] = time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=valid[:, None, None, :], enable_gqa=True), flush)
+    print(json.dumps({"src": SRC, "ms": out}))
+    return 0
+
+
+def ab(other):
+    """--ab OTHER: --time-kernels on OTHER's tree and on this one, in turns
+    (other, this, this, other), one process each."""
+    here = os.path.join(ROOT, "src")
+    there = os.path.join(os.path.abspath(other), "src")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip().splitlines()[0]
+    print(f"device: {smi}")
+    for turn, src in enumerate((there, here, here, there)):
+        res = subprocess.run([sys.executable, os.path.abspath(__file__),
+                              "--time-kernels", "--src", src],
+                             capture_output=True, text=True)
+        check(res.returncode == 0, f"turn {turn} ({src}) failed:\n{res.stderr[-4000:]}")
+        line = json.loads(res.stdout.strip().splitlines()[-1])
+        print(f"ab turn {turn} {'other' if src == there else 'this'}: "
+              + ", ".join(f"{k} {ms:.4f} ms" for k, ms in line["ms"].items()))
+    return 0
+
+
 def timed_phase(name, fn):
     """Run one phase, print its wall time, and free what it left on the
     card (its weights) before the next phase starts."""
@@ -1203,6 +1289,10 @@ def main():
         print("chip_smoke: no CUDA device; this script runs on an NVIDIA card",
               file=sys.stderr)
         return 1
+    if "--time-kernels" in sys.argv:
+        return time_kernels()
+    if "--ab" in sys.argv:
+        return ab(sys.argv[sys.argv.index("--ab") + 1])
     from repro_torch.kernels import _build
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

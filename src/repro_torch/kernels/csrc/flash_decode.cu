@@ -7,33 +7,53 @@
 //
 // What bounds it on an H100: one decode call reads the valid rows of the K
 // and V caches once (b=8, S=544, K=8, D=128, bf16, all rows valid: ~17.8 MB,
-// ~5.3 us at 3.35 TB/s) and does
-// ~4 FLOPs per cached element per query head -- G=3 heads share each KV
-// element, so ~6 FLOPs per byte, far below the ~295 at which the tensor
-// cores would bind.  It is bound by memory traffic.
+// ~5.3 us at 3.35 TB/s) and does ~4 FLOPs per cached element per query head
+// -- G=3 heads share each KV element, so ~6 FLOPs per byte, far below the
+// ~295 at which the tensor cores would bind.  It is bound by memory traffic,
+// so the design is about keeping enough bytes in flight (Little's law: ~15-20
+// KB per SM at 3.35 TB/s), not about the products.
 //
-// Design: the cache length is the axis with parallelism, so the grid is
-// (cache block of 256 rows, KV head, batch) and no state carries between
-// blocks.  Each block stages the G query rows of its KV head in shared
-// memory; its warps walk the block's cache rows, one row per warp, the 32
-// lanes reading the row's D elements together and reducing the G dot
-// products with shuffles.  Invalid rows and rows past S are skipped, not
-// padded -- neither their K nor their V is read -- so no decode step copies
-// the cache, and a non-finite value in a masked slot cannot reach the output.  A warp per query head then
-// turns the block's scores into the partial (m, l) and p (p rounded to v's
-// dtype, as in the TPU kernel; masked rows give p = 0, so a fully masked
-// block yields acc = 0, l = 0, m = NEG_INF and drops out of the merge),
-// and the threads accumulate p.V over the block with consecutive threads
-// on consecutive columns so the V reads coalesce.  A second, small kernel
-// merges the partials with exp(m_blk - m_glob) and writes the output in
-// v's dtype; a row with no valid entry comes out as 0, as the TPU kernel's
-// merge gives (0 / max(0, 1e-30)).
+// Design:
+//  * Splits.  The grid is (split, KV head, batch); a split is `bs` cache rows,
+//    a multiple of TR = 64 rows chosen on the host (repro_flash_decode_block_s)
+//    from (b, S, K) and the SM count so that the grid has at least ~4 blocks
+//    per SM where the cache allows it: 64-row splits at llama's decode shape
+//    (9 x 8 x 8 = 576 blocks on 132 SMs), longer ones (up to 512 rows) for a
+//    long cache, so the partials stay a few percent of the cache's bytes.
+//  * Loads.  A split's K tiles, then its V tiles, stream through a ring of up
+//    to four 64-row tiles in shared memory by 16-byte cp.async, each thread
+//    keeping 8 (bf16, D=128) of them in flight per tile, and the V tiles are
+//    in flight while the scores are computed: a block with one K and one V
+//    tile issues both before it waits (32 KB in flight a block, several
+//    blocks an SM).  A masked row, or a row past S, is zero-filled by the
+//    copy without a read of K or V, so a non-finite value in a masked slot
+//    never reaches the output.
+//  * Scores.  A row of D values is CPR 16-byte chunks (16 for bf16 D=128), so
+//    CPR lanes take one row each and reduce its G dot products with log2(CPR)
+//    shuffles (4 at bf16 D=128); a warp covers 32/CPR rows a step.  Tensor
+//    cores are not used: the bound is bytes, and G = 3 query rows would fill
+//    3 of an mma's 16.
+//  * Softmax and p.V.  The split's scores stay in shared memory (G x bs
+//    floats); one warp per query head takes their max m and l = sum exp(s -
+//    m), and rounds p to v's dtype, as the TPU kernel does (a masked row gives
+//    p = 0; a fully masked split gives acc = 0, l = 0, m = NEG_INF and drops
+//    out of the merge).  Then each thread accumulates p.V over its rows for
+//    one 16-byte column chunk, 4 heads at a time in registers, and the lanes
+//    of a warp that share a chunk are summed with shuffles at the end of each
+//    tile into the warp's own slice of shared memory.
+//  * Merge.  A second small kernel merges the partials of each (b, h) with
+//    exp(m_blk - m_glob), in a fixed order, and writes the output in v's
+//    dtype; a row with no valid entry comes out as 0, as the TPU kernel's
+//    merge gives (0 / max(0, 1e-30)).
 #include <stdint.h>
 
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
+using repro::cp_async16;
+using repro::cp_async_commit;
 using repro::from_f;
 using repro::NEG_INF;
 using repro::round_to;
@@ -41,9 +61,41 @@ using repro::to_f;
 using repro::warp_max;
 using repro::warp_sum;
 
-constexpr int BS = 256;   // cache rows per block (the TPU kernel's block_s)
-constexpr int NT = 256;   // threads per block
-constexpr int GCH = 4;    // query heads accumulated together in p.V
+constexpr int TR = 64;         // cache rows per tile
+constexpr int NW = 4;          // warps per block
+constexpr int NT = 32 * NW;    // threads per block
+constexpr int NST = 4;         // most tiles in the ring
+constexpr int MAX_TILES = 8;   // most tiles per split (bs <= 512)
+constexpr int GCH = 4;         // query heads accumulated together in p.V
+
+// wait until at most n of this thread's committed cp.async groups are pending
+__device__ __forceinline__ void cp_wait(int n) {
+  if (n <= 0) repro::cp_async_wait<0>();
+  else if (n == 1) repro::cp_async_wait<1>();
+  else repro::cp_async_wait<2>();
+}
+
+// the EPC values of a 16-byte chunk of T, widened to float
+__device__ __forceinline__ void load_chunk(const float* p, float (&f)[4]) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  f[0] = v.x; f[1] = v.y; f[2] = v.z; f[3] = v.w;
+}
+__device__ __forceinline__ void load_chunk(const __nv_bfloat16* p, float (&f)[8]) {
+  const uint4 v = *reinterpret_cast<const uint4*>(p);
+  // a bf16 is the high half of the float with the same bits
+  f[0] = __uint_as_float(v.x << 16); f[1] = __uint_as_float(v.x & 0xffff0000u);
+  f[2] = __uint_as_float(v.y << 16); f[3] = __uint_as_float(v.y & 0xffff0000u);
+  f[4] = __uint_as_float(v.z << 16); f[5] = __uint_as_float(v.z & 0xffff0000u);
+  f[6] = __uint_as_float(v.w << 16); f[7] = __uint_as_float(v.w & 0xffff0000u);
+}
+
+template <typename T>
+__host__ __device__ constexpr int epc() { return 16 / (int)sizeof(T); }
+
+// shared memory of one block: the tile ring, then float32 q (G x D), the
+// warps' p.V sums (NW x G x D), the scores (G x bs), then bs live flags
+template <typename T, int D>
+__host__ __device__ constexpr int ring_bytes(int nst) { return nst * TR * D * (int)sizeof(T); }
 
 // q (b, H, D) as rows kh*G .. kh*G+G-1; partials indexed (b, ns, K, G[, D]).
 template <typename T, int D>
@@ -51,98 +103,147 @@ __global__ void __launch_bounds__(NT)
 decode_partials(const T* __restrict__ q, const T* __restrict__ kc,
                 const T* __restrict__ vc, const uint8_t* __restrict__ valid,
                 float* __restrict__ acc_out, float* __restrict__ m_out,
-                float* __restrict__ l_out, int S, int H, int K, float scale) {
-  constexpr int EPL = D / 32;          // elements of a cache row per lane
-  constexpr int NCH = NT / D;          // row chunks in p.V
-  constexpr int RPC = BS / NCH;        // cache rows per p.V chunk
-  extern __shared__ float smem[];
+                float* __restrict__ l_out, int S, int H, int K, int bs, int nst,
+                float scale) {
+  constexpr int EPC = epc<T>();        // values per 16-byte chunk
+  constexpr int CPR = D / EPC;         // chunks per cache row
+  static_assert(CPR >= 4 && CPR <= 32 && (CPR & (CPR - 1)) == 0, "a row is 4-32 chunks");
+  constexpr int RPW = 32 / CPR;        // rows a warp covers per step
+  constexpr int RG = NT / CPR;         // row groups in p.V
+  extern __shared__ __align__(16) unsigned char smem[];
   const int G = H / K;
-  float* qs = smem;                    // (G, D)
-  float* ps = qs + G * D;              // (G, BS): scores, then p
-  float* red = ps + G * BS;            // (NCH, G, D): p.V per chunk
-  __shared__ uint8_t live[BS];         // row valid and inside the cache
+  const int nt = bs / TR;              // tiles per split
+  T* ring = reinterpret_cast<T*>(smem);
+  float* qs = reinterpret_cast<float*>(smem + ring_bytes<T, D>(min(nst, 2 * nt)));
+  float* red = qs + G * D;             // (NW, G, D)
+  float* sc = red + NW * G * D;        // (G, bs): scores, then p
+  uint8_t* live = reinterpret_cast<uint8_t*>(sc + G * bs);
 
   const int js = blockIdx.x, kh = blockIdx.y, b = blockIdx.z;
   const int ns = gridDim.x;
-  const int s0 = js * BS;
+  const int s0 = js * bs;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
 
-  for (int e = tid; e < G * D; e += NT)
+  for (int e = tid; e < G * D; e += NT) {
     qs[e] = to_f(q[((size_t)b * H + (size_t)kh * G) * D + e]);
+    for (int w = 0; w < NW; ++w) red[w * G * D + e] = 0.f;
+  }
+  for (int r = tid; r < bs; r += NT) {
+    const int s = s0 + r;
+    live[r] = s < S && valid[(size_t)b * S + s];
+  }
   __syncthreads();
 
-  const uint8_t* vrow = valid + (size_t)b * S;
-  for (int rl = warp; rl < BS; rl += NT / 32) {
-    const int s = s0 + rl;
-    const bool ok = s < S && vrow[s];
-    if (lane == 0) live[rl] = ok;
-    if (!ok) {                         // warp-uniform branch
-      for (int gg = lane; gg < G; gg += 32) ps[gg * BS + rl] = NEG_INF;
+  // tile j of the stream: K tile j for j < nt, then V tile j - nt
+  auto issue = [&](int j) {
+    if (j >= 2 * nt) return;
+    const T* src = j < nt ? kc : vc;
+    const int t0 = (j < nt ? j : j - nt) * TR;
+    T* dst = ring + (j % nst) * TR * D;
+#pragma unroll
+    for (int i = 0; i < TR * CPR / NT; ++i) {
+      const int e = tid + i * NT, r = e / CPR, c = e % CPR;
+      const bool ok = live[t0 + r];
+      const T* g = src + (((size_t)b * S + (ok ? s0 + t0 + r : 0)) * K + kh) * D + c * EPC;
+      cp_async16(dst + r * D + c * EPC, g, ok);
+    }
+  };
+
+  for (int j = 0; j < nst - 1; ++j) {
+    issue(j);
+    cp_async_commit();
+  }
+  for (int j = 0; j < 2 * nt; ++j) {
+    cp_wait(nst - 2);
+    __syncthreads();
+    issue(j + nst - 1);
+    cp_async_commit();
+    const T* tile = ring + (j % nst) * TR * D;
+    if (j < nt) {                      // scores of K tile j
+      const int c = lane % CPR, rs = lane / CPR;
+      for (int r = warp * RPW + rs; r < TR; r += NW * RPW) {
+        float kf[EPC];
+        load_chunk(tile + r * D + c * EPC, kf);
+        const bool ok = live[j * TR + r];
+        for (int g = 0; g < G; ++g) {
+          float dot = 0.f;
+#pragma unroll
+          for (int e = 0; e < EPC; ++e) dot = fmaf(qs[g * D + c * EPC + e], kf[e], dot);
+#pragma unroll
+          for (int o = CPR / 2; o; o >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, o);
+          if (c == 0) sc[g * bs + j * TR + r] = ok ? dot * scale : NEG_INF;
+        }
+      }
       continue;
     }
-    const T* krow = kc + (((size_t)b * S + s) * K + kh) * D;
-    float kr[EPL];
+    if (j == nt) {                     // all scores are in: softmax per head
+      for (int g = warp; g < G; g += NW) {
+        float* row = sc + g * bs;
+        float mx = NEG_INF;
+        for (int i = lane; i < bs; i += 32) mx = fmaxf(mx, row[i]);
+        mx = warp_max(mx);
+        float l = 0.f;
+        for (int i = lane; i < bs; i += 32) {
+          const float p = live[i] ? expf(row[i] - mx) : 0.f;
+          l += p;
+          row[i] = round_to<T>(p);
+        }
+        l = warp_sum(l);
+        if (lane == 0) {
+          const size_t idx = (((size_t)b * ns + js) * K + kh) * G + g;
+          m_out[idx] = mx;
+          l_out[idx] = l;
+        }
+      }
+      __syncthreads();
+    }
+    {                                  // p.V over V tile j - nt
+      const int tv = j - nt;
+      const int cc = tid % CPR, rg = tid / CPR;
+      for (int g0 = 0; g0 < G; g0 += GCH) {
+        float a[GCH][EPC];
 #pragma unroll
-    for (int i = 0; i < EPL; ++i) kr[i] = to_f(krow[lane + 32 * i]);
-    for (int gg = 0; gg < G; ++gg) {
-      float dot = 0.f;
+        for (int u = 0; u < GCH; ++u)
 #pragma unroll
-      for (int i = 0; i < EPL; ++i) dot = fmaf(qs[gg * D + lane + 32 * i], kr[i], dot);
-      dot = warp_sum(dot);
-      if (lane == 0) ps[gg * BS + rl] = dot * scale;
+          for (int e = 0; e < EPC; ++e) a[u][e] = 0.f;
+        for (int r = rg; r < TR; r += RG) {
+          float vf[EPC];
+          load_chunk(tile + r * D + cc * EPC, vf);
+#pragma unroll
+          for (int u = 0; u < GCH; ++u) {
+            if (g0 + u >= G) break;
+            const float p = sc[(g0 + u) * bs + tv * TR + r];
+#pragma unroll
+            for (int e = 0; e < EPC; ++e) a[u][e] = fmaf(p, vf[e], a[u][e]);
+          }
+        }
+        // lanes lane, lane + CPR, ... of a warp share the column chunk
+#pragma unroll
+        for (int u = 0; u < GCH; ++u) {
+          if (g0 + u >= G) break;
+#pragma unroll
+          for (int e = 0; e < EPC; ++e) {
+#pragma unroll
+            for (int o = 16; o >= CPR; o >>= 1)
+              a[u][e] += __shfl_xor_sync(0xffffffffu, a[u][e], o);
+          }
+          if (lane < CPR) {
+            float* dst = red + (warp * G + g0 + u) * D + cc * EPC;
+#pragma unroll
+            for (int e = 0; e < EPC; ++e) dst[e] += a[u][e];
+          }
+        }
+      }
     }
   }
-  __syncthreads();
-
-  for (int gg = warp; gg < G; gg += NT / 32) {
-    float* prow = ps + gg * BS;
-    float mx = NEG_INF;
-    for (int i = lane; i < BS; i += 32) mx = fmaxf(mx, prow[i]);
-    mx = warp_max(mx);
-    float l = 0.f;
-    for (int i = lane; i < BS; i += 32) {
-      const float sv = prow[i];
-      const float p = sv == NEG_INF ? 0.f : expf(sv - mx);
-      l += p;
-      prow[i] = round_to<T>(p);
-    }
-    l = warp_sum(l);
-    if (lane == 0) {
-      const size_t idx = (((size_t)b * ns + js) * K + kh) * G + gg;
-      m_out[idx] = mx;
-      l_out[idx] = l;
-    }
-  }
-  __syncthreads();
-
-  const int d = tid % D, ch = tid / D;
-  const int r_lo = ch * RPC;
-  const int r_hi = min(r_lo + RPC, S - s0);
-  for (int g0 = 0; g0 < G; g0 += GCH) {
-    float a[GCH];
-#pragma unroll
-    for (int j = 0; j < GCH; ++j) a[j] = 0.f;
-#pragma unroll 4
-    for (int rl = r_lo; rl < r_hi; ++rl) {
-      // a masked row has p = 0 and its V is not read: a predicated load,
-      // not a branch, so the unrolled loads stay in flight together
-      const float vv =
-          live[rl] ? to_f(vc[(((size_t)b * S + s0 + rl) * K + kh) * D + d]) : 0.f;
-#pragma unroll
-      for (int j = 0; j < GCH; ++j)
-        if (g0 + j < G) a[j] = fmaf(ps[(g0 + j) * BS + rl], vv, a[j]);
-    }
-#pragma unroll
-    for (int j = 0; j < GCH; ++j)
-      if (g0 + j < G) red[(ch * G + g0 + j) * D + d] = a[j];
-  }
+  repro::cp_async_wait<0>();
   __syncthreads();
 
   float* acc_blk = acc_out + (((size_t)b * ns + js) * K + kh) * G * D;
   for (int e = tid; e < G * D; e += NT) {
     float sum = 0.f;
 #pragma unroll
-    for (int c = 0; c < NCH; ++c) sum += red[c * G * D + e];
+    for (int w = 0; w < NW; ++w) sum += red[w * G * D + e];
     acc_blk[e] = sum;
   }
 }
@@ -167,21 +268,44 @@ __global__ void decode_combine(const float* __restrict__ acc,
   out[((size_t)b * H + h) * D + d] = from_f<T>(o / fmaxf(l_g, 1e-30f));
 }
 
+int sm_count() {
+  int dev = 0, n = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    return 0;
+  return n;
+}
+
+// cache rows per split: TR times the tiles that still leave ~4 blocks per SM
+int block_s(int b, int S, int K) {
+  const long long tiles = (S + TR - 1) / TR;
+  const long long want = 4LL * (sm_count() > 0 ? sm_count() : 1);
+  long long per = tiles * b * K / want;
+  per = per < 1 ? 1 : (per > MAX_TILES ? MAX_TILES : per);
+  return TR * (int)per;
+}
+
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const uint8_t* valid, float* acc, float* m, float* l,
-                   void* out, int b, int S, int H, int K, float scale,
+                   void* out, int b, int S, int H, int K, int bs, float scale,
                    cudaStream_t stream) {
+  if (bs <= 0 || bs % TR || bs > TR * MAX_TILES) return cudaErrorInvalidValue;
   const int G = H / K;
-  const int ns = (S + BS - 1) / BS;
-  const int smem = (G * D + G * BS + (NT / D) * G * D) * (int)sizeof(float);
+  const int ns = (S + bs - 1) / bs;
+  const int nt = bs / TR;
+  // one more ring slot than tiles (up to NST): every tile is issued before
+  // the first wait when the split has one K and one V tile
+  const int nst = 2 * nt + 1 < NST ? 2 * nt + 1 : NST;
+  const int smem = ring_bytes<T, D>(nst < 2 * nt ? nst : 2 * nt) +
+                   (G * D + NW * G * D + G * bs) * (int)sizeof(float) + bs;
   auto kern = decode_partials<T, D>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   kern<<<dim3(ns, K, b), NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), valid, acc, m, l, S, H, K, scale);
+      static_cast<const T*>(v), valid, acc, m, l, S, H, K, bs, nst, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   decode_combine<T><<<dim3(H, b), D, 0, stream>>>(acc, m, l, static_cast<T*>(out),
@@ -192,12 +316,12 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 template <typename T>
 cudaError_t launch_d(int D, const void* q, const void* k, const void* v,
                      const uint8_t* valid, float* acc, float* m, float* l,
-                     void* out, int b, int S, int H, int K, float scale,
+                     void* out, int b, int S, int H, int K, int bs, float scale,
                      cudaStream_t stream) {
   switch (D) {
-    case 32: return launch<T, 32>(q, k, v, valid, acc, m, l, out, b, S, H, K, scale, stream);
-    case 64: return launch<T, 64>(q, k, v, valid, acc, m, l, out, b, S, H, K, scale, stream);
-    case 128: return launch<T, 128>(q, k, v, valid, acc, m, l, out, b, S, H, K, scale, stream);
+    case 32: return launch<T, 32>(q, k, v, valid, acc, m, l, out, b, S, H, K, bs, scale, stream);
+    case 64: return launch<T, 64>(q, k, v, valid, acc, m, l, out, b, S, H, K, bs, scale, stream);
+    case 128: return launch<T, 128>(q, k, v, valid, acc, m, l, out, b, S, H, K, bs, scale, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -206,12 +330,12 @@ cudaError_t launch_d(int D, const void* q, const void* k, const void* v,
 
 // q (b, 1, H, D); k/v caches (b, S, K, D); valid (b, S) of 0/1 bytes;
 // scratch acc (b, ns, K, G, D), m and l (b, ns, K, G) float32 with
-// ns = ceil(S / 256); out (b, 1, H, D).  Returns the cudaError_t of the
-// launches (0 on success).
+// ns = ceil(S / bs), bs = repro_flash_decode_block_s(b, S, K); out
+// (b, 1, H, D).  Returns the cudaError_t of the launches (0 on success).
 extern "C" int repro_flash_decode_gqa(const void* q, const void* k,
                                       const void* v, const void* valid,
                                       void* acc, void* m, void* l, void* out,
-                                      int b, int S, int H, int K, int D,
+                                      int b, int S, int H, int K, int D, int bs,
                                       int dtype, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const uint8_t* vm = static_cast<const uint8_t*>(valid);
@@ -219,11 +343,12 @@ extern "C" int repro_flash_decode_gqa(const void* q, const void* k,
   float* mm = static_cast<float*>(m);
   float* ll = static_cast<float*>(l);
   if (dtype == 0)
-    return (int)launch_d<float>(D, q, k, v, vm, a, mm, ll, out, b, S, H, K, scale, s);
+    return (int)launch_d<float>(D, q, k, v, vm, a, mm, ll, out, b, S, H, K, bs, scale, s);
   if (dtype == 1)
-    return (int)launch_d<__nv_bfloat16>(D, q, k, v, vm, a, mm, ll, out, b, S, H, K, scale, s);
+    return (int)launch_d<__nv_bfloat16>(D, q, k, v, vm, a, mm, ll, out, b, S, H, K, bs,
+                                        scale, s);
   return (int)cudaErrorInvalidValue;
 }
 
-// rows of scratch a call needs: ns = ceil(S / block)
-extern "C" int repro_flash_decode_block_s() { return BS; }
+// cache rows per split for a (b, S, K) cache on the current device
+extern "C" int repro_flash_decode_block_s(int b, int S, int K) { return block_s(b, S, K); }

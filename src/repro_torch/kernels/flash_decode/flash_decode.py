@@ -1,6 +1,7 @@
 """Wrapper of the hand-written split-KV flash decode kernel
-(``csrc/flash_decode.cu``): checks, allocation of the output and of the
-float32 partials, launch of the partial and merge kernels, launch count.
+(``csrc/flash_decode.cu``): checks, the split size, allocation of the
+output and of the float32 partials, launch of the partial and merge
+kernels, launch count.
 
 It takes CUDA tensors only and raises on anything the kernel does not
 take; ``repro_torch.kernels.dispatch.flash_decode`` sends CPU tensors to
@@ -15,7 +16,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import LAUNCHES, _build
+from repro_torch.kernels import LAUNCHES, _build, refuse_grad
 from repro_torch.kernels.flash_attention.flash_attention import DTYPE_CODES
 
 HEAD_DIMS = (32, 64, 128)     # the head dims flash_decode.cu instantiates
@@ -27,23 +28,34 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 def _lib() -> ctypes.CDLL:
     lib = _build.load("flash_decode")
     lib.repro_flash_decode_gqa.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P,
-                                           _I, _I, _I, _I, _I, _I,
+                                           _I, _I, _I, _I, _I, _I, _I,
                                            ctypes.c_float, _P]
     lib.repro_flash_decode_gqa.restype = ctypes.c_int
-    lib.repro_flash_decode_block_s.argtypes = []
+    lib.repro_flash_decode_block_s.argtypes = [_I, _I, _I]
     lib.repro_flash_decode_block_s.restype = ctypes.c_int
     return lib
 
 
 @functools.cache
-def _block_s() -> int:
-    """Cache rows per block of the partial kernel (its ``BS``)."""
-    return _lib().repro_flash_decode_block_s()
+def _block_s(b: int, S: int, K: int, device_index: int) -> int:
+    with torch.cuda.device(device_index):
+        return _lib().repro_flash_decode_block_s(b, S, K)
+
+
+def block_s(k_cache: torch.Tensor) -> int:
+    """Cache rows per split the kernel uses for a (b, S, K, D) CUDA cache:
+    a multiple of 64 chosen from (b, S, K) and the card's SM count (at
+    llama3.2-3b's decode shape, 64).  The split-KV oracle
+    ``gqa_decode_splitk(..., block_s=block_s(k_cache))`` rounds as the
+    kernel does."""
+    b, S, K, _ = k_cache.shape
+    return _block_s(b, S, K, k_cache.device.index or 0)
 
 
 def _check_inputs(q: torch.Tensor, k_cache: torch.Tensor,
                   v_cache: torch.Tensor, valid: torch.Tensor) -> None:
     tensors = (q, k_cache, v_cache, valid)
+    refuse_grad("flash_decode_gqa", tensors, "a decode backward")
     if (q.dtype not in DTYPE_CODES or k_cache.dtype != q.dtype
             or v_cache.dtype != q.dtype):
         raise TypeError(f"flash_decode_gqa takes float32 or bfloat16 q and "
@@ -81,7 +93,8 @@ def flash_decode_gqa(q: torch.Tensor, k_cache: torch.Tensor,
     _, S, K, _ = k_cache.shape
     G = H // K
     scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(D)
-    ns = -(-S // _block_s())
+    bs = block_s(k_cache)
+    ns = -(-S // bs)
     dev = q.device
     acc = torch.empty((b, ns, K, G, D), dtype=torch.float32, device=dev)
     m = torch.empty((b, ns, K, G), dtype=torch.float32, device=dev)
@@ -91,7 +104,7 @@ def flash_decode_gqa(q: torch.Tensor, k_cache: torch.Tensor,
     err = _lib().repro_flash_decode_gqa(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), valid.data_ptr(),
         acc.data_ptr(), m.data_ptr(), l.data_ptr(), out.data_ptr(),
-        b, S, H, K, D, DTYPE_CODES[q.dtype], float(scale), stream)
+        b, S, H, K, D, bs, DTYPE_CODES[q.dtype], float(scale), stream)
     if err:
         raise RuntimeError(f"flash_decode_gqa launch failed: CUDA error {err}")
     LAUNCHES["flash_decode_gqa"] += 1

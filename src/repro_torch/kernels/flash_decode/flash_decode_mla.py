@@ -13,7 +13,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import LAUNCHES, _build
+from repro_torch.kernels import LAUNCHES, _build, refuse_grad
 from repro_torch.kernels.flash_attention.flash_attention import DTYPE_CODES
 
 # the latent and rope widths flash_decode_mla.cu instantiates: deepseek-v2's
@@ -45,6 +45,7 @@ def _check_inputs(q_lat: torch.Tensor, q_rope: torch.Tensor,
                   c_kv: torch.Tensor, k_rope: torch.Tensor,
                   valid: torch.Tensor) -> None:
     tensors = (q_lat, q_rope, c_kv, k_rope, valid)
+    refuse_grad("flash_decode_mla", tensors, "a decode backward")
     if q_lat.dtype not in DTYPE_CODES or any(
             t.dtype != q_lat.dtype for t in (q_rope, c_kv, k_rope)):
         raise TypeError(f"flash_decode_mla takes float32 or bfloat16 queries "

@@ -172,17 +172,18 @@ def layer_params(blocks: Params) -> List[Params]:
 
 # ------------------------------------------------------------- forward ------
 
-def _ffn_residual(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
+def _ffn_residual(cfg: ModelConfig, p: Params, x: torch.Tensor
+                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """x + FFN(norm2(x)) and the layer's MoE aux loss (None for a dense
+    layer or none at all)."""
     if not _layer_has_ffn(cfg):
-        return x
+        return x, None
     h = rms_norm(x, p["norm2"], cfg.norm_eps)
     if cfg.layer_is_moe(0):
-        # the aux loss stays at moe_ffn until the port trains MoE models
-        out, _ = moe_mod.moe_ffn(cfg, p["ffn"], h)
-    else:
-        ffn = p["ffn"]
-        out = mlp(cfg.mlp_variant, h, ffn["w1"], ffn["w2"], ffn.get("w3"))
-    return x + out
+        out, aux = moe_mod.moe_ffn(cfg, p["ffn"], h)
+        return x + out, aux
+    ffn = p["ffn"]
+    return x + mlp(cfg.mlp_variant, h, ffn["w1"], ffn["w2"], ffn.get("w3")), None
 
 
 def _head(cfg: ModelConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
@@ -191,8 +192,8 @@ def _head(cfg: ModelConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
     return x @ head if head is not None else x @ params["embed"].T
 
 
-def _block(cfg: ModelConfig, p: Params, x: torch.Tensor,
-           positions: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+def _block(cfg: ModelConfig, p: Params, x: torch.Tensor, positions: torch.Tensor
+           ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], Optional[torch.Tensor]]:
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
     if _is_ssm(cfg):
         out, cache = mamba2.mamba2_forward(cfg, p["mixer"], h)
@@ -200,19 +201,22 @@ def _block(cfg: ModelConfig, p: Params, x: torch.Tensor,
         out, cache = attn.mla_attend_train(cfg, p["mixer"], h, positions)
     else:
         out, cache = attn.gqa_attend_train(cfg, p["mixer"], h, positions)
-    return _ffn_residual(cfg, p, x + out), cache
+    x, aux = _ffn_residual(cfg, p, x + out)
+    return x, cache, aux
 
 
 def forward(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
             *, want_cache: bool = False, last_only: bool = False,
-            remat: bool = False) -> Tuple[torch.Tensor, Optional[Cache]]:
+            remat: bool = False, want_aux: bool = False) -> tuple:
     """Full-sequence forward (train / prefill).
 
     batch: tokens (b, s) integer.  Returns (logits (b, s, V), cache or
-    None); the cache holds each layer's cache entries stacked: k/v
-    (nb, b, s, K, hd) for GQA, c_kv (nb, b, s, r) and k_rope (nb, b, s, dr)
-    for MLA, conv (nb, b, w - 1, di + 2n) and ssd (nb, b, h, p, n) float32
-    for Mamba2.  (The JAX package's forward also returns the MoE aux loss.)
+    None), and with ``want_aux`` (logits, cache or None, aux): aux is the
+    MoE load-balance loss summed over the layers, a float32 0-d tensor (0
+    without MoE), the JAX package's forward's second value.  The cache
+    holds each layer's cache entries stacked: k/v (nb, b, s, K, hd) for
+    GQA, c_kv (nb, b, s, r) and k_rope (nb, b, s, dr) for MLA, conv
+    (nb, b, w - 1, di + 2n) and ssd (nb, b, h, p, n) float32 for Mamba2.
     ``last_only`` computes the logits of the last position only (b, 1, V),
     which is all a prefill needs.  ``remat`` checkpoints each layer (the
     JAX package's ``jax.checkpoint(block_body)``): the backward recomputes
@@ -222,12 +226,15 @@ def forward(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
     x = params["embed"][batch["tokens"]]              # (b, s, d)
     positions = torch.arange(x.shape[1], device=x.device)
     entries: Dict[str, List[torch.Tensor]] = {}
+    auxes: List[torch.Tensor] = []
     for p in layer_params(params["blocks"]["sub0"]):
         if remat:
-            x, cache = checkpoint(_block, cfg, p, x, positions,
-                                  use_reentrant=False)
+            x, cache, a = checkpoint(_block, cfg, p, x, positions,
+                                     use_reentrant=False)
         else:
-            x, cache = _block(cfg, p, x, positions)
+            x, cache, a = _block(cfg, p, x, positions)
+        if a is not None:
+            auxes.append(a)
         if want_cache:
             for name, t in cache.items():
                 entries.setdefault(name, []).append(t)
@@ -236,7 +243,12 @@ def forward(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
     logits = _head(cfg, params, x)
     caches = ({"sub0": {name: torch.stack(ts) for name, ts in entries.items()}}
               if want_cache else None)
-    return logits, caches
+    if not want_aux:
+        return logits, caches
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for a in auxes:
+        aux = aux + a
+    return logits, caches, aux
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
@@ -342,5 +354,5 @@ def decode_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                 layer_cache[name].copy_(t)
         else:
             out, _ = attend(cfg, p["mixer"], h, layer_cache, ring)
-        x = _ffn_residual(cfg, p, x + out)
+        x, _ = _ffn_residual(cfg, p, x + out)
     return _head(cfg, params, x), cache

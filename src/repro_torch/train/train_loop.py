@@ -38,7 +38,9 @@ def accumulate_grads(cfg: ModelConfig, tc: TrainConfig, params: Dict[str, Any],
                      batch: Batch, n_micro: int
                      ) -> Tuple[Dict[str, Any], torch.Tensor]:
     """Mean fp32 gradients over ``n_micro`` microbatches and the mean
-    cross-entropy.  Marks the params as requiring grad.  Each microbatch's
+    cross-entropy.  Each microbatch differentiates ce + AUX_WEIGHT * aux,
+    aux being the MoE load-balance loss summed over the layers (0 without
+    MoE), as the JAX step does.  Marks the params as requiring grad.  Each microbatch's
     grads (in the params' dtype) are added into the fp32 sum and cleared,
     as the JAX step casts each microbatch's grads to fp32 before summing."""
     leaves = tree_leaves(params)
@@ -51,10 +53,10 @@ def accumulate_grads(cfg: ModelConfig, tc: TrainConfig, params: Dict[str, Any],
                            device=batch["tokens"].device)
     for i in range(n_micro):
         micro = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
-        logits, _ = forward(cfg, params, {"tokens": micro["tokens"]},
-                            remat=tc.remat != "none")
+        logits, _, aux = forward(cfg, params, {"tokens": micro["tokens"]},
+                                 remat=tc.remat != "none", want_aux=True)
         ce = cross_entropy(logits[:, :-1], micro["labels"][:, 1:])
-        ce.backward()           # + AUX_WEIGHT * aux, which is 0 without MoE
+        (ce + AUX_WEIGHT * aux).backward()
         for a, p in zip(acc, leaves):
             a.add_(p.grad)
             p.grad = None

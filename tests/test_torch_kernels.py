@@ -27,11 +27,13 @@ from repro_torch.kernels.flash_attention import (attention_bwd_ref,
                                                  flash_attention,
                                                  flash_attention_bwd,
                                                  flash_attention_lse)
+from repro_torch.kernels.flash_decode.flash_decode import block_s
 from repro_torch.kernels.flash_decode import (flash_decode_gqa,
                                               flash_decode_mla, gqa_decode_ref,
                                               gqa_decode_splitk,
                                               mla_decode_ref,
                                               mla_decode_splitk)
+from repro_torch.kernels.ssd_scan import ssd_scan
 
 DTYPES = {"float32": (torch.float32, 2e-5), "bfloat16": (torch.bfloat16, 2e-2)}
 
@@ -56,7 +58,7 @@ ATTN_CASES = [
 # float32 rounding noise (~1e-7) there
 BWD_CASES = [c for c in ATTN_CASES if c[2] > 1]
 
-BLOCK_S = 256            # the CUDA kernel's cache block
+BLOCK_S = 256            # the Pallas kernel's and the MLA kernel's cache block
 
 
 @pytest.fixture(scope="module")
@@ -239,6 +241,47 @@ def test_kernels_refuse_what_they_do_not_take():
         dispatch.attention(q.to("meta"), k.to("meta"), v.to("meta"))
 
 
+def _no_backward_calls():
+    """A call of each wrapper whose kernel has no backward, at shapes it
+    takes, on the CPU: (name, fn(tensors), tensors)."""
+    (q, k, v), valid = _decode_inputs(2, 48, 8, 2, 32, "float32")
+    valid = torch.from_numpy(valid)
+    mla = [torch.zeros(s) for s in ((2, 8, 32), (2, 8, 16), (2, 48, 32),
+                                    (2, 48, 16))]
+    rng = np.random.default_rng(6)
+    ssd = [_randn(rng, s, "float32") for s in
+           ((1, 8, 2, 32), (1, 8, 2), (2,), (1, 8, 16), (1, 8, 16), (2,), (2,))]
+    return {"ssd_scan": (lambda *t: ssd_scan(*t), ssd),
+            "flash_decode_gqa": (lambda *t: flash_decode_gqa(*t, valid),
+                                 [q, k, v]),
+            "flash_decode_mla": (lambda *t: flash_decode_mla(*t, valid,
+                                                             denom=1.0), mla)}
+
+
+@pytest.mark.parametrize("name", ["ssd_scan", "flash_decode_gqa",
+                                  "flash_decode_mla"])
+def test_kernels_without_a_backward_refuse_inputs_that_require_grad(name):
+    """The SSD scan and both decodes have no backward kernel: with grad on
+    and an input that requires grad they raise NotImplementedError, before
+    the device check (so on the CPU too), naming what is missing; under
+    no_grad, or with no input requiring grad, the same call reaches the
+    device check."""
+    fn, tensors = _no_backward_calls()[name]
+    for i in range(len(tensors)):
+        args = [t.clone().requires_grad_(j == i) for j, t in enumerate(tensors)]
+        with pytest.raises(NotImplementedError,
+                           match=f"{name} has no backward: .*requires? grad"):
+            fn(*args)
+        with torch.no_grad():
+            with pytest.raises(ValueError, match="CUDA"):
+                fn(*args)
+    with pytest.raises(ValueError, match="CUDA"):
+        fn(*tensors)
+    if name == "ssd_scan":
+        with pytest.raises(NotImplementedError, match="the SSD backward"):
+            fn(*[t.clone().requires_grad_(True) for t in tensors])
+
+
 def test_wrappers_reject_head_dims_they_were_not_built_for():
     """Each wrapper checks its own tuple of head dims before it looks at
     the device, so this holds on the CPU: the forward takes the MLA widths
@@ -328,7 +371,7 @@ class TestKernelsOnCard:
         n = LAUNCHES["flash_decode_gqa"]
         got = flash_decode_gqa(q, k, v, valid)
         assert LAUNCHES["flash_decode_gqa"] == n + 1
-        want = gqa_decode_splitk(q, k, v, valid, block_s=BLOCK_S)
+        want = gqa_decode_splitk(q, k, v, valid, block_s=block_s(k))
         tol = DTYPES[dtype][1]
         torch.testing.assert_close(got.float(), want.float(), atol=tol,
                                    rtol=tol)
@@ -336,6 +379,33 @@ class TestKernelsOnCard:
         ref = gqa_decode_ref(q[:2], k[:2], v[:2], valid[:2])
         torch.testing.assert_close(got[:2].float(), ref.float(), atol=tol,
                                    rtol=tol)
+
+    @pytest.mark.parametrize("dtype", list(DTYPES))
+    @pytest.mark.parametrize("edge", ["below_one_split", "one_row_past",
+                                      "all_valid"])
+    def test_flash_decode_at_split_edges(self, cuda, edge, dtype):
+        """A cache shorter than one of the kernel's splits, one row past a
+        split, and every row valid, against the split-KV oracle at the
+        kernel's own split size; the split is 64 rows at these shapes."""
+        bs = block_s(torch.empty((3, 544, 8, 1), device=cuda))
+        S = {"below_one_split": bs - 5, "one_row_past": bs + 1,
+             "all_valid": 544}[edge]
+        (q, k, v), valid = _decode_inputs(3, S, 24, 8, 128, dtype, seed=3)
+        q, k, v = q.to(cuda), k.to(cuda), v.to(cuda)
+        valid = torch.from_numpy(valid).to(cuda)
+        if edge != "below_one_split":
+            valid[:, S - 1] = True           # the split's one row counts
+        if edge == "all_valid":
+            valid[:] = True
+        assert block_s(k) == bs == 64
+        got = flash_decode_gqa(q, k, v, valid)
+        tol = DTYPES[dtype][1]
+        torch.testing.assert_close(
+            got.float(), gqa_decode_splitk(q, k, v, valid, block_s=bs).float(),
+            atol=tol, rtol=tol)
+        torch.testing.assert_close(
+            got.float(), gqa_decode_ref(q, k, v, valid).float(), atol=tol,
+            rtol=tol)
 
     def test_flash_decode_never_reads_masked_slots(self, cuda):
         """Non-finite K and V in masked slots leave the output unchanged:

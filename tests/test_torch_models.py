@@ -209,6 +209,22 @@ def test_forward_matches_jax(fp32_pair):
     np.testing.assert_allclose(_np(last), _np(tl[:, -1:]), **TOL)
 
 
+def test_forward_aux_matches_jax(fp32_pair):
+    """The MoE load-balance loss summed over the layers, the JAX forward's
+    second value: deepseek-v2's smoke config routes every layer through a
+    MoE FFN; the other archs have none, and both sides give 0.  Held at the
+    MoE tests' 1e-5 (tests/test_torch_moe.py)."""
+    jcfg, jparams, cfg, params = fp32_pair
+    toks = _tokens(cfg, 2, 12, seed=5)
+    _, jaux, _ = jax_forward(jcfg, jparams, {"tokens": jnp.asarray(toks)})
+    for remat in (False, True):
+        _, cache, aux = forward(cfg, params, {"tokens": torch.from_numpy(toks)},
+                                remat=remat, want_aux=True)
+        assert cache is None and aux.dtype == torch.float32 and aux.ndim == 0
+        assert aux.item() == pytest.approx(float(jaux), rel=1e-5, abs=1e-5)
+    assert (float(jaux) > 0) == cfg.layer_is_moe(0)
+
+
 @pytest.mark.parametrize("per_row", [False, True])
 def test_decode_step_matches_jax(fp32_pair, per_row):
     """Prefill 12 tokens into a 24-token cache (a 16-slot ring for

@@ -22,7 +22,7 @@ import torch.nn.functional as F
 from repro_torch.kernels import LAUNCHES, dispatch
 from repro_torch.kernels.ssd_scan import (ssd_chunked, ssd_naive, ssd_scan,
                                           ssd_scan_ref)
-from repro_torch.kernels.ssd_scan.ssd_scan import SHAPES
+from repro_torch.kernels.ssd_scan.ssd_scan import SHAPES, chunk, segment_chunks
 
 DTYPES = {"float32": (torch.float32, 2e-3), "bfloat16": (torch.bfloat16, 5e-2)}
 
@@ -168,6 +168,21 @@ def test_dispatch_ssd_on_cpu_runs_the_plain_version():
     assert LAUNCHES == before
 
 
+def test_dispatch_ssd_on_cpu_differentiates_the_plain_version():
+    """With grad on, a CPU tensor takes the plain version, whose gradient is
+    PyTorch's autograd (the kernel has no backward and refuses such inputs):
+    every input that requires grad gets a finite gradient."""
+    before = dict(LAUNCHES)
+    args = [t.requires_grad_(True)
+            for t in _inputs(1, 100, 2, 32, 16, "float32")]
+    y, state = dispatch.ssd(*args)
+    assert y.grad_fn is not None and state.grad_fn is not None
+    (y.square().sum() + state.sum()).backward()
+    for t in args:
+        assert t.grad is not None and bool(torch.isfinite(t.grad).all())
+    assert LAUNCHES == before
+
+
 def test_ssd_scan_refuses_what_it_does_not_take():
     """Shape, dtype and (P, N) checks come before the device check, so
     they hold on the CPU; a supported CPU call is refused for its device."""
@@ -205,6 +220,8 @@ class TestSsdScanOnCard:
     @pytest.mark.parametrize("dtype", list(DTYPES))
     @pytest.mark.parametrize("shape", [(8, 512, 24, 64, 128),   # the prefill
                                        (2, 1000, 24, 64, 128),  # ragged
+                                       (1, 4096, 24, 64, 128),  # segments
+                                       (1, 4000, 24, 64, 128),  # mid-segment
                                        (2, 200, 16, 32, 16),    # smoke widths
                                        (3, 1, 4, 32, 16)])      # one row
     def test_ssd_scan_matches_plain(self, cuda, shape, dtype):
@@ -219,6 +236,30 @@ class TestSsdScanOnCard:
             assert torch.isfinite(g).all()
             torch.testing.assert_close(g.float(), w.float(), atol=tol,
                                        rtol=tol)
+
+    def test_segments_split_the_long_prompts(self, cuda):
+        """b=1 x 4,096 and the b=8 prefill walk several segments; 4,000
+        rows end inside a segment and inside a chunk."""
+        seg = {}
+        for b, s in ((1, 4096), (1, 4000), (8, 512)):
+            x = torch.empty((b, s, 24, 64), dtype=torch.bfloat16, device=cuda)
+            seg[s] = segment_chunks(x) * chunk()
+            assert s > seg[s], (b, s, seg[s])
+        assert 4000 % seg[4000] != 0 and 4000 % chunk() != 0
+
+    def test_dispatch_refuses_grad_on_cuda(self, cuda):
+        """The card's path has no SSD backward: grad-requiring inputs raise
+        instead of returning tensors cut from the graph; under no_grad the
+        kernel runs."""
+        args = [t.requires_grad_(True) for t in
+                _inputs(1, 64, 24, 64, 128, "float32", device=cuda)]
+        before = LAUNCHES["ssd_scan"]
+        with pytest.raises(NotImplementedError, match="the SSD backward"):
+            dispatch.ssd(*args)
+        assert LAUNCHES["ssd_scan"] == before
+        with torch.no_grad():
+            dispatch.ssd(*args)
+        assert LAUNCHES["ssd_scan"] == before + 1
 
     def test_dispatch_on_cuda_launches_the_kernel(self, cuda):
         args = _inputs(1, 64, 24, 64, 128, "bfloat16", device=cuda)

@@ -55,7 +55,7 @@ from repro_torch.models import cross_entropy, forward, init_params, param_count
 from repro_torch.train import build_train_step, init_opt_state, lr_at
 from repro_torch.train.optimizer import tree_leaves
 
-ARCHS = ["gpt2-350m", "llama3.2-3b", "starcoder2-3b"]
+ARCHS = ["gpt2-350m", "llama3.2-3b", "starcoder2-3b", "deepseek-v2-236b"]
 ADAM_TOL = dict(atol=1e-6, rtol=1e-5)
 ADAM_KW = dict(lr=1e-3, beta1=0.9, beta2=0.95, eps=1e-8, wd=0.1, c1=0.5,
                c2=0.2)
