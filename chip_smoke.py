@@ -10,13 +10,14 @@ Phases, each printing its lines before the last:
    hand-written kernels from ``src/repro_torch/kernels/csrc``: each
    kernel's registers, spills and static shared memory from the ptxas log
    and its tensor-core instructions from ``cuobjdump -sass`` (every bf16
-   attention and SSD body at every width must have some, and the gradient
-   kernels no atomics);
+   attention, SSD and MLA decode body at every width must have some, and
+   the gradient kernels no atomics);
 2. each kernel against its plain PyTorch version on the card, at the shapes
    the main paths give it and at edge cases (window, GQA, sq != sk,
-   float32, ragged tails, two fully masked splits of the decode kernel's
+   float32, ragged tails, two fully masked splits of each decode kernel's
    own size, an all-invalid row,
-   the MLA decode at deepseek-v2's widths and at its smoke config's, the
+   the MLA decode at deepseek-v2's widths and at its smoke config's, each
+   decode call's kernels traced, the
    forward attention at the MLA head dims 192 and 48, the SSD scan at
    mamba2-130m's prefill, at a 32k prompt, at a ragged length, at b=1
    lengths of several segments, one ending inside a segment, in float32
@@ -64,12 +65,17 @@ no result.
 
     python3 chip_smoke.py --ab OTHER_CHECKOUT
 
-times the kernels this PR's line of work redesigned (``ssd_scan`` at the
-b=8 prefill and at 32k, ``flash_decode_gqa`` at the decode shape) in
+times the redesigned kernels (``ssd_scan`` at the b=8 prefill and at
+32k, ``flash_decode_gqa`` and ``flash_decode_mla`` at their decode shapes) in
 another checkout of the repository and in this one, in turns (other,
 this, this, other), each in a process of its own that builds its own
 tree's kernels (``--time-kernels``, with ``--src`` naming the tree), and
 prints each turn's times.
+
+    python3 chip_smoke.py --mla-splits
+
+times ``flash_decode_mla`` at deepseek-v2's decode shape, and at b=4 and
+b=1 of its cache, at every split count from one to nine (``mla_splits``).
 """
 import gc
 import json
@@ -147,12 +153,14 @@ MAMBA2_TOL = 5e-2
 
 # The bf16 bodies that must run on the tensor cores: by source, groups of
 # (kernel names, first template argument of each instantiation) -- the
-# attention kernels' head dims, the SSD product kernel's state width N and
-# the SSD segment and scan kernels' head dim P.
+# attention kernels' head dims, the SSD product kernel's state width N,
+# the SSD segment and scan kernels' head dim P and the MLA decode's latent
+# width r.
 MMA_KERNELS = {"flash_attention": [(("flash_attention_mma",), (32, 48, 64, 128, 192))],
                "flash_attention_bwd": [(("bwd_dkdv_mma", "bwd_dq_mma"), (32, 64, 128))],
                "ssd_scan": [(("ssd_cb",), (16, 128)),
-                            (("ssd_seg_state", "ssd_chunk_scan"), (32, 64))]}
+                            (("ssd_seg_state", "ssd_chunk_scan"), (32, 64))],
+               "flash_decode_mla": [(("mla_partials_mma",), (32, 512))]}
 
 SPIN_CYCLES = 2_000_000    # ~1 ms at the H100's ~2 GHz: covers a call's host work
 
@@ -244,9 +252,9 @@ def report_build():
     """Per kernel of every source: registers, spills and static shared
     memory from the ptxas log (dynamic shared memory is set at launch),
     and tensor-core instructions from the SASS.  Fails unless every bf16
-    body of MMA_KERNELS (attention at every head dim, the SSD scan's at
-    both widths) has HMMA (or HGMMA) instructions and the gradient kernels
-    have no atomics."""
+    body of MMA_KERNELS (attention at every head dim, the SSD scan's and
+    the MLA decode's at both widths) has HMMA (or HGMMA) instructions and
+    the gradient kernels have no atomics."""
     from repro_torch.kernels import _build
     for src in _build.sources():
         lib = _build.library(src)
@@ -485,6 +493,7 @@ def phase_mla_kernels(peaks, flush, gen, randn):
     from repro_torch.kernels.flash_decode import (flash_decode_mla,
                                                   mla_decode_ref,
                                                   mla_decode_splitk)
+    from repro_torch.kernels.flash_decode.flash_decode_mla import launch_plan
     bf16, f32 = torch.bfloat16, torch.float32
     rows = {}
     d = MLA_DECODE
@@ -494,31 +503,44 @@ def phase_mla_kernels(peaks, flush, gen, randn):
             ("smoke_dims", 8, 544, 8, 32, 16, bf16),
             ("smoke_dims_fp32", 3, 300, 8, 32, 16, f32),
             ("masked_block_S700", 4, 700, 128, 512, 64, bf16),
+            ("long_S9000", 2, 9000, 128, 512, 64, bf16),
             ("invalid_row_H20", 4, 300, 20, 512, 16, f32)]:
         q_lat, q_rope = randn(b, H, r, dtype=dt), randn(b, H, dr, dtype=dt)
         c_kv, k_rope = randn(b, S, r, dtype=dt), randn(b, S, dr, dtype=dt)
         valid = ring_valid(gen, b, S)            # ragged: a position per row
-        if name.startswith("masked_block"):
-            valid[:, 256:512] = False
+        bs, grid, fused = launch_plan(q_lat, c_kv)  # the kernel's split and grid
+        if name.startswith("masked_block"):      # two whole splits masked
+            valid[:, bs:3 * bs] = False
             valid[:, 0] = True
         if name.startswith("invalid_row"):
             valid[1] = False
         denom = math.sqrt(128 + dr)
         args = (q_lat, q_rope, c_kv, k_rope, valid)
         got = flash_decode_mla(*args, denom=denom)
-        want = mla_decode_splitk(*args, denom=denom, block_s=256)
+        want = mla_decode_splitk(*args, denom=denom, block_s=bs)
         live = valid.any(dim=1)
         ref = mla_decode_ref(*(t[live] for t in args), denom=denom)
         tol = BF16_TOL if dt == bf16 else FP32_TOL
         err, err_ref = rel_max_err(got, want), rel_max_err(got[live], ref)
         ok = err <= tol and err_ref <= tol and bool((got[~live] == 0).all())
+        merge = "in a cluster" if fused else "by a second kernel"
         print(f"kernel flash_decode_mla {name} b={b} S={S} H={H} r={r} dr={dr}"
-              f" {str(dt)[6:]}: max|d|/max|ref| {err:.3e} (split-KV plain),"
+              f" {str(dt)[6:]}, {bs}-row splits merged {merge}:"
+              f" max|d|/max|ref| {err:.3e}"
+              f" (split-KV plain at the kernel's split),"
               f" {err_ref:.3e} (whole-cache plain) tol={tol:g}"
               f" {'ok' if ok else 'FAIL'}")
         check(ok, f"flash_decode_mla {name} disagrees with its plain versions")
         if name != "decode_ring":
             continue
+        # the split does not depend on the batch: each row alone gives the
+        # same bits as in the batch
+        alone = torch.cat([flash_decode_mla(*(t[i:i + 1] for t in args),
+                                            denom=denom) for i in range(b)])
+        print(f"kernel flash_decode_mla {name}: each row alone equals the"
+              f" batch bit for bit: {torch.equal(alone, got)}")
+        check(torch.equal(alone, got),
+              "flash_decode_mla's output depends on the batch around a row")
         # the function needs the queries, the valid rows of c_kv and k_rope
         # and the mask, and writes o_lat; per valid row and head it does
         # 2(r + dr) flops of scores and 2r of p.c_kv
@@ -527,9 +549,20 @@ def phase_mla_kernels(peaks, flush, gen, randn):
                   + 2 * (r + dr) * n_valid + valid.numel())
         bound_ms, bound_by = bound(nbytes, H * n_valid * (4 * r + 2 * dr),
                                    peaks)
+        partial_bytes = 4 * b * grid[0] * H * (r + 2)
+        merged = (f"merged in clusters of {grid[0]} splits, so"
+                  f" {partial_bytes} bytes of float32 partials stay on chip"
+                  if fused else f"{partial_bytes} bytes of float32 partials"
+                  f" merged by a second kernel")
         print(f"time flash_decode_mla inputs: {n_valid} of {b * S} cache rows"
-              f" valid, {nbytes} bytes needed; library is SDPA on the MQA"
-              f" form (one shared key [c_kv | k_rope], value c_kv)")
+              f" valid, {nbytes} bytes needed; {bs}-row splits, grid {grid}"
+              f" = {math.prod(grid)} blocks, {merged}; library is SDPA on the"
+              f" MQA form (one shared key [c_kv | k_rope], value c_kv)")
+        # the call's kernels from a trace
+        _, split_ms, _ = device_profile(
+            lambda: flash_decode_mla(*args, denom=denom), 20)
+        print("time flash_decode_mla kernels (ms per call, traced, L2 warm): "
+              + "; ".join(f"{kn[:48]} {ms:.4f}" for kn, ms in split_ms))
         qm = torch.cat([q_lat, q_rope], dim=-1)[:, :, None]   # (b, H, 1, r+dr)
         km = torch.cat([c_kv, k_rope], dim=-1)[:, None]       # (b, 1, S, r+dr)
         vm = c_kv[:, None]
@@ -1218,7 +1251,7 @@ def phase_train(peaks):
 def time_kernels():
     """--time-kernels: the redesigned kernels' times at their main-path
     shapes, from whichever tree ``--src`` names, on one JSON line."""
-    from repro_torch.kernels.flash_decode import flash_decode_gqa
+    from repro_torch.kernels.flash_decode import flash_decode_gqa, flash_decode_mla
     from repro_torch.kernels.ssd_scan import ssd_scan
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(5)
@@ -1244,7 +1277,56 @@ def time_kernels():
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     out["SDPA decode_ring"] = time_ms(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, attn_mask=valid[:, None, None, :], enable_gqa=True), flush)
+    d = MLA_DECODE
+    for b in (d["b"], 4, 1):            # the decode shape, then smaller batches
+        mla = (*(torch.randn(b, n, w, generator=gen, device="cuda").bfloat16()
+                 for n, w in ((d["H"], d["r"]), (d["H"], d["dr"]),
+                              (d["S"], d["r"]), (d["S"], d["dr"]))),
+               ring_valid(gen, b, d["S"]))
+        out["flash_decode_mla decode_ring" + ("" if b == d["b"] else f" b={b}")] = \
+            time_ms(lambda: flash_decode_mla(*mla, denom=math.sqrt(128 + d["dr"])),
+                    flush)
     print(json.dumps({"src": SRC, "ms": out}))
+    return 0
+
+
+def mla_splits():
+    """--mla-splits: ``flash_decode_mla`` at deepseek-v2's decode shape and
+    at b=4 and b=1 of the same cache, at each split from one to nine splits
+    and at 16- and 48-row splits: the clusters of each split count the card
+    holds at once, the kernels' traced times (L2 warm), the mean time after
+    an L2 flush, and the error against the split-KV oracle at that split;
+    the kernel's own split is marked."""
+    from repro_torch.kernels.flash_decode import mla_block_s, mla_decode_splitk
+    from repro_torch.kernels.flash_decode.flash_decode_mla import (
+        _launch, _resident_clusters)
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    d = MLA_DECODE
+    denom = math.sqrt(128 + d["dr"])
+    print(f"device: {torch.cuda.get_device_name(0)}; clusters of 1..8 splits"
+          f" resident at once:"
+          f" {[_resident_clusters(d['r'], d['dr'], n) for n in range(1, 9)]}")
+    splits = {16 * math.ceil(math.ceil(d["S"] / n) / 16) for n in range(1, 10)}
+    for b in (d["b"], 4, 1):
+        args = (*(torch.randn(b, n, w, generator=gen, device="cuda").bfloat16()
+                  for n, w in ((d["H"], d["r"]), (d["H"], d["dr"]),
+                               (d["S"], d["r"]), (d["S"], d["dr"]))),
+                ring_valid(gen, b, d["S"]))
+        chosen = mla_block_s(args[0], args[2])
+        for bs in sorted(splits | {16, 48}):
+            got = _launch(*args, denom, bs)
+            err = rel_max_err(got, mla_decode_splitk(*args, denom=denom,
+                                                     block_s=bs))
+            ms = time_ms(lambda: _launch(*args, denom, bs), flush)
+            _, kernels, _ = device_profile(lambda: _launch(*args, denom, bs), 20)
+            print(f"mla b={b} split {bs} rows, {-(-d['S'] // bs)} splits"
+                  f"{' (chosen)' if bs == chosen else ''}: {ms:.4f} ms after"
+                  f" an L2 flush; traced "
+                  + "; ".join(f"{kn[:48]} {t:.4f}" for kn, t in kernels)
+                  + f"; max|d|/max|ref| {err:.3e}")
+            check(err <= BF16_TOL,
+                  f"flash_decode_mla at b={b}, {bs}-row splits disagrees")
     return 0
 
 
@@ -1293,6 +1375,8 @@ def main():
         return time_kernels()
     if "--ab" in sys.argv:
         return ab(sys.argv[sys.argv.index("--ab") + 1])
+    if "--mla-splits" in sys.argv:
+        return mla_splits()
     from repro_torch.kernels import _build
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

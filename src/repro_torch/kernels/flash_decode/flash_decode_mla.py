@@ -1,6 +1,8 @@
 """Wrapper of the hand-written split-KV absorbed MLA decode kernel
-(``csrc/flash_decode_mla.cu``): checks, allocation of the output and of the
-float32 partials, launch of the partial and merge kernels, launch count.
+(``csrc/flash_decode_mla.cu``): checks, the kernel's launch plan (split,
+grid, where the splits merge), allocation of the output and, where the
+splits merge in a second kernel, of the float32 partials, the launch,
+launch count.
 
 It takes CUDA tensors only and raises on anything the kernel does not
 take; ``repro_torch.kernels.dispatch.mla_flash_decode`` sends CPU tensors
@@ -10,6 +12,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Tuple
 
 import torch
 
@@ -27,18 +30,47 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load("flash_decode_mla")
-    lib.repro_flash_decode_mla.argtypes = [_P] * 9 + [_I] * 6 + [
+    lib.repro_flash_decode_mla.argtypes = [_P] * 9 + [_I] * 7 + [
         ctypes.c_float, _P]
     lib.repro_flash_decode_mla.restype = ctypes.c_int
-    lib.repro_flash_decode_mla_block_s.argtypes = []
-    lib.repro_flash_decode_mla_block_s.restype = ctypes.c_int
+    lib.repro_flash_decode_mla_plan.argtypes = [_I] * 5 + [_P]
+    lib.repro_flash_decode_mla_plan.restype = None
+    lib.repro_flash_decode_mla_clusters.argtypes = [_I, _I, _I]
+    lib.repro_flash_decode_mla_clusters.restype = ctypes.c_int
     return lib
 
 
 @functools.cache
-def _block_s() -> int:
-    """Cache rows per block of the partial kernel (its ``BS``)."""
-    return _lib().repro_flash_decode_mla_block_s()
+def _plan(b: int, S: int, H: int, dtype: torch.dtype,
+          bs: int = 0) -> Tuple[int, Tuple[int, int, int], bool]:
+    plan = (ctypes.c_int * 5)()
+    _lib().repro_flash_decode_mla_plan(b, S, H, DTYPE_CODES[dtype], bs, plan)
+    return plan[0], (plan[1], plan[2], plan[3]), bool(plan[4])
+
+
+def launch_plan(q_lat: torch.Tensor,
+                c_kv: torch.Tensor) -> Tuple[int, Tuple[int, int, int], bool]:
+    """The kernel's launch for queries (b, H, r) and a cache (b, S, r), as
+    ``csrc/flash_decode_mla.cu`` decides it: (cache rows a split, grid
+    (splits, head tiles, b), whether the splits merge inside one
+    thread-block cluster rather than through float32 partials and a second
+    kernel).  The split depends on S alone: 96 rows at deepseek-v2's
+    decode shape (S=544), grid (6, 2, 8) in bf16."""
+    b, H, _ = q_lat.shape
+    return _plan(b, c_kv.shape[1], H, q_lat.dtype)
+
+
+def block_s(q_lat: torch.Tensor, c_kv: torch.Tensor) -> int:
+    """Cache rows per split the kernel uses: the split-KV oracle
+    ``mla_decode_splitk(..., block_s=block_s(q_lat, c_kv))`` rounds p where
+    the kernel does."""
+    return launch_plan(q_lat, c_kv)[0]
+
+
+def _resident_clusters(r: int, dr: int, ns: int) -> int:
+    """Clusters of ns blocks of the bf16 body at widths (r, dr) that the
+    current card holds at once (cudaOccupancyMaxActiveClusters)."""
+    return _lib().repro_flash_decode_mla_clusters(r, dr, ns)
 
 
 def _check_inputs(q_lat: torch.Tensor, q_rope: torch.Tensor,
@@ -85,19 +117,29 @@ def flash_decode_mla(q_lat: torch.Tensor, q_rope: torch.Tensor,
     Returns o_lat (b, H, r) in c_kv's dtype; a row with no valid entry
     gives 0."""
     _check_inputs(q_lat, q_rope, c_kv, k_rope, valid)
+    return _launch(q_lat, q_rope, c_kv, k_rope, valid, denom,
+                   block_s(q_lat, c_kv))
+
+
+def _launch(q_lat: torch.Tensor, q_rope: torch.Tensor, c_kv: torch.Tensor,
+            k_rope: torch.Tensor, valid: torch.Tensor, denom: float,
+            bs: int) -> torch.Tensor:
+    """One launch at bs cache rows a split (a multiple of 16) on checked
+    inputs; ``chip_smoke.py --mla-splits`` times other splits through it."""
     b, H, r = q_lat.shape
     _, S, dr = k_rope.shape
-    ns = -(-S // _block_s())
+    (ns, _, _), fused = _plan(b, S, H, q_lat.dtype, bs)[1:]
     dev = q_lat.device
-    acc = torch.empty((b, ns, H, r), dtype=torch.float32, device=dev)
-    m = torch.empty((b, ns, H), dtype=torch.float32, device=dev)
-    l = torch.empty((b, ns, H), dtype=torch.float32, device=dev)
+    n_part = 0 if fused else b * ns * H
+    acc = torch.empty((n_part * r,), dtype=torch.float32, device=dev)
+    m = torch.empty((n_part,), dtype=torch.float32, device=dev)
+    l = torch.empty((n_part,), dtype=torch.float32, device=dev)
     out = torch.empty((b, H, r), dtype=c_kv.dtype, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _lib().repro_flash_decode_mla(
         q_lat.data_ptr(), q_rope.data_ptr(), c_kv.data_ptr(),
         k_rope.data_ptr(), valid.data_ptr(), acc.data_ptr(), m.data_ptr(),
-        l.data_ptr(), out.data_ptr(), b, S, H, r, dr,
+        l.data_ptr(), out.data_ptr(), b, S, H, r, dr, bs,
         DTYPE_CODES[q_lat.dtype], float(denom), stream)
     if err:
         raise RuntimeError(f"flash_decode_mla launch failed: CUDA error {err}")

@@ -30,9 +30,11 @@ from repro_torch.kernels.flash_attention import (attention_bwd_ref,
 from repro_torch.kernels.flash_decode.flash_decode import block_s
 from repro_torch.kernels.flash_decode import (flash_decode_gqa,
                                               flash_decode_mla, gqa_decode_ref,
-                                              gqa_decode_splitk,
+                                              gqa_decode_splitk, mla_block_s,
                                               mla_decode_ref,
                                               mla_decode_splitk)
+from repro_torch.kernels.flash_decode.flash_decode_mla import (_launch,
+                                                             launch_plan)
 from repro_torch.kernels.ssd_scan import ssd_scan
 
 DTYPES = {"float32": (torch.float32, 2e-5), "bfloat16": (torch.bfloat16, 2e-2)}
@@ -58,7 +60,7 @@ ATTN_CASES = [
 # float32 rounding noise (~1e-7) there
 BWD_CASES = [c for c in ATTN_CASES if c[2] > 1]
 
-BLOCK_S = 256            # the Pallas kernel's and the MLA kernel's cache block
+BLOCK_S = 256            # the Pallas kernels' default cache block
 
 
 @pytest.fixture(scope="module")
@@ -450,8 +452,9 @@ class TestKernelsOnCard:
                                       (20, 512, 16)])
     @pytest.mark.parametrize("S", [48, 300, 544, 640])
     def test_flash_decode_mla_matches_plain(self, cuda, S, dims, dtype):
-        """Ring validity per row, a fully masked cache block (S > 512) and
-        an all-invalid row; max|d| <= tol * max|ref|."""
+        """Ring validity per row, a masked run of 256 rows (S > 512) and an
+        all-invalid row, against the split-KV oracle at the kernel's own
+        split (S = 300 is not a multiple of it); max|d| <= tol * max|ref|."""
         H, r, dr = dims
         rng = np.random.default_rng(8)
         args = [_randn(rng, s, dtype).to(cuda) for s in
@@ -465,7 +468,8 @@ class TestKernelsOnCard:
         assert LAUNCHES["flash_decode_mla"] == n + 1
         assert got.dtype == args[2].dtype and got.shape == args[0].shape
         tol = DTYPES[dtype][1]
-        want = mla_decode_splitk(*args, valid, denom=denom, block_s=BLOCK_S)
+        want = mla_decode_splitk(*args, valid, denom=denom,
+                                 block_s=mla_block_s(args[0], args[2]))
         assert (got.float() - want.float()).abs().max() <= \
             tol * want.float().abs().max()
         assert torch.all(got[2] == 0)
@@ -478,6 +482,78 @@ class TestKernelsOnCard:
                     *args, valid, denom=denom))
         assert torch.equal(dispatch.mla_flash_decode(*args, valid,
                                                      denom=denom), got)
+
+    def test_flash_decode_mla_split_at_decode_shape(self, cuda):
+        """deepseek-v2's decode: 96-row splits, grid (6 splits, 2 head
+        tiles, 8) = 96 blocks, one wave on an H100, each (head tile,
+        batch)'s splits merged in one cluster.  The split depends on the
+        cache length alone: the same at b=1 and in float32 (16 heads a
+        block, a merge kernel); a 9,000-row cache takes 9 splits of 1024
+        rows, merged by a second kernel."""
+        def plan(b, S, dtype=torch.bfloat16):
+            return launch_plan(
+                torch.empty((b, 128, 512), dtype=dtype, device=cuda),
+                torch.empty((b, S, 512), dtype=dtype, device=cuda))
+        assert plan(8, 544) == (96, (6, 2, 8), True)
+        assert mla_block_s(torch.empty((8, 128, 512), device=cuda),
+                           torch.empty((8, 544, 512), device=cuda)) == 96
+        assert plan(1, 544) == (96, (6, 2, 1), True)
+        assert plan(8, 544, torch.float32) == (96, (6, 8, 8), False)
+        assert plan(2, 9000) == (1024, (9, 2, 2), False)
+        assert plan(1, 48) == (48, (1, 2, 1), True)
+
+    @pytest.mark.parametrize("S", [544, 9000])
+    def test_flash_decode_mla_batch_invariant(self, cuda, S):
+        """Each batch row alone gives the same bits as in a batch of 8:
+        the split does not depend on the batch (a cluster merge at S=544,
+        a merge kernel at S=9000)."""
+        rng = np.random.default_rng(16)
+        args = [_randn(rng, s, "bfloat16").to(cuda) for s in
+                ((8, 128, 512), (8, 128, 64), (8, S, 512), (8, S, 64))]
+        _, valid = _decode_inputs(8, S, 1, 1, 32, "float32", seed=17)
+        args.append(torch.from_numpy(valid).to(cuda))
+        got = flash_decode_mla(*args, denom=14.0)
+        alone = torch.cat([flash_decode_mla(*(t[i:i + 1] for t in args),
+                                            denom=14.0) for i in range(8)])
+        assert torch.equal(alone, got)
+
+    @pytest.mark.parametrize("dtype", list(DTYPES))
+    @pytest.mark.parametrize("S", [48, 300, 544, 640])
+    def test_flash_decode_mla_two_splits_masked(self, cuda, S, dtype):
+        """deepseek-v2's widths at b=8: the second and third of the kernel's
+        splits masked in every row (S = 300 and 544 end in a short split),
+        against the split-KV oracle at that split and the whole cache."""
+        rng = np.random.default_rng(12)
+        args = [_randn(rng, s, dtype).to(cuda) for s in
+                ((8, 128, 512), (8, 128, 64), (8, S, 512), (8, S, 64))]
+        _, valid = _decode_inputs(8, S, 1, 1, 32, "float32", seed=13)
+        valid = torch.from_numpy(valid).to(cuda)
+        bs = mla_block_s(args[0], args[2])
+        valid[:, bs:3 * bs] = False
+        valid[:, 0] = True
+        got = flash_decode_mla(*args, valid, denom=14.0)
+        tol = DTYPES[dtype][1]
+        for want in (mla_decode_splitk(*args, valid, denom=14.0, block_s=bs),
+                     mla_decode_ref(*args, valid, denom=14.0)):
+            assert (got.float() - want.float()).abs().max() <= \
+                tol * want.float().abs().max()
+
+    @pytest.mark.parametrize("split", [16, 80, 544])
+    def test_flash_decode_mla_at_a_given_split(self, cuda, split):
+        """A launch at another split (as chip_smoke.py --mla-splits makes
+        them): 34 splits merge by a second kernel, 7 and 1 in clusters; a
+        split off the 16-row grid is refused."""
+        rng = np.random.default_rng(14)
+        args = [_randn(rng, s, "bfloat16").to(cuda) for s in
+                ((8, 128, 512), (8, 128, 64), (8, 544, 512), (8, 544, 64))]
+        _, valid = _decode_inputs(8, 544, 1, 1, 32, "float32", seed=15)
+        valid = torch.from_numpy(valid).to(cuda)
+        got = _launch(*args, valid, 14.0, split)
+        want = mla_decode_splitk(*args, valid, denom=14.0, block_s=split)
+        assert (got.float() - want.float()).abs().max() <= \
+            2e-2 * want.float().abs().max()
+        with pytest.raises(RuntimeError, match="launch failed"):
+            _launch(*args, valid, 14.0, 40)
 
     def test_flash_decode_mla_refuses_unaligned(self, cuda):
         buf = torch.zeros(1 + 8 * 512, dtype=torch.bfloat16, device=cuda)
@@ -492,11 +568,15 @@ class TestKernelsOnCard:
                              torch.ones((1, 8), dtype=torch.bool, device=cuda),
                              denom=1.0)
 
-    def test_flash_decode_mla_never_reads_masked_slots(self, cuda):
+    @pytest.mark.parametrize("b,S", [(3, 640), (2, 9000)])
+    def test_flash_decode_mla_never_reads_masked_slots(self, cuda, b, S):
+        """Non-finite c_kv and k_rope in masked slots leave the output bit
+        for bit as it was: at S=640 the splits merge in a cluster, at
+        S=9000 in a second kernel."""
         rng = np.random.default_rng(10)
         args = [_randn(rng, s, "bfloat16").to(cuda) for s in
-                ((3, 128, 512), (3, 128, 64), (3, 640, 512), (3, 640, 64))]
-        _, valid = _decode_inputs(3, 640, 1, 1, 32, "float32", seed=11)
+                ((b, 128, 512), (b, 128, 64), (b, S, 512), (b, S, 64))]
+        _, valid = _decode_inputs(b, S, 1, 1, 32, "float32", seed=11)
         valid = torch.from_numpy(valid).to(cuda)
         clean = flash_decode_mla(*args, valid, denom=14.0)
         c_bad, k_bad = args[2].clone(), args[3].clone()

@@ -35,7 +35,7 @@ from repro_torch.models.attention import (mla_attend_decode, mla_attend_train,
 ARCH = "deepseek-v2-236b"
 TOL = dict(atol=1e-4, rtol=1e-4)
 DTYPES = {"float32": (torch.float32, 2e-5), "bfloat16": (torch.bfloat16, 2e-2)}
-BLOCK_S = 256            # the CUDA kernel's cache block
+BLOCK_S = 256            # the Pallas kernel's default cache block
 
 
 def _f32(x):
@@ -104,9 +104,10 @@ def test_mla_attend_decode_matches_jax(layer, per_row):
 
 # ---------------------------------------------------- decode plain versions --
 
-def _mla_inputs(b, S, H, r, dr, dtype, seed=0):
+def _mla_inputs(b, S, H, r, dr, dtype, seed=0, block_s=BLOCK_S):
     """Ring-shaped validity (row i sees a different prefix), plus a fully
-    masked cache block in row 0 where the cache has more than one block."""
+    masked cache block of ``block_s`` rows in row 0 where the cache has more
+    than one block."""
     rng = np.random.default_rng(seed)
 
     def randn(*shape):
@@ -117,17 +118,21 @@ def _mla_inputs(b, S, H, r, dr, dtype, seed=0):
     pos = rng.integers(1, 2 * S, size=b)
     age = (pos[:, None] % S - np.arange(S)[None, :]) % S
     valid = age <= np.minimum(pos[:, None], S - 1)
-    if S > BLOCK_S:
-        valid[0, BLOCK_S:2 * BLOCK_S] = False
+    if S > block_s:
+        valid[0, block_s:2 * block_s] = False
         valid[0, 0] = True
     return args, valid
 
 
+@pytest.mark.parametrize("block_s", [16, 48, 64, 80, 96, 256])
 @pytest.mark.parametrize("dtype", list(DTYPES))
 @pytest.mark.parametrize("S", [48, 300, 640])
-def test_mla_decode_refs_match_jax(S, dtype):
-    """The smoke config's widths: H=8, r=32, dr=16, denom sqrt(32+16)."""
-    args, valid = _mla_inputs(3, S, 8, 32, 16, dtype)
+def test_mla_decode_refs_match_jax(S, dtype, block_s):
+    """The smoke config's widths: H=8, r=32, dr=16, denom sqrt(32+16), at
+    splits the CUDA kernel takes (multiples of 16 rows; 48 for a 48-row
+    cache, 64 at S=300, 96 at deepseek-v2's decode shape) and the Pallas
+    kernel's 256."""
+    args, valid = _mla_inputs(3, S, 8, 32, 16, dtype, block_s=block_s)
     denom = math.sqrt(48)
     jargs = [_to_jax(t) for t in args] + [jnp.asarray(valid)]
     tvalid = torch.from_numpy(valid)
@@ -138,11 +143,11 @@ def test_mla_decode_refs_match_jax(S, dtype):
     np.testing.assert_allclose(
         _f32(ref), _f32(jax_fd_ref.mla_decode_ref(*jargs, denom=denom)),
         atol=tol, rtol=tol)
-    split = mla_decode_splitk(*args, tvalid, denom=denom, block_s=BLOCK_S)
+    split = mla_decode_splitk(*args, tvalid, denom=denom, block_s=block_s)
     np.testing.assert_allclose(
         _f32(split), _f32(jax_fd_ref.mla_decode_splitk(
-            *jargs, denom=denom, block_s=BLOCK_S)), atol=tol, rtol=tol)
-    pallas = pallas_mla(*jargs, denom=denom, block_s=BLOCK_S, interpret=True)
+            *jargs, denom=denom, block_s=block_s)), atol=tol, rtol=tol)
+    pallas = pallas_mla(*jargs, denom=denom, block_s=block_s, interpret=True)
     np.testing.assert_allclose(_f32(split), _f32(pallas), atol=tol, rtol=tol)
     np.testing.assert_allclose(_f32(ref), _f32(split), atol=tol, rtol=tol)
 
