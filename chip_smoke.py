@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving paths (llama3.2-3b, deepseek-v2-236b,
-mamba2-130m) and its training path (gpt2-350m) on one NVIDIA card.
+mamba2-130m, jamba-1.5-large-398b) and its training paths (gpt2-350m,
+mamba2-130m) on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -11,7 +12,7 @@ Phases, each printing its lines before the last:
    kernel's registers, spills and static shared memory from the ptxas log
    and its tensor-core instructions from ``cuobjdump -sass`` (every bf16
    attention, SSD and MLA decode body at every width must have some, and
-   the gradient kernels no atomics);
+   the attention and SSD gradient kernels no atomics);
 2. each kernel against its plain PyTorch version on the card, at the shapes
    the main paths give it and at edge cases (window, GQA, sq != sk,
    float32, ragged tails, two fully masked splits of each decode kernel's
@@ -21,10 +22,16 @@ Phases, each printing its lines before the last:
    forward attention at the MLA head dims 192 and 48, the SSD scan at
    mamba2-130m's prefill, at a 32k prompt, at a ragged length, at b=1
    lengths of several segments, one ending inside a segment, in float32
-   and at its smoke widths), the attention backward also against autograd
-   through the plain forward and run twice for bit-identical gradients,
-   with its time, the plain version's, one PyTorch library call's (none
-   computes the SSD scan) and the card's bound for the same work;
+   and at its smoke widths; jamba's attention forward at 64 query and 8 KV
+   heads, its GQA decode at 8 query heads a KV head and its SSD scan at
+   256 heads), the attention backward also against autograd through the
+   plain forward and run twice for bit-identical gradients, the SSD
+   gradient at mamba2-130m's training shape (with and without a gradient
+   on the final state, bf16 and float32), at a ragged length and at the
+   smoke widths, also against autograd through the plain scan and run
+   twice for bit-identical gradients, with its time, the plain version's,
+   one PyTorch library call's (none computes the SSD scan or its gradient)
+   and the card's bound for the same work;
 3. llama3.2-3b at full width in bfloat16 with random weights from a seed:
    (a) batch prefill + greedy decode -- the serving path, run with the
    launch counts set to 0 just before and read just after, then a
@@ -49,16 +56,34 @@ Phases, each printing its lines before the last:
    token prompt; (b) layer 0's mixer output and final SSD state, then the
    whole model's prefill and first decode logits, against the plain path;
    (c) the two batchers;
-6. gpt2-350m at full width (24 layers, bf16 params, fp32 Adam state) --
+6. jamba-1.5-large-398b at its published widths, one block of 8 of its 72
+   layers (Mamba2 at 0-3 and 5-7, GQA at 4; MoE on 1, 3, 5, 7, dense
+   SwiGLU on the even layers) and 8 of its 16 experts, top-2 kept (the
+   whole block at 16 experts does not fit one card), bf16 with float32
+   router and A_log/D/dt_bias: the same (a) serving run and trace,
+   through the attention forward, the GQA decode and ``ssd_scan``; (a')
+   one timed prefill of one 32,768-token prompt; (b) layer 4's attention
+   (prefill and first decode step) and layer 0's mixer output and final
+   SSD state against the plain path, then the whole model's logits and the
+   share of routing choices the two paths agree on, and the logits with
+   two faults put in on purpose (two MoE sub-layers swapped, the SSD state
+   dropped at the prompt's half), which the logits' limit must catch;
+   (c) the two batchers;
+7. gpt2-350m at full width (24 layers, bf16 params, fp32 Adam state) --
    the training path, ``repro_torch.launch.train.train`` with global batch
    8, sequence 1024, microbatch 1 and block remat, 1 warm-up + 12 timed
    steps with the launch counts set to 0 just before and read just after:
    step time, tokens/s, MFU, peak device memory over step 1, the loss
    falling; a torch.profiler trace of one step; one microbatch's loss and
-   grad norm against the plain versions.
+   grad norm against the plain versions;
+8. mamba2-130m at full width and depth, trained as gpt2-350m is (the
+   same traffic), through ``ssd_scan``, its gradient ``ssd_scan_bwd`` and
+   ``adam_update``.
 
-Each phase prints its wall time.  Then one JSON line of per-kernel
-numbers and, last, the JSON result line.
+The script sets the caching allocator's expandable segments as the entry
+points do (``repro_torch.launch.configure_allocator``).  Each phase prints
+its wall time.  Then one JSON line of per-kernel numbers and, last, the
+JSON result line.
 Any failed check raises and the script exits non-zero.  Without a CUDA
 card, or without the repository around it, it exits non-zero and prints
 no result.
@@ -76,6 +101,12 @@ prints each turn's times.
 
 times ``flash_decode_mla`` at deepseek-v2's decode shape, and at b=4 and
 b=1 of its cache, at every split count from one to nine (``mla_splits``).
+
+    python3 chip_smoke.py --alloc-peaks
+
+prints each training cell's peak device memory over step 1 with the
+allocator's expandable segments off and on, one process each
+(``--train-peak ARCH``).
 """
 import gc
 import json
@@ -87,6 +118,7 @@ import subprocess
 import sys
 import time
 from collections import Counter
+from contextlib import contextmanager
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = (sys.argv[sys.argv.index("--src") + 1] if "--src" in sys.argv
@@ -111,14 +143,16 @@ BF16_TOL, FP32_TOL = 2e-2, 2e-5
 ADAM_ATOL, ADAM_RTOL = 1e-6, 1e-5
 # Training kernel path against the plain path over one full-width
 # microbatch: the forward kernel rounds p to bf16 before PV where the plain
-# version keeps float32, and 24 layers carry those one-step bf16
-# differences into the loss (a mean over 1023 tokens, which averages them)
-# and into every gradient (the grad norm is dominated by the largest).  A
-# wrong mask, head mapping or gradient term moves either by its own scale.
+# version keeps float32 (mamba2: the SSD scan's bf16 products and the
+# chunking differ), and 24 layers carry those one-step bf16 differences
+# into the loss (a mean over 1023 tokens, which averages them) and into
+# every gradient (the grad norm is dominated by the largest).  A wrong
+# mask, head mapping, decay or gradient term moves either by its own scale.
 LOSS_RTOL, GNORM_RTOL = 1e-2, 5e-2
-# The JAX package's exact_peak_bytes(gpt2-350m, 8, 1024, d=1, t=1, zero=1,
-# microbatch=1) for the training cell, printed beside the card's peak.
-JAX_PREDICTED_PEAK = 8_691_153_715
+# The JAX package's exact_peak_bytes(arch, 8, 1024, d=1, t=1, zero=1,
+# microbatch=1) for the training cells, printed beside the card's peak.
+JAX_PREDICTED_PEAK = {"gpt2-350m": 8_691_153_715, "mamba2-130m": 4_841_272_883}
+TRAIN_PARAMS = {"gpt2-350m": 353_503_232, "mamba2-130m": 167_598_528}
 # Kernel path vs plain path, max |logit delta| / max |logit|, bf16 at full
 # width: the two paths round attention differently (p to bf16 before PV in
 # the kernels, float32 throughout in the plain versions; bf16 steps are
@@ -150,6 +184,30 @@ SSD_BF16_TOL, SSD_FP32_TOL = 5e-2, 2e-3
 # 24 residual layers carry such one-step differences to the logits.  A
 # wrong decay, mask or state carry moves them by their own scale.
 MAMBA2_TOL = 5e-2
+# The SSD gradient against its plain version, max |d| <= tol * max |ref| per
+# gradient: the JAX package's SSD kernel tolerances (tests/test_kernels.py:
+# 57).  Both compute in float32 from the same inputs and chunk at 64 rows
+# against 128, so they differ by sums in other orders and, in bf16, by the
+# outputs' rounding.  dA_log sums over every (position, p, n) and has the
+# least headroom.
+SSD_BWD_BF16_TOL, SSD_BWD_FP32_TOL = 5e-2, 2e-3
+
+# jamba: one block of its 72 layers (the layer pattern repeats every 8) with
+# 8 of its 16 experts -- the block at 16 experts is 45,144,659,968
+# parameters, 90.3 GB in bf16, above the card's 80 GB; at 8, 25,817,044,992
+# (the JAX package's param_count) -- and the top-2 routing kept, so a token
+# sees the published per-token work.  Kernel path vs plain path, max
+# |logit delta| absolute: as for deepseek-v2, a bf16 difference in a
+# router's input can flip a near-tied top-2 choice.  On an H100 the sound
+# path gave 0.371 (max |logit| 4.688) and the two faults of phase 6 (b2)
+# 1.115 (the SSD state dropped at the prompt's half) and 5.078 (two MoE
+# sub-layers swapped): the limit sits at the geometric mean of 0.371 and
+# 1.115, and the phase fails unless each fault exceeds it.  Layer 4's
+# attention is held at the kernels' own 2e-2 of max |ref|, layer 0's mixer
+# at MAMBA2_TOL.
+JAMBA_LAYERS, JAMBA_EXPERTS = 8, 8
+JAMBA_PARAMS = 25_817_044_992
+JAMBA_LOGITS_ATOL = 0.64
 
 # The bf16 bodies that must run on the tensor cores: by source, groups of
 # (kernel names, first template argument of each instantiation) -- the
@@ -170,11 +228,19 @@ DECODE = dict(b=8, S=544, H=24, K=8, D=128)
 # qk head dim dn + dr = 192 (H = K = 128), decode over latent width r = 512
 # and rope width dr = 64
 MLA_PREFILL = dict(b=8, s=512, H=128, D=192)
+# jamba's attention at b=8, prompt 512 + 32 new tokens: 64 query heads on 8
+# KV heads of 128, so 8 query heads share a KV head in the decode
+JAMBA_PREFILL = dict(b=8, s=512, H=64, K=8, D=128)
+JAMBA_DECODE = dict(b=8, S=544, H=64, K=8, D=128)
 MLA_DECODE = dict(b=8, S=544, H=128, r=512, dr=64)
 # mamba2-130m's SSD scan at b=8, prompt 512 (24 heads of P=64, state N=128),
 # and at one 32,768-token prompt, the JAX package's prefill_32k length
 SSD_PREFILL = dict(b=8, s=512, h=24, P=64, N=128)
 SSD_LONG = dict(b=1, s=32_768, h=24, P=64, N=128)
+# jamba's SSD scan at the b=8 prefill: d_inner 16,384 as 256 heads of 64
+SSD_JAMBA = dict(b=8, s=512, h=256, P=64, N=128)
+# the SSD gradient at mamba2-130m's training microbatch (b=1 of 8, s=1024)
+SSD_TRAIN = dict(b=1, s=1024, h=24, P=64, N=128)
 
 
 def check(cond, msg):
@@ -266,13 +332,13 @@ def report_build():
                   f" {r['spill_stores']} B spill stores, {r['spill_loads']} B"
                   f" spill loads, {r['stack']} B stack, {r['static_smem']} B"
                   f" static smem, {ops['HMMA'] + ops['HGMMA']} HMMA/HGMMA")
-        if src == "flash_attention_bwd":
+        if src in ("flash_attention_bwd", "ssd_scan_bwd"):
             # ATOM* and RED are memory atomics; REDUX is a warp reduction
             atomics = sum(c for ops in sass.values() for op, c in ops.items()
                           if op.startswith("ATOM") or op == "RED")
             print(f"sass {src}: {atomics} atomic instructions"
                   f" {'ok' if atomics == 0 else 'FAIL'}")
-            check(atomics == 0, "the attention backward uses atomics")
+            check(atomics == 0, f"{src} uses atomics")
         if src not in MMA_KERNELS:
             continue
         labels = Counter()
@@ -379,6 +445,8 @@ def phase_kernels(peaks, flush):
         ("noncausal_sq!=sk", 2, 96, 200, 8, 2, 64, False, 0, bf16),
         ("fp32_D32", 2, 160, 160, 8, 4, 32, True, 0, f32),
         ("ragged_s129", 2, 129, 129, 8, 2, 128, True, 0, bf16),
+        ("jamba_prefill", *(JAMBA_PREFILL[k] for k in "bs"), JAMBA_PREFILL["s"],
+         *(JAMBA_PREFILL[k] for k in "HKD"), True, 0, bf16),
     ]
     for name, b, sq, sk, H, K, D, causal, window, dt in attn_cases:
         q, k, v = randn(b, sq, H, D, dtype=dt), randn(b, sk, K, D, dtype=dt), \
@@ -396,13 +464,21 @@ def phase_kernels(peaks, flush):
               f"{err_lse:.3e} tol={FP32_TOL:g} {'ok' if ok and ok_lse else 'FAIL'}")
         check(ok and ok_lse,
               f"flash_attention {name} disagrees with its plain version")
-        if name != "prefill":
+        if name not in ("prefill", "jamba_prefill"):
             continue
         pos_q = torch.arange(sq, device="cuda")[:, None]
         pos_k = torch.arange(sk, device="cuda")[None]
         pairs = int((pos_k <= pos_q).sum()) if causal else sq * sk
         nbytes = 2 * (q.numel() + k.numel() + v.numel() + got.numel())
         bound_ms, bound_by = bound(nbytes, 4 * D * b * H * pairs, peaks)
+        if name == "jamba_prefill":
+            qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            print(f"time flash_attention {name}: bound {bound_ms:.4f} ms"
+                  f" ({bound_by}), kernel"
+                  f" {time_ms(lambda: flash_attention(q, k, v, causal=True), flush):.4f}"
+                  f" ms, plain {time_ms(lambda: attention_ref(q, k, v, causal=True), flush):.4f}"
+                  f" ms, library (SDPA) {time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True), flush):.4f} ms")
+            continue
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         rows["flash_attention"] = dict(
             name="flash_attention", route="cuda",
@@ -415,11 +491,13 @@ def phase_kernels(peaks, flush):
             library_ms=time_ms(lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=True, enable_gqa=True), flush))
 
-    d = DECODE
+    d, j = DECODE, JAMBA_DECODE
     for name, b, S, H, K, D, dt in [
             ("decode_ring", d["b"], d["S"], d["H"], d["K"], d["D"], bf16),
             ("masked_block", 4, 700, 24, 8, 128, bf16),
-            ("invalid_row", 4, 300, 8, 2, 32, f32)]:
+            ("invalid_row", 4, 300, 8, 2, 32, f32),
+            ("jamba_decode_G8", j["b"], j["S"], j["H"], j["K"], j["D"], bf16),
+            ("jamba_invalid_row_G8", 4, 300, 64, 8, 128, f32)]:
         q, k, v = randn(b, 1, H, D, dtype=dt), randn(b, S, K, D, dtype=dt), \
             randn(b, S, K, D, dtype=dt)
         valid = ring_valid(gen, b, S)
@@ -427,13 +505,13 @@ def phase_kernels(peaks, flush):
         if name == "masked_block":       # two whole splits masked
             valid[:, bs:3 * bs] = False
             valid[:, 0] = True
-        if name == "invalid_row":
+        if "invalid_row" in name:
             valid[1] = False
         got = flash_decode_gqa(q, k, v, valid)
         want = gqa_decode_splitk(q, k, v, valid, block_s=bs)
         tol = BF16_TOL if dt == bf16 else FP32_TOL
         ok, err = close(got, want, tol)
-        if name == "invalid_row":
+        if not valid[1].any():
             ok = ok and bool((got[1] == 0).all())
             live = valid.any(dim=1)
             ok_ref, _ = close(got[live], gqa_decode_ref(q[live], k[live], v[live],
@@ -446,7 +524,7 @@ def phase_kernels(peaks, flush):
               f" tol={tol:g} {'ok' if ok and ok_ref else 'FAIL'}")
         check(ok and ok_ref,
               f"flash_decode_gqa {name} disagrees with its plain versions")
-        if name != "decode_ring":
+        if name not in ("decode_ring", "jamba_decode_G8"):
             continue
         # the function needs q, the valid rows of K and V and the mask, and
         # writes the output; masked rows are neither read nor computed on
@@ -454,6 +532,15 @@ def phase_kernels(peaks, flush):
         nbytes = (2 * (q.numel() + got.numel()) + 2 * 2 * K * D * n_valid
                   + valid.numel())
         bound_ms, bound_by = bound(nbytes, 4 * D * H * n_valid, peaks)
+        if name == "jamba_decode_G8":
+            qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            print(f"time flash_decode_gqa {name}: {n_valid} of {b * S}"
+                  f" rows valid, {nbytes} bytes, bound {bound_ms:.4f} ms"
+                  f" ({bound_by}), kernel"
+                  f" {time_ms(lambda: flash_decode_gqa(q, k, v, valid), flush):.4f}"
+                  f" ms, plain {time_ms(lambda: gqa_decode_ref(q, k, v, valid), flush):.4f}"
+                  f" ms, library (SDPA) {time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=valid[:, None, None, :], enable_gqa=True), flush):.4f} ms")
+            continue
         print(f"time flash_decode_gqa inputs: {n_valid} of {b * S} cache rows"
               f" valid, {nbytes} bytes needed")
         # the call's two kernels, partials and merge, from a trace
@@ -476,6 +563,7 @@ def phase_kernels(peaks, flush):
     rows.update(phase_attention_bwd(peaks, flush, randn))
     rows.update(phase_adam(peaks, flush, gen))
     rows.update(phase_ssd_kernel(peaks, flush, gen))
+    rows.update(phase_ssd_bwd(peaks, flush, gen))
     for r in rows.values():
         library = ("none" if r["library_ms"] is None
                    else f"{r['library_ms']:.4f} ms")
@@ -753,25 +841,19 @@ def phase_ssd_kernel(peaks, flush, gen):
     from repro_torch.kernels.ssd_scan.ssd_scan import chunk, segment_chunks
     bf16, f32 = torch.bfloat16, torch.float32
     rows = {}
-    p, q = SSD_PREFILL, SSD_LONG
+    p, q, j = SSD_PREFILL, SSD_LONG, SSD_JAMBA
     for name, b, s, h, P, N, dt in [
             ("prefill", p["b"], p["s"], p["h"], p["P"], p["N"], bf16),
             ("prefill_32k", q["b"], q["s"], q["h"], q["P"], q["N"], bf16),
+            ("jamba_prefill_h256", j["b"], j["s"], j["h"], j["P"], j["N"], bf16),
             ("ragged", 2, 1000, 24, 64, 128, bf16),
             ("segments_b1", 1, 4096, 24, 64, 128, bf16),
             ("mid_segment_b1", 1, 4000, 24, 64, 128, bf16),
             ("fp32_ragged", 2, 1000, 24, 64, 128, f32),
             ("smoke_dims", 2, 200, 16, 32, 16, bf16),
             ("smoke_dims_fp32", 3, 77, 16, 32, 16, f32)]:
-        # the JAX package's kernel sweep's inputs (tests/test_kernels.py:44-52)
-        x = torch.randn(b, s, h, P, generator=gen, device="cuda").to(dt)
-        dt_raw = (torch.randn(b, s, h, generator=gen, device="cuda") * 0.5).to(dt)
-        A_log = torch.randn(h, generator=gen, device="cuda") * 0.3
-        B = torch.randn(b, s, N, generator=gen, device="cuda").to(dt)
-        C = torch.randn(b, s, N, generator=gen, device="cuda").to(dt)
-        D = torch.randn(h, generator=gen, device="cuda")
-        dt_bias = torch.full((h,), 0.1, device="cuda")
-        args = (x, dt_raw, A_log, B, C, D, dt_bias)
+        args = ssd_inputs(gen, b, s, h, P, N, dt)
+        x, dt_raw, A_log, B, C, D, dt_bias = args
         got = ssd_scan(*args)
         want = ssd_scan_ref(*args)
         tol = SSD_BF16_TOL if dt == bf16 else SSD_FP32_TOL
@@ -786,22 +868,24 @@ def phase_ssd_kernel(peaks, flush, gen):
               f" {want[1].abs().max().item():.3f}) tol={tol:g}"
               f" {'ok' if ok_y and ok_s else 'FAIL'}")
         check(ok_y and ok_s, f"ssd_scan {name} disagrees with its plain version")
-        if not name.startswith("prefill"):
+        if "prefill" not in name:
             continue
         # reads x, dt_raw, B, C and the (h,) vectors, writes y and the
-        # float32 state; products of the chunked form at the kernel's chunk
-        # L: C.B^T (2 L^2 N), W.x (2 L^2 P), C.state and the state update
-        # (2 L N P each) per (batch, head, chunk)
+        # float32 state; the products that every chunk length L needs, per
+        # (batch, head, position): the state update and C . state (2 P N
+        # each).  The chunked form's L x L products (C.B^T, W.x) grow with
+        # the kernel's choice of L, so they are not part of the bound.
         L = chunk()
         nbytes = (x.element_size() * (2 * x.numel() + dt_raw.numel()
                                       + B.numel() + C.numel())
                   + 4 * (want[1].numel() + 3 * h))
-        flops = b * h * -(-s // L) * (2 * L * L * (N + P) + 4 * L * N * P)
+        flops = b * h * s * 4 * P * N
         bound_ms, bound_by = bound(nbytes, flops, peaks)
         ms = time_ms(lambda: ssd_scan(*args), flush)
         plain_ms = time_ms(lambda: ssd_scan_ref(*args), flush)
-        print(f"time ssd_scan {name} inputs: {nbytes} bytes, {flops} flops of"
-              f" the chunked form at L={L}: kernel {ms:.4f} ms, plain"
+        print(f"time ssd_scan {name} inputs: {nbytes} bytes, {flops} flops"
+              f" independent of the chunk (the kernel's L={L}): kernel"
+              f" {ms:.4f} ms, plain"
               f" {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by});"
               f" no PyTorch call computes the scan")
         _, parts, _ = device_profile(lambda: ssd_scan(*args), 10)
@@ -814,6 +898,110 @@ def phase_ssd_kernel(peaks, flush, gen):
                 replaces="src/repro/kernels/ssd_scan/ssd_scan.py:76",
                 max_abs_err=max(err_y, err_s), ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+    return rows
+
+
+def ssd_inputs(gen, b, s, h, P, N, dt):
+    """x, dt_raw, A_log, B, C, D, dt_bias as in the JAX package's SSD kernel
+    sweep (tests/test_kernels.py:44-52)."""
+    return (torch.randn(b, s, h, P, generator=gen, device="cuda").to(dt),
+            (torch.randn(b, s, h, generator=gen, device="cuda") * 0.5).to(dt),
+            torch.randn(h, generator=gen, device="cuda") * 0.3,
+            torch.randn(b, s, N, generator=gen, device="cuda").to(dt),
+            torch.randn(b, s, N, generator=gen, device="cuda").to(dt),
+            torch.randn(h, generator=gen, device="cuda"),
+            torch.full((h,), 0.1, device="cuda"))
+
+
+def phase_ssd_bwd(peaks, flush, gen):
+    """The SSD gradient against its plain version at the training path's
+    shape and at edge cases, against autograd through the plain scan at the
+    training shape, and run twice for bit-identical results; its row for
+    the kernels line."""
+    from repro_torch.kernels.ssd_scan import (ssd_scan_bwd, ssd_scan_bwd_ref,
+                                              ssd_scan_ref)
+    from repro_torch.kernels.ssd_scan.ssd_scan import bwd_chunk
+    bf16, f32 = torch.bfloat16, torch.float32
+    names = ("dx", "ddt_raw", "dA_log", "dB", "dC", "dD", "ddt_bias")
+    rows = {}
+    t = SSD_TRAIN
+    train = (t["b"], t["s"], t["h"], t["P"], t["N"])
+    for name, (b, s, h, P, N), dt, with_state in [
+            ("train", train, bf16, False),
+            ("train_d_state", train, bf16, True),
+            ("train_fp32", train, f32, True),
+            ("ragged", (2, 1000, 24, 64, 128), bf16, True),
+            ("smoke_dims", (2, 200, 16, 32, 16), bf16, True),
+            ("smoke_dims_fp32", (3, 77, 16, 32, 16), f32, False)]:
+        args = ssd_inputs(gen, b, s, h, P, N, dt)
+        dy = torch.randn(b, s, h, P, generator=gen, device="cuda").to(dt)
+        ds = (torch.randn(b, h, P, N, generator=gen, device="cuda")
+              if with_state else None)
+        got = ssd_scan_bwd(*args, dy, ds)
+        again = ssd_scan_bwd(*args, dy, ds)
+        want = ssd_scan_bwd_ref(*args, dy, ds)
+        tol = SSD_BWD_BF16_TOL if dt == bf16 else SSD_BWD_FP32_TOL
+        errs = [rel_max_err(g, w) for g, w in zip(got, want)]
+        same = all(torch.equal(g, a) for g, a in zip(got, again))
+        ok = max(errs) <= tol and same and all(
+            g.dtype == w.dtype and bool(torch.isfinite(g.float()).all())
+            for g, w in zip(got, want))
+        auto = ""
+        if name.startswith("train"):
+            # autograd through the plain scan, the port's ssd_chunked
+            leaves = [a.detach().clone().requires_grad_(True) for a in args]
+            y, st = ssd_scan_ref(*leaves)
+            loss = (y.float() * dy.float()).sum()
+            if ds is not None:
+                loss = loss + (st * ds).sum()
+            errs_auto = [rel_max_err(g, w) for g, w in
+                         zip(got, torch.autograd.grad(loss, leaves))]
+            ok = ok and max(errs_auto) <= tol
+            auto = (", vs autograd through the plain scan " + " ".join(
+                f"{n} {e:.3e}" for n, e in zip(names, errs_auto)))
+        print(f"kernel ssd_scan_bwd {name} b={b} s={s} h={h} P={P} N={N}"
+              f" {str(dt)[6:]} d_state={'yes' if with_state else 'no'}:"
+              f" max|d|/max|ref| " + " ".join(f"{n} {e:.3e}" for n, e in
+                                              zip(names, errs))
+              + auto + f", rerun bit-identical {same} tol={tol:g}"
+              f" {'ok' if ok else 'FAIL'}")
+        check(ok, f"ssd_scan_bwd {name} disagrees with its plain versions")
+        if name != "train":
+            continue
+        # reads x, dt_raw, B, C, dy and the (h,) vectors, writes dx,
+        # ddt_raw, dB, dC and the (h,) gradients; the products that every
+        # chunk length L needs, per (batch, head, position): six of P x N
+        # (the state update and its gradient, G B, x^T G, S C, dy^T S).
+        # The chunked backward's L x L products (C.B^T, dy.x^T and those
+        # into dB, dC and dx) grow with the kernel's choice of L, so they
+        # are not part of the bound.
+        L = bwd_chunk()
+        x, dt_raw, _, B, C, _, _ = args
+        nbytes = (x.element_size() * (3 * x.numel() + 2 * dt_raw.numel()
+                                      + 2 * B.numel() + 2 * C.numel())
+                  + 4 * 6 * h)
+        flops = b * h * s * 2 * 6 * P * N
+        bound_ms, bound_by = bound(nbytes, flops, peaks)
+        ms = time_ms(lambda: ssd_scan_bwd(*args, dy, ds), flush)
+        plain_ms = time_ms(lambda: ssd_scan_bwd_ref(*args, dy, ds), flush)
+        print(f"time ssd_scan_bwd {name} inputs: {nbytes} bytes, {flops} flops"
+              f" independent of the chunk (the kernel's L={L}): kernel"
+              f" {ms:.4f} ms, plain"
+              f" {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by});"
+              f" no PyTorch call computes the gradient")
+        _, parts, _ = device_profile(lambda: ssd_scan_bwd(*args, dy, ds), 10)
+        print(f"time ssd_scan_bwd {name} kernels (ms per call, traced, L2 warm): "
+              + "; ".join(f"{kn[:40]} {tm:.4f}" for kn, tm in parts))
+        rows["ssd_scan_bwd"] = dict(
+            name="ssd_scan_bwd", route="cuda",
+            source="src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
+            replaces="src/repro/kernels/ssd_scan/ssd_scan.py:76 (its gradient:"
+                     " no Pallas kernel, JAX autodiff of"
+                     " src/repro/models/mamba2.py:72)",
+            max_abs_err=max((g.float() - w.float()).abs().max().item()
+                            for g, w in zip(got, want)),
+            ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=None)
     return rows
 
 
@@ -975,10 +1163,9 @@ def phase_deepseek():
     from repro_torch.configs import get_arch
     from repro_torch.kernels import LAUNCHES, dispatch
     from repro_torch.models import attention as attn
-    from repro_torch.models import init_params, moe, param_count
+    from repro_torch.models import init_params, param_count
     from repro_torch.models.common import rms_norm
     from repro_torch.models.transformer import cache_from_prefill
-    from repro_torch.serve import prefill, serve_step
     cfg = get_arch("deepseek-v2-236b").scaled(num_layers=DEEPSEEK_LAYERS)
     n_params = param_count(cfg)
     check(n_params == 16_937_047_040, f"deepseek-v2 at 4 layers has {n_params}"
@@ -1030,40 +1217,9 @@ def phase_deepseek():
           f" {rel[0]:.3e}, first decode step {rel[1]:.3e}, tol {BF16_TOL:g}")
     check(max(rel) <= BF16_TOL, "layer 0's MLA differs from the plain path")
 
-    # (b2) the whole model: prefill logits and the first decode step's, and
-    # the routing choices (each token's top-k set) of both paths
-    routes = []
-    inner = moe.moe_ffn
-
-    def spy(cfg_, p, x):
-        probs = torch.softmax(x.float() @ p["router"], dim=-1)
-        routes.append(torch.topk(probs, cfg_.top_k, dim=-1).indices.sort(-1).values)
-        return inner(cfg_, p, x)
-
-    def first_two():
-        routes.clear()
-        logits, cache = prefill(cfg, params, {"tokens": prompt}, cache_len)
-        step, _ = serve_step(cfg, params, toks[:, :1], cache, s)
-        return logits[:, -1].float(), step[:, -1].float(), list(routes)
-
-    moe.moe_ffn = spy
-    try:
-        kern = first_two()
-        with dispatch.force("ref"):
-            plain = first_two()
-    finally:
-        moe.moe_ffn = inner
-    agree = (sum(int((a == c).all(-1).sum()) for a, c in zip(kern[2], plain[2]))
-             / sum(a.shape[0] * a.shape[1] for a in kern[2]))
-    dl = [(a - c).abs().max().item() for a, c in zip(kern[:2], plain[:2])]
-    scale = max(c.abs().max().item() for c in plain[:2])
-    print(f"(b) kernel vs plain path: prefill max|dlogit| {dl[0]:.3e},"
-          f" first decode {dl[1]:.3e} (max|logit| {scale:.3f}), atol"
-          f" {DEEPSEEK_LOGITS_ATOL:g}; share of routing choices (a token's"
-          f" top-{cfg.top_k} set in one layer, prefill and first decode step)"
-          f" equal on both paths: {agree:.4f}")
-    check(max(dl) <= DEEPSEEK_LOGITS_ATOL,
-          "deepseek-v2 kernel path logits differ from the plain path")
+    # (b2) the whole model
+    logits_vs_plain(cfg, params, prompt, toks[:, :1], cache_len,
+                    DEEPSEEK_LOGITS_ATOL)
 
     # (c) 16 requests through 8 slots
     prompts = torch.randint(0, cfg.vocab_size, (16, s), generator=gen, device="cuda")
@@ -1168,21 +1324,259 @@ def phase_mamba2():
     return launches
 
 
-def phase_train(peaks):
-    from repro_torch.configs import TrainConfig, get_arch
+def routing_spy(moe):
+    """Wraps moe.moe_ffn to record each call's routing choices (each
+    token's top-k set); returns (the list they go to, a function that
+    restores moe_ffn)."""
+    routes = []
+    inner = moe.moe_ffn
+
+    def spy(cfg_, p, x):
+        probs = torch.softmax(x.float() @ p["router"], dim=-1)
+        routes.append(torch.topk(probs, cfg_.top_k, dim=-1).indices.sort(-1).values)
+        return inner(cfg_, p, x)
+
+    moe.moe_ffn = spy
+    return routes, lambda: setattr(moe, "moe_ffn", inner)
+
+
+@contextmanager
+def subs_swapped(params, i, j):
+    """A fault: sub-layers i and j of the blocks (of one kind) run in each
+    other's places while the context is open."""
+    blocks = params["blocks"]
+    a, b = f"sub{i}", f"sub{j}"
+    blocks[a], blocks[b] = blocks[b], blocks[a]
+    try:
+        yield
+    finally:
+        blocks[a], blocks[b] = blocks[b], blocks[a]
+
+
+@contextmanager
+def ssd_carry_dropped():
+    """A fault: while the context is open the SSD scan runs the two halves
+    of a sequence apart, so the second starts from a zero state."""
+    from repro_torch.kernels import dispatch
+    inner = dispatch.ssd
+
+    def halves(x, dt_raw, A_log, B, C, D, dt_bias, **kw):
+        cut = x.shape[1] // 2
+        if cut == 0:
+            return inner(x, dt_raw, A_log, B, C, D, dt_bias, **kw)
+        parts = [inner(x[:, i].contiguous(), dt_raw[:, i].contiguous(), A_log,
+                       B[:, i].contiguous(), C[:, i].contiguous(), D, dt_bias,
+                       **kw)
+                 for i in (slice(0, cut), slice(cut, None))]
+        return torch.cat([parts[0][0], parts[1][0]], 1), parts[1][1]
+
+    dispatch.ssd = halves
+    try:
+        yield
+    finally:
+        dispatch.ssd = inner
+
+
+def logits_vs_plain(cfg, params, prompt, first, cache_len, atol, faults=()):
+    """(b2) The whole model, kernel path against the plain path: the prefill
+    logits and the first decode step's (from token ``first``), max |logit
+    delta| within ``atol``, and the share of routing choices (a token's
+    top-k set in one MoE layer, prefill and first decode step) equal on
+    both paths.  Each of ``faults``, (name, context manager that breaks the
+    kernel path while open), must move the logits by more than ``atol``:
+    the limit tells a sound path from a broken one."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import moe
+    from repro_torch.serve import prefill, serve_step
+    s = prompt.shape[1]
+    routes, restore = routing_spy(moe)
+
+    def first_two():
+        routes.clear()
+        logits, cache = prefill(cfg, params, {"tokens": prompt}, cache_len)
+        step, _ = serve_step(cfg, params, first, cache, s)
+        return logits[:, -1].float(), step[:, -1].float(), list(routes)
+
+    try:
+        kern = first_two()
+        with dispatch.force("ref"):
+            plain = first_two()
+    finally:
+        restore()
+
+    def dlogit(got):
+        return [(a - c).abs().max().item() for a, c in zip(got[:2], plain[:2])]
+
+    agree = (sum(int((a == c).all(-1).sum()) for a, c in zip(kern[2], plain[2]))
+             / sum(a.shape[0] * a.shape[1] for a in kern[2]))
+    dl = dlogit(kern)
+    scale = max(c.abs().max().item() for c in plain[:2])
+    print(f"(b) kernel vs plain path: prefill max|dlogit| {dl[0]:.3e},"
+          f" first decode {dl[1]:.3e} (max|logit| {scale:.3f}), atol"
+          f" {atol:g}; share of routing choices (a token's top-{cfg.top_k}"
+          f" set in one MoE layer, prefill and first decode step) equal on"
+          f" both paths: {agree:.4f}")
+    check(max(dl) <= atol, f"{cfg.name} kernel path logits differ from the"
+                           f" plain path")
+    for name, fault in faults:
+        with fault():
+            broken = dlogit(first_two())
+        print(f"(b) fault, {name}: prefill max|dlogit| {broken[0]:.3e}, first"
+              f" decode {broken[1]:.3e}, atol {atol:g}")
+        check(max(broken) > atol, f"{cfg.name}'s logits limit {atol:g} does"
+                                  f" not catch the fault: {name}")
+
+
+def phase_jamba():
+    """jamba-1.5-large-398b, published widths, one block of JAMBA_LAYERS
+    layers and JAMBA_EXPERTS of its 16 experts."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import LAUNCHES, dispatch, reset_launches
+    from repro_torch.models import attention as attn
+    from repro_torch.models import init_params, param_count
+    from repro_torch.models.common import rms_norm
+    from repro_torch.models.mamba2 import mamba2_forward
+    from repro_torch.models.transformer import cache_from_prefill
+    from repro_torch.serve import prefill
+    cfg = get_arch("jamba-1.5-large-398b").scaled(num_layers=JAMBA_LAYERS,
+                                                  num_experts=JAMBA_EXPERTS)
+    n_params = param_count(cfg)
+    check(n_params == JAMBA_PARAMS, f"jamba at one block and {JAMBA_EXPERTS}"
+                                    f" experts has {n_params} parameters")
+    kinds = [("attn" if cfg.layer_kind(l) == "attn" else "mamba2")
+             + ("+moe" if cfg.layer_is_moe(l) else "+mlp")
+             for l in range(cfg.num_layers)]
+    t0 = time.perf_counter()
+    params = init_params(cfg, 0, device="cuda")
+    torch.cuda.synchronize()
+    n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    print(f"model {cfg.name}: {cfg.num_layers} of 72 layers ({', '.join(kinds)}),"
+          f" d_model={cfg.d_model} heads={cfg.num_heads}/{cfg.num_kv_heads} of"
+          f" {cfg.head_dim}, d_inner={cfg.d_inner} ssd heads={cfg.n_ssm_heads}"
+          f" of P={cfg.ssm_head_dim} state N={cfg.ssm_state}, d_ff={cfg.d_ff},"
+          f" experts={cfg.num_experts} of 16 top-{cfg.top_k} of d_ff"
+          f" {cfg.moe_d_ff}, vocab={cfg.vocab_size} params={n_params}"
+          f" ({n_bytes} bytes, bf16 with float32 router and A_log/D/dt_bias),"
+          f" init {time.perf_counter() - t0:.1f}s")
+    n_attn = sum(cfg.layer_kind(l) == "attn" for l in range(cfg.num_layers))
+    b, s, new = 8, 512, 32
+    cache_len = s + new
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    prompt = torch.randint(0, cfg.vocab_size, (b, s), generator=gen, device="cuda")
+    want = dict.fromkeys(LAUNCHES, 0)
+    want.update(flash_attention=n_attn, flash_decode_gqa=n_attn * (new - 1),
+                ssd_scan=cfg.num_layers - n_attn)
+    toks, launches = serve_main_path(cfg, params, prompt, new, want)
+
+    # (a') one prompt of 32,768 tokens, timed after a warm-up prefill
+    s_long = SSD_LONG["s"]
+    long_prompt = torch.randint(0, cfg.vocab_size, (1, s_long), generator=gen,
+                                device="cuda")
+    prefill(cfg, params, {"tokens": long_prompt}, s_long + 1)
+    torch.cuda.synchronize()
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    logits, _ = prefill(cfg, params, {"tokens": long_prompt}, s_long + 1)
+    torch.cuda.synchronize()
+    dt_long = time.perf_counter() - t0
+    print(f"(a') prefill b=1 prompt={s_long}: {dt_long:.4f}s"
+          f" {s_long / dt_long:.1f} tok/s, launches {dict(LAUNCHES)}, peak"
+          f" device memory {torch.cuda.max_memory_allocated()} B")
+    check(LAUNCHES["ssd_scan"] == cfg.num_layers - n_attn
+          and LAUNCHES["flash_attention"] == n_attn
+          and bool(torch.isfinite(logits.float()).all()),
+          "the 32k prefill did not run the kernels once a layer or gave"
+          " non-finite logits")
+    del logits, long_prompt
+
+    # (b1) layer 4's attention, prefill output and the first decode step
+    # over the cache that prefill wrote, and layer 0's mixer output and
+    # final SSD state, each from the normed embeddings
+    j_attn = next(j for j in range(cfg.block_period)
+                  if cfg.layer_kind(j) == "attn")
+    sub_a, sub_m = params["blocks"][f"sub{j_attn}"], params["blocks"]["sub0"]
+    pa = {k: v[0] for k, v in sub_a["mixer"].items()}
+    pm = {k: v[0] for k, v in sub_m["mixer"].items()}
+    ha = rms_norm(params["embed"][prompt], sub_a["norm1"][0], cfg.norm_eps)
+    ha_new = rms_norm(params["embed"][toks[:, :1]], sub_a["norm1"][0], cfg.norm_eps)
+    hm = rms_norm(params["embed"][prompt], sub_m["norm1"][0], cfg.norm_eps)
+    positions = torch.arange(s, device="cuda")
+
+    def layers():
+        with torch.inference_mode():
+            out, kv = attn.gqa_attend_train(cfg, pa, ha, positions)
+            ring = cache_from_prefill(cfg, {"sub": {k: t[None] for k, t in
+                                                    kv.items()}}, cache_len)
+            step, _ = attn.gqa_attend_decode(
+                cfg, pa, ha_new, {k: t[0] for k, t in ring["sub"].items()},
+                attn.ring_index(s, cache_len, b, "cuda"))
+            mixed, cache = mamba2_forward(cfg, pm, hm)
+        return out, step, mixed, cache["ssd"]
+
+    kern = layers()
+    with dispatch.force("ref"):
+        plain = layers()
+    rel = [rel_max_err(a, c) for a, c in zip(kern, plain)]
+    print(f"(b) layer {j_attn} attention ({cfg.num_heads}/{cfg.num_kv_heads}"
+          f" heads), kernel vs plain: prefill max|d|/max|ref| {rel[0]:.3e},"
+          f" first decode step {rel[1]:.3e}, tol {BF16_TOL:g}; layer 0 Mamba2"
+          f" mixer ({cfg.n_ssm_heads} heads):"
+          f" output {rel[2]:.3e}, final SSD state {rel[3]:.3e}, tol"
+          f" {MAMBA2_TOL:g}")
+    check(max(rel[:2]) <= BF16_TOL and max(rel[2:]) <= MAMBA2_TOL,
+          "jamba's attention or Mamba2 layer differs from the plain path")
+    del kern, plain
+
+    # (b2) the whole model, and the same with two faults put in on purpose
+    logits_vs_plain(cfg, params, prompt, toks[:, :1], cache_len,
+                    JAMBA_LOGITS_ATOL,
+                    faults=[("sub-layers 1 and 3 swapped",
+                             lambda: subs_swapped(params, 1, 3)),
+                            ("SSD state dropped at the prompt's half",
+                             ssd_carry_dropped)])
+
+    # (c) 16 requests through 8 slots
+    prompts = torch.randint(0, cfg.vocab_size, (16, s), generator=gen, device="cuda")
+    serve_batchers(cfg, params, prompts, new)
+    return launches
+
+
+def train_config(steps):
+    """The training cells' traffic: global batch 8 x 1024, microbatch 1,
+    block remat."""
+    from repro_torch.configs import TrainConfig
+    return TrainConfig(global_batch=8, seq_len=1024, microbatch=1,
+                       steps=steps, warmup_steps=1, remat="block", seed=0)
+
+
+def expandable_segments():
+    """Whether the caching allocator holds growable segments, from a
+    snapshot of its segments (after something was allocated)."""
+    return any(seg.get("is_expandable", False)
+               for seg in torch.cuda.memory_snapshot())
+
+
+def phase_train(peaks, arch):
+    """Training ``arch`` at full width and depth: global batch 8 x 1024,
+    microbatch 1, block remat, 1 warm-up + 12 timed steps."""
+    from repro_torch.configs import get_arch
     from repro_torch.data import SyntheticTokens
     from repro_torch.kernels import LAUNCHES, dispatch, reset_launches
     from repro_torch.launch.train import loss_fell, to_device, train
     from repro_torch.models import param_count
     from repro_torch.train import accumulate_grads, build_train_step
-    from repro_torch.train.optimizer import global_norm
-    cfg = get_arch("gpt2-350m")
+    from repro_torch.train.optimizer import global_norm, tree_leaves
+    cfg = get_arch(arch)
     n_params = param_count(cfg)
-    check(n_params == 353_503_232, f"gpt2-350m has {n_params} parameters")
-    b, s, steps = 8, 1024, 13             # 1 warm-up + 12 timed steps
-    tc = TrainConfig(global_batch=b, seq_len=s, microbatch=1, steps=steps,
-                     warmup_steps=1, remat="block", seed=0)
-    print(f"model {cfg.name}: {cfg.num_layers} layers d_model={cfg.d_model}"
+    check(n_params == TRAIN_PARAMS[arch], f"{arch} has {n_params} parameters")
+    steps = 13                            # 1 warm-up + 12 timed steps
+    tc = train_config(steps)
+    b, s = tc.global_batch, tc.seq_len
+    n_attn = sum(cfg.layer_kind(l) == "attn" for l in range(cfg.num_layers))
+    n_ssm = cfg.num_layers - n_attn
+    print(f"model {cfg.name}: {cfg.num_layers} layers ({n_attn} attention,"
+          f" {n_ssm} Mamba2) d_model={cfg.d_model}"
           f" heads={cfg.num_heads}/{cfg.num_kv_heads} d_ff={cfg.d_ff}"
           f" vocab={cfg.vocab_size} params={n_params}; train global_batch={b}"
           f" seq={s} microbatch=1 remat=block, {steps} steps")
@@ -1191,26 +1585,30 @@ def phase_train(peaks):
                 log=lambda line: print(f"(t) {line}"))
     launches = dict(LAUNCHES)
     n_micro = out["n_micro"]
-    want = {"flash_attention": 2 * cfg.num_layers * n_micro * steps,
-            "flash_attention_bwd": cfg.num_layers * n_micro * steps,
-            "adam_update": 10 * steps, "flash_decode_gqa": 0,
-            "flash_decode_mla": 0, "ssd_scan": 0}
+    # a layer's forward kernel runs twice a microbatch (the forward, and its
+    # recompute under block remat in the backward), its gradient once
+    want = dict.fromkeys(LAUNCHES, 0)
+    want.update(flash_attention=2 * n_attn * n_micro * steps,
+                flash_attention_bwd=n_attn * n_micro * steps,
+                ssd_scan=2 * n_ssm * n_micro * steps,
+                ssd_scan_bwd=n_ssm * n_micro * steps,
+                adam_update=len(tree_leaves(out["state"]["params"])) * steps)
     losses, step_s = out["losses"], out["step_s"][1:]
     step_ms = 1e3 * sum(step_s) / len(step_s)
     tokens = b * s
     pairs = s * (s + 1) // 2
-    attn_flops = 12 * cfg.num_layers * b * cfg.num_heads * cfg.head_dim * pairs
+    attn_flops = 12 * n_attn * b * cfg.num_heads * cfg.head_dim * pairs
     mfu = (6 * n_params * tokens + attn_flops) / (step_ms * 1e-3 * peaks[1])
     print(f"(t) train: {len(step_s)} timed steps, step {step_ms:.2f} ms (min"
           f" {1e3 * min(step_s):.2f}, max {1e3 * max(step_s):.2f}),"
           f" {tokens / (step_ms * 1e-3):.1f} tokens/s, MFU {mfu:.4f}"
-          f" ((6 N tokens + {attn_flops:.3e} attention flops) / (step x"
-          f" {peaks[1]:.3g})), launches {launches}")
-    peak = out["peak_bytes"]
+          f" ((6 N tokens + {attn_flops:.3e} attention flops, no SSD term)"
+          f" / (step x {peaks[1]:.3g})), launches {launches}")
+    peak, predicted = out["peak_bytes"], JAX_PREDICTED_PEAK[arch]
     print(f"(t) peak device memory over step 1: {peak} B"
           f" ({peak / 2**30:.3f} GiB); the JAX package's exact_peak_bytes"
-          f" prediction for the cell: {JAX_PREDICTED_PEAK} B"
-          f" ({JAX_PREDICTED_PEAK / 2**30:.3f} GiB)")
+          f" prediction for the cell: {predicted} B"
+          f" ({predicted / 2**30:.3f} GiB)")
     check(all(math.isfinite(x) for x in losses), f"non-finite loss {losses}")
     check(loss_fell(losses), f"loss did not fall: {losses}")
     check(launches == want, f"training path launch counts {launches} != {want}")
@@ -1244,8 +1642,52 @@ def phase_train(peaks):
           f" vs {lp:.6f} (rel {rl:.3e}, tol {LOSS_RTOL:g}), grad norm"
           f" {gk:.6f} vs {gp:.6f} (rel {rg:.3e}, tol {GNORM_RTOL:g})")
     check(rl <= LOSS_RTOL and rg <= GNORM_RTOL,
-          "training kernel path differs from the plain path")
+          f"{arch} training kernel path differs from the plain path")
     return launches
+
+
+def train_peak(arch):
+    """--train-peak ARCH: the peak allocated (and reserved) device memory
+    over step 1 of ARCH's training cell, under the PYTORCH_CUDA_ALLOC_CONF
+    this process was started with, on one JSON line."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.train import train
+    out = train(get_arch(arch), train_config(1), device="cuda",
+                log=lambda line: None)
+    print(json.dumps({"arch": arch,
+                      "alloc_conf": os.environ.get("PYTORCH_CUDA_ALLOC_CONF"),
+                      "expandable": expandable_segments(),
+                      "peak_bytes": out["peak_bytes"],
+                      "peak_reserved_bytes": torch.cuda.max_memory_reserved()}))
+    return 0
+
+
+def alloc_peaks():
+    """--alloc-peaks: each training cell's peak over step 1 with the
+    caching allocator's expandable segments off, then on (as the entry
+    points set them), one process each."""
+    from repro_torch.kernels import _build
+    from repro_torch.launch import ALLOC_CONF
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip().splitlines()[0]
+    print(f"device: {smi}")
+    _build.build()
+    for arch in TRAIN_PARAMS:
+        for conf in ("expandable_segments:False", ALLOC_CONF):
+            res = subprocess.run([sys.executable, os.path.abspath(__file__),
+                                  "--train-peak", arch], capture_output=True,
+                                 text=True,
+                                 env={**os.environ, "PYTORCH_CUDA_ALLOC_CONF": conf})
+            check(res.returncode == 0, f"{arch} with {conf} failed:\n"
+                                       f"{res.stderr[-4000:]}")
+            line = json.loads(res.stdout.strip().splitlines()[-1])
+            print(f"alloc {arch} PYTORCH_CUDA_ALLOC_CONF={conf}: expandable"
+                  f" segments in use {line['expandable']}, peak allocated over"
+                  f" step 1 {line['peak_bytes']} B, peak reserved"
+                  f" {line['peak_reserved_bytes']} B; the JAX package's"
+                  f" prediction {JAX_PREDICTED_PEAK[arch]} B")
+    return 0
 
 
 def time_kernels():
@@ -1377,7 +1819,14 @@ def main():
         return ab(sys.argv[sys.argv.index("--ab") + 1])
     if "--mla-splits" in sys.argv:
         return mla_splits()
+    if "--train-peak" in sys.argv:
+        return train_peak(sys.argv[sys.argv.index("--train-peak") + 1])
+    if "--alloc-peaks" in sys.argv:
+        return alloc_peaks()
     from repro_torch.kernels import _build
+    from repro_torch.launch import configure_allocator
+
+    configure_allocator()     # as the entry points do, before any allocation
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -1395,19 +1844,26 @@ def main():
     report_build()
 
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+    print(f"allocator: PYTORCH_CUDA_ALLOC_CONF="
+          f"{os.environ['PYTORCH_CUDA_ALLOC_CONF']}, expandable segments in"
+          f" use {expandable_segments()}")
     rows = timed_phase("kernels", lambda: phase_kernels(peaks, flush))
     del flush
-    # launches: the sum over the four main-path runs, each counted from 0
+    # launches: the sum over the six main-path runs, each counted from 0
     path_launches = [timed_phase("llama3.2-3b serving", phase_model),
                      timed_phase("deepseek-v2-236b serving", phase_deepseek),
                      timed_phase("mamba2-130m serving", phase_mamba2),
-                     timed_phase("gpt2-350m training", lambda: phase_train(peaks))]
+                     timed_phase("jamba-1.5-large-398b serving", phase_jamba),
+                     timed_phase("gpt2-350m training",
+                                 lambda: phase_train(peaks, "gpt2-350m")),
+                     timed_phase("mamba2-130m training",
+                                 lambda: phase_train(peaks, "mamba2-130m"))]
     for kname, row in rows.items():
         row["launches"] = sum(launches[kname] for launches in path_launches)
     print(f"total wall time {time.perf_counter() - t0:.1f}s")
     print(json.dumps({"kernels": [rows[k] for k in (
         "flash_attention", "flash_attention_bwd", "flash_decode_gqa",
-        "flash_decode_mla", "adam_update", "ssd_scan")]}))
+        "flash_decode_mla", "adam_update", "ssd_scan", "ssd_scan_bwd")]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))
     return 0

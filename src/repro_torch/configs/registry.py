@@ -3,20 +3,23 @@ variants.  The port runs llama3.2-3b (full attention), starcoder2-3b
 (sliding window, which exercises the ring cache), gpt2-350m (MHA with GELU
 and tied embeddings, the paper's memory-validation model, which the port
 trains), deepseek-v2-236b (MLA attention and a MoE FFN on every layer,
-which the port serves) and mamba2-130m (attention-free Mamba2 SSD layers,
-which the port serves)."""
+which the port serves), mamba2-130m (attention-free Mamba2 SSD layers,
+which the port serves and trains) and jamba-1.5-large-398b (blocks of 8
+layers: Mamba2 mixers with one GQA layer at offset 4, MoE FFNs on the odd
+layers and dense ones on the even, which the port serves)."""
 from __future__ import annotations
 
 from typing import Dict
 
-from repro_torch.configs import (deepseek_v2_236b, gpt2_350m, llama3_2_3b,
+from repro_torch.configs import (deepseek_v2_236b, gpt2_350m,
+                                 jamba_1_5_large_398b, llama3_2_3b,
                                  mamba2_130m, starcoder2_3b)
 from repro_torch.configs.base import ModelConfig
 
 ARCHS: Dict[str, ModelConfig] = {m.CONFIG.name: m.CONFIG
                                  for m in (llama3_2_3b, starcoder2_3b,
                                            gpt2_350m, deepseek_v2_236b,
-                                           mamba2_130m)}
+                                           mamba2_130m, jamba_1_5_large_398b)}
 
 
 def get_arch(name: str) -> ModelConfig:

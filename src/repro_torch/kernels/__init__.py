@@ -11,7 +11,8 @@ import torch
 
 LAUNCHES: Dict[str, int] = {"flash_attention": 0, "flash_attention_bwd": 0,
                             "flash_decode_gqa": 0, "flash_decode_mla": 0,
-                            "adam_update": 0, "ssd_scan": 0}
+                            "adam_update": 0, "ssd_scan": 0,
+                            "ssd_scan_bwd": 0}
 
 
 def reset_launches() -> None:

@@ -2,8 +2,8 @@
 input tensors.
 
 * a CUDA tensor goes to the hand-written kernel, which launches or raises
-  (attention that must be differentiated goes through the autograd op
-  whose forward and backward are kernels);
+  (attention and the SSD scan that must be differentiated go through the
+  autograd ops whose forward and backward are kernels);
 * a CPU tensor goes to the plain PyTorch version in the kernel's ``ref.py``
   (whose gradient, where one is taken, is PyTorch's autograd).
 
@@ -26,7 +26,8 @@ from repro_torch.kernels.flash_attention import (attention_ref,
 from repro_torch.kernels.flash_decode import (flash_decode_gqa,
                                               flash_decode_mla,
                                               gqa_decode_ref, mla_decode_ref)
-from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_ref
+from repro_torch.kernels.ssd_scan import (ssd_scan, ssd_scan_ref,
+                                          ssd_scan_trainable)
 
 _forced_ref = False
 
@@ -101,7 +102,10 @@ def ssd(x: torch.Tensor, dt_raw: torch.Tensor, A_log: torch.Tensor,
     (b, h, p, n) float32).  ``chunk`` is the plain version's chunk length;
     the kernel walks chunks of its own length (chunking is exact in math)."""
     if _use_kernel(x):
-        return ssd_scan(x, dt_raw, A_log, B, C, D, dt_bias)
+        args = (x, dt_raw, A_log, B, C, D, dt_bias)
+        if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+            return ssd_scan_trainable(*args)
+        return ssd_scan(*args)
     return ssd_scan_ref(x, dt_raw, A_log, B, C, D, dt_bias, chunk=chunk)
 
 

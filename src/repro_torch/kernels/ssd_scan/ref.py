@@ -19,10 +19,16 @@ It is the CPU path of ``dispatch.ssd``.
 
 ``ssd_naive`` is the sequential recurrence, the JAX package's ``ssd_ref``
 oracle; the tests hold the other two against it.
+
+``ssd_scan_bwd_ref`` is the plain version of the scan's gradient kernel
+(``csrc/ssd_scan_bwd.cu``), the chunked backward written out: the JAX
+package has no such kernel and differentiates ``ssd_chunked`` by
+autodiff; the tests hold this against ``jax.vjp`` of that path and against
+torch's autograd through ``ssd_scan_ref``.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -115,3 +121,104 @@ def ssd_naive(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         ys.append(torch.einsum("bn,bhpn->bhp", Cf[:, t], state))
     y = torch.stack(ys, dim=1) + D[None, None, :, None] * xf
     return y.to(x.dtype), state
+
+
+def ssd_scan_bwd_ref(x: torch.Tensor, dt_raw: torch.Tensor,
+                     A_log: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
+                     D: torch.Tensor, dt_bias: torch.Tensor, dy: torch.Tensor,
+                     d_state: Optional[torch.Tensor] = None, *,
+                     chunk: int = 128) -> Tuple[torch.Tensor, ...]:
+    """The gradient of ``ssd_scan_ref``'s (y, final state) with respect to
+    its inputs, given dy (b, s, h, p) and, optionally, d_state (b, h, p, n)
+    for the final state (None: the state is not used).  Returns (dx,
+    ddt_raw, dA_log, dB, dC, dD, ddt_bias): dx, ddt_raw, dB, dC in the
+    dtypes of x, dt_raw, B, C; the (h,) vectors float32.
+
+    All in float32, chunk by chunk (chunk length L, a ragged tail padded
+    with dt = 0 as the forward pads it).  With cum the in-chunk cumsum of
+    dt A, e_i = exp(cum_i), w_j = dt_j exp(cum_L - cum_j), S_c the state
+    entering chunk c and G_c the gradient of the state leaving it:
+
+    * forward recompute: S_{c+1} = exp(cum_L) S_c + sum_j w_j x_j B_j^T;
+    * the reverse pass over the chunks: G_{c-1} = exp(cum_L) G_c
+      + sum_i e_i dy_i C_i^T, from G_last = d_state;
+    * the diagonal block y_i = sum_{j<=i} (C_i . B_j) exp(cum_i - cum_j)
+      dt_j x_j, the carried-state output e_i S_c C_i, and the state update
+      each give their share of dx, dB, dC, ddt and of the gradient of cum;
+    * cum's gradient becomes each step's log-decay gradient by a reverse
+      cumsum over the chunk; the chain through a = dt A, A = -exp(A_log) and
+      dt = softplus(dt_raw + dt_bias) ends it.
+    """
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+    L = min(chunk, s)
+    s_p = -(-s // L) * L
+    nc = s_p // L
+    xf, Bf, Cf, dyf = x.float(), B.float(), C.float(), dy.float()
+    r = dt_raw.float() + dt_bias                       # (b, s, h)
+    dt = F.softplus(r)
+    A = -torch.exp(A_log)
+    if s_p != s:                     # ragged tail: pad with dt = 0
+        xf, dyf = (F.pad(t, (0, 0, 0, 0, 0, s_p - s)) for t in (xf, dyf))
+        Bf, Cf, dt = (F.pad(t, (0, 0, 0, s_p - s)) for t in (Bf, Cf, dt))
+    xc, dyc = xf.reshape(b, nc, L, h, p), dyf.reshape(b, nc, L, h, p)
+    Bc, Cc = Bf.reshape(b, nc, L, n), Cf.reshape(b, nc, L, n)
+    dtc = dt.reshape(b, nc, L, h)
+
+    cum = torch.cumsum(dtc * A, dim=2)                 # (b, nc, L, h)
+    last = cum[:, :, -1]                               # (b, nc, h)
+    e = torch.exp(cum)
+    to_end = torch.exp(last[:, :, None] - cum)         # exp(cum_L - cum_j)
+    w = dtc * to_end
+
+    # the states entering each chunk, and the gradients of those leaving it
+    upd = torch.einsum("bclh,bclhp,bcln->bchpn", w, xc, Bc)
+    dfrom_y = torch.einsum("bclh,bclhp,bcln->bchpn", e, dyc, Cc)
+    run = torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device)
+    S = []
+    for c in range(nc):
+        S.append(run)
+        run = run * torch.exp(last[:, c])[:, :, None, None] + upd[:, c]
+    S = torch.stack(S, dim=1)                          # (b, nc, h, p, n)
+    run = (torch.zeros_like(run) if d_state is None else d_state.float())
+    G = [None] * nc
+    for c in reversed(range(nc)):
+        G[c] = run
+        run = run * torch.exp(last[:, c])[:, :, None, None] + dfrom_y[:, c]
+    G = torch.stack(G, dim=1)                          # (b, nc, h, p, n)
+
+    # the diagonal blocks: decay(i, j) = exp(cum_i - cum_j), j <= i
+    seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]   # (b, nc, i, j, h)
+    causal = torch.ones((L, L), dtype=torch.bool, device=x.device).tril()
+    decay = torch.exp(torch.where(causal[None, None, :, :, None], seg, -1e9))
+    cb = torch.einsum("bcin,bcjn->bcij", Cc, Bc)[..., None]
+    dyx = torch.einsum("bcihp,bcjhp->bcijh", dyc, xc)
+    M = cb * decay                                     # y_i = sum_j M_ij dt_j x_j
+    Q = dyx * decay * dtc[:, :, None]                  # dL/d(C_i . B_j)
+    Z = cb * Q                                         # the (i, j) terms' share
+
+    GB = torch.einsum("bchpn,bcjn->bcjhp", G, Bc)      # G B_j
+    u = torch.einsum("bcjhp,bcjhp->bcjh", xc, GB)      # x_j . G B_j
+    dx = (dtc[..., None] * torch.einsum("bcijh,bcihp->bcjhp", M, dyc)
+          + w[..., None] * GB + D[:, None] * dyc)
+    dB = (torch.einsum("bcijh,bcin->bcjn", Q, Cc)
+          + torch.einsum("bcjh,bcjhp,bchpn->bcjn", w, xc, G))
+    dyS = torch.einsum("bcihp,bchpn->bcihn", dyc, S)   # dy_i^T S
+    dC = (torch.einsum("bcijh,bcjn->bcin", Q, Bc)
+          + torch.einsum("bcih,bcihn->bcin", e, dyS))
+    ddt = torch.einsum("bcijh->bcjh", M * dyx) + to_end * u
+    dcum = (Z.sum(3) - Z.sum(2)
+            + e * torch.einsum("bcihn,bcin->bcih", dyS, Cc) - w * u)
+    dcum[:, :, -1] += (torch.exp(last) * torch.einsum("bchpn,bchpn->bch", G, S)
+                       + (w * u).sum(2))
+    da = torch.flip(torch.cumsum(torch.flip(dcum, [2]), 2), [2])
+    ddt = ddt + A * da
+    dA = (dtc * da).sum((0, 1, 2))
+
+    ddt = ddt.reshape(b, s_p, h)[:, :s]
+    dr = ddt * torch.sigmoid(r)                        # softplus' derivative
+    dx = dx.reshape(b, s_p, h, p)[:, :s]
+    dB, dC = (t.reshape(b, s_p, n)[:, :s] for t in (dB, dC))
+    dD = torch.einsum("bshp,bshp->h", dy.float(), x.float())
+    return (dx.to(x.dtype), dr.to(dt_raw.dtype), dA * A, dB.to(B.dtype),
+            dC.to(C.dtype), dD, dr.sum((0, 1)))

@@ -1,18 +1,22 @@
-"""Wrapper of the hand-written SSD chunked-scan kernel
-(``csrc/ssd_scan.cu``): checks, allocation of y, of the float32 final
-state and of the bfloat16 path's float32 scratch (each chunk's C.B^T, the
-segment states and their log-decays), the launch, launch count -- one per
-call, however many CUDA kernels the call runs.
+"""Wrappers of the hand-written SSD chunked-scan kernel
+(``csrc/ssd_scan.cu``) and of its gradient (``csrc/ssd_scan_bwd.cu``):
+checks, allocation of the outputs and of the float32 scratch (the scan's
+bfloat16 path: each chunk's C.B^T, the segment states and their
+log-decays; the gradient: each chunk's entering state and the gradient of
+its leaving state, the heads' shares of dB and dC, the chunks' shares of
+the (h,) gradients), the launch, launch count -- one per call, however
+many CUDA kernels the call runs.
 
-It takes CUDA tensors only and raises on anything the kernel does not
+They take CUDA tensors only and raise on anything the kernels do not
 take; ``repro_torch.kernels.dispatch.ssd`` sends CPU tensors to the plain
-version in ``ref.py`` instead.
+version in ``ref.py`` instead, and CUDA tensors that need a gradient to
+the autograd op in ``ops.py``, whose backward is ``ssd_scan_bwd``.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -39,6 +43,16 @@ def _lib() -> ctypes.CDLL:
 
 
 @functools.cache
+def _bwd_lib() -> ctypes.CDLL:
+    lib = _build.load("ssd_scan_bwd")
+    lib.repro_ssd_scan_bwd.argtypes = [_P] * 22 + [_I] * 6 + [_P]
+    lib.repro_ssd_scan_bwd.restype = ctypes.c_int
+    lib.repro_ssd_scan_bwd_chunk.argtypes = []
+    lib.repro_ssd_scan_bwd_chunk.restype = ctypes.c_int
+    return lib
+
+
+@functools.cache
 def chunk() -> int:
     """Rows per chunk of the kernel's walk (its ``L``)."""
     return _lib().repro_ssd_scan_chunk()
@@ -61,16 +75,23 @@ def segment_chunks(x: torch.Tensor) -> int:
 
 def _check_inputs(x: torch.Tensor, dt_raw: torch.Tensor, A_log: torch.Tensor,
                   B: torch.Tensor, C: torch.Tensor, D: torch.Tensor,
-                  dt_bias: torch.Tensor) -> None:
-    tensors = (x, dt_raw, A_log, B, C, D, dt_bias)
-    refuse_grad("ssd_scan", tensors, "the SSD backward")
+                  dt_bias: torch.Tensor, *, kernel: str = "ssd_scan",
+                  dy: Optional[torch.Tensor] = None,
+                  d_state: Optional[torch.Tensor] = None) -> None:
+    """Raises on what ``kernel`` does not take; ``dy`` and ``d_state`` are
+    the gradient's further inputs."""
+    more = tuple(t for t in (dy, d_state) if t is not None)
+    tensors = (x, dt_raw, A_log, B, C, D, dt_bias) + more
+    refuse_grad(kernel, tensors,
+                "the SSD backward" if kernel == "ssd_scan"
+                else "a second derivative of the SSD scan")
     if x.dtype not in DTYPE_CODES or any(t.dtype != x.dtype
                                          for t in (dt_raw, B, C)):
-        raise TypeError(f"ssd_scan takes float32 or bfloat16 x, dt_raw, B, C "
+        raise TypeError(f"{kernel} takes float32 or bfloat16 x, dt_raw, B, C "
                         f"of one dtype, got {x.dtype}, {dt_raw.dtype}, "
                         f"{B.dtype}, {C.dtype}")
     if any(t.dtype != torch.float32 for t in (A_log, D, dt_bias)):
-        raise TypeError("ssd_scan takes float32 A_log, D and dt_bias")
+        raise TypeError(f"{kernel} takes float32 A_log, D and dt_bias")
     if x.ndim != 4 or dt_raw.ndim != 3 or B.ndim != 3 or B.shape != C.shape:
         raise ValueError(f"shapes x (b,s,h,p), dt_raw (b,s,h), B and C "
                          f"(b,s,n), got {tuple(x.shape)}, "
@@ -85,13 +106,20 @@ def _check_inputs(x: torch.Tensor, dt_raw: torch.Tensor, A_log: torch.Tensor,
                          f"B {tuple(B.shape)} and the (h,) vectors "
                          f"{[tuple(t.shape) for t in (A_log, D, dt_bias)]} "
                          f"do not agree")
+    if dy is not None and (dy.shape != x.shape or dy.dtype != x.dtype):
+        raise ValueError(f"dy {tuple(dy.shape)} {dy.dtype} must have x's "
+                         f"shape and dtype, {tuple(x.shape)} {x.dtype}")
+    if d_state is not None and (tuple(d_state.shape) != (b, h, p, n)
+                                or d_state.dtype != torch.float32):
+        raise ValueError(f"d_state must be ({b}, {h}, {p}, {n}) float32, got "
+                         f"{tuple(d_state.shape)} {d_state.dtype}")
     if (p, n) not in SHAPES:
-        raise ValueError(f"ssd_scan: (head dim, state) {(p, n)} not in "
+        raise ValueError(f"{kernel}: (head dim, state) {(p, n)} not in "
                          f"{SHAPES}")
     if not (x.is_cuda and all(t.device == x.device for t in tensors)):
-        raise ValueError("ssd_scan takes CUDA tensors on one device")
+        raise ValueError(f"{kernel} takes CUDA tensors on one device")
     if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("ssd_scan takes contiguous tensors")
+        raise ValueError(f"{kernel} takes contiguous tensors")
 
 
 def ssd_scan(x: torch.Tensor, dt_raw: torch.Tensor, A_log: torch.Tensor,
@@ -126,3 +154,49 @@ def ssd_scan(x: torch.Tensor, dt_raw: torch.Tensor, A_log: torch.Tensor,
         raise RuntimeError(f"ssd_scan launch failed: CUDA error {err}")
     LAUNCHES["ssd_scan"] += 1
     return y, state
+
+
+@functools.cache
+def bwd_chunk() -> int:
+    """Rows per chunk of the gradient's walk."""
+    return _bwd_lib().repro_ssd_scan_bwd_chunk()
+
+
+def ssd_scan_bwd(x: torch.Tensor, dt_raw: torch.Tensor, A_log: torch.Tensor,
+                 B: torch.Tensor, C: torch.Tensor, D: torch.Tensor,
+                 dt_bias: torch.Tensor, dy: torch.Tensor,
+                 d_state: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, ...]:
+    """The gradient of ``ssd_scan``: its inputs, dy (b, s, h, p) in x's
+    dtype and, optionally, d_state (b, h, p, n) float32 for the final
+    state.  Returns (dx, ddt_raw, dA_log, dB, dC, dD, ddt_bias), as
+    ``ref.ssd_scan_bwd_ref``: dx, ddt_raw, dB, dC in the inputs' dtype, the
+    (h,) vectors float32."""
+    _check_inputs(x, dt_raw, A_log, B, C, D, dt_bias, kernel="ssd_scan_bwd",
+                  dy=dy, d_state=d_state)
+    b, s, h, p = x.shape
+    n = B.shape[2]
+    dev = x.device
+    nc = -(-s // bwd_chunk())
+    f32 = dict(dtype=torch.float32, device=dev)
+    dx, ddt_raw, dB, dC = (torch.empty_like(t) for t in (x, dt_raw, B, C))
+    dA_log, dD, ddt_bias = (torch.empty((h,), **f32) for _ in range(3))
+    states = torch.empty((b, nc, h, p, n), **f32)
+    grads = torch.empty((b, nc, h, p, n), **f32)
+    cum_l = torch.empty((b, nc, h), **f32)
+    dbp = torch.empty((b, s, h, n), **f32)
+    dcp = torch.empty((b, s, h, n), **f32)
+    vec = torch.empty((3, b, nc, h), **f32)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = _bwd_lib().repro_ssd_scan_bwd(
+        x.data_ptr(), dt_raw.data_ptr(), A_log.data_ptr(), B.data_ptr(),
+        C.data_ptr(), D.data_ptr(), dt_bias.data_ptr(), dy.data_ptr(),
+        None if d_state is None else d_state.data_ptr(), dx.data_ptr(),
+        ddt_raw.data_ptr(), dA_log.data_ptr(), dB.data_ptr(), dC.data_ptr(),
+        dD.data_ptr(), ddt_bias.data_ptr(), states.data_ptr(),
+        grads.data_ptr(), cum_l.data_ptr(), dbp.data_ptr(), dcp.data_ptr(),
+        vec.data_ptr(), b, s, h, p, n, DTYPE_CODES[x.dtype], stream)
+    if err:
+        raise RuntimeError(f"ssd_scan_bwd launch failed: CUDA error {err}")
+    LAUNCHES["ssd_scan_bwd"] += 1
+    return dx, ddt_raw, dA_log, dB, dC, dD, ddt_bias

@@ -8,10 +8,13 @@
         --arch deepseek-v2-236b --smoke --device cpu   # MLA + MoE
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch mamba2-130m --smoke --device cpu        # Mamba2 SSD
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch jamba-1.5-large-398b --smoke --device cpu   # hybrid
 
 ``--arch`` takes every arch of ``repro_torch.configs.registry``; at full
-depth deepseek-v2-236b does not fit one card (``chip_smoke.py`` serves it
-at 4 of its 60 layers).
+depth deepseek-v2-236b and jamba-1.5-large-398b do not fit one card
+(``chip_smoke.py`` serves the first at 4 of its 60 layers, the second at
+one block of 8 of its 72 layers with 8 of its 16 experts).
 
 Timing protocol: one prefill and one decode step run before the clock
 starts (on the card this also builds and loads the kernels), then prefill
@@ -30,6 +33,7 @@ import time
 import torch
 
 from repro_torch.configs.registry import get_arch, smoke_config
+from repro_torch.launch import configure_allocator
 from repro_torch.models import init_params
 from repro_torch.serve import (ContinuousBatcher, DisaggregatedBatcher,
                                ServeRequest, greedy_decode, prefill,
@@ -57,6 +61,7 @@ def main(argv=None):
                     help="with --continuous: split prefill front-end from"
                          " the decode loop (DisaggregatedBatcher)")
     args = ap.parse_args(argv)
+    configure_allocator()
 
     device = torch.device(args.device)
     cfg = smoke_config(args.arch) if args.smoke else get_arch(args.arch)

@@ -4,6 +4,8 @@
         --batch 8 --seq 1024 --microbatch 1 --steps 12
     PYTHONPATH=src python -m repro_torch.launch.train --arch gpt2-350m \
         --smoke --device cpu --steps 12
+    PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-130m \
+        --batch 8 --seq 1024 --microbatch 1 --steps 12
 
 The flags are the JAX driver's (``repro.launch.train``) plus ``--device``.
 ``--zero`` is accepted and has no effect: it chooses how the optimizer
@@ -23,6 +25,7 @@ import torch
 from repro_torch.configs.base import ModelConfig, TrainConfig
 from repro_torch.configs.registry import get_arch, smoke_config
 from repro_torch.data import SyntheticTokens
+from repro_torch.launch import configure_allocator
 from repro_torch.train import build_train_step, make_train_state
 
 
@@ -90,6 +93,7 @@ def main(argv=None):
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
+    configure_allocator()
 
     cfg = smoke_config(args.arch) if args.smoke else get_arch(args.arch)
     tc = TrainConfig(global_batch=args.batch, seq_len=args.seq,

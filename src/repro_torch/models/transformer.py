@@ -1,18 +1,21 @@
-"""Model assembly for the attention transformers and Mamba2: init,
-full-sequence forward (train / prefill) with optional per-layer
-rematerialisation, the training loss, decode caches and single-token
-decode.
+"""Model assembly for the attention transformers, Mamba2 and the hybrid
+(Jamba): init, full-sequence forward (train / prefill) with optional
+per-block rematerialisation, the training loss, decode caches and
+single-token decode.
 
-The parameter tree is the JAX package's: ``embed`` (V, d), ``final_norm``
-(d,), ``lm_head`` (d, V) unless the embeddings are tied, and
-``blocks.sub0`` whose leaves are stacked along a leading ``n_blocks`` axis
-(``norm1``, ``mixer`` -- GQA ``{wq,wk,wv,wo}``, MLA (see
+Layers are grouped into repeating blocks of ``cfg.block_period``
+sub-layers (1 for a homogeneous stack; 8 for jamba's seven Mamba2 layers
+around one attention layer, MoE on every other layer).  The parameter tree
+is the JAX package's: ``embed`` (V, d), ``final_norm`` (d,), ``lm_head``
+(d, V) unless the embeddings are tied, and ``blocks.sub{j}`` for each
+position j of the block, whose leaves are stacked along a leading
+``n_blocks`` axis (``norm1``, ``mixer`` -- GQA ``{wq,wk,wv,wo}``, MLA (see
 ``attention.mla_param_shapes``) or Mamba2 (see
 ``mamba2.mamba2_param_shapes``) --, ``norm2``, ``ffn`` -- dense
-``{w1,w2[,w3]}`` or MoE, see ``moe.moe_param_shapes``; a Mamba2 layer has
-no FFN).  The forward walks the stacked layers in a Python loop.  GQA and
-MLA attention, dense and MoE FFNs, or Mamba2 mixers, the same kind on
-every layer (block period 1); no hybrid or modal prefix.
+``{w1,w2[,w3]}`` or MoE, see ``moe.moe_param_shapes``; a layer with no
+dense width and no MoE, as Mamba2's, has no FFN).  Layer l is block
+l // period, sub-layer l % period; the forward walks the blocks, and in
+each the sub-layers, in a Python loop.  No modal prefix.
 """
 from __future__ import annotations
 
@@ -42,24 +45,28 @@ SSM_VECTORS = ("conv_x_b", "conv_bc_b", "A_log", "D", "dt_bias")
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    ssm = cfg.family == "ssm"
-    if ((cfg.attention not in ("gqa", "mla") and not ssm)
-            or cfg.block_period != 1 or cfg.family == "hybrid"
-            or cfg.attn_layer_period or cfg.num_modal_tokens):
+    attn_ok = cfg.attention in ("gqa", "mla")
+    if cfg.num_modal_tokens or any(
+            cfg.layer_kind(j) == "attn" and not attn_ok
+            for j in range(cfg.block_period)):
         raise NotImplementedError(
-            f"{cfg.name}: the port runs GQA, MLA or Mamba2 text models whose "
-            f"layers all have the same kind (block period 1)")
+            f"{cfg.name}: the port runs text models of GQA or MLA attention "
+            f"and Mamba2 layers (no modal prefix)")
 
 
-def _is_ssm(cfg: ModelConfig) -> bool:
-    return cfg.layer_kind(0) == "ssm"
+def _mixer_kind(cfg: ModelConfig, j: int) -> str:
+    """Sub-layer j's mixer: "ssm", "mla" or "gqa"."""
+    return "ssm" if cfg.layer_kind(j) == "ssm" else cfg.attention
 
 
-def _layer_has_ffn(cfg: ModelConfig) -> bool:
-    """Whether the (one) sub-layer of a block has an FFN: a MoE layer
-    always, a dense one when d_ff > 0 (transformer.py:44-47 of the JAX
-    package, at block period 1)."""
-    return cfg.layer_is_moe(0) or cfg.d_ff > 0
+def _layer_has_ffn(cfg: ModelConfig, j: int) -> bool:
+    """Whether sub-layer j has an FFN: a MoE layer always, a dense one when
+    d_ff > 0 (transformer.py:44-47 of the JAX package)."""
+    return cfg.layer_is_moe(j) or cfg.d_ff > 0
+
+
+def _sub_names(cfg: ModelConfig) -> List[str]:
+    return [f"sub{j}" for j in range(cfg.block_period)]
 
 
 def _map_tree(fn: Callable, tree: dict, path: Tuple[str, ...] = ()) -> dict:
@@ -67,13 +74,13 @@ def _map_tree(fn: Callable, tree: dict, path: Tuple[str, ...] = ()) -> dict:
             else fn(path + (k,), v) for k, v in tree.items()}
 
 
-def param_shapes(cfg: ModelConfig) -> Dict[str, Any]:
-    """The parameter tree with a shape at each leaf."""
-    _check_supported(cfg)
-    nb, d, f = cfg.num_layers, cfg.d_model, cfg.d_ff
-    if _is_ssm(cfg):
+def _sub_shapes(cfg: ModelConfig, j: int) -> Dict[str, Any]:
+    """Sub-layer j's leaves, stacked over the n_blocks blocks."""
+    nb, d, f = cfg.num_layers // cfg.block_period, cfg.d_model, cfg.d_ff
+    kind = _mixer_kind(cfg, j)
+    if kind == "ssm":
         mixer = mamba2.mamba2_param_shapes(cfg)
-    elif cfg.attention == "mla":
+    elif kind == "mla":
         mixer = attn.mla_param_shapes(cfg)
     else:
         mixer = attn.gqa_param_shapes(cfg)
@@ -81,8 +88,8 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, Any]:
         "norm1": (nb, d),
         "mixer": {k: (nb, *s) for k, s in mixer.items()},
     }
-    if _layer_has_ffn(cfg):
-        if cfg.layer_is_moe(0):
+    if _layer_has_ffn(cfg, j):
+        if cfg.layer_is_moe(j):
             ffn = moe_mod.moe_param_shapes(cfg)
         else:
             ffn = {"w1": (d, f), "w2": (f, d)}
@@ -90,7 +97,16 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, Any]:
                 ffn["w3"] = (d, f)
         sub["norm2"] = (nb, d)
         sub["ffn"] = {k: (nb, *s) for k, s in ffn.items()}
-    shapes = {"embed": (cfg.vocab_size, d), "blocks": {"sub0": sub},
+    return sub
+
+
+def param_shapes(cfg: ModelConfig) -> Dict[str, Any]:
+    """The parameter tree with a shape at each leaf."""
+    _check_supported(cfg)
+    d = cfg.d_model
+    shapes = {"embed": (cfg.vocab_size, d),
+              "blocks": {name: _sub_shapes(cfg, j)
+                         for j, name in enumerate(_sub_names(cfg))},
               "final_norm": (d,)}
     if not cfg.tie_embeddings:
         shapes["lm_head"] = (d, cfg.vocab_size)
@@ -102,9 +118,10 @@ def init_params(cfg: ModelConfig, seed: int, device="cuda") -> Params:
     ``seed``, bfloat16 but the float32 ``FP32_LEAVES``: norms at 1,
     embeddings N(0, 0.02) truncated at 3 sigma, every matrix
     truncated-normal with std = scale / sqrt(fan_in), fan_in being the first
-    per-layer axis (the second for the experts' stacked ``w1``/``w2``/``w3``;
-    the conv width for Mamba2's conv weights) and scale 1/sqrt(2L) on the
-    output projections ``wo``, ``w2``, ``shared_w2`` and ``out_proj``; Mamba2's
+    per-layer axis (the second for the experts' stacked ``w1``/``w2``/``w3``
+    of a MoE sub-layer; the conv width for Mamba2's conv weights) and scale
+    1/sqrt(2L) on the output projections ``wo``, ``w2``, ``shared_w2`` and
+    ``out_proj``; Mamba2's
     conv biases at 0, A_log = log(linspace(1, 16, h)), D at 1 and dt_bias
     the inverse softplus of a dt drawn log-uniform in [1e-3, 0.1] -- the
     JAX package's recipe (its random numbers differ)."""
@@ -121,8 +138,10 @@ def init_params(cfg: ModelConfig, seed: int, device="cuda") -> Params:
             return _init_ssm_vector(gen, name, shape)
         in_axis = 0
         if path[0] == "blocks":                 # (nb, ...) stacked leaves
-            expert = cfg.num_experts and path[-2] == "ffn" and \
-                name in ("w1", "w2", "w3")
+            # path: ("blocks", "sub{j}", ..., name); a dense FFN's w1/w2/w3
+            # take their fan-in per layer, a MoE's per expert
+            expert = (cfg.layer_is_moe(int(path[1][3:])) and path[-2] == "ffn"
+                      and name in ("w1", "w2", "w3"))
             in_axis = 2 if expert else 1
         scale = (out_scale if name in ("wo", "w2", "shared_w2", "out_proj")
                  else 1.0)
@@ -172,14 +191,14 @@ def layer_params(blocks: Params) -> List[Params]:
 
 # ------------------------------------------------------------- forward ------
 
-def _ffn_residual(cfg: ModelConfig, p: Params, x: torch.Tensor
+def _ffn_residual(cfg: ModelConfig, j: int, p: Params, x: torch.Tensor
                   ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """x + FFN(norm2(x)) and the layer's MoE aux loss (None for a dense
-    layer or none at all)."""
-    if not _layer_has_ffn(cfg):
+    """x + FFN(norm2(x)) of sub-layer j and its MoE aux loss (None for a
+    dense FFN or none at all)."""
+    if not _layer_has_ffn(cfg, j):
         return x, None
     h = rms_norm(x, p["norm2"], cfg.norm_eps)
-    if cfg.layer_is_moe(0):
+    if cfg.layer_is_moe(j):
         out, aux = moe_mod.moe_ffn(cfg, p["ffn"], h)
         return x + out, aux
     ffn = p["ffn"]
@@ -192,17 +211,43 @@ def _head(cfg: ModelConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
     return x @ head if head is not None else x @ params["embed"].T
 
 
-def _block(cfg: ModelConfig, p: Params, x: torch.Tensor, positions: torch.Tensor
-           ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], Optional[torch.Tensor]]:
+def _sublayer(cfg: ModelConfig, j: int, p: Params, x: torch.Tensor,
+              positions: torch.Tensor
+              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor],
+                         Optional[torch.Tensor]]:
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
-    if _is_ssm(cfg):
+    kind = _mixer_kind(cfg, j)
+    if kind == "ssm":
         out, cache = mamba2.mamba2_forward(cfg, p["mixer"], h)
-    elif cfg.attention == "mla":
+    elif kind == "mla":
         out, cache = attn.mla_attend_train(cfg, p["mixer"], h, positions)
     else:
         out, cache = attn.gqa_attend_train(cfg, p["mixer"], h, positions)
-    x, aux = _ffn_residual(cfg, p, x + out)
+    x, aux = _ffn_residual(cfg, j, p, x + out)
     return x, cache, aux
+
+
+def _block(cfg: ModelConfig, bp: Dict[str, Params], x: torch.Tensor,
+           positions: torch.Tensor
+           ) -> Tuple[torch.Tensor, Dict[str, Dict[str, torch.Tensor]],
+                      List[torch.Tensor]]:
+    """One block: its sub-layers in order.  bp: {"sub{j}": sub-layer j's
+    parameters}.  Returns (x, {"sub{j}": cache entries}, the MoE aux losses
+    of its MoE sub-layers in order)."""
+    caches, auxes = {}, []
+    for j, name in enumerate(_sub_names(cfg)):
+        x, caches[name], a = _sublayer(cfg, j, bp[name], x, positions)
+        if a is not None:
+            auxes.append(a)
+    return x, caches, auxes
+
+
+def _block_params(blocks: Params) -> List[Dict[str, Params]]:
+    """Each block's {"sub{j}": parameters} (views, see ``layer_params``)."""
+    per_sub = {name: layer_params(sub) for name, sub in blocks.items()}
+    n = len(next(iter(per_sub.values())))
+    return [{name: layers[i] for name, layers in per_sub.items()}
+            for i in range(n)]
 
 
 def forward(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
@@ -218,31 +263,33 @@ def forward(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
     GQA, c_kv (nb, b, s, r) and k_rope (nb, b, s, dr) for MLA, conv
     (nb, b, w - 1, di + 2n) and ssd (nb, b, h, p, n) float32 for Mamba2.
     ``last_only`` computes the logits of the last position only (b, 1, V),
-    which is all a prefill needs.  ``remat`` checkpoints each layer (the
+    which is all a prefill needs.  ``remat`` checkpoints each block (the
     JAX package's ``jax.checkpoint(block_body)``): the backward recomputes
-    a layer's activations from its input instead of keeping them.
+    a block's activations from its input instead of keeping them.  Each
+    "sub{j}" of the cache holds sub-layer j's entries, stacked over the
+    blocks.
     """
     _check_supported(cfg)
     x = params["embed"][batch["tokens"]]              # (b, s, d)
     positions = torch.arange(x.shape[1], device=x.device)
-    entries: Dict[str, List[torch.Tensor]] = {}
+    entries: Dict[str, Dict[str, List[torch.Tensor]]] = {}
     auxes: List[torch.Tensor] = []
-    for p in layer_params(params["blocks"]["sub0"]):
+    for bp in _block_params(params["blocks"]):
         if remat:
-            x, cache, a = checkpoint(_block, cfg, p, x, positions,
-                                     use_reentrant=False)
+            x, caches, a = checkpoint(_block, cfg, bp, x, positions,
+                                      use_reentrant=False)
         else:
-            x, cache, a = _block(cfg, p, x, positions)
-        if a is not None:
-            auxes.append(a)
+            x, caches, a = _block(cfg, bp, x, positions)
+        auxes.extend(a)
         if want_cache:
-            for name, t in cache.items():
-                entries.setdefault(name, []).append(t)
+            for sub, cache in caches.items():
+                for name, t in cache.items():
+                    entries.setdefault(sub, {}).setdefault(name, []).append(t)
     if last_only:
         x = x[:, -1:]
     logits = _head(cfg, params, x)
-    caches = ({"sub0": {name: torch.stack(ts) for name, ts in entries.items()}}
-              if want_cache else None)
+    caches = ({sub: {name: torch.stack(ts) for name, ts in cache.items()}
+               for sub, cache in entries.items()} if want_cache else None)
     if not want_aux:
         return logits, caches
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -272,29 +319,35 @@ def cache_slots(cfg: ModelConfig, cache_len: int) -> int:
 
 def init_cache(cfg: ModelConfig, batch_size: int, cache_len: int,
                dtype: torch.dtype = torch.bfloat16, device="cuda") -> Cache:
-    """Zero-initialised decode cache: ring buffers k/v (nb, b, S, K, hd) for
-    GQA, c_kv (nb, b, S, r) and k_rope (nb, b, S, dr) for MLA; for Mamba2
-    the conv window (nb, b, w - 1, di + 2n) in ``dtype`` and the SSD state
-    (nb, b, h, p, n) always in float32, whatever ``cache_len``."""
+    """Zero-initialised decode cache, one "sub{j}" per sub-layer of the
+    block, stacked over the nb blocks: ring buffers k/v (nb, b, S, K, hd)
+    for GQA, c_kv (nb, b, S, r) and k_rope (nb, b, S, dr) for MLA; for
+    Mamba2 the conv window (nb, b, w - 1, di + 2n) in ``dtype`` and the SSD
+    state (nb, b, h, p, n) always in float32, whatever ``cache_len``."""
     _check_supported(cfg)
-    nb, b = cfg.num_layers, batch_size
-    if _is_ssm(cfg):
-        ch = cfg.d_inner + 2 * cfg.ssm_state
-        return {"sub0": {
-            "conv": torch.zeros((nb, b, cfg.ssm_conv - 1, ch), dtype=dtype,
-                                device=device),
-            "ssd": torch.zeros((nb, b, cfg.n_ssm_heads, cfg.ssm_head_dim,
-                                cfg.ssm_state), dtype=torch.float32,
-                               device=device)}}
-    if cfg.attention == "mla":
-        shapes = {"c_kv": (nb, b, cache_len, cfg.kv_lora_rank),
-                  "k_rope": (nb, b, cache_len, cfg.qk_rope_head_dim)}
-    else:
-        shape = (nb, b, cache_slots(cfg, cache_len), cfg.num_kv_heads,
-                 cfg.head_dim)
-        shapes = {"k": shape, "v": shape}
-    return {"sub0": {name: torch.zeros(shape, dtype=dtype, device=device)
-                     for name, shape in shapes.items()}}
+    nb, b = cfg.num_layers // cfg.block_period, batch_size
+    out = {}
+    for j, sub in enumerate(_sub_names(cfg)):
+        kind = _mixer_kind(cfg, j)
+        if kind == "ssm":
+            ch = cfg.d_inner + 2 * cfg.ssm_state
+            out[sub] = {
+                "conv": torch.zeros((nb, b, cfg.ssm_conv - 1, ch), dtype=dtype,
+                                    device=device),
+                "ssd": torch.zeros((nb, b, cfg.n_ssm_heads, cfg.ssm_head_dim,
+                                    cfg.ssm_state), dtype=torch.float32,
+                                   device=device)}
+            continue
+        if kind == "mla":
+            shapes = {"c_kv": (nb, b, cache_len, cfg.kv_lora_rank),
+                      "k_rope": (nb, b, cache_len, cfg.qk_rope_head_dim)}
+        else:
+            shape = (nb, b, cache_slots(cfg, cache_len), cfg.num_kv_heads,
+                     cfg.head_dim)
+            shapes = {"k": shape, "v": shape}
+        out[sub] = {name: torch.zeros(shape, dtype=dtype, device=device)
+                    for name, shape in shapes.items()}
+    return out
 
 
 def cache_from_prefill(cfg: ModelConfig, prefill_caches: Cache,
@@ -338,21 +391,30 @@ def decode_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     the same tensors are returned.  A Mamba2 layer does not read ``pos``:
     its state holds the whole past."""
     x = params["embed"][tokens]                        # (b, 1, d)
-    sub = cache["sub0"]
-    ssm = _is_ssm(cfg)
-    if not ssm:
-        S = sub["c_kv" if cfg.attention == "mla" else "k"].shape[2]
-        ring = attn.ring_index(pos, S, x.shape[0], x.device)
-        attend = (attn.mla_attend_decode if cfg.attention == "mla"
-                  else attn.gqa_attend_decode)
-    for i, p in enumerate(layer_params(params["blocks"]["sub0"])):
-        h = rms_norm(x, p["norm1"], cfg.norm_eps)
-        layer_cache = {name: t[i] for name, t in sub.items()}
-        if ssm:
-            out, new = mamba2.mamba2_decode(cfg, p["mixer"], h, layer_cache)
-            for name, t in new.items():
-                layer_cache[name].copy_(t)
-        else:
-            out, _ = attend(cfg, p["mixer"], h, layer_cache, ring)
-        x, _ = _ffn_residual(cfg, p, x + out)
+    kinds = [_mixer_kind(cfg, j) for j in range(cfg.block_period)]
+    ring = None
+    for j, kind in enumerate(kinds):                   # every ring has S slots
+        if kind != "ssm":
+            sub = cache[f"sub{j}"]
+            S = sub["c_kv" if kind == "mla" else "k"].shape[2]
+            ring = attn.ring_index(pos, S, x.shape[0], x.device)
+            break
+    for i, bp in enumerate(_block_params(params["blocks"])):
+        for j, kind in enumerate(kinds):
+            name = f"sub{j}"
+            p = bp[name]
+            h = rms_norm(x, p["norm1"], cfg.norm_eps)
+            layer_cache = {k: t[i] for k, t in cache[name].items()}
+            if kind == "ssm":
+                out, new = mamba2.mamba2_decode(cfg, p["mixer"], h,
+                                                layer_cache)
+                for k, t in new.items():
+                    layer_cache[k].copy_(t)
+            elif kind == "mla":
+                out, _ = attn.mla_attend_decode(cfg, p["mixer"], h,
+                                                layer_cache, ring)
+            else:
+                out, _ = attn.gqa_attend_decode(cfg, p["mixer"], h,
+                                                layer_cache, ring)
+            x, _ = _ffn_residual(cfg, j, p, x + out)
     return _head(cfg, params, x), cache

@@ -1,5 +1,5 @@
 """The single-device training step: microbatch gradient accumulation
-(per-layer remat inside the forward) and mixed-precision Adam.
+(per-block remat inside the forward) and mixed-precision Adam.
 
 The JAX package's step also shards the state and the activations over a
 mesh; on one device there is one data shard and nothing to shard.

@@ -383,6 +383,29 @@ class TestKernelsOnCard:
                                    rtol=tol)
 
     @pytest.mark.parametrize("dtype", list(DTYPES))
+    @pytest.mark.parametrize("S", [300, 544])
+    def test_flash_decode_at_jamba_group_size(self, cuda, S, dtype):
+        """jamba's attention: 64 query heads on 8 KV heads (G = 8 heads a
+        block where llama has 3), against the split-KV oracle at the
+        kernel's split and the plain version; an all-invalid row gives 0."""
+        (q, k, v), valid = _decode_inputs(8, S, 64, 8, 128, dtype, seed=7)
+        q, k, v = q.to(cuda), k.to(cuda), v.to(cuda)
+        valid = torch.from_numpy(valid).to(cuda)
+        valid[5] = False
+        got = flash_decode_gqa(q, k, v, valid)
+        tol = DTYPES[dtype][1]
+        torch.testing.assert_close(
+            got.float(), gqa_decode_splitk(q, k, v, valid,
+                                           block_s=block_s(k)).float(),
+            atol=tol, rtol=tol)
+        assert torch.all(got[5] == 0)
+        live = valid.any(dim=1)
+        torch.testing.assert_close(
+            got[live].float(), gqa_decode_ref(q[live], k[live], v[live],
+                                              valid[live]).float(),
+            atol=tol, rtol=tol)
+
+    @pytest.mark.parametrize("dtype", list(DTYPES))
     @pytest.mark.parametrize("edge", ["below_one_split", "one_row_past",
                                       "all_valid"])
     def test_flash_decode_at_split_edges(self, cuda, edge, dtype):

@@ -1,8 +1,10 @@
 """The port's model functions against the JAX package's, on the smoke
 configs of llama3.2-3b, starcoder2-3b (sliding window 16, so ring caches
 wrap), deepseek-v2-236b (MLA attention with a latent ring cache, a MoE
-FFN on every layer) and mamba2-130m (Mamba2 SSD layers with a conv window
-and a float32 state for a cache).
+FFN on every layer), mamba2-130m (Mamba2 SSD layers with a conv window
+and a float32 state for a cache) and jamba-1.5-large-398b (two blocks of
+8 sub-layers: Mamba2 mixers with GQA at offset 4, MoE FFNs on the odd
+sub-layers and dense SwiGLU on the even ones).
 
 Parameters come from the JAX package's ``init_params``, cast to float32 on
 both sides and handed over as numpy arrays through
@@ -32,7 +34,8 @@ from repro_torch.models import (cache_from_prefill, decode_step, forward,
 from repro_torch.models.attention import apply_rope
 from repro_torch.models.common import rms_norm
 
-ARCHS = ["llama3.2-3b", "starcoder2-3b", "deepseek-v2-236b", "mamba2-130m"]
+ARCHS = ["llama3.2-3b", "starcoder2-3b", "deepseek-v2-236b", "mamba2-130m",
+         "jamba-1.5-large-398b"]
 TOL = dict(atol=1e-4, rtol=1e-4)
 
 
@@ -102,6 +105,18 @@ def test_init_params_tree_matches_jax_shapes():
         assert flat_got == flat_want
 
 
+def test_jamba_smoke_tree_has_the_jax_sub_layers():
+    """jamba's blocks hold one sub-layer a position of the 8-layer period,
+    each of its layer's kind (the leaves and shapes are the JAX tree's, by
+    the test above): GQA at sub4 and Mamba2 elsewhere, MoE FFNs at the odd
+    sub-layers and dense SwiGLU at the even ones."""
+    blocks = param_shapes(smoke_config("jamba-1.5-large-398b"))["blocks"]
+    assert sorted(blocks) == [f"sub{j}" for j in range(8)]
+    for j in range(8):
+        assert ("wq" if j == 4 else "A_log") in blocks[f"sub{j}"]["mixer"]
+        assert ("router" if j % 2 else "w1") in blocks[f"sub{j}"]["ffn"]
+
+
 def test_init_params_is_seeded():
     cfg = smoke_config("llama3.2-3b")
     a = init_params(cfg, 3, device="cpu")
@@ -145,6 +160,33 @@ def test_init_params_follows_the_jax_recipe_for_mla_and_moe():
                             1 / np.sqrt(cfg.kv_lora_rank), 0.02)):
         # a standard normal truncated at +-3 has std 0.9866
         assert abs(leaf.float().std().item() / std - 0.9866) < tol
+
+
+def test_init_params_follows_the_jax_recipe_for_jamba_ffns():
+    """jamba's smoke config: the dense SwiGLU of the even sub-layers, (nb, d,
+    f) stacked, takes its fan-in per layer (axis 1: the JAX package's
+    ``_init_mlp``), the experts of the odd ones, (nb, E, d, f), per expert
+    (axis 2); 1/sqrt(2L) on both w2 (transformer.py:33-41 and moe.py:37-49
+    of the JAX package)."""
+    cfg = smoke_config("jamba-1.5-large-398b")
+    blocks = init_params(cfg, 6, device="cpu")["blocks"]
+    assert sorted(blocks) == [f"sub{j}" for j in range(8)]
+    out = 1 / np.sqrt(2 * cfg.num_layers)
+    d, f, fe = cfg.d_model, cfg.d_ff, cfg.moe_d_ff
+    dense, moe = blocks["sub0"]["ffn"], blocks["sub1"]["ffn"]
+    assert tuple(dense["w1"].shape) == (2, d, f) and "router" not in dense
+    assert tuple(moe["w1"].shape) == (2, cfg.num_experts, d, fe)
+    assert moe["router"].dtype == torch.float32
+    assert "ffn" in blocks["sub4"] and "wq" in blocks["sub4"]["mixer"]
+    # (leaf, expected std before truncation): a dense w2 is (f, d) per
+    # layer, fan-in f; on axis 2 it would be d
+    for leaf, std in ((dense["w1"], 1 / np.sqrt(d)),
+                      (dense["w3"], 1 / np.sqrt(d)),
+                      (dense["w2"], out / np.sqrt(f)),
+                      (moe["w1"], 1 / np.sqrt(d)),
+                      (moe["w2"], out / np.sqrt(fe))):
+        # a standard normal truncated at +-3 has std 0.9866
+        assert abs(leaf.float().std().item() / std - 0.9866) < 0.02
 
 
 def test_params_from_numpy_keeps_the_router_float32():
@@ -200,10 +242,12 @@ def test_forward_matches_jax(fp32_pair):
     tl, tc = forward(cfg, params, {"tokens": torch.from_numpy(toks)},
                      want_cache=True)
     np.testing.assert_allclose(_np(tl), _np(jl), **TOL)
-    assert set(tc["sub0"]) == set(jc["sub0"])
-    for name in jc["sub0"]:
-        np.testing.assert_allclose(_np(tc["sub0"][name]),
-                                   _np(jc["sub0"][name]), **TOL)
+    assert set(tc) == set(jc)
+    for sub in jc:
+        assert set(tc[sub]) == set(jc[sub])
+        for name in jc[sub]:
+            np.testing.assert_allclose(_np(tc[sub][name]),
+                                       _np(jc[sub][name]), **TOL)
     last, _ = forward(cfg, params, {"tokens": torch.from_numpy(toks)},
                       last_only=True)
     np.testing.assert_allclose(_np(last), _np(tl[:, -1:]), **TOL)
@@ -212,7 +256,8 @@ def test_forward_matches_jax(fp32_pair):
 def test_forward_aux_matches_jax(fp32_pair):
     """The MoE load-balance loss summed over the layers, the JAX forward's
     second value: deepseek-v2's smoke config routes every layer through a
-    MoE FFN; the other archs have none, and both sides give 0.  Held at the
+    MoE FFN, jamba's every other layer (sub-layers 1, 3, 5, 7 of each
+    block); the other archs have none, and both sides give 0.  Held at the
     MoE tests' 1e-5 (tests/test_torch_moe.py)."""
     jcfg, jparams, cfg, params = fp32_pair
     toks = _tokens(cfg, 2, 12, seed=5)
@@ -222,7 +267,8 @@ def test_forward_aux_matches_jax(fp32_pair):
                                 remat=remat, want_aux=True)
         assert cache is None and aux.dtype == torch.float32 and aux.ndim == 0
         assert aux.item() == pytest.approx(float(jaux), rel=1e-5, abs=1e-5)
-    assert (float(jaux) > 0) == cfg.layer_is_moe(0)
+    assert (float(jaux) > 0) == any(cfg.layer_is_moe(l)
+                                    for l in range(cfg.num_layers))
 
 
 @pytest.mark.parametrize("per_row", [False, True])
@@ -248,9 +294,10 @@ def test_decode_step_matches_jax(fp32_pair, per_row):
         tl, tcache = decode_step(cfg, params, torch.from_numpy(new[:, i:i + 1]),
                                  tcache, tpos)
         np.testing.assert_allclose(_np(tl), _np(jl), **TOL)
-    for name in jcache["sub0"]:
-        np.testing.assert_allclose(_np(tcache["sub0"][name]),
-                                   _np(jcache["sub0"][name]), **TOL)
+    for sub in jcache:
+        for name in jcache[sub]:
+            np.testing.assert_allclose(_np(tcache[sub][name]),
+                                       _np(jcache[sub][name]), **TOL)
 
 
 def test_ring_holds_a_prompt_longer_than_the_window():
@@ -283,8 +330,9 @@ def test_cache_from_prefill_does_not_alias(fp32_pair):
 
 def test_mamba2_cache_has_no_sequence_axis():
     """init_cache gives Mamba2 a conv window of w - 1 rows in the cache
-    dtype and an always-float32 state, whatever the cache length; both
-    other kinds are refused in a hybrid or modal config."""
+    dtype and an always-float32 state, whatever the cache length; a hybrid
+    config holds one cache kind per sub-layer, and a modal prefix is
+    refused."""
     cfg = smoke_config("mamba2-130m")
     cache = init_cache(cfg, 3, 1000, dtype=torch.bfloat16, device="cpu")["sub0"]
     ch = cfg.d_inner + 2 * cfg.ssm_state
@@ -293,11 +341,14 @@ def test_mamba2_cache_has_no_sequence_axis():
     assert tuple(cache["ssd"].shape) == (2, 3, cfg.n_ssm_heads,
                                          cfg.ssm_head_dim, cfg.ssm_state)
     assert cache["ssd"].dtype == torch.float32
-    for bad in (cfg.scaled(family="hybrid", attn_layer_period=2,
-                           num_layers=2),
-                cfg.scaled(num_modal_tokens=8)):
-        with pytest.raises(NotImplementedError):
-            param_shapes(bad)
+    hybrid = cfg.scaled(family="hybrid", attention="gqa", num_heads=8,
+                        num_kv_heads=4, attn_layer_period=2, num_layers=2)
+    both = init_cache(hybrid, 3, 20, dtype=torch.bfloat16, device="cpu")
+    assert sorted(both["sub0"]) == ["k", "v"]
+    assert sorted(both["sub1"]) == ["conv", "ssd"]
+    assert tuple(both["sub0"]["k"].shape) == (1, 3, 20, 4, 32)
+    with pytest.raises(NotImplementedError):
+        param_shapes(cfg.scaled(num_modal_tokens=8))
 
 
 def test_mamba2_forward_at_a_ragged_prompt_matches_the_pallas_path():

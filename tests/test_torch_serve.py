@@ -24,7 +24,8 @@ from repro_torch.models import init_params
 from repro_torch.serve import (ContinuousBatcher, DisaggregatedBatcher,
                                ServeRequest, greedy_decode)
 
-ARCHS = ["llama3.2-3b", "starcoder2-3b", "deepseek-v2-236b", "mamba2-130m"]
+ARCHS = ["llama3.2-3b", "starcoder2-3b", "deepseek-v2-236b", "mamba2-130m",
+         "jamba-1.5-large-398b"]
 BATCHERS = [ContinuousBatcher, DisaggregatedBatcher]
 
 
@@ -185,6 +186,34 @@ def test_mamba2_splice_copies_the_state_exactly(mamba2_bf16):
     assert bool((cb.cache["sub0"]["ssd"][:, 1] != 0).any())
 
 
+@pytest.fixture(scope="module")
+def jamba_bf16():
+    cfg = smoke_config("jamba-1.5-large-398b")
+    return cfg, init_params(cfg, 0, device="cpu")
+
+
+@pytest.mark.parametrize("batcher", BATCHERS)
+def test_jamba_batcher_matches_greedy(jamba_bf16, batcher):
+    """The hybrid's mixed caches through the batchers: per block, seven
+    Mamba2 conv windows and float32 states and one GQA ring (sub4), every
+    one spliced at admission.  4 requests with unequal budgets and prompt
+    lengths 2, 5, 8 and 8 through 2 slots, the last submitted mid-flight."""
+    cfg, params = jamba_bf16
+    prompts = _prompts(cfg, 4, 8, seed=19)
+    lengths, gens = [2, 5, 8, 8], [5, 3, 4, 2]
+    want = {i: greedy_decode(cfg, params, prompts[i:i + 1, :lengths[i]],
+                             gens[i], 16)[0].tolist() for i in range(4)}
+    cb = batcher(cfg, params, slots=2, cache_len=16)
+    for i in range(3):
+        cb.submit(ServeRequest(i, prompts[i, :lengths[i]], gens[i]))
+    cb.step()
+    cb.submit(ServeRequest(3, prompts[3, :lengths[3]], gens[3]))
+    assert cb.run() == want
+    assert set(cb.cache["sub4"]) == {"k", "v"}
+    assert all(set(cb.cache[f"sub{j}"]) == {"conv", "ssd"}
+               for j in (0, 1, 2, 3, 5, 6, 7))
+
+
 @pytest.mark.parametrize("extra", [[], ["--continuous", "3"],
                                    ["--continuous", "3", "--disaggregated"]])
 def test_serve_driver_runs_on_cpu(extra, capsys):
@@ -220,6 +249,19 @@ def test_serve_driver_runs_mamba2_on_cpu(extra, capsys):
                            "--gen", "4", *extra])
     printed = capsys.readouterr().out
     assert "arch=mamba2-130m-smoke device=cpu" in printed
+    if extra:
+        assert sorted(out) == [0, 1, 2]
+    else:
+        assert tuple(out.shape) == (2, 4)
+
+
+@pytest.mark.parametrize("extra", [[], ["--continuous", "3", "--disaggregated"]])
+def test_serve_driver_runs_jamba_on_cpu(extra, capsys):
+    out = serve_main.main(["--arch", "jamba-1.5-large-398b", "--smoke",
+                           "--device", "cpu", "--batch", "2", "--prompt-len",
+                           "8", "--gen", "4", *extra])
+    printed = capsys.readouterr().out
+    assert "arch=jamba-1.5-large-398b-smoke device=cpu" in printed
     if extra:
         assert sorted(out) == [0, 1, 2]
     else:

@@ -1,7 +1,8 @@
-"""The port's SSD scan: its plain versions against the JAX package's Pallas
-kernel (interpret mode) and its ``ssd_ref`` oracle, dispatch by device, the
-wrapper's checks, and -- on a card only -- the hand-written CUDA kernel
-against its plain version.
+"""The port's SSD scan and its gradient: the plain versions against the JAX
+package's Pallas kernel (interpret mode), its ``ssd_ref`` oracle and
+``jax.vjp`` of its chunked scan, dispatch by device, the wrappers' checks,
+and -- on a card only -- the hand-written CUDA kernels against their plain
+versions and the autograd op that joins them.
 
 Inputs are drawn with numpy from a fixed seed; bfloat16 inputs are rounded
 once in torch and handed to JAX through float32, which is exact, so both
@@ -21,6 +22,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import LAUNCHES, dispatch
 from repro_torch.kernels.ssd_scan import (ssd_chunked, ssd_naive, ssd_scan,
+                                          ssd_scan_bwd, ssd_scan_bwd_ref,
                                           ssd_scan_ref)
 from repro_torch.kernels.ssd_scan.ssd_scan import SHAPES, chunk, segment_chunks
 
@@ -36,6 +38,15 @@ SSD_CASES = [
 ]
 # a length the JAX package's chunked scan refuses at chunk 128 (200 % 128)
 RAGGED = (2, 200, 3, 32, 16, 128)
+# the gradient against jax.vjp: (b, s, h, p, n) at the smoke and the full
+# (P, N) and two lengths
+BWD_CASES = [(2, 128, 3, 32, 16), (2, 256, 3, 32, 16), (1, 128, 4, 64, 128),
+             (1, 256, 4, 64, 128)]
+BWD_NAMES = ("dx", "ddt_raw", "dA_log", "dB", "dC", "dD", "ddt_bias")
+# the gradient in float32, max |d| <= BWD_TOL * max |ref| per gradient: the
+# two sides sum the same chunked terms in other orders; dA_log, a sum over
+# every (position, p, n), has the least headroom (1.3e-5 observed)
+BWD_TOL = 1e-4
 
 
 @pytest.fixture(scope="module")
@@ -78,7 +89,7 @@ def _to_jax(jx, t):
 
 def _f32(x):
     if isinstance(x, torch.Tensor):
-        return x.float().numpy()
+        return x.detach().float().cpu().numpy()
     return np.asarray(x, np.float32)
 
 
@@ -153,6 +164,96 @@ def test_ssd_chunked_is_exact_at_any_chunk(chunk):
                   ssd_naive(x, dt, A, B, C, D), 1e-4)
 
 
+# ------------------------------------------------------------- the gradient --
+
+def _cotangents(y_shape, state_shape, with_state, seed=3):
+    rng = np.random.default_rng(seed)
+    dy = rng.standard_normal(y_shape).astype(np.float32)
+    ds = (rng.standard_normal(state_shape).astype(np.float32) if with_state
+          else None)
+    return dy, ds
+
+
+def _assert_grads_close(got, want, tol=BWD_TOL):
+    """max |d| <= tol * max |ref| per gradient (a gradient that is 0 in
+    math, as dA_log at one row, must come out 0)."""
+    for name, g, w in zip(BWD_NAMES, got, want):
+        g, w = _f32(g), _f32(w)
+        assert g.shape == w.shape, name
+        err = np.abs(g - w).max()
+        assert err <= tol * np.abs(w).max(), (name, err, np.abs(w).max())
+
+
+@pytest.mark.parametrize("with_state", [False, True])
+@pytest.mark.parametrize("case", BWD_CASES,
+                         ids=lambda c: "b{}_s{}_h{}_p{}_n{}".format(*c))
+def test_ssd_scan_bwd_ref_matches_jax_vjp(jx, case, with_state):
+    """The explicit chunked backward (chunks of 32) against jax.vjp of the
+    JAX package's SSD path -- softplus(dt_raw + dt_bias), A = -exp(A_log),
+    ``ssd_chunked`` at chunk 64 -- with a cotangent on the final state or
+    none."""
+    b, s, h, p, n = case
+    args = _inputs(b, s, h, p, n, "float32")
+    dy, ds = _cotangents((b, s, h, p), (b, h, p, n), with_state)
+    jnp = jx.jnp
+
+    def path(x, dt_raw, A_log, B, C, D, dt_bias):
+        return jx.ssd_chunked(x, jx.jax.nn.softplus(dt_raw + dt_bias),
+                              -jnp.exp(A_log), B, C, D, chunk=64)
+
+    (_, state), vjp = jx.jax.vjp(path, *(_to_jax(jx, t) for t in args))
+    want = vjp((jnp.asarray(dy), jnp.zeros_like(state) if ds is None
+                else jnp.asarray(ds)))
+    got = ssd_scan_bwd_ref(*args, torch.from_numpy(dy),
+                           None if ds is None else torch.from_numpy(ds),
+                           chunk=32)
+    assert [t.dtype for t in got] == [torch.float32] * 7
+    _assert_grads_close(got, want)
+
+
+@pytest.mark.parametrize("with_state", [False, True])
+def test_ssd_scan_bwd_ref_matches_autograd_at_a_ragged_length(with_state):
+    """s = 200, where the JAX path asserts: against torch's autograd through
+    the port's ``ssd_chunked`` (``ssd_scan_ref``), both padding the tail."""
+    b, s, h, p, n, chunk = RAGGED
+    args = [t.requires_grad_(True) for t in _inputs(b, s, h, p, n, "float32")]
+    y, state = ssd_scan_ref(*args, chunk=chunk)
+    dy, ds = (None if a is None else torch.from_numpy(a)
+              for a in _cotangents(y.shape, state.shape, with_state))
+    loss = (y * dy).sum() + (0 if ds is None else (state * ds).sum())
+    want = torch.autograd.grad(loss, args)
+    got = ssd_scan_bwd_ref(*(t.detach() for t in args), dy, ds, chunk=chunk)
+    _assert_grads_close(got, want)
+
+
+def test_ssd_scan_bwd_ref_keeps_the_input_dtypes():
+    args = _inputs(1, 70, 2, 32, 16, "bfloat16")
+    dy = torch.ones((1, 70, 2, 32), dtype=torch.bfloat16)
+    got = ssd_scan_bwd_ref(*args, dy)
+    assert [t.dtype for t in got] == [torch.bfloat16] * 2 + [torch.float32] \
+        + [torch.bfloat16] * 2 + [torch.float32] * 2
+    assert [tuple(g.shape) for g in got] == [tuple(a.shape) for a in args]
+    assert all(bool(torch.isfinite(g.float()).all()) for g in got)
+
+
+def test_ssd_scan_bwd_refuses_what_it_does_not_take():
+    """The gradient wrapper's checks, before the device check."""
+    args = list(_inputs(1, 8, 2, 64, 128, "float32"))
+    dy = torch.zeros((1, 8, 2, 64))
+    with pytest.raises(ValueError, match="CUDA"):
+        ssd_scan_bwd(*args, dy)
+    with pytest.raises(ValueError, match="dy"):
+        ssd_scan_bwd(*args, dy[:, :4])
+    with pytest.raises(ValueError, match="d_state"):
+        ssd_scan_bwd(*args, dy, torch.zeros((1, 2, 64, 128),
+                                            dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match=r"\(16, 8\) not in"):
+        ssd_scan_bwd(*_inputs(1, 8, 2, 16, 8, "float32"),
+                     torch.zeros((1, 8, 2, 16)))
+    with pytest.raises(NotImplementedError, match="second derivative"):
+        ssd_scan_bwd(*args, dy.requires_grad_(True))
+
+
 # ---------------------------------------------------------------- dispatch --
 
 def test_dispatch_ssd_on_cpu_runs_the_plain_version():
@@ -170,8 +271,8 @@ def test_dispatch_ssd_on_cpu_runs_the_plain_version():
 
 def test_dispatch_ssd_on_cpu_differentiates_the_plain_version():
     """With grad on, a CPU tensor takes the plain version, whose gradient is
-    PyTorch's autograd (the kernel has no backward and refuses such inputs):
-    every input that requires grad gets a finite gradient."""
+    PyTorch's autograd (a CUDA tensor takes the autograd op of the two
+    kernels): every input that requires grad gets a finite gradient."""
     before = dict(LAUNCHES)
     args = [t.requires_grad_(True)
             for t in _inputs(1, 100, 2, 32, 16, "float32")]
@@ -248,18 +349,57 @@ class TestSsdScanOnCard:
         assert 4000 % seg[4000] != 0 and 4000 % chunk() != 0
 
     def test_dispatch_refuses_grad_on_cuda(self, cuda):
-        """The card's path has no SSD backward: grad-requiring inputs raise
-        instead of returning tensors cut from the graph; under no_grad the
-        kernel runs."""
+        """(Named for what it held before the SSD backward existed.)  With
+        grad on, dispatch.ssd on CUDA tensors runs the autograd op of the
+        two kernels: one launch of each, and the gradients of the plain
+        version's autograd; the raw scan wrapper still refuses inputs that
+        require grad; under no_grad the scan alone runs."""
         args = [t.requires_grad_(True) for t in
-                _inputs(1, 64, 24, 64, 128, "float32", device=cuda)]
-        before = LAUNCHES["ssd_scan"]
+                _inputs(1, 200, 24, 64, 128, "float32", device=cuda)]
+        before = dict(LAUNCHES)
+        y, state = dispatch.ssd(*args)
+        dy, ds = (torch.from_numpy(a).to(cuda) for a in _cotangents(
+            y.shape, state.shape, True))
+        got = torch.autograd.grad((y * dy).sum() + (state * ds).sum(), args)
+        torch.cuda.synchronize()
+        assert LAUNCHES["ssd_scan"] == before["ssd_scan"] + 1
+        assert LAUNCHES["ssd_scan_bwd"] == before["ssd_scan_bwd"] + 1
+        leaves = [t.detach().clone().requires_grad_(True) for t in args]
+        with dispatch.force("ref"):
+            yr, sr = dispatch.ssd(*leaves)
+        want = torch.autograd.grad((yr * dy).sum() + (sr * ds).sum(), leaves)
+        _assert_grads_close(got, want, DTYPES["float32"][1])
         with pytest.raises(NotImplementedError, match="the SSD backward"):
-            dispatch.ssd(*args)
-        assert LAUNCHES["ssd_scan"] == before
+            ssd_scan(*args)
         with torch.no_grad():
             dispatch.ssd(*args)
-        assert LAUNCHES["ssd_scan"] == before + 1
+        assert LAUNCHES["ssd_scan"] == before["ssd_scan"] + 2
+
+    @pytest.mark.parametrize("with_state", [False, True])
+    @pytest.mark.parametrize("dtype", list(DTYPES))
+    @pytest.mark.parametrize("shape", [(1, 1024, 24, 64, 128),  # training
+                                       (2, 1000, 24, 64, 128),  # ragged
+                                       (2, 200, 16, 32, 16),    # smoke widths
+                                       (3, 1, 4, 32, 16)])      # one row
+    def test_ssd_scan_bwd_matches_plain(self, cuda, shape, dtype, with_state):
+        """Against ssd_scan_bwd_ref, max |d| <= tol * max |ref| per
+        gradient at the SSD tolerances (2e-3 float32, 5e-2 bfloat16)."""
+        args = _inputs(*shape, dtype, device=cuda)
+        b, s, h, p, n = shape
+        dy, ds = _cotangents((b, s, h, p), (b, h, p, n), with_state)
+        dy = torch.from_numpy(dy).to(device=cuda, dtype=args[0].dtype)
+        ds = None if ds is None else torch.from_numpy(ds).to(cuda)
+        before = LAUNCHES["ssd_scan_bwd"]
+        got = ssd_scan_bwd(*args, dy, ds)
+        torch.cuda.synchronize()
+        assert LAUNCHES["ssd_scan_bwd"] == before + 1
+        want = ssd_scan_bwd_ref(*args, dy, ds)
+        assert [g.dtype for g in got] == [w.dtype for w in want]
+        assert all(bool(torch.isfinite(g.float()).all()) for g in got)
+        _assert_grads_close([g.cpu() for g in got], [w.cpu() for w in want],
+                            DTYPES[dtype][1])
+        again = ssd_scan_bwd(*args, dy, ds)
+        assert all(torch.equal(g, a) for g, a in zip(got, again))
 
     def test_dispatch_on_cuda_launches_the_kernel(self, cuda):
         args = _inputs(1, 64, 24, 64, 128, "bfloat16", device=cuda)
