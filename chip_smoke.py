@@ -11,8 +11,8 @@ Phases, each printing its lines before the last:
    hand-written kernels from ``src/repro_torch/kernels/csrc``: each
    kernel's registers, spills and static shared memory from the ptxas log
    and its tensor-core instructions from ``cuobjdump -sass`` (every bf16
-   attention, SSD and MLA decode body at every width must have some, and
-   the attention and SSD gradient kernels no atomics);
+   attention, SSD scan, SSD gradient and MLA decode body at every width
+   must have some, and the attention and SSD gradient kernels no atomics);
 2. each kernel against its plain PyTorch version on the card, at the shapes
    the main paths give it and at edge cases (window, GQA, sq != sk,
    float32, ragged tails, two fully masked splits of each decode kernel's
@@ -27,9 +27,10 @@ Phases, each printing its lines before the last:
    256 heads), the attention backward also against autograd through the
    plain forward and run twice for bit-identical gradients, the SSD
    gradient at mamba2-130m's training shape (with and without a gradient
-   on the final state, bf16 and float32), at a ragged length and at the
-   smoke widths, also against autograd through the plain scan and run
-   twice for bit-identical gradients, with its time, the plain version's,
+   on the final state, bf16 and float32), at a ragged length, at b=4 and
+   at the smoke widths, also against autograd through the plain scan and
+   run twice for bit-identical gradients, with its scratch bytes and
+   grid at the training shape, its time, the plain version's,
    one PyTorch library call's (none computes the SSD scan or its gradient)
    and the card's bound for the same work;
 3. llama3.2-3b at full width in bfloat16 with random weights from a seed:
@@ -90,8 +91,10 @@ no result.
 
     python3 chip_smoke.py --ab OTHER_CHECKOUT
 
-times the redesigned kernels (``ssd_scan`` at the b=8 prefill and at
-32k, ``flash_decode_gqa`` and ``flash_decode_mla`` at their decode shapes) in
+times the redesigned kernels (``ssd_scan_bwd`` at mamba2-130m's training
+shape and at b=2 of a ragged 1,000 rows, ``ssd_scan`` at the b=8 prefill
+and at 32k, ``flash_decode_gqa`` and ``flash_decode_mla`` at their decode
+shapes) in
 another checkout of the repository and in this one, in turns (other,
 this, this, other), each in a process of its own that builds its own
 tree's kernels (``--time-kernels``, with ``--src`` naming the tree), and
@@ -212,12 +215,13 @@ JAMBA_LOGITS_ATOL = 0.64
 # The bf16 bodies that must run on the tensor cores: by source, groups of
 # (kernel names, first template argument of each instantiation) -- the
 # attention kernels' head dims, the SSD product kernel's state width N,
-# the SSD segment and scan kernels' head dim P and the MLA decode's latent
-# width r.
+# the SSD segment and scan kernels' and the SSD gradient's head dim P and
+# the MLA decode's latent width r.
 MMA_KERNELS = {"flash_attention": [(("flash_attention_mma",), (32, 48, 64, 128, 192))],
                "flash_attention_bwd": [(("bwd_dkdv_mma", "bwd_dq_mma"), (32, 64, 128))],
                "ssd_scan": [(("ssd_cb",), (16, 128)),
                             (("ssd_seg_state", "ssd_chunk_scan"), (32, 64))],
+               "ssd_scan_bwd": [(("ssd_bwd_chunk_mma", "ssd_bwd_grads_mma"), (32, 64))],
                "flash_decode_mla": [(("mla_partials_mma",), (32, 512))]}
 
 SPIN_CYCLES = 2_000_000    # ~1 ms at the H100's ~2 GHz: covers a call's host work
@@ -920,7 +924,8 @@ def phase_ssd_bwd(peaks, flush, gen):
     the kernels line."""
     from repro_torch.kernels.ssd_scan import (ssd_scan_bwd, ssd_scan_bwd_ref,
                                               ssd_scan_ref)
-    from repro_torch.kernels.ssd_scan.ssd_scan import bwd_chunk
+    from repro_torch.kernels.ssd_scan.ssd_scan import (
+        bwd_chunk, bwd_heads_per_group, bwd_scratch)
     bf16, f32 = torch.bfloat16, torch.float32
     names = ("dx", "ddt_raw", "dA_log", "dB", "dC", "dD", "ddt_bias")
     rows = {}
@@ -931,6 +936,7 @@ def phase_ssd_bwd(peaks, flush, gen):
             ("train_d_state", train, bf16, True),
             ("train_fp32", train, f32, True),
             ("ragged", (2, 1000, 24, 64, 128), bf16, True),
+            ("b4", (4, 512, 24, 64, 128), bf16, False),
             ("smoke_dims", (2, 200, 16, 32, 16), bf16, True),
             ("smoke_dims_fp32", (3, 77, 16, 32, 16), f32, False)]:
         args = ssd_inputs(gen, b, s, h, P, N, dt)
@@ -959,8 +965,13 @@ def phase_ssd_bwd(peaks, flush, gen):
             ok = ok and max(errs_auto) <= tol
             auto = (", vs autograd through the plain scan " + " ".join(
                 f"{n} {e:.3e}" for n, e in zip(names, errs_auto)))
+        grid = ""
+        if dt == bf16:                 # the grads kernel's grid and clusters
+            hpg = bwd_heads_per_group(args[0], N)
+            grid = (f", grid ({-(-h // hpg)}, {-(-s // bwd_chunk())}, {b}) in"
+                    f" clusters of {-(-h // hpg)} groups of {hpg} heads")
         print(f"kernel ssd_scan_bwd {name} b={b} s={s} h={h} P={P} N={N}"
-              f" {str(dt)[6:]} d_state={'yes' if with_state else 'no'}:"
+              f" {str(dt)[6:]} d_state={'yes' if with_state else 'no'}{grid}:"
               f" max|d|/max|ref| " + " ".join(f"{n} {e:.3e}" for n, e in
                                               zip(names, errs))
               + auto + f", rerun bit-identical {same} tol={tol:g}"
@@ -982,6 +993,21 @@ def phase_ssd_bwd(peaks, flush, gen):
                   + 4 * 6 * h)
         flops = b * h * s * 2 * 6 * P * N
         bound_ms, bound_by = bound(nbytes, flops, peaks)
+        # the call's scratch: its peak allocated memory less what was
+        # allocated before it (the inputs among it) and its outputs
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = ssd_scan_bwd(*args, dy, ds)
+        torch.cuda.synchronize()
+        scratch = (torch.cuda.max_memory_allocated() - before
+                   - sum(t.numel() * t.element_size() for t in out))
+        plan = bwd_scratch(b, s, h, P, N, dt, L)
+        print(f"scratch ssd_scan_bwd {name}: {scratch} B allocated during the"
+              f" call besides its outputs; the plan "
+              + ", ".join(f"{k} {v}" for k, v in plan.items())
+              + f" = {sum(4 * math.prod(v) for v in plan.values())} B float32")
+        del out
         ms = time_ms(lambda: ssd_scan_bwd(*args, dy, ds), flush)
         plain_ms = time_ms(lambda: ssd_scan_bwd_ref(*args, dy, ds), flush)
         print(f"time ssd_scan_bwd {name} inputs: {nbytes} bytes, {flops} flops"
@@ -1694,10 +1720,17 @@ def time_kernels():
     """--time-kernels: the redesigned kernels' times at their main-path
     shapes, from whichever tree ``--src`` names, on one JSON line."""
     from repro_torch.kernels.flash_decode import flash_decode_gqa, flash_decode_mla
-    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_bwd
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(5)
     out = {}
+    t = SSD_TRAIN
+    for name, (b, s, h, P, N) in (
+            ("ssd_scan_bwd train", (t["b"], t["s"], t["h"], t["P"], t["N"])),
+            ("ssd_scan_bwd ragged b=2 s=1000", (2, 1000, 24, 64, 128))):
+        args = ssd_inputs(gen, b, s, h, P, N, torch.bfloat16)
+        dy = torch.randn(b, s, h, P, generator=gen, device="cuda").bfloat16()
+        out[name] = time_ms(lambda: ssd_scan_bwd(*args, dy), flush)
     for name, shape in (("ssd_scan prefill", SSD_PREFILL),
                         ("ssd_scan prefill_32k", SSD_LONG)):
         b, s, h, P, N = (shape[k] for k in ("b", "s", "h", "P", "N"))

@@ -2,10 +2,8 @@
 (``csrc/ssd_scan.cu``) and of its gradient (``csrc/ssd_scan_bwd.cu``):
 checks, allocation of the outputs and of the float32 scratch (the scan's
 bfloat16 path: each chunk's C.B^T, the segment states and their
-log-decays; the gradient: each chunk's entering state and the gradient of
-its leaving state, the heads' shares of dB and dC, the chunks' shares of
-the (h,) gradients), the launch, launch count -- one per call, however
-many CUDA kernels the call runs.
+log-decays; the gradient: see ``bwd_scratch``), the launch, launch count
+-- one per call, however many CUDA kernels the call runs.
 
 They take CUDA tensors only and raise on anything the kernels do not
 take; ``repro_torch.kernels.dispatch.ssd`` sends CPU tensors to the plain
@@ -45,10 +43,12 @@ def _lib() -> ctypes.CDLL:
 @functools.cache
 def _bwd_lib() -> ctypes.CDLL:
     lib = _build.load("ssd_scan_bwd")
-    lib.repro_ssd_scan_bwd.argtypes = [_P] * 22 + [_I] * 6 + [_P]
+    lib.repro_ssd_scan_bwd.argtypes = [_P] * 23 + [_I] * 6 + [_P]
     lib.repro_ssd_scan_bwd.restype = ctypes.c_int
     lib.repro_ssd_scan_bwd_chunk.argtypes = []
     lib.repro_ssd_scan_bwd_chunk.restype = ctypes.c_int
+    lib.repro_ssd_scan_bwd_heads_per_group.argtypes = [_I] * 5
+    lib.repro_ssd_scan_bwd_heads_per_group.restype = ctypes.c_int
     return lib
 
 
@@ -162,6 +162,38 @@ def bwd_chunk() -> int:
     return _bwd_lib().repro_ssd_scan_bwd_chunk()
 
 
+def bwd_heads_per_group(x: torch.Tensor, n: int) -> int:
+    """Heads a block of the bfloat16 gradient's grid for a (b, s, h, p) CUDA
+    x and state width n: the card's clusters of ceil(h / it) blocks, one a
+    (batch, chunk), take the fewest waves x heads a block (4 of 24 on an
+    H100 at mamba2-130m's training microbatch)."""
+    b, s, h, p = x.shape
+    with torch.cuda.device(x.device):
+        return _bwd_lib().repro_ssd_scan_bwd_heads_per_group(b, s, h, p, n)
+
+
+def bwd_scratch(b: int, s: int, h: int, p: int, n: int, dtype: torch.dtype,
+                chunk: int) -> dict:
+    """The float32 scratch ``ssd_scan_bwd`` allocates, by name and shape,
+    for the kernel's chunk of ``chunk`` rows (``bwd_chunk()``) and
+    nc = ceil(s / chunk): each chunk's entering state and the gradient of its
+    leaving state (``states``, ``grads``: (b, nc, h, p, n); in bfloat16 each
+    eight floats end as their bf16 hi and lo halves), the chunks'
+    log-decays (``cum_l``) and their shares of the (h,) gradients
+    (``vec``); in bfloat16 each chunk's C.B^T (``cb``: (b, nc, chunk, chunk)),
+    computed once per (batch, chunk) for all heads -- the heads' dB and dC
+    are summed on chip; in float32 (the first version's body) the heads' dB
+    and dC shares (``dbp``, ``dcp``: (b, s, h, n))."""
+    nc = -(-s // chunk)
+    plan = dict(states=(b, nc, h, p, n), grads=(b, nc, h, p, n),
+                cum_l=(b, nc, h), vec=(3, b, nc, h))
+    if dtype == torch.bfloat16:
+        plan["cb"] = (b, nc, chunk, chunk)
+    else:
+        plan["dbp"] = plan["dcp"] = (b, s, h, n)
+    return plan
+
+
 def ssd_scan_bwd(x: torch.Tensor, dt_raw: torch.Tensor, A_log: torch.Tensor,
                  B: torch.Tensor, C: torch.Tensor, D: torch.Tensor,
                  dt_bias: torch.Tensor, dy: torch.Tensor,
@@ -171,31 +203,28 @@ def ssd_scan_bwd(x: torch.Tensor, dt_raw: torch.Tensor, A_log: torch.Tensor,
     dtype and, optionally, d_state (b, h, p, n) float32 for the final
     state.  Returns (dx, ddt_raw, dA_log, dB, dC, dD, ddt_bias), as
     ``ref.ssd_scan_bwd_ref``: dx, ddt_raw, dB, dC in the inputs' dtype, the
-    (h,) vectors float32."""
+    (h,) vectors float32.  Allocates the scratch of ``bwd_scratch``."""
     _check_inputs(x, dt_raw, A_log, B, C, D, dt_bias, kernel="ssd_scan_bwd",
                   dy=dy, d_state=d_state)
     b, s, h, p = x.shape
     n = B.shape[2]
     dev = x.device
-    nc = -(-s // bwd_chunk())
-    f32 = dict(dtype=torch.float32, device=dev)
     dx, ddt_raw, dB, dC = (torch.empty_like(t) for t in (x, dt_raw, B, C))
-    dA_log, dD, ddt_bias = (torch.empty((h,), **f32) for _ in range(3))
-    states = torch.empty((b, nc, h, p, n), **f32)
-    grads = torch.empty((b, nc, h, p, n), **f32)
-    cum_l = torch.empty((b, nc, h), **f32)
-    dbp = torch.empty((b, s, h, n), **f32)
-    dcp = torch.empty((b, s, h, n), **f32)
-    vec = torch.empty((3, b, nc, h), **f32)
+    dA_log, dD, ddt_bias = (torch.empty((h,), dtype=torch.float32, device=dev)
+                            for _ in range(3))
+    scratch = {name: torch.empty(shape, dtype=torch.float32, device=dev)
+               for name, shape in bwd_scratch(b, s, h, p, n, x.dtype,
+                                               bwd_chunk()).items()}
+    ptr = {name: t.data_ptr() for name, t in scratch.items()}
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _bwd_lib().repro_ssd_scan_bwd(
         x.data_ptr(), dt_raw.data_ptr(), A_log.data_ptr(), B.data_ptr(),
         C.data_ptr(), D.data_ptr(), dt_bias.data_ptr(), dy.data_ptr(),
         None if d_state is None else d_state.data_ptr(), dx.data_ptr(),
         ddt_raw.data_ptr(), dA_log.data_ptr(), dB.data_ptr(), dC.data_ptr(),
-        dD.data_ptr(), ddt_bias.data_ptr(), states.data_ptr(),
-        grads.data_ptr(), cum_l.data_ptr(), dbp.data_ptr(), dcp.data_ptr(),
-        vec.data_ptr(), b, s, h, p, n, DTYPE_CODES[x.dtype], stream)
+        dD.data_ptr(), ddt_bias.data_ptr(), ptr["states"], ptr["grads"],
+        *(ptr.get(k) for k in ("cum_l", "cb", "dbp", "dcp")),
+        ptr["vec"], b, s, h, p, n, DTYPE_CODES[x.dtype], stream)
     if err:
         raise RuntimeError(f"ssd_scan_bwd launch failed: CUDA error {err}")
     LAUNCHES["ssd_scan_bwd"] += 1

@@ -24,7 +24,8 @@ from repro_torch.kernels import LAUNCHES, dispatch
 from repro_torch.kernels.ssd_scan import (ssd_chunked, ssd_naive, ssd_scan,
                                           ssd_scan_bwd, ssd_scan_bwd_ref,
                                           ssd_scan_ref)
-from repro_torch.kernels.ssd_scan.ssd_scan import SHAPES, chunk, segment_chunks
+from repro_torch.kernels.ssd_scan.ssd_scan import (SHAPES, bwd_scratch, chunk,
+                                                   segment_chunks)
 
 DTYPES = {"float32": (torch.float32, 2e-3), "bfloat16": (torch.bfloat16, 5e-2)}
 
@@ -236,6 +237,187 @@ def test_ssd_scan_bwd_ref_keeps_the_input_dtypes():
     assert all(bool(torch.isfinite(g.float()).all()) for g in got)
 
 
+def _hilo(v):
+    """A float32 tensor as the kernel feeds it to the tensor cores: bf16
+    halves hi = bf16(v) and lo = bf16(v - hi), both widened back."""
+    hi = v.bfloat16().float()
+    return hi, (v - hi).bfloat16().float()
+
+
+def _bf16_only(v):
+    """A float32 operand rounded once to bf16, its lo half dropped."""
+    return v.bfloat16().float(), torch.zeros_like(v)
+
+
+def _emulated_bwd_kernel(x, dt_raw, A_log, B, C, D, dt_bias, dy, d_state=None,
+                         L=64, split=_hilo):
+    """The bfloat16 body of ``csrc/ssd_scan_bwd.cu`` in torch, term for term
+    at its operands' rounding: bf16 operands (x, dy, B, C) as they are;
+    every float32 operand of a product as hi + lo (w o x and e o dy, M, the
+    heads' summed Q, the states S and G), with hi.hi + hi.lo + lo.hi where
+    both operands are float32; C.B^T once per (batch, chunk), shared by the
+    heads; Q summed over the heads before its products with B and C.  The
+    sums are float32, in torch's order rather than the mma's.  Returns the
+    seven gradients in float32.  ``split`` makes a float32 operand's two
+    halves (``_bf16_only`` keeps the hi half alone)."""
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+    s_p = -(-s // L) * L
+    nc = s_p // L
+    xf, dyf, Bf, Cf = (t.float() for t in (x, dy, B, C))
+    r = dt_raw.float() + dt_bias
+    dt = F.softplus(r)
+    A = -torch.exp(A_log)
+    if s_p != s:
+        xf, dyf = (F.pad(t, (0, 0, 0, 0, 0, s_p - s)) for t in (xf, dyf))
+        Bf, Cf, dt = (F.pad(t, (0, 0, 0, s_p - s)) for t in (Bf, Cf, dt))
+    xc, dyc = xf.reshape(b, nc, L, h, p), dyf.reshape(b, nc, L, h, p)
+    Bc, Cc = Bf.reshape(b, nc, L, n), Cf.reshape(b, nc, L, n)
+    dtc = dt.reshape(b, nc, L, h)
+    cum = torch.cumsum(dtc * A, dim=2)
+    last = cum[:, :, -1]
+    e = torch.exp(cum)
+    te = torch.exp(last[:, :, None] - cum)
+    w = dtc * te
+
+    # ssd_bwd_chunk_mma: the chunks' state products, the scaled x and dy as
+    # hi + lo against bf16 B and C; C.B^T once per (batch, chunk)
+    cb = torch.einsum("bcin,bcjn->bcij", Cc, Bc)
+    wx_h, wx_l = split(w[..., None] * xc)
+    ed_h, ed_l = split(e[..., None] * dyc)
+    upd = torch.einsum("bclhp,bcln->bchpn", wx_h + wx_l, Bc)
+    dfy = torch.einsum("bclhp,bcln->bchpn", ed_h + ed_l, Cc)
+    # ssd_bwd_pass<true>, float32; it leaves the states as hi + lo
+    run = torch.zeros((b, h, p, n))
+    S = []
+    for c in range(nc):
+        S.append(run)
+        run = run * torch.exp(last[:, c])[:, :, None, None] + upd[:, c]
+    S = torch.stack(S, dim=1)
+    run = torch.zeros_like(run) if d_state is None else d_state.float()
+    G = [None] * nc
+    for c in reversed(range(nc)):
+        G[c] = run
+        run = run * torch.exp(last[:, c])[:, :, None, None] + dfy[:, c]
+    G = torch.stack(G, dim=1)
+
+    # ssd_bwd_grads_mma
+    Gh, Gl = split(G)
+    Sh, Sl = split(S)
+    gs = ((Gh + Gl) * (Sh + Sl)).sum((3, 4))
+    seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]
+    causal = torch.ones((L, L), dtype=torch.bool).tril()
+    decay = torch.exp(torch.where(causal[None, None, :, :, None], seg, -1e9))
+    dyx = torch.einsum("bcihp,bcjhp->bcijh", dyc, xc)
+    M = cb[..., None] * decay
+    Q = dyx * decay * dtc[:, :, None]
+    z = M * dyx
+    zr = (z * dtc[:, :, None]).sum(3)
+    col = z.sum(2)
+    # warps 0-3: G B_j, sum_i M_ij dy_i, dx, the heads' (w o x) G
+    GB = torch.einsum("bcjn,bchpn->bcjhp", Bc, Gh + Gl)
+    u = (xc * GB).sum(-1)
+    Mh, Ml = split(M)
+    dm = torch.einsum("bcijh,bcihp->bcjhp", Mh + Ml, dyc)
+    dx = dtc[..., None] * (dm + te[..., None] * GB) + D[:, None] * dyc
+    dB = (torch.einsum("bcjhp,bchpn->bcjn", wx_h, Gh + Gl)
+          + torch.einsum("bcjhp,bchpn->bcjn", wx_l, Gh))
+    # warps 4-7: S C_i, yo, the heads' (e o dy) S
+    SC = torch.einsum("bcin,bchpn->bcihp", Cc, Sh + Sl)
+    yo = e * (dyc * SC).sum(-1)
+    dC = (torch.einsum("bcihp,bchpn->bcin", ed_h, Sh + Sl)
+          + torch.einsum("bcihp,bchpn->bcin", ed_l, Sh))
+    # Q summed over the heads, then its products with C and B
+    Qh, Ql = split(Q.sum(-1))
+    dB = dB + torch.einsum("bcij,bcin->bcjn", Qh + Ql, Cc)
+    dC = dC + torch.einsum("bcij,bcjn->bcin", Qh + Ql, Bc)
+    # warp 0: the vectors
+    dcum = zr - dtc * col + yo - w * u
+    base = torch.exp(last) * gs + (w * u).sum(2)
+    da = (torch.flip(torch.cumsum(torch.flip(dcum, [2]), 2), [2])
+          + base[:, :, None])
+    ddt = col + te * u + A * da
+    dA = (dtc * da).sum((0, 1, 2))
+    dr = ddt.reshape(b, s_p, h)[:, :s] * torch.sigmoid(r)
+    dD = torch.einsum("bciih->h", dyx)
+    return (dx.reshape(b, s_p, h, p)[:, :s], dr, dA * A,
+            dB.reshape(b, s_p, n)[:, :s], dC.reshape(b, s_p, n)[:, :s], dD,
+            dr.sum((0, 1)))
+
+
+# the emulated kernel's error limit, ~10x the largest measured (9.3e-06):
+# far below the bf16 tolerance, so a design that lost the lo halves fails
+EMULATED_BWD_TOL = 1e-4
+KERNEL_ROUNDING_CASES = pytest.mark.parametrize(
+    "case", [(1, 1024, 24, 64, 128), (2, 200, 16, 32, 16)],
+    ids=["train", "smoke_dims"])
+
+
+def _emulated_vs_ref(case, with_state, split=_hilo):
+    """The emulated kernel and ``ssd_scan_bwd_ref`` in float32 on the same
+    bf16 inputs."""
+    b, s, h, p, n = case
+    args = _inputs(b, s, h, p, n, "bfloat16")
+    dy, ds = _cotangents((b, s, h, p), (b, h, p, n), with_state)
+    dy = torch.from_numpy(dy).bfloat16()
+    ds = None if ds is None else torch.from_numpy(ds)
+    got = _emulated_bwd_kernel(*args, dy, ds, split=split)
+    want = ssd_scan_bwd_ref(*(t.float() for t in args), dy.float(), ds)
+    return got, want
+
+
+@pytest.mark.parametrize("with_state", [False, True])
+@KERNEL_ROUNDING_CASES
+def test_ssd_scan_bwd_kernel_rounding_holds_the_bf16_tolerance(case,
+                                                               with_state):
+    """The bfloat16 gradient kernel's numerical design, where no compiler
+    exists: its operand rounding (float32 operands as bf16 hi + lo, C.B^T
+    shared by the heads, Q summed over the heads first) emulated in torch
+    against ``ssd_scan_bwd_ref`` in float32 on the same bf16 inputs, max |d|
+    <= 5e-2 * max |ref| per gradient, the bf16 tolerance, and within
+    ``EMULATED_BWD_TOL``.  Measured, worst gradient dA_log: 9.3e-06
+    (training shape) and 7.6e-06 (smoke dims), the others at most 5.5e-06:
+    the hi + lo halves keep ~16 bits, and the kernel's error is the bf16
+    rounding of its outputs."""
+    got, want = _emulated_vs_ref(case, with_state)
+    _assert_grads_close(got, want, DTYPES["bfloat16"][1])
+    _assert_grads_close(got, want, EMULATED_BWD_TOL)
+
+
+@pytest.mark.parametrize("with_state", [False, True])
+@KERNEL_ROUNDING_CASES
+def test_ssd_scan_bwd_kernel_rounding_needs_the_lo_halves(case, with_state):
+    """The same emulation with every float32 operand rounded once to bf16
+    (no lo halves) misses ``EMULATED_BWD_TOL`` in each gradient whose
+    products take a float32 operand (all but dD, a sum of bf16 x bf16
+    products): measured 3.4e-04 to 3.1e-03 of max |ref|.  So the limit
+    catches a kernel that drops the split."""
+    got, want = _emulated_vs_ref(case, with_state, split=_bf16_only)
+    for name, g, w in zip(BWD_NAMES, got, want):
+        if name == "dD":
+            continue
+        err = np.abs(_f32(g) - _f32(w)).max() / np.abs(_f32(w)).max()
+        assert err > EMULATED_BWD_TOL, (name, err)
+
+
+def test_ssd_scan_bwd_scratch_has_no_per_head_rows():
+    """The gradient's scratch plan: in bfloat16 no (b, s, h, n) float32
+    array (the heads' dB and dC are summed on chip) and C.B^T once per
+    (batch, chunk); at mamba2-130m's training microbatch 25,434,112 B, half
+    the float32 body's 50,337,792."""
+    def nbytes(plan):
+        return sum(4 * int(np.prod(shape)) for shape in plan.values())
+
+    b, s, h, p, n = 1, 1024, 24, 64, 128
+    plan = bwd_scratch(b, s, h, p, n, torch.bfloat16, 64)
+    assert (b, s, h, n) not in plan.values()
+    assert plan["cb"] == (b, 16, 64, 64)
+    assert nbytes(plan) == 25_434_112
+    fp32 = bwd_scratch(b, s, h, p, n, torch.float32, 64)
+    assert fp32["dbp"] == fp32["dcp"] == (b, s, h, n) and "cb" not in fp32
+    assert nbytes(fp32) == 50_337_792
+
+
 def test_ssd_scan_bwd_refuses_what_it_does_not_take():
     """The gradient wrapper's checks, before the device check."""
     args = list(_inputs(1, 8, 2, 64, 128, "float32"))
@@ -379,6 +561,8 @@ class TestSsdScanOnCard:
     @pytest.mark.parametrize("dtype", list(DTYPES))
     @pytest.mark.parametrize("shape", [(1, 1024, 24, 64, 128),  # training
                                        (2, 1000, 24, 64, 128),  # ragged
+                                       (4, 512, 24, 64, 128),   # b = 4
+                                       (1, 100, 9, 64, 128),    # uneven groups
                                        (2, 200, 16, 32, 16),    # smoke widths
                                        (3, 1, 4, 32, 16)])      # one row
     def test_ssd_scan_bwd_matches_plain(self, cuda, shape, dtype, with_state):
@@ -400,6 +584,34 @@ class TestSsdScanOnCard:
                             DTYPES[dtype][1])
         again = ssd_scan_bwd(*args, dy, ds)
         assert all(torch.equal(g, a) for g, a in zip(got, again))
+
+    def test_ssd_scan_bwd_reruns_are_bit_identical(self, cuda):
+        """No atomics: the heads' dB and dC are summed in a fixed order, in
+        the cluster, so three runs at the training shape agree bit for
+        bit."""
+        b, s, h, p, n = 1, 1024, 24, 64, 128
+        args = _inputs(b, s, h, p, n, "bfloat16", device=cuda)
+        dy, ds = (torch.from_numpy(a).to(cuda) for a in _cotangents(
+            (b, s, h, p), (b, h, p, n), True))
+        runs = [ssd_scan_bwd(*args, dy.bfloat16(), ds) for _ in range(3)]
+        for again in runs[1:]:
+            assert all(torch.equal(g, a) for g, a in zip(runs[0], again))
+
+    @pytest.mark.parametrize("dtype", list(DTYPES))
+    @pytest.mark.parametrize("shape", [(3, 1, 4, 32, 16), (2, 1, 24, 64, 128)])
+    def test_ssd_scan_bwd_one_row_gives_zero_dA_log(self, cuda, shape, dtype):
+        """At one row the gradient of A_log is 0 in math: the decay of the
+        only step acts on a zero state.  The kernel's cancelling products
+        are rounded once each, so it comes out exactly 0, as the plain
+        version's does."""
+        b, s, h, p, n = shape
+        args = _inputs(*shape, dtype, device=cuda)
+        dy, ds = _cotangents((b, s, h, p), (b, h, p, n), True)
+        dy = torch.from_numpy(dy).to(device=cuda, dtype=args[0].dtype)
+        ds = torch.from_numpy(ds).to(cuda)
+        got = ssd_scan_bwd(*args, dy, ds)
+        assert bool((got[2] == 0).all()), got[2]
+        assert bool((ssd_scan_bwd_ref(*args, dy, ds)[2] == 0).all())
 
     def test_dispatch_on_cuda_launches_the_kernel(self, cuda):
         args = _inputs(1, 64, 24, 64, 128, "bfloat16", device=cuda)
