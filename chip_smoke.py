@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving paths (llama3.2-3b, deepseek-v2-236b,
-mamba2-130m, jamba-1.5-large-398b) and its training paths (gpt2-350m,
-mamba2-130m) on one NVIDIA card.
+mamba2-130m, jamba-1.5-large-398b, stablelm-12b) and its training paths
+(gpt2-350m, mamba2-130m, deepseek-v2-236b) on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -30,7 +30,13 @@ Phases, each printing its lines before the last:
    on the final state, bf16 and float32), at a ragged length, at b=4 and
    at the smoke widths, also against autograd through the plain scan and
    run twice for bit-identical gradients, with its scratch bytes and
-   grid at the training shape, its time, the plain version's,
+   grid at the training shape; the variants at the wide head dims:
+   the attention forward at 160 (stablelm-12b's prefill, a window, sq !=
+   sk, float32), its backward at 192 (deepseek-v2's MLA training shape,
+   also against autograd, run twice, a row with no key, float32) and the
+   GQA decode at 160 (stablelm-12b's decode, two whole splits masked, an
+   all-invalid row, non-finite masked slots, float32); each with its time,
+   the plain version's,
    one PyTorch library call's (none computes the SSD scan or its gradient)
    and the card's bound for the same work;
 3. llama3.2-3b at full width in bfloat16 with random weights from a seed:
@@ -79,7 +85,16 @@ Phases, each printing its lines before the last:
    grad norm against the plain versions;
 8. mamba2-130m at full width and depth, trained as gpt2-350m is (the
    same traffic), through ``ssd_scan``, its gradient ``ssd_scan_bwd`` and
-   ``adam_update``.
+   ``adam_update``;
+9. stablelm-12b whole (40 layers, d_model 5120, 32/8 heads of 160), bf16,
+   random from a seed: the same (a), (b) and (c) as llama's, through the
+   attention forward and the GQA decode at head dim 160, with the peak
+   device memory beside the JAX package's serving prediction;
+10. deepseek-v2-236b at its published widths, 4 of its 60 layers and 16
+   of its 160 routed experts (top-6 and both shared experts kept), trained
+   as gpt2-350m is, through the attention forward and backward at head dim
+   192 and ``adam_update``: MFU on the active parameters, and the share of
+   routing choices the kernel and plain paths agree on.
 
 The script sets the caching allocator's expandable segments as the entry
 points do (``repro_torch.launch.configure_allocator``).  Each phase prints
@@ -154,14 +169,24 @@ ADAM_ATOL, ADAM_RTOL = 1e-6, 1e-5
 LOSS_RTOL, GNORM_RTOL = 1e-2, 5e-2
 # The JAX package's exact_peak_bytes(arch, 8, 1024, d=1, t=1, zero=1,
 # microbatch=1) for the training cells, printed beside the card's peak.
-JAX_PREDICTED_PEAK = {"gpt2-350m": 8_691_153_715, "mamba2-130m": 4_841_272_883}
-TRAIN_PARAMS = {"gpt2-350m": 353_503_232, "mamba2-130m": 167_598_528}
+JAX_PREDICTED_PEAK = {"gpt2-350m": 8_691_153_715, "mamba2-130m": 4_841_272_883,
+                      "deepseek-v2-236b": 70_503_875_379}
+TRAIN_PARAMS = {"gpt2-350m": 353_503_232, "mamba2-130m": 167_598_528,
+                "deepseek-v2-236b": 3_344_552_960}
+# deepseek-v2's training cell: 4 of its 60 layers (the serving cell's) and
+# 16 of its 160 routed experts, top-6 and both shared experts kept, so a
+# token sees the published per-token work (2,400,834,560 active parameters
+# of 3,344,552,960, by the JAX package's counts).  The port holds ~20 B a
+# parameter in a step (bf16 param, fp32 master, m, v, gradient sum and a
+# microbatch's bf16 gradients): ~67 GB before activations, where all 160
+# experts would need ~520 GB.
+TRAIN_CUTS = {"deepseek-v2-236b": dict(num_layers=4, num_experts=16)}
 # Kernel path vs plain path, max |logit delta| / max |logit|, bf16 at full
 # width: the two paths round attention differently (p to bf16 before PV in
 # the kernels, float32 throughout in the plain versions; bf16 steps are
-# 2^-8 = 3.9e-3 relative) and 28 residual layers carry such one-step
-# differences to the logits.  A wrong mask, head mapping or merge moves
-# the logits by the order of their own scale.
+# 2^-8 = 3.9e-3 relative) and 28 residual layers (llama; stablelm-12b has
+# 40) carry such one-step differences to the logits.  A wrong mask, head
+# mapping or merge moves the logits by the order of their own scale.
 LOGITS_TOL = 5e-2
 
 # deepseek-v2 kernel path vs plain path, max |logit delta|, absolute: the
@@ -217,12 +242,20 @@ JAMBA_LOGITS_ATOL = 0.64
 # attention kernels' head dims, the SSD product kernel's state width N,
 # the SSD segment and scan kernels' and the SSD gradient's head dim P and
 # the MLA decode's latent width r.
-MMA_KERNELS = {"flash_attention": [(("flash_attention_mma",), (32, 48, 64, 128, 192))],
-               "flash_attention_bwd": [(("bwd_dkdv_mma", "bwd_dq_mma"), (32, 64, 128))],
+MMA_KERNELS = {"flash_attention": [(("flash_attention_mma",),
+                                    (32, 48, 64, 128, 160, 192))],
+               "flash_attention_bwd": [(("bwd_dkdv_mma",), (32, 64, 128)),
+                                       (("bwd_dkdv_split_mma",), (192,)),
+                                       (("bwd_dq_mma",), (32, 64, 128, 192))],
                "ssd_scan": [(("ssd_cb",), (16, 128)),
                             (("ssd_seg_state", "ssd_chunk_scan"), (32, 64))],
                "ssd_scan_bwd": [(("ssd_bwd_chunk_mma", "ssd_bwd_grads_mma"), (32, 64))],
                "flash_decode_mla": [(("mla_partials_mma",), (32, 512))]}
+
+# stablelm-12b whole: 40 layers, 32/8 heads of 160, bf16; the JAX
+# package's serve_peak_bytes(cfg, 8, 544, d=1, t=1) beside the card's peak
+STABLELM_PARAMS = 12_142_924_800
+SERVE_PREDICTED_PEAK = {"stablelm-12b": 25_182_382_080}
 
 SPIN_CYCLES = 2_000_000    # ~1 ms at the H100's ~2 GHz: covers a call's host work
 
@@ -245,6 +278,13 @@ SSD_LONG = dict(b=1, s=32_768, h=24, P=64, N=128)
 SSD_JAMBA = dict(b=8, s=512, h=256, P=64, N=128)
 # the SSD gradient at mamba2-130m's training microbatch (b=1 of 8, s=1024)
 SSD_TRAIN = dict(b=1, s=1024, h=24, P=64, N=128)
+# stablelm-12b's attention at b=8, prompt 512 + 32 new tokens: 32 query
+# heads on 8 KV heads of 160, so 4 query heads share a KV head in the decode
+STABLELM_PREFILL = dict(b=8, s=512, H=32, K=8, D=160)
+STABLELM_DECODE = dict(b=8, S=544, H=32, K=8, D=160)
+# deepseek-v2's MLA training microbatch: b=1, s=1024, H=K=128 at qk width
+# dn + dr = 192 (v zero-padded to it), causal
+MLA_TRAIN = dict(b=1, s=1024, H=128, D=192)
 
 
 def check(cond, msg):
@@ -451,6 +491,12 @@ def phase_kernels(peaks, flush):
         ("ragged_s129", 2, 129, 129, 8, 2, 128, True, 0, bf16),
         ("jamba_prefill", *(JAMBA_PREFILL[k] for k in "bs"), JAMBA_PREFILL["s"],
          *(JAMBA_PREFILL[k] for k in "HKD"), True, 0, bf16),
+        ("stablelm_prefill", *(STABLELM_PREFILL[k] for k in "bs"),
+         STABLELM_PREFILL["s"], *(STABLELM_PREFILL[k] for k in "HKD"), True, 0,
+         bf16),
+        ("stablelm_window64", 2, 512, 512, 32, 8, 160, True, 64, bf16),
+        ("stablelm_noncausal_sq!=sk", 2, 96, 200, 8, 2, 160, False, 0, bf16),
+        ("stablelm_fp32_ragged", 2, 130, 130, 8, 2, 160, True, 0, f32),
     ]
     for name, b, sq, sk, H, K, D, causal, window, dt in attn_cases:
         q, k, v = randn(b, sq, H, D, dtype=dt), randn(b, sk, K, D, dtype=dt), \
@@ -468,16 +514,17 @@ def phase_kernels(peaks, flush):
               f"{err_lse:.3e} tol={FP32_TOL:g} {'ok' if ok and ok_lse else 'FAIL'}")
         check(ok and ok_lse,
               f"flash_attention {name} disagrees with its plain version")
-        if name not in ("prefill", "jamba_prefill"):
+        if name not in ("prefill", "jamba_prefill", "stablelm_prefill"):
             continue
         pos_q = torch.arange(sq, device="cuda")[:, None]
         pos_k = torch.arange(sk, device="cuda")[None]
         pairs = int((pos_k <= pos_q).sum()) if causal else sq * sk
         nbytes = 2 * (q.numel() + k.numel() + v.numel() + got.numel())
         bound_ms, bound_by = bound(nbytes, 4 * D * b * H * pairs, peaks)
-        if name == "jamba_prefill":
+        if name != "prefill":
             qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-            print(f"time flash_attention {name}: bound {bound_ms:.4f} ms"
+            print(f"time flash_attention {name} (D={D}, {nbytes} bytes):"
+                  f" bound {bound_ms:.4f} ms"
                   f" ({bound_by}), kernel"
                   f" {time_ms(lambda: flash_attention(q, k, v, causal=True), flush):.4f}"
                   f" ms, plain {time_ms(lambda: attention_ref(q, k, v, causal=True), flush):.4f}"
@@ -501,17 +548,26 @@ def phase_kernels(peaks, flush):
             ("masked_block", 4, 700, 24, 8, 128, bf16),
             ("invalid_row", 4, 300, 8, 2, 32, f32),
             ("jamba_decode_G8", j["b"], j["S"], j["H"], j["K"], j["D"], bf16),
-            ("jamba_invalid_row_G8", 4, 300, 64, 8, 128, f32)]:
+            ("jamba_invalid_row_G8", 4, 300, 64, 8, 128, f32),
+            ("stablelm_decode", *(STABLELM_DECODE[k] for k in "bSHKD"), bf16),
+            ("stablelm_masked_block", 4, 700, 32, 8, 160, bf16),
+            ("stablelm_invalid_row_fp32", 4, 300, 32, 8, 160, f32)]:
         q, k, v = randn(b, 1, H, D, dtype=dt), randn(b, S, K, D, dtype=dt), \
             randn(b, S, K, D, dtype=dt)
         valid = ring_valid(gen, b, S)
         bs = block_s(k)                  # the kernel's split of this cache
-        if name == "masked_block":       # two whole splits masked
+        if "masked_block" in name:       # two whole splits masked
             valid[:, bs:3 * bs] = False
             valid[:, 0] = True
         if "invalid_row" in name:
             valid[1] = False
         got = flash_decode_gqa(q, k, v, valid)
+        # non-finite values in masked slots must not reach the output
+        k_bad, v_bad = k.clone(), v.clone()
+        k_bad[~valid] = float("nan")
+        v_bad[~valid] = float("inf")
+        unread = torch.equal(flash_decode_gqa(q, k_bad, v_bad, valid), got)
+        del k_bad, v_bad
         want = gqa_decode_splitk(q, k, v, valid, block_s=bs)
         tol = BF16_TOL if dt == bf16 else FP32_TOL
         ok, err = close(got, want, tol)
@@ -525,10 +581,11 @@ def phase_kernels(peaks, flush):
         print(f"kernel flash_decode_gqa {name} b={b} S={S} H={H} K={K} D={D}"
               f" {str(dt)[6:]}, {bs}-row splits: max_abs_err={err:.3e} (vs"
               f" split-KV plain at the kernel's split)"
-              f" tol={tol:g} {'ok' if ok and ok_ref else 'FAIL'}")
-        check(ok and ok_ref,
+              f" tol={tol:g}, masked slots never read {unread}"
+              f" {'ok' if ok and ok_ref and unread else 'FAIL'}")
+        check(ok and ok_ref and unread,
               f"flash_decode_gqa {name} disagrees with its plain versions")
-        if name not in ("decode_ring", "jamba_decode_G8"):
+        if name not in ("decode_ring", "jamba_decode_G8", "stablelm_decode"):
             continue
         # the function needs q, the valid rows of K and V and the mask, and
         # writes the output; masked rows are neither read nor computed on
@@ -536,9 +593,9 @@ def phase_kernels(peaks, flush):
         nbytes = (2 * (q.numel() + got.numel()) + 2 * 2 * K * D * n_valid
                   + valid.numel())
         bound_ms, bound_by = bound(nbytes, 4 * D * H * n_valid, peaks)
-        if name == "jamba_decode_G8":
+        if name != "decode_ring":
             qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-            print(f"time flash_decode_gqa {name}: {n_valid} of {b * S}"
+            print(f"time flash_decode_gqa {name} (D={D}): {n_valid} of {b * S}"
                   f" rows valid, {nbytes} bytes, bound {bound_ms:.4f} ms"
                   f" ({bound_by}), kernel"
                   f" {time_ms(lambda: flash_decode_gqa(q, k, v, valid), flush):.4f}"
@@ -708,8 +765,6 @@ def phase_mla_kernels(peaks, flush, gen, randn):
 
 
 def phase_attention_bwd(peaks, flush, randn):
-    from torch.nn.attention import SDPBackend, sdpa_kernel
-
     from repro_torch.kernels.flash_attention import (attention_bwd_ref,
                                                      attention_ref,
                                                      flash_attention_bwd,
@@ -722,7 +777,13 @@ def phase_attention_bwd(peaks, flush, randn):
             ("gqa", 2, 512, 512, 24, 8, 128, True, 0, bf16),
             ("noncausal_sq!=sk", 2, 96, 200, 8, 2, 64, False, 0, bf16),
             ("fp32_D32", 2, 160, 160, 8, 4, 32, True, 0, f32),
-            ("ragged", 2, 100, 100, 8, 4, 64, True, 0, bf16)]:
+            ("ragged", 2, 100, 100, 8, 4, 64, True, 0, bf16),
+            ("mla_train", *(MLA_TRAIN[k] for k in "bss"), MLA_TRAIN["H"],
+             *(MLA_TRAIN[k] for k in "HD"), True, 0, bf16),
+            ("mla_gqa_window", 2, 300, 300, 8, 2, 192, True, 64, bf16),
+            ("mla_no_key_rows", 1, 40, 8, 4, 4, 192, True, 4, bf16),
+            ("mla_noncausal_sq!=sk", 2, 96, 200, 4, 2, 192, False, 0, bf16),
+            ("mla_fp32_ragged", 1, 130, 130, 4, 4, 192, True, 0, f32)]:
         kw = dict(causal=causal, window=window)
         q, k, v = randn(b, sq, H, D, dtype=dt), randn(b, sk, K, D, dtype=dt), \
             randn(b, sk, K, D, dtype=dt)
@@ -732,12 +793,21 @@ def phase_attention_bwd(peaks, flush, randn):
         again = flash_attention_bwd(q, k, v, o, lse, do, **kw)
         same = all(torch.equal(a, c) for a, c in zip(got, again))
         explicit = attention_bwd_ref(q, k, v, o, lse, do, **kw)
-        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
-        attention_ref(*leaves, **kw).backward(do)
         tol = BF16_TOL if dt == bf16 else FP32_TOL
         err = max(rel_max_err(g, e) for g, e in zip(got, explicit))
-        err_ag = max(rel_max_err(g, t.grad) for g, t in zip(got, leaves))
-        ok = err <= tol and err_ag <= tol and same
+        ok = err <= tol and same and all(
+            bool(torch.isfinite(g.float()).all()) for g in got)
+        if name == "mla_no_key_rows":
+            # rows 11.. see no key: zero gradients, where autograd through
+            # the plain forward (the mean of V there) has none to compare
+            err_ag = float("nan")
+            ok = ok and not got[0][:, 11:].any()
+        else:
+            leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+            attention_ref(*leaves, **kw).backward(do)
+            err_ag = max(rel_max_err(g, t.grad) for g, t in zip(got, leaves))
+            ok = ok and err_ag <= tol
+            del leaves
         print(f"kernel flash_attention_bwd {name} b={b} sq={sq} sk={sk} H={H}"
               f" K={K} D={D} causal={causal} window={window} {str(dt)[6:]}:"
               f" max|d|/max|ref| {err:.3e} (explicit), {err_ag:.3e}"
@@ -745,7 +815,7 @@ def phase_attention_bwd(peaks, flush, randn):
               f" {'ok' if ok else 'FAIL'}")
         check(ok, f"flash_attention_bwd {name} disagrees with its plain"
                   f" versions or is not deterministic")
-        if name != "train":
+        if name not in ("train", "mla_train"):
             continue
         pairs = sq * (sq + 1) // 2
         nbytes = 2 * (4 * q.numel() + 2 * k.numel() + 2 * v.numel()) \
@@ -753,21 +823,26 @@ def phase_attention_bwd(peaks, flush, randn):
         # the gradient's five products (S, dP, dV, dK, dQ) over the causal
         # pairs: 2.5x the forward's two
         bound_ms, bound_by = bound(nbytes, 10 * D * b * H * pairs, peaks)
-        qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True)
-                      for t in (q, k, v))
-        dot = do.transpose(1, 2).contiguous()
-        # the library time: SDPA's backward alone (one autograd.grad on a
-        # retained graph), under each of its backends, the fastest kept --
-        # the default choice moved between runs (cuDNN's ~0.044 ms, the
-        # memory-efficient kernel's ~0.14 ms)
-        library = {}
-        for backend in (SDPBackend.CUDNN_ATTENTION, SDPBackend.FLASH_ATTENTION,
-                        SDPBackend.EFFICIENT_ATTENTION):
-            with sdpa_kernel([backend]):
-                out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
-                library[backend.name] = time_ms(lambda: torch.autograd.grad(
-                    out, (qt, kt, vt), dot, retain_graph=True), flush)
-            del out
+        # the library time: SDPA's backward alone under each of its
+        # backends, the fastest kept -- the default choice moved between
+        # runs (cuDNN's ~0.044 ms, the memory-efficient kernel's ~0.14 ms)
+        library = sdpa_backward_ms(q, k, v, do, flush, is_causal=True)
+        if name == "mla_train":
+            ms = time_ms(lambda: flash_attention_bwd(q, k, v, o, lse, do, **kw),
+                         flush)
+            plain_ms = time_ms(lambda: attention_bwd_ref(q, k, v, o, lse, do,
+                                                         **kw), flush)
+            _, parts, _ = device_profile(
+                lambda: flash_attention_bwd(q, k, v, o, lse, do, **kw), 10)
+            print(f"time flash_attention_bwd D=192 (deepseek-v2 MLA training"
+                  f" b={b} s={sq} H=K={H}, {nbytes} bytes,"
+                  f" {10 * D * b * H * pairs} flops): kernel {ms:.4f} ms, plain"
+                  f" {plain_ms:.4f} ms, library (SDPA's backward alone) "
+                  + ", ".join(f"{kb} {m:.4f}" for kb, m in library.items())
+                  + f" ms, bound {bound_ms:.4f} ms ({bound_by}); kernels"
+                  f" (traced, L2 warm) " + "; ".join(
+                      f"{kn[:40]} {tm:.4f}" for kn, tm in parts))
+            continue
         rows["flash_attention_bwd"] = dict(
             name="flash_attention_bwd", route="cuda",
             source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
@@ -784,6 +859,29 @@ def phase_attention_bwd(peaks, flush, randn):
         print("time flash_attention_bwd library: SDPA backward alone, "
               + ", ".join(f"{k} {ms:.4f} ms" for k, ms in library.items()))
     return rows
+
+
+def sdpa_backward_ms(q, k, v, do, flush, **kw):
+    """{backend: ms} of SDPA's backward alone (one autograd.grad on a
+    retained graph) on (b, s, heads, D) inputs, under each backend that
+    takes them: a yardstick, never called on a path."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True)
+                  for t in (q, k, v))
+    dot = do.transpose(1, 2).contiguous()
+    library = {}
+    for backend in (SDPBackend.CUDNN_ATTENTION, SDPBackend.FLASH_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION):
+        try:
+            with sdpa_kernel([backend]):
+                out = F.scaled_dot_product_attention(qt, kt, vt, **kw)
+                library[backend.name] = time_ms(lambda: torch.autograd.grad(
+                    out, (qt, kt, vt), dot, retain_graph=True), flush)
+            del out
+        except RuntimeError as err:       # the backend refuses these shapes
+            print(f"time SDPA backward {backend.name}: not available at"
+                  f" D={q.shape[-1]} ({str(err).splitlines()[0][:80]})")
+    return library
 
 
 def phase_adam(peaks, flush, gen):
@@ -1141,27 +1239,40 @@ def serve_batchers(cfg, params, prompts, new):
           f" of 8: max|dlogit|/max|logit| {rel_max_err(together, alone):.3e}")
 
 
-def phase_model():
+def phase_model(arch="llama3.2-3b", seed=2, want_params=None):
+    """A dense GQA model at full width and depth: llama3.2-3b, and
+    stablelm-12b (head dim 160) with its parameter count checked and its
+    peak device memory beside the JAX package's serving prediction."""
     from repro_torch.configs import get_arch
     from repro_torch.kernels import LAUNCHES, dispatch
-    from repro_torch.models import init_params
+    from repro_torch.models import init_params, param_count
     from repro_torch.serve import prefill, serve_step
-    cfg = get_arch("llama3.2-3b")
+    cfg = get_arch(arch)
+    check(want_params is None or param_count(cfg) == want_params,
+          f"{arch} has {param_count(cfg)} parameters, not {want_params}")
     t0 = time.perf_counter()
     params = init_params(cfg, 0, device="cuda")
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in _leaves(params))
+    n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
     print(f"model {cfg.name}: {cfg.num_layers} layers d_model={cfg.d_model}"
-          f" heads={cfg.num_heads}/{cfg.num_kv_heads} vocab={cfg.vocab_size}"
-          f" params={n_params} bf16 init {time.perf_counter() - t0:.1f}s")
+          f" heads={cfg.num_heads}/{cfg.num_kv_heads} of {cfg.head_dim}"
+          f" d_ff={cfg.d_ff} vocab={cfg.vocab_size} params={n_params}"
+          f" ({n_bytes} bytes) bf16 init {time.perf_counter() - t0:.1f}s")
     b, s, new = 8, 512, 32
     cache_len = s + new
-    gen = torch.Generator(device="cuda").manual_seed(2)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     prompt = torch.randint(0, cfg.vocab_size, (b, s), generator=gen, device="cuda")
     want = dict.fromkeys(LAUNCHES, 0)
     want.update(flash_attention=cfg.num_layers,
                 flash_decode_gqa=cfg.num_layers * (new - 1))
+    torch.cuda.reset_peak_memory_stats()
     toks, launches = serve_main_path(cfg, params, prompt, new, want)
+    if arch in SERVE_PREDICTED_PEAK:
+        peak = torch.cuda.max_memory_allocated()
+        print(f"(a) peak device memory over the serving run and its trace:"
+              f" {peak} B; the JAX package's serve_peak_bytes(b={b},"
+              f" cache_len={cache_len}) prediction {SERVE_PREDICTED_PEAK[arch]} B")
 
     # (b) kernel path against the plain path: prefill logits, first decode
     def first_two():
@@ -1259,7 +1370,7 @@ def phase_mamba2():
     from repro_torch.kernels import LAUNCHES, dispatch, reset_launches
     from repro_torch.models import init_params, param_count
     from repro_torch.models.common import rms_norm
-    from repro_torch.models.mamba2 import mamba2_forward
+    from repro_torch.models.mamba2 import c_dot_state, mamba2_forward
     from repro_torch.serve import prefill, serve_step
     cfg = get_arch("mamba2-130m")
     n_params = param_count(cfg)
@@ -1333,20 +1444,22 @@ def phase_mamba2():
     check(max(rel) <= MAMBA2_TOL, "mamba2 kernel path logits differ from the"
                                   " plain path")
 
-    # (c) 16 requests through 8 slots; then the decode step's one product
-    # whose sum order depends on the batch: C . state in float32 (a cuBLAS
-    # batched product), one row at a time against 8 rows at once
+    # (c) 16 requests through 8 slots (the share equal to per-request greedy
+    # is printed, not required); then the decode step's float32 C . state
+    # (mamba2.c_dot_state, a sum over N whose order does not depend on the
+    # batch), one row at a time against 8 rows at once: required bit-equal
     prompts = torch.randint(0, cfg.vocab_size, (16, s), generator=gen, device="cuda")
     serve_batchers(cfg, params, prompts, new)
     C = torch.randn(8, cfg.ssm_state, generator=gen, device="cuda")
     state = torch.randn(8, cfg.n_ssm_heads, cfg.ssm_head_dim, cfg.ssm_state,
                         generator=gen, device="cuda")
-    one = torch.cat([torch.einsum("bn,bhpn->bhp", C[i:i + 1], state[i:i + 1])
-                     for i in range(8)])
-    eight = torch.einsum("bn,bhpn->bhp", C, state)
-    print(f"(c) mamba2_decode's float32 C . state at batch 8 vs one row at a"
-          f" time: max|d| {(eight - one).abs().max().item():.3e}, bit-identical"
-          f" {torch.equal(eight, one)}")
+    one = torch.cat([c_dot_state(C[i:i + 1], state[i:i + 1]) for i in range(8)])
+    eight = c_dot_state(C, state)
+    print(f"(c) mamba2_decode's float32 C . state (c_dot_state) at batch 8 vs"
+          f" one row at a time: max|d| {(eight - one).abs().max().item():.3e},"
+          f" bit-identical {torch.equal(eight, one)}")
+    check(torch.equal(eight, one), "mamba2's decode C . state depends on the"
+                                   " batch around a row")
     return launches
 
 
@@ -1358,8 +1471,10 @@ def routing_spy(moe):
     inner = moe.moe_ffn
 
     def spy(cfg_, p, x):
-        probs = torch.softmax(x.float() @ p["router"], dim=-1)
-        routes.append(torch.topk(probs, cfg_.top_k, dim=-1).indices.sort(-1).values)
+        with torch.no_grad():
+            probs = torch.softmax(x.float() @ p["router"], dim=-1)
+            routes.append(torch.topk(probs, cfg_.top_k,
+                                     dim=-1).indices.sort(-1).values)
         return inner(cfg_, p, x)
 
     moe.moe_ffn = spy
@@ -1583,28 +1698,49 @@ def expandable_segments():
                for seg in torch.cuda.memory_snapshot())
 
 
-def phase_train(peaks, arch):
-    """Training ``arch`` at full width and depth: global batch 8 x 1024,
-    microbatch 1, block remat, 1 warm-up + 12 timed steps."""
+def train_cfg(arch):
+    """The training cell's config: ``arch`` as published, cut by
+    TRAIN_CUTS where it does not fit one card."""
     from repro_torch.configs import get_arch
+    return get_arch(arch).scaled(**TRAIN_CUTS.get(arch, {}))
+
+
+def phase_train(peaks, arch):
+    """Training ``arch`` at full width (and depth, but for TRAIN_CUTS):
+    global batch 8 x 1024, microbatch 1, block remat, 1 warm-up + 12 timed
+    steps."""
     from repro_torch.data import SyntheticTokens
     from repro_torch.kernels import LAUNCHES, dispatch, reset_launches
     from repro_torch.launch.train import loss_fell, to_device, train
-    from repro_torch.models import param_count
+    from repro_torch.models import active_param_count, moe, param_count
     from repro_torch.train import accumulate_grads, build_train_step
     from repro_torch.train.optimizer import global_norm, tree_leaves
-    cfg = get_arch(arch)
-    n_params = param_count(cfg)
+    cfg = train_cfg(arch)
+    n_params, n_active = param_count(cfg), active_param_count(cfg)
     check(n_params == TRAIN_PARAMS[arch], f"{arch} has {n_params} parameters")
     steps = 13                            # 1 warm-up + 12 timed steps
     tc = train_config(steps)
     b, s = tc.global_batch, tc.seq_len
     n_attn = sum(cfg.layer_kind(l) == "attn" for l in range(cfg.num_layers))
     n_ssm = cfg.num_layers - n_attn
-    print(f"model {cfg.name}: {cfg.num_layers} layers ({n_attn} attention,"
-          f" {n_ssm} Mamba2) d_model={cfg.d_model}"
-          f" heads={cfg.num_heads}/{cfg.num_kv_heads} d_ff={cfg.d_ff}"
-          f" vocab={cfg.vocab_size} params={n_params}; train global_batch={b}"
+    if cfg.attention == "mla":            # qk width dn + dr, v width dv
+        d_qk = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+        d_v = cfg.v_head_dim
+    else:
+        d_qk = d_v = cfg.head_dim
+    layers = ", ".join(
+        desc for n, desc in (
+            (n_attn, f"{n_attn} {cfg.attention} attention of"
+                     f" {cfg.num_heads}/{cfg.num_kv_heads} heads, qk/v width"
+                     f" {d_qk}/{d_v}"),
+            (n_ssm, f"{n_ssm} Mamba2"),
+            (cfg.num_experts, f"MoE: {cfg.num_experts} routed experts, top-"
+                              f"{cfg.top_k} + {cfg.num_shared_experts} shared"
+                              f" of d_ff {cfg.moe_d_ff}")) if n)
+    cut = (f" (cut: {TRAIN_CUTS[arch]})" if arch in TRAIN_CUTS else "")
+    print(f"model {cfg.name}{cut}: {cfg.num_layers} layers ({layers})"
+          f" d_model={cfg.d_model} d_ff={cfg.d_ff} vocab={cfg.vocab_size}"
+          f" params={n_params} (active {n_active}); train global_batch={b}"
           f" seq={s} microbatch=1 remat=block, {steps} steps")
     reset_launches()
     out = train(cfg, tc, device="cuda", log_every=1,
@@ -1623,12 +1759,15 @@ def phase_train(peaks, arch):
     step_ms = 1e3 * sum(step_s) / len(step_s)
     tokens = b * s
     pairs = s * (s + 1) // 2
-    attn_flops = 12 * n_attn * b * cfg.num_heads * cfg.head_dim * pairs
-    mfu = (6 * n_params * tokens + attn_flops) / (step_ms * 1e-3 * peaks[1])
+    # the forward's two products (S over qk width, P V over v width) and
+    # the backward's four, over the causal pairs of every attention layer
+    attn_flops = 6 * n_attn * b * cfg.num_heads * (d_qk + d_v) * pairs
+    mfu = (6 * n_active * tokens + attn_flops) / (step_ms * 1e-3 * peaks[1])
     print(f"(t) train: {len(step_s)} timed steps, step {step_ms:.2f} ms (min"
           f" {1e3 * min(step_s):.2f}, max {1e3 * max(step_s):.2f}),"
           f" {tokens / (step_ms * 1e-3):.1f} tokens/s, MFU {mfu:.4f}"
-          f" ((6 N tokens + {attn_flops:.3e} attention flops, no SSD term)"
+          f" ((6 N_active tokens + {attn_flops:.3e} attention flops, no SSD"
+          f" term; N_active {n_active} of {n_params})"
           f" / (step x {peaks[1]:.3g})), launches {launches}")
     peak, predicted = out["peak_bytes"], JAX_PREDICTED_PEAK[arch]
     print(f"(t) peak device memory over step 1: {peak} B"
@@ -1654,19 +1793,36 @@ def phase_train(peaks, arch):
               f" device events ({(step_ms - busy) * 1e3 / n_events:.1f} us of"
               f" idle per event); top kernels (ms per step): {top}")
 
-    # one full-width microbatch, kernel path against the plain path
+    # one full-width microbatch, kernel path against the plain path; the
+    # optimizer state is no longer needed and makes room for the plain
+    # path's gradient sum (deepseek-v2's cell fills the card)
+    del state["opt"]
+    gc.collect()
+    torch.cuda.empty_cache()
     micro = {k: t[:1] for k, t in batch.items()}
-    res = []
+    res, routes = [], []
     for impl in (None, "ref"):
-        with dispatch.force(impl):
-            grads, loss = accumulate_grads(cfg, tc, state["params"], micro, 1)
-            res.append((loss.item(), global_norm(grads).item()))
+        spied, restore = routing_spy(moe)
+        try:
+            with dispatch.force(impl):
+                grads, loss = accumulate_grads(cfg, tc, state["params"], micro, 1)
+                res.append((loss.item(), global_norm(grads).item()))
+        finally:
+            restore()
+        routes.append(spied)
         del grads
     (lk, gk), (lp, gp) = res
     rl, rg = abs(lk - lp) / abs(lp), abs(gk - gp) / abs(gp)
+    agree = ""
+    if routes[0]:
+        share = (sum(int((a == c).all(-1).sum()) for a, c in zip(*routes))
+                 / sum(a.shape[0] * a.shape[1] for a in routes[0]))
+        agree = (f"; share of routing choices (a token's top-{cfg.top_k} set"
+                 f" in one MoE layer, forward and its recompute) equal on both"
+                 f" paths: {share:.4f}")
     print(f"(t) kernel vs plain path, one microbatch b=1 s={s}: loss {lk:.6f}"
           f" vs {lp:.6f} (rel {rl:.3e}, tol {LOSS_RTOL:g}), grad norm"
-          f" {gk:.6f} vs {gp:.6f} (rel {rg:.3e}, tol {GNORM_RTOL:g})")
+          f" {gk:.6f} vs {gp:.6f} (rel {rg:.3e}, tol {GNORM_RTOL:g}){agree}")
     check(rl <= LOSS_RTOL and rg <= GNORM_RTOL,
           f"{arch} training kernel path differs from the plain path")
     return launches
@@ -1676,9 +1832,8 @@ def train_peak(arch):
     """--train-peak ARCH: the peak allocated (and reserved) device memory
     over step 1 of ARCH's training cell, under the PYTORCH_CUDA_ALLOC_CONF
     this process was started with, on one JSON line."""
-    from repro_torch.configs import get_arch
     from repro_torch.launch.train import train
-    out = train(get_arch(arch), train_config(1), device="cuda",
+    out = train(train_cfg(arch), train_config(1), device="cuda",
                 log=lambda line: None)
     print(json.dumps({"arch": arch,
                       "alloc_conf": os.environ.get("PYTORCH_CUDA_ALLOC_CONF"),
@@ -1882,7 +2037,7 @@ def main():
           f" use {expandable_segments()}")
     rows = timed_phase("kernels", lambda: phase_kernels(peaks, flush))
     del flush
-    # launches: the sum over the six main-path runs, each counted from 0
+    # launches: the sum over the eight main-path runs, each counted from 0
     path_launches = [timed_phase("llama3.2-3b serving", phase_model),
                      timed_phase("deepseek-v2-236b serving", phase_deepseek),
                      timed_phase("mamba2-130m serving", phase_mamba2),
@@ -1890,7 +2045,11 @@ def main():
                      timed_phase("gpt2-350m training",
                                  lambda: phase_train(peaks, "gpt2-350m")),
                      timed_phase("mamba2-130m training",
-                                 lambda: phase_train(peaks, "mamba2-130m"))]
+                                 lambda: phase_train(peaks, "mamba2-130m")),
+                     timed_phase("stablelm-12b serving", lambda: phase_model(
+                         "stablelm-12b", seed=8, want_params=STABLELM_PARAMS)),
+                     timed_phase("deepseek-v2-236b training",
+                                 lambda: phase_train(peaks, "deepseek-v2-236b"))]
     for kname, row in rows.items():
         row["launches"] = sum(launches[kname] for launches in path_launches)
     print(f"total wall time {time.perf_counter() - t0:.1f}s")

@@ -48,9 +48,15 @@
 // by one word, each thread D/4 output columns in registers.  No main path
 // runs it on the card.
 //
-// Head dims 32, 64 and 128 serve the GQA models; 48 and 192 are the MLA
-// prefill's qk width dn + dr (deepseek-v2's smoke and full widths), whose v
-// arrives zero-padded to that width.
+// Head dims 32, 64 and 128 serve the GQA models, 160 stablelm-12b (5120 /
+// 32 heads); 48 and 192 are the MLA prefill's qk width dn + dr
+// (deepseek-v2's smoke and full widths), whose v arrives zero-padded to
+// that width.  At D = 160 a row is 20 chunks of 8 bf16 in a Tile of 24
+// chunk slots (mma.cuh): the swizzle stays conflict-free at 20% padding,
+// and the block takes D = 192's shape (8 warps, 128-row q tile, 144 KB of
+// shared memory) with 80 accumulators a thread where D = 192 has 96.  At
+// stablelm's prefill (b=8, s=512, H=32, K=8) a call needs ~105 MB (~31 us
+// at 3.35 TB/s) against ~2.2e10 causal FLOPs (~22 us): bytes bound it.
 //
 // For training it also writes each row's log-sum-exp, lse = m + log(l) in
 // float32 (b, H, sq) and in the scaled units of the scores, from which the
@@ -405,6 +411,7 @@ cudaError_t launch_d(int D, const void* q, const void* k, const void* v,
     case 48: return launch<T, 48>(q, k, v, o, lse, b, sq, sk, H, K, causal, window, scale, stream);
     case 64: return launch<T, 64>(q, k, v, o, lse, b, sq, sk, H, K, causal, window, scale, stream);
     case 128: return launch<T, 128>(q, k, v, o, lse, b, sq, sk, H, K, causal, window, scale, stream);
+    case 160: return launch<T, 160>(q, k, v, o, lse, b, sq, sk, H, K, causal, window, scale, stream);
     case 192: return launch<T, 192>(q, k, v, o, lse, b, sq, sk, H, K, causal, window, scale, stream);
     default: return cudaErrorInvalidValue;
   }

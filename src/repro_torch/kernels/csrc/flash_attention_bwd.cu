@@ -51,6 +51,31 @@
 // take about what PyTorch's FlashAttention-2 backward takes, with two
 // more products; cuDNN's (PyTorch's default) is faster still.
 //
+// D = 192 (deepseek-v2's MLA training: qk width dn + dr, v zero-padded to
+// it; b=1, s=1024, H=K=128, causal) needs its own partition.  The function
+// needs ~1.29e11 flops (~0.130 ms at 989 TFLOP/s) against ~403 MB of
+// traffic (~0.120 ms at 3.35 TB/s): both bounds are close.  Four warps
+// owning 16 keys each would hold dK and dV of their keys in 2 x 96
+// float32 registers a thread before S^T, dP^T and their bf16 fragments --
+// past the 255 a thread may have (at D = 128 the q tile already had to
+// shrink to 32 rows to fit).  So the dK/dV block runs 8 warps as two
+// groups over the same 64 keys, paired warp w with warp w + 4 (the same
+// 16 keys), and splits D between them: group 0 keeps dK and dV of columns
+// 0..95, group 1 of columns 96..191 (2 x 48 accumulators a thread).  The
+// score products are not repeated: for each 64-row q tile group 0 computes
+// S^T = K Q^T and P^T (mask, exp against lse), group 1 dP^T = V dO^T;
+// group 0 hands P^T to its partner through shared memory in float32 (the
+// C fragments, lane for lane, 16 KB), the partner forms dS^T = P^T (dP^T -
+// D_i) and hands it back as bf16 A fragments (8 KB); each pair meets at a
+// named barrier of its own 64 threads, so a pair waits only on itself.
+// Group 0 runs its half of dV += P^T dO while group 1 forms dS^T.  Both
+// groups then round the same float32 P and dS, so every column sees the
+// numbers the 4-warp kernel would give.  Shared memory: 169 KB a block
+// (K, V, two stages of Q, dO, lse, D_i, and the exchange), one block of
+// 256 threads an SM.  The dQ block keeps its 4 warps and 64 query rows
+// with 32-key tiles at D = 192 (dQ's 96 accumulators a thread, S and dP
+// of 32 keys): no exchange, the same products.
+//
 // float32 keeps the first version's bodies on the CUDA cores, chosen by
 // the template type (TF32 cannot hold the 2e-5 the float32 callers are
 // held to): 256 threads, 32 x 32 float32 tiles with rows padded by one
@@ -327,9 +352,35 @@ constexpr int dkdv_smem_bytes() {
          4 * QR * (int)sizeof(float);
 }
 
+// keys per k tile of the dQ block: 32 at D = 192, where dQ alone is 96
+// float32 registers a thread
+template <int D>
+struct DqKeys {
+  static constexpr int value = D > 128 ? 32 : MMA_KEYS;
+};
+
 template <int D>
 constexpr int dq_smem_bytes() {
-  return (2 * Tile<D>::elems(MMA_ROWS) + 4 * Tile<D>::elems(MMA_KEYS)) * (int)sizeof(bf16);
+  return (2 * Tile<D>::elems(MMA_ROWS) + 4 * Tile<D>::elems(DqKeys<D>::value)) *
+         (int)sizeof(bf16);
+}
+
+// the dK/dV block of D = 192: two groups of four warps split D
+constexpr int SPLIT_THREADS = 256;
+constexpr int SPLIT_QR = 64;  // query rows per q tile
+
+template <int D>
+constexpr int dkdv_split_smem_bytes() {
+  constexpr int QR = SPLIT_QR;
+  return (2 * Tile<D>::elems(MMA_KEYS) + 4 * Tile<D>::elems(QR)) * (int)sizeof(bf16) +
+         4 * QR * (int)sizeof(float) +            // lse, D_i: 2 stages each
+         4 * (QR / 8) * 4 * 32 * (int)sizeof(float) +   // P^T, float32 C fragments
+         4 * (QR / 16) * 4 * 32 * (int)sizeof(uint32_t);  // dS^T, bf16 A fragments
+}
+
+// the 64 threads of warps w and w + 4 (w < 4) wait for each other
+__device__ __forceinline__ void pair_sync(int w4) {
+  asm volatile("bar.sync %0, 64;\n" ::"r"(1 + w4) : "memory");
 }
 
 template <int D>
@@ -453,13 +504,170 @@ bwd_dkdv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 template <int D>
+__global__ void __launch_bounds__(SPLIT_THREADS)
+bwd_dkdv_split_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                   const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                   const float* __restrict__ lse, const float* __restrict__ Di,
+                   bf16* __restrict__ dk, bf16* __restrict__ dv, int sq, int sk, int H,
+                   int K, int causal, int window, float scale) {
+  constexpr int KEYS = MMA_KEYS, QR = SPLIT_QR, THREADS = SPLIT_THREADS;
+  constexpr int DH = D / 2;  // the columns of dK and dV a group keeps
+  constexpr int KE = Tile<D>::elems(KEYS), QE = Tile<D>::elems(QR);
+  constexpr int NP = QR / 8, NA = QR / 16;  // C and A fragments of a q tile
+  extern __shared__ uint4 smem_mma[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem_mma);          // (KEYS, D)
+  bf16* Vs = Ks + KE;                                     // (KEYS, D)
+  bf16* Qs = Vs + KE;                                     // 2 stages of (QR, D)
+  bf16* dOs = Qs + 2 * QE;                                // 2 stages of (QR, D)
+  float* lse_s = reinterpret_cast<float*>(dOs + 2 * QE);  // 2 stages of (QR)
+  float* Di_s = lse_s + 2 * QR;                           // 2 stages of (QR)
+  float* Px = Di_s + 2 * QR;                              // (4, NP, 4, 32) P^T
+  uint32_t* dSx = reinterpret_cast<uint32_t*>(Px + 4 * NP * 4 * 32);  // (4, NA, 4, 32)
+
+  const int w = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int grp = w >> 2, w4 = w & 3;  // group, and the pair's 16 keys
+  const int g = lane >> 2, t = lane & 3;
+  const int k0 = blockIdx.x * KEYS;
+  const int kh = blockIdx.y;
+  const int b = blockIdx.z;
+  const int G = H / K;
+  const long long qstride = (long long)H * D, kstride = (long long)K * D;
+  const bf16* kb = k + ((size_t)b * sk * K + kh) * D;
+  const bf16* vb = v + ((size_t)b * sk * K + kh) * D;
+
+  const int qt_first = causal ? k0 / QR : 0;
+  const int q_end = window ? min(sq, k0 + KEYS - 1 + window) : sq;
+  const int nq = max(0, (q_end + QR - 1) / QR - qt_first);
+  const int n_it = G * nq;
+
+  auto load_step = [&](int it, int st) {
+    const int hh = kh * G + it / nq;
+    const int q0 = (qt_first + it % nq) * QR;
+    const size_t off = ((size_t)b * sq * H + hh) * D;
+    repro::load_tile<D, QR, THREADS>(Qs + st * QE, q + off, qstride, q0, sq);
+    repro::load_tile<D, QR, THREADS>(dOs + st * QE, dout + off, qstride, q0, sq);
+    if (threadIdx.x < QR) {
+      const int qi = q0 + threadIdx.x;
+      const size_t r = ((size_t)b * H + hh) * sq + (qi < sq ? qi : 0);
+      repro::cp_async4(lse_s + st * QR + threadIdx.x, lse + r, qi < sq);
+      repro::cp_async4(Di_s + st * QR + threadIdx.x, Di + r, qi < sq);
+    }
+  };
+
+  repro::load_tile<D, KEYS, THREADS>(Ks, kb, kstride, k0, sk);
+  repro::load_tile<D, KEYS, THREADS>(Vs, vb, kstride, k0, sk);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (i < n_it) load_step(i, i);
+    repro::cp_async_commit();
+  }
+
+  float dk_acc[DH / 8][4], dv_acc[DH / 8][4];
+#pragma unroll
+  for (int n = 0; n < DH / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
+  const int key0 = k0 + 16 * w4 + g;  // this thread's keys: key0 and key0 + 8
+  const int c0 = grp * (DH / 8);      // this group's first column chunk
+  const float sl2 = scale * LOG2E;
+  float* px = Px + w4 * NP * 4 * 32 + lane;
+  uint32_t* dsx = dSx + w4 * NA * 4 * 32 + lane;
+
+  for (int it = 0; it < n_it; ++it) {
+    const int st = it & 1;
+    repro::cp_async_wait<1>();
+    __syncthreads();
+    const int q0 = (qt_first + it % nq) * QR;
+    const bf16* Qt = Qs + st * QE;
+    const bf16* dOt = dOs + st * QE;
+
+    uint32_t pa[NA][4], da[NA][4];
+    if (grp == 0) {
+      // S^T = K Q^T, then P^T = exp(S^T scale - lse) inside the band
+      const float* lt = lse_s + st * QR;
+      float s[NP][4];
+#pragma unroll
+      for (int n = 0; n < NP; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+      repro::mma_abt<D, NP>(s, Ks, 16 * w4, Qt, lane);
+      const bool edge = q0 + QR > sq || k0 + KEYS > sk || (causal && k0 + KEYS - 1 > q0) ||
+                        (window && k0 <= q0 + QR - 1 - window);
+#pragma unroll
+      for (int n = 0; n < NP; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int ql = 8 * n + 2 * t + (e & 1);  // the column's query row in the tile
+          float p = exp2f(s[n][e] * sl2 - lt[ql] * LOG2E);
+          if (edge) {
+            const int qi = q0 + ql, kp = key0 + 8 * (e >> 1);
+            const bool live = qi < sq && kp < sk && (!causal || kp <= qi) &&
+                              (!window || kp > qi - window);
+            p = live ? p : 0.f;  // a select: p may be inf off the band
+          }
+          s[n][e] = p;
+          px[(n * 4 + e) * 32] = p;
+        }
+      repro::c_to_a<NP>(pa, s);
+      pair_sync(w4);                                           // P^T is out
+      repro::mma_ab_cols<D, DH, NA>(dv_acc, pa, dOt, c0, lane);  // dV += P^T dO
+      pair_sync(w4);                                           // dS^T is in
+#pragma unroll
+      for (int j = 0; j < NA; ++j)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) da[j][r] = dsx[(j * 4 + r) * 32];
+    } else {
+      // dP^T = V dO^T, then dS^T = P^T (dP^T - D_i) from the partner's P^T
+      const float* dt = Di_s + st * QR;
+      float dp[NP][4];
+#pragma unroll
+      for (int n = 0; n < NP; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dp[n][e] = 0.f;
+      repro::mma_abt<D, NP>(dp, Vs, 16 * w4, dOt, lane);
+      pair_sync(w4);                                           // P^T is out
+      float p[NP][4];
+#pragma unroll
+      for (int n = 0; n < NP; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          p[n][e] = px[(n * 4 + e) * 32];
+          dp[n][e] = p[n][e] * (dp[n][e] - dt[8 * n + 2 * t + (e & 1)]);
+        }
+      repro::c_to_a<NP>(pa, p);
+      repro::c_to_a<NP>(da, dp);
+#pragma unroll
+      for (int j = 0; j < NA; ++j)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) dsx[(j * 4 + r) * 32] = da[j][r];
+      pair_sync(w4);                                           // dS^T is in
+      repro::mma_ab_cols<D, DH, NA>(dv_acc, pa, dOt, c0, lane);  // dV += P^T dO
+    }
+    repro::mma_ab_cols<D, DH, NA>(dk_acc, da, Qt, c0, lane);     // dK += dS^T Q
+
+    __syncthreads();  // every warp is done with this stage and the exchange
+    if (it + 2 < n_it) load_step(it + 2, st);
+    repro::cp_async_commit();
+  }
+
+  repro::cp_async_wait<0>();  // with no q tile, K and V may still be arriving
+  __syncthreads();
+  // through the pair's rows of the K and V tiles, each group its own chunks
+  const size_t off = ((size_t)b * sk * K + kh) * D;
+  repro::store_rows_cols<D, DH>(dk_acc, scale, scale, Ks, 16 * w4, c0, dk + off, kstride,
+                                k0 + 16 * w4, sk, lane);
+  repro::store_rows_cols<D, DH>(dv_acc, 1.f, 1.f, Vs, 16 * w4, c0, dv + off, kstride,
+                                k0 + 16 * w4, sk, lane);
+}
+
+template <int D>
 __global__ void __launch_bounds__(MMA_THREADS)
 bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
            const bf16* __restrict__ v, const bf16* __restrict__ dout,
            const float* __restrict__ lse, const float* __restrict__ Di,
            bf16* __restrict__ dq, int sq, int sk, int H, int K, int causal,
            int window, float scale) {
-  constexpr int KEYS = MMA_KEYS, ROWS = MMA_ROWS, THREADS = MMA_THREADS;
+  constexpr int KEYS = DqKeys<D>::value, ROWS = MMA_ROWS, THREADS = MMA_THREADS;
   constexpr int QE = Tile<D>::elems(ROWS), KE = Tile<D>::elems(KEYS);
   extern __shared__ uint4 smem_mma[];
   bf16* Qs = reinterpret_cast<bf16*>(smem_mma);  // (ROWS, D)
@@ -596,15 +804,27 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
         static_cast<const T*>(v), static_cast<const T*>(dout), lse, Di,
         static_cast<T*>(dq), sq, sk, H, K, causal, window, scale);
   } else {
-    constexpr int dkdv_smem = dkdv_smem_bytes<D>();
-    auto dkdv = bwd_dkdv_mma<D>;
-    err = cudaFuncSetAttribute(dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, dkdv_smem);
-    if (err != cudaSuccess) return err;
-    dkdv<<<dim3((sk + MMA_KEYS - 1) / MMA_KEYS, K, b), MMA_THREADS, dkdv_smem, stream>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse, Di,
-        static_cast<bf16*>(dk), static_cast<bf16*>(dv), sq, sk, H, K, causal, window,
-        scale);
+    if constexpr (D > 128) {  // the split dK/dV block: two groups of four warps
+      constexpr int dkdv_smem = dkdv_split_smem_bytes<D>();
+      auto dkdv = bwd_dkdv_split_mma<D>;
+      err = cudaFuncSetAttribute(dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, dkdv_smem);
+      if (err != cudaSuccess) return err;
+      dkdv<<<dim3((sk + MMA_KEYS - 1) / MMA_KEYS, K, b), SPLIT_THREADS, dkdv_smem, stream>>>(
+          static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+          static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse, Di,
+          static_cast<bf16*>(dk), static_cast<bf16*>(dv), sq, sk, H, K, causal, window,
+          scale);
+    } else {
+      constexpr int dkdv_smem = dkdv_smem_bytes<D>();
+      auto dkdv = bwd_dkdv_mma<D>;
+      err = cudaFuncSetAttribute(dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, dkdv_smem);
+      if (err != cudaSuccess) return err;
+      dkdv<<<dim3((sk + MMA_KEYS - 1) / MMA_KEYS, K, b), MMA_THREADS, dkdv_smem, stream>>>(
+          static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+          static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse, Di,
+          static_cast<bf16*>(dk), static_cast<bf16*>(dv), sq, sk, H, K, causal, window,
+          scale);
+    }
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
 
@@ -630,6 +850,7 @@ cudaError_t launch_d(int D, const void* q, const void* k, const void* v,
     case 32: return launch<T, 32>(q, k, v, o, dout, lse, Di, dq, dk, dv, b, sq, sk, H, K, causal, window, scale, s);
     case 64: return launch<T, 64>(q, k, v, o, dout, lse, Di, dq, dk, dv, b, sq, sk, H, K, causal, window, scale, s);
     case 128: return launch<T, 128>(q, k, v, o, dout, lse, Di, dq, dk, dv, b, sq, sk, H, K, causal, window, scale, s);
+    case 192: return launch<T, 192>(q, k, v, o, dout, lse, Di, dq, dk, dv, b, sq, sk, H, K, causal, window, scale, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -32,7 +32,11 @@
 //    CPR lanes take one row each and reduce its G dot products with log2(CPR)
 //    shuffles (4 at bf16 D=128); a warp covers 32/CPR rows a step.  Tensor
 //    cores are not used: the bound is bytes, and G = 3 query rows would fill
-//    3 of an mma's 16.
+//    3 of an mma's 16.  A row whose chunk count is not a power of two (D =
+//    160: 20 chunks in bf16, 40 in float32) is taken by LPR lanes, the
+//    largest power of two that divides CPR (4 and 8), each reading CH =
+//    CPR / LPR chunks (5), so every lane works and the G dot products
+//    reduce with log2(LPR) shuffles; CH = 1 is the power-of-two mapping.
 //  * Softmax and p.V.  The split's scores stay in shared memory (G x bs
 //    floats); one warp per query head takes their max m and l = sum exp(s -
 //    m), and rounds p to v's dtype, as the TPU kernel does (a masked row gives
@@ -40,7 +44,13 @@
 //    out of the merge).  Then each thread accumulates p.V over its rows for
 //    one 16-byte column chunk, 4 heads at a time in registers, and the lanes
 //    of a warp that share a chunk are summed with shuffles at the end of each
-//    tile into the warp's own slice of shared memory.
+//    tile into the warp's own slice of shared memory.  At a CPR that is not
+//    a power of two the lanes sharing a chunk are not XOR partners: NT /
+//    CPR row groups (6 in bf16 at D = 160, 3 in float32; the 8 threads
+//    past them idle in p.V) each keep their own slice of sums in shared
+//    memory instead, which the end of the block adds in a fixed order.  At
+//    stablelm-12b's decode (b=8, S=544, H=32, K=8, so G=4) a call reads
+//    ~22 MB of cache when every row is valid (~6.7 us at 3.35 TB/s).
 //  * Merge.  A second small kernel merges the partials of each (b, h) with
 //    exp(m_blk - m_glob), in a fixed order, and writes the output in v's
 //    dtype; a row with no valid entry comes out as 0, as the TPU kernel's
@@ -89,11 +99,21 @@ __device__ __forceinline__ void load_chunk(const __nv_bfloat16* p, float (&f)[8]
   f[6] = __uint_as_float(v.w << 16); f[7] = __uint_as_float(v.w & 0xffff0000u);
 }
 
-template <typename T>
-__host__ __device__ constexpr int epc() { return 16 / (int)sizeof(T); }
+// how the lanes map onto a row of D values of T
+template <typename T, int D>
+struct RowMap {
+  static constexpr int EPC = 16 / (int)sizeof(T);  // values per 16-byte chunk
+  static constexpr int CPR = D / EPC;              // chunks per row
+  static constexpr bool POW2 = (CPR & (CPR - 1)) == 0;
+  // lanes per row in the scores: the largest power of two dividing CPR
+  static constexpr int LPR = (CPR & -CPR) < 32 ? (CPR & -CPR) : 32;
+  static constexpr int CH = CPR / LPR;             // chunks a lane reads
+  // slices of p.V sums: one a warp, or one a row group
+  static constexpr int NRED = POW2 ? NW : NT / CPR;
+};
 
 // shared memory of one block: the tile ring, then float32 q (G x D), the
-// warps' p.V sums (NW x G x D), the scores (G x bs), then bs live flags
+// p.V sums (NRED x G x D), the scores (G x bs), then bs live flags
 template <typename T, int D>
 __host__ __device__ constexpr int ring_bytes(int nst) { return nst * TR * D * (int)sizeof(T); }
 
@@ -105,18 +125,22 @@ decode_partials(const T* __restrict__ q, const T* __restrict__ kc,
                 float* __restrict__ acc_out, float* __restrict__ m_out,
                 float* __restrict__ l_out, int S, int H, int K, int bs, int nst,
                 float scale) {
-  constexpr int EPC = epc<T>();        // values per 16-byte chunk
-  constexpr int CPR = D / EPC;         // chunks per cache row
-  static_assert(CPR >= 4 && CPR <= 32 && (CPR & (CPR - 1)) == 0, "a row is 4-32 chunks");
-  constexpr int RPW = 32 / CPR;        // rows a warp covers per step
+  using M = RowMap<T, D>;
+  constexpr int EPC = M::EPC;          // values per 16-byte chunk
+  constexpr int CPR = M::CPR;          // chunks per cache row
+  constexpr int LPR = M::LPR, CH = M::CH, NRED = M::NRED;
+  static_assert(CPR >= 4 && CPR <= 64 && LPR >= 4 && (TR * CPR) % NT == 0,
+                "a row is 4-64 chunks, taken by at least 4 lanes");
+  static_assert(M::POW2 ? CH == 1 : CPR <= NT, "one chunk a thread in p.V");
+  constexpr int RPW = 32 / LPR;        // rows a warp covers per step
   constexpr int RG = NT / CPR;         // row groups in p.V
   extern __shared__ __align__(16) unsigned char smem[];
   const int G = H / K;
   const int nt = bs / TR;              // tiles per split
   T* ring = reinterpret_cast<T*>(smem);
   float* qs = reinterpret_cast<float*>(smem + ring_bytes<T, D>(min(nst, 2 * nt)));
-  float* red = qs + G * D;             // (NW, G, D)
-  float* sc = red + NW * G * D;        // (G, bs): scores, then p
+  float* red = qs + G * D;             // (NRED, G, D)
+  float* sc = red + NRED * G * D;      // (G, bs): scores, then p
   uint8_t* live = reinterpret_cast<uint8_t*>(sc + G * bs);
 
   const int js = blockIdx.x, kh = blockIdx.y, b = blockIdx.z;
@@ -126,7 +150,7 @@ decode_partials(const T* __restrict__ q, const T* __restrict__ kc,
 
   for (int e = tid; e < G * D; e += NT) {
     qs[e] = to_f(q[((size_t)b * H + (size_t)kh * G) * D + e]);
-    for (int w = 0; w < NW; ++w) red[w * G * D + e] = 0.f;
+    for (int w = 0; w < NRED; ++w) red[w * G * D + e] = 0.f;
   }
   for (int r = tid; r < bs; r += NT) {
     const int s = s0 + r;
@@ -160,17 +184,21 @@ decode_partials(const T* __restrict__ q, const T* __restrict__ kc,
     cp_async_commit();
     const T* tile = ring + (j % nst) * TR * D;
     if (j < nt) {                      // scores of K tile j
-      const int c = lane % CPR, rs = lane / CPR;
+      const int c = lane % LPR, rs = lane / LPR;
       for (int r = warp * RPW + rs; r < TR; r += NW * RPW) {
-        float kf[EPC];
-        load_chunk(tile + r * D + c * EPC, kf);
+        float kf[CH][EPC];
+#pragma unroll
+        for (int i = 0; i < CH; ++i) load_chunk(tile + r * D + (c + LPR * i) * EPC, kf[i]);
         const bool ok = live[j * TR + r];
         for (int g = 0; g < G; ++g) {
           float dot = 0.f;
 #pragma unroll
-          for (int e = 0; e < EPC; ++e) dot = fmaf(qs[g * D + c * EPC + e], kf[e], dot);
+          for (int i = 0; i < CH; ++i)
 #pragma unroll
-          for (int o = CPR / 2; o; o >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, o);
+            for (int e = 0; e < EPC; ++e)
+              dot = fmaf(qs[g * D + (c + LPR * i) * EPC + e], kf[i][e], dot);
+#pragma unroll
+          for (int o = LPR / 2; o; o >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, o);
           if (c == 0) sc[g * bs + j * TR + r] = ok ? dot * scale : NEG_INF;
         }
       }
@@ -200,7 +228,7 @@ decode_partials(const T* __restrict__ q, const T* __restrict__ kc,
     {                                  // p.V over V tile j - nt
       const int tv = j - nt;
       const int cc = tid % CPR, rg = tid / CPR;
-      for (int g0 = 0; g0 < G; g0 += GCH) {
+      for (int g0 = 0; g0 < G && rg < RG; g0 += GCH) {
         float a[GCH][EPC];
 #pragma unroll
         for (int u = 0; u < GCH; ++u)
@@ -216,6 +244,17 @@ decode_partials(const T* __restrict__ q, const T* __restrict__ kc,
 #pragma unroll
             for (int e = 0; e < EPC; ++e) a[u][e] = fmaf(p, vf[e], a[u][e]);
           }
+        }
+        if constexpr (!M::POW2) {
+          // each row group's own slice: no two threads share a slot
+#pragma unroll
+          for (int u = 0; u < GCH; ++u) {
+            if (g0 + u >= G) break;
+            float* dst = red + (rg * G + g0 + u) * D + cc * EPC;
+#pragma unroll
+            for (int e = 0; e < EPC; ++e) dst[e] += a[u][e];
+          }
+          continue;
         }
         // lanes lane, lane + CPR, ... of a warp share the column chunk
 #pragma unroll
@@ -243,7 +282,7 @@ decode_partials(const T* __restrict__ q, const T* __restrict__ kc,
   for (int e = tid; e < G * D; e += NT) {
     float sum = 0.f;
 #pragma unroll
-    for (int w = 0; w < NW; ++w) sum += red[w * G * D + e];
+    for (int w = 0; w < NRED; ++w) sum += red[w * G * D + e];
     acc_blk[e] = sum;
   }
 }
@@ -298,7 +337,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   // the first wait when the split has one K and one V tile
   const int nst = 2 * nt + 1 < NST ? 2 * nt + 1 : NST;
   const int smem = ring_bytes<T, D>(nst < 2 * nt ? nst : 2 * nt) +
-                   (G * D + NW * G * D + G * bs) * (int)sizeof(float) + bs;
+                   (G * D + RowMap<T, D>::NRED * G * D + G * bs) * (int)sizeof(float) + bs;
   auto kern = decode_partials<T, D>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -322,6 +361,7 @@ cudaError_t launch_d(int D, const void* q, const void* k, const void* v,
     case 32: return launch<T, 32>(q, k, v, valid, acc, m, l, out, b, S, H, K, bs, scale, stream);
     case 64: return launch<T, 64>(q, k, v, valid, acc, m, l, out, b, S, H, K, bs, scale, stream);
     case 128: return launch<T, 128>(q, k, v, valid, acc, m, l, out, b, S, H, K, bs, scale, stream);
+    case 160: return launch<T, 160>(q, k, v, valid, acc, m, l, out, b, S, H, K, bs, scale, stream);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -161,50 +161,68 @@ __device__ __forceinline__ void mma_abt(float (&acc)[N][4], const bf16* As, int 
   }
 }
 
-// acc (16 x D) += A B: A (16 x 16KC) as bf16 A fragments in registers, B
-// rows 0..16KC-1 of the Tile Bs, read transposed (O += P V, dQ += dS K).
-template <int D, int KC>
-__device__ __forceinline__ void mma_ab(float (&acc)[D / 8][4], const uint32_t (&a)[KC][4],
-                                       const bf16* Bs, int lane) {
+// acc (16 x DH) += A B over DH of the D columns, from chunk c0 on: A (16 x
+// 16KC) as bf16 A fragments in registers, B rows 0..16KC-1 of the Tile Bs,
+// read transposed (a column slice of dV += P^T dO, dK += dS^T Q).
+template <int D, int DH, int KC>
+__device__ __forceinline__ void mma_ab_cols(float (&acc)[DH / 8][4], const uint32_t (&a)[KC][4],
+                                            const bf16* Bs, int c0, int lane) {
 #pragma unroll
   for (int kc = 0; kc < KC; ++kc) {
 #pragma unroll
-    for (int dp = 0; dp < D / 16; ++dp) {
+    for (int dp = 0; dp < DH / 16; ++dp) {
       uint32_t b[4];
-      ldsm_x4_t(b, Bs + Tile<D>::at(16 * kc + a_row(lane), 2 * dp + a_chunk(lane)));
+      ldsm_x4_t(b, Bs + Tile<D>::at(16 * kc + a_row(lane), c0 + 2 * dp + a_chunk(lane)));
       mma_bf16(acc[2 * dp], a[kc], b[0], b[1]);
       mma_bf16(acc[2 * dp + 1], a[kc], b[2], b[3]);
     }
   }
 }
 
-// A 16-row band of float32 C fragments (16 x D), scaled by mul, rounded to
-// bf16 and stored through the warp's own rows r0..r0+15 of the Tile `stage`
-// as 16-byte chunks, rows at or past `rows` skipped: out + (r0 + r) *
-// stride is output row r.  The caller syncs so that no thread still reads
-// those rows of the tile.
+// acc (16 x D) += A B over all D columns (O += P V, dQ += dS K).
+template <int D, int KC>
+__device__ __forceinline__ void mma_ab(float (&acc)[D / 8][4], const uint32_t (&a)[KC][4],
+                                       const bf16* Bs, int lane) {
+  mma_ab_cols<D, D, KC>(acc, a, Bs, 0, lane);
+}
+
+// A 16-row band of float32 C fragments (16 x DH: chunks c0 .. c0 + DH/8 - 1
+// of the D columns), scaled by mul, rounded to bf16 and stored through the
+// warp's own rows r0..r0+15 of the Tile `stage` as 16-byte chunks, rows at
+// or past `rows` skipped: out + (r0 + r) * stride is output row r.  The
+// caller syncs so that no thread still reads those rows of the tile; a
+// warp reads back only the chunks it wrote.
+template <int D, int DH>
+__device__ __forceinline__ void store_rows_cols(const float (&acc)[DH / 8][4], float mul0,
+                                                float mul1, bf16* stage, int r0, int c0,
+                                                bf16* __restrict__ out, long long stride,
+                                                int row_base, int rows, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int n = 0; n < DH / 8; ++n) {
+    *reinterpret_cast<uint32_t*>(stage + Tile<D>::at(r0 + g, c0 + n) + 2 * t) =
+        pack_bf16(acc[n][0] * mul0, acc[n][1] * mul0);
+    *reinterpret_cast<uint32_t*>(stage + Tile<D>::at(r0 + g + 8, c0 + n) + 2 * t) =
+        pack_bf16(acc[n][2] * mul1, acc[n][3] * mul1);
+  }
+  __syncwarp();
+  constexpr int C = DH / 8;
+#pragma unroll
+  for (int e = lane; e < 16 * C; e += 32) {
+    const int r = e / C, c = c0 + e % C;
+    if (row_base + r < rows)
+      *reinterpret_cast<uint4*>(out + (row_base + r) * stride + c * 8) =
+          *reinterpret_cast<const uint4*>(stage + Tile<D>::at(r0 + r, c));
+  }
+}
+
+// store_rows_cols over all D columns
 template <int D>
 __device__ __forceinline__ void store_rows(const float (&acc)[D / 8][4], float mul0, float mul1,
                                            bf16* stage, int r0, bf16* __restrict__ out,
                                            long long stride, int row_base, int rows,
                                            int lane) {
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    *reinterpret_cast<uint32_t*>(stage + Tile<D>::at(r0 + g, n) + 2 * t) =
-        pack_bf16(acc[n][0] * mul0, acc[n][1] * mul0);
-    *reinterpret_cast<uint32_t*>(stage + Tile<D>::at(r0 + g + 8, n) + 2 * t) =
-        pack_bf16(acc[n][2] * mul1, acc[n][3] * mul1);
-  }
-  __syncwarp();
-  constexpr int C = Tile<D>::C;
-#pragma unroll
-  for (int e = lane; e < 16 * C; e += 32) {
-    const int r = e / C, c = e % C;
-    if (row_base + r < rows)
-      *reinterpret_cast<uint4*>(out + (row_base + r) * stride + c * 8) =
-          *reinterpret_cast<const uint4*>(stage + Tile<D>::at(r0 + r, c));
-  }
+  store_rows_cols<D, D>(acc, mul0, mul1, stage, r0, 0, out, stride, row_base, rows, lane);
 }
 
 }  // namespace repro

@@ -17,8 +17,8 @@ import torch
 from repro_torch.kernels import LAUNCHES, _build
 
 # head dims each kernel was instantiated for (the switch in its .cu file)
-FWD_HEAD_DIMS = (32, 48, 64, 128, 192)
-BWD_HEAD_DIMS = (32, 64, 128)
+FWD_HEAD_DIMS = (32, 48, 64, 128, 160, 192)
+BWD_HEAD_DIMS = (32, 64, 128, 192)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int

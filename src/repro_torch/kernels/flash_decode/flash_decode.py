@@ -19,7 +19,7 @@ import torch
 from repro_torch.kernels import LAUNCHES, _build, refuse_grad
 from repro_torch.kernels.flash_attention.flash_attention import DTYPE_CODES
 
-HEAD_DIMS = (32, 64, 128)     # the head dims flash_decode.cu instantiates
+HEAD_DIMS = (32, 64, 128, 160)   # the head dims flash_decode.cu instantiates
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 

@@ -10,11 +10,16 @@
         --arch mamba2-130m --smoke --device cpu        # Mamba2 SSD
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch jamba-1.5-large-398b --smoke --device cpu   # hybrid
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch llava-next-34b --smoke --device cpu     # modal prefix
 
 ``--arch`` takes every arch of ``repro_torch.configs.registry``; at full
-depth deepseek-v2-236b and jamba-1.5-large-398b do not fit one card
-(``chip_smoke.py`` serves the first at 4 of its 60 layers, the second at
-one block of 8 of its 72 layers with 8 of its 16 experts).
+depth deepseek-v2-236b, jamba-1.5-large-398b, mixtral-8x22b and
+llava-next-34b do not fit one card (``chip_smoke.py`` serves the first at
+4 of its 60 layers, the second at one block of 8 of its 72 layers with 8
+of its 16 experts).  A VLM config (llava-next) prefills zero modal
+embeddings before each prompt, where a vision tower would give patch
+embeddings, and decodes from the prompt length plus that prefix.
 
 Timing protocol: one prefill and one decode step run before the clock
 starts (on the card this also builds and loads the kernels), then prefill
@@ -37,7 +42,7 @@ from repro_torch.launch import configure_allocator
 from repro_torch.models import init_params
 from repro_torch.serve import (ContinuousBatcher, DisaggregatedBatcher,
                                ServeRequest, greedy_decode, prefill,
-                               serve_step)
+                               prompt_batch, serve_step)
 
 
 def _sync(device: torch.device) -> None:
@@ -66,7 +71,7 @@ def main(argv=None):
     device = torch.device(args.device)
     cfg = smoke_config(args.arch) if args.smoke else get_arch(args.arch)
     params = init_params(cfg, 0, device=device)
-    cache_len = args.prompt_len + args.gen
+    cache_len = args.prompt_len + cfg.num_modal_tokens + args.gen
     gen = torch.Generator(device=device).manual_seed(1)
 
     if args.continuous:
@@ -97,10 +102,11 @@ def main(argv=None):
 
     prompt = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
                            generator=gen, device=device)
-    batch = {"tokens": prompt}
+    batch = prompt_batch(cfg, params, prompt)
+    pos0 = args.prompt_len + cfg.num_modal_tokens   # first decode position
     logits, cache = prefill(cfg, params, batch, cache_len)      # warm-up
     tok = torch.argmax(logits[:, -1], dim=-1, keepdim=True)
-    serve_step(cfg, params, tok, cache, args.prompt_len)
+    serve_step(cfg, params, tok, cache, pos0)
     _sync(device)
 
     t0 = time.perf_counter()
@@ -111,7 +117,7 @@ def main(argv=None):
     toks = [tok]
     t0 = time.perf_counter()
     for i in range(args.gen - 1):
-        logits, cache = serve_step(cfg, params, tok, cache, args.prompt_len + i)
+        logits, cache = serve_step(cfg, params, tok, cache, pos0 + i)
         tok = torch.argmax(logits[:, -1], dim=-1, keepdim=True)
         toks.append(tok)
     _sync(device)

@@ -6,6 +6,8 @@
         --smoke --device cpu --steps 12
     PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-130m \
         --batch 8 --seq 1024 --microbatch 1 --steps 12
+    PYTHONPATH=src python -m repro_torch.launch.train \
+        --arch deepseek-v2-236b --smoke --device cpu --steps 12
 
 The flags are the JAX driver's (``repro.launch.train``) plus ``--device``.
 ``--zero`` is accepted and has no effect: it chooses how the optimizer
@@ -30,8 +32,10 @@ from repro_torch.train import build_train_step, make_train_state
 
 
 def to_device(raw: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
+    """A SyntheticTokens batch on ``device``: tokens, labels and, for a VLM
+    config, the modal embeddings (float32, cast by the forward)."""
     return {k: torch.from_numpy(raw[k]).to(device)
-            for k in ("tokens", "labels")}
+            for k in ("tokens", "labels", "modal_embeds") if k in raw}
 
 
 def train(cfg: ModelConfig, tc: TrainConfig, *, device="cuda",

@@ -85,6 +85,18 @@ def mamba2_forward(cfg: ModelConfig, p: Params, x: torch.Tensor
     return y @ p["out_proj"], {"conv": conv_state, "ssd": state.float()}
 
 
+def c_dot_state(C: torch.Tensor, state: torch.Tensor) -> torch.Tensor:
+    """y_ssd = C . state over the state width N, float32.  C: (b, n); state:
+    (b, h, p, n) float32.  Returns (b, h, p).
+
+    An elementwise product and a sum over the last axis, not a batched
+    matrix product: the reduction walks each output's N values the same
+    way whatever the batch, so a row alone gives the same bits as in a
+    batch of 8 (a cuBLAS batched product picks its summation by shape).
+    The continuous batchers rely on that to match per-request greedy."""
+    return (C.float()[:, None, None, :] * state).sum(dim=-1)
+
+
 def mamba2_decode(cfg: ModelConfig, p: Params, x: torch.Tensor,
                   cache: Dict[str, torch.Tensor]
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -105,8 +117,7 @@ def mamba2_decode(cfg: ModelConfig, p: Params, x: torch.Tensor,
     dA = torch.exp(dt * -torch.exp(p["A_log"]))                # (b, h)
     state = cache["ssd"] * dA[:, :, None, None] + torch.einsum(
         "bh,bn,bhp->bhpn", dt, B.float(), xs.float())
-    y = (torch.einsum("bn,bhpn->bhp", C.float(), state)
-         + p["D"][None, :, None] * xs.float())
+    y = c_dot_state(C, state) + p["D"][None, :, None] * xs.float()
     y = gated_rms_norm(y.reshape(b, 1, di).to(x.dtype), z, p["norm"],
                        cfg.norm_eps)
     return y @ p["out_proj"], {"conv": window[:, 1:], "ssd": state}

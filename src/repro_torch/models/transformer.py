@@ -15,7 +15,9 @@ position j of the block, whose leaves are stacked along a leading
 ``{w1,w2[,w3]}`` or MoE, see ``moe.moe_param_shapes``; a layer with no
 dense width and no MoE, as Mamba2's, has no FFN).  Layer l is block
 l // period, sub-layer l % period; the forward walks the blocks, and in
-each the sub-layers, in a Python loop.  No modal prefix.
+each the sub-layers, in a Python loop.  A VLM config (``num_modal_tokens``
+> 0, llava-next) takes a prefix of precomputed embeddings before the text
+tokens (``_embed_inputs``).
 """
 from __future__ import annotations
 
@@ -46,12 +48,11 @@ SSM_VECTORS = ("conv_x_b", "conv_bc_b", "A_log", "D", "dt_bias")
 
 def _check_supported(cfg: ModelConfig) -> None:
     attn_ok = cfg.attention in ("gqa", "mla")
-    if cfg.num_modal_tokens or any(
-            cfg.layer_kind(j) == "attn" and not attn_ok
-            for j in range(cfg.block_period)):
+    if any(cfg.layer_kind(j) == "attn" and not attn_ok
+           for j in range(cfg.block_period)):
         raise NotImplementedError(
-            f"{cfg.name}: the port runs text models of GQA or MLA attention "
-            f"and Mamba2 layers (no modal prefix)")
+            f"{cfg.name}: the port runs models of GQA or MLA attention and "
+            f"Mamba2 layers")
 
 
 def _mixer_kind(cfg: ModelConfig, j: int) -> str:
@@ -179,6 +180,19 @@ def param_count(cfg: ModelConfig) -> int:
     return sum(math.prod(shape) for shape in _leaves(param_shapes(cfg)))
 
 
+def active_param_count(cfg: ModelConfig) -> int:
+    """Parameters active per token: a MoE layer counts its top_k routed
+    experts and the shared ones, not the other routed experts (the JAX
+    package's ``active_param_count``)."""
+    total = param_count(cfg)
+    if not cfg.num_experts:
+        return total
+    n_moe = sum(1 for l in range(cfg.num_layers) if cfg.layer_is_moe(l))
+    per_expert = cfg.d_model * cfg.moe_d_ff * (
+        3 if cfg.mlp_variant == "swiglu" else 2)
+    return total - n_moe * per_expert * (cfg.num_experts - cfg.top_k)
+
+
 def layer_params(blocks: Params) -> List[Params]:
     """Each layer's slice of the stacked block parameters (views, no copy),
     from one ``unbind`` per leaf: its backward is one ``stack`` per leaf,
@@ -250,16 +264,28 @@ def _block_params(blocks: Params) -> List[Dict[str, Params]]:
             for i in range(n)]
 
 
+def _embed_inputs(cfg: ModelConfig, params: Params,
+                  batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """The token embeddings (b, s_text, d), after the modal prefix
+    ``batch["modal_embeds"]`` (b, m, d) cast to their dtype when the config
+    has one (transformer.py:140-148 of the JAX package)."""
+    tok = params["embed"][batch["tokens"]]
+    if not cfg.num_modal_tokens:
+        return tok
+    return torch.cat([batch["modal_embeds"].to(tok.dtype), tok], dim=1)
+
+
 def forward(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
             *, want_cache: bool = False, last_only: bool = False,
             remat: bool = False, want_aux: bool = False) -> tuple:
     """Full-sequence forward (train / prefill).
 
-    batch: tokens (b, s) integer.  Returns (logits (b, s, V), cache or
-    None), and with ``want_aux`` (logits, cache or None, aux): aux is the
-    MoE load-balance loss summed over the layers, a float32 0-d tensor (0
-    without MoE), the JAX package's forward's second value.  The cache
-    holds each layer's cache entries stacked: k/v (nb, b, s, K, hd) for
+    batch: tokens (b, s_text) integer [+ modal_embeds (b, m, d) for a VLM
+    config, prepended, so s = m + s_text].  Returns (logits (b, s, V),
+    cache or None), and with ``want_aux`` (logits, cache or None, aux):
+    aux is the MoE load-balance loss summed over the layers, a float32 0-d
+    tensor (0 without MoE), the JAX package's forward's second value.  The
+    cache holds each layer's cache entries stacked: k/v (nb, b, s, K, hd) for
     GQA, c_kv (nb, b, s, r) and k_rope (nb, b, s, dr) for MLA, conv
     (nb, b, w - 1, di + 2n) and ssd (nb, b, h, p, n) float32 for Mamba2.
     ``last_only`` computes the logits of the last position only (b, 1, V),
@@ -270,7 +296,7 @@ def forward(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
     blocks.
     """
     _check_supported(cfg)
-    x = params["embed"][batch["tokens"]]              # (b, s, d)
+    x = _embed_inputs(cfg, params, batch)             # (b, s, d)
     positions = torch.arange(x.shape[1], device=x.device)
     entries: Dict[str, Dict[str, List[torch.Tensor]]] = {}
     auxes: List[torch.Tensor] = []

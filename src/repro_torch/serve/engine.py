@@ -13,6 +13,10 @@ the matrix products give a row the same bits whatever the batch around it
 
 Everything here runs under ``torch.inference_mode()`` on the device of the
 parameters.  Decode steps write the caches in place.
+
+A VLM config (``num_modal_tokens`` > 0) serves its prompts after a prefix
+of zero modal embeddings (``prompt_batch``), as the JAX engine does, so
+its first decode position is the prompt length plus the prefix.
 """
 from __future__ import annotations
 
@@ -26,6 +30,21 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import (cache_from_prefill, decode_step, forward,
                                 init_cache)
+
+
+def prompt_batch(cfg: ModelConfig, params: Any, prompt: torch.Tensor
+                 ) -> Dict[str, torch.Tensor]:
+    """The prefill batch of a (b, s) prompt: its tokens and, for a VLM
+    config, zero modal embeddings (b, num_modal_tokens, d) in the
+    embeddings' dtype (engine.py:51-58 and launch/serve.py:38-41 of the JAX
+    package, which feed zeros where a vision tower would)."""
+    batch = {"tokens": prompt}
+    if cfg.num_modal_tokens:
+        embed = params["embed"]
+        batch["modal_embeds"] = torch.zeros(
+            (prompt.shape[0], cfg.num_modal_tokens, cfg.d_model),
+            dtype=embed.dtype, device=embed.device)
+    return batch
 
 
 @torch.inference_mode()
@@ -55,10 +74,11 @@ def greedy_decode(cfg: ModelConfig, params: Any, prompt: torch.Tensor,
                   n_steps: int, cache_len: int) -> torch.Tensor:
     """Batch-at-once autoregressive loop: prompt (b, s) -> tokens
     (b, n_steps)."""
-    logits, cache = prefill(cfg, params, {"tokens": prompt}, cache_len)
+    logits, cache = prefill(cfg, params, prompt_batch(cfg, params, prompt),
+                            cache_len)
     tok = _argmax(logits)
     toks = [tok]
-    pos = prompt.shape[1]
+    pos = prompt.shape[1] + cfg.num_modal_tokens
     for i in range(n_steps - 1):
         logits, cache = serve_step(cfg, params, tok, cache, pos + i)
         tok = _argmax(logits)
@@ -115,18 +135,21 @@ class ContinuousBatcher:
     def submit(self, request: ServeRequest) -> None:
         if request.prompt.ndim != 1:
             raise ValueError("prompt must be a 1-D token vector")
-        if request.prompt.shape[0] + request.max_new_tokens > self.cache_len:
+        if (request.prompt.shape[0] + self.cfg.num_modal_tokens
+                + request.max_new_tokens) > self.cache_len:
             # reject up front: an oversized prompt must never reach a slot
             # (a partial splice would corrupt the row for later tenants)
             raise ValueError(
                 f"request {request.request_id} cannot fit the cache:"
                 f" {request.prompt.shape[0]} prompt"
+                f" + {self.cfg.num_modal_tokens} modal"
                 f" + {request.max_new_tokens} new > {self.cache_len}")
         self.pending.append(request)
 
     def _prefill_one(self, req: ServeRequest) -> Tuple[int, Any]:
         """Run one request's prompt; returns (first token, cache row)."""
-        batch = {"tokens": req.prompt[None].to(self.device)}
+        batch = prompt_batch(self.cfg, self.params,
+                             req.prompt[None].to(self.device))
         logits, row_cache = prefill(self.cfg, self.params, batch,
                                     self.cache_len)
         self.prefills += 1
@@ -142,7 +165,7 @@ class ContinuousBatcher:
             for name, row in sub.items():
                 self.cache[j_name][name][:, slot] = row[:, 0]
         self.tokens[slot, 0] = tok
-        self.pos[slot] = req.prompt.shape[0]
+        self.pos[slot] = req.prompt.shape[0] + self.cfg.num_modal_tokens
         self.active[slot] = req
 
     def _admit(self) -> None:

@@ -53,8 +53,11 @@ def accumulate_grads(cfg: ModelConfig, tc: TrainConfig, params: Dict[str, Any],
                            device=batch["tokens"].device)
     for i in range(n_micro):
         micro = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
-        logits, _, aux = forward(cfg, params, {"tokens": micro["tokens"]},
+        inputs = {k: micro[k] for k in ("tokens", "modal_embeds")
+                  if k in micro}
+        logits, _, aux = forward(cfg, params, inputs,
                                  remat=tc.remat != "none", want_aux=True)
+        # labels cover the whole (modal + text) sequence
         ce = cross_entropy(logits[:, :-1], micro["labels"][:, 1:])
         (ce + AUX_WEIGHT * aux).backward()
         for a, p in zip(acc, leaves):
@@ -71,16 +74,19 @@ def build_train_step(cfg: ModelConfig, tc: TrainConfig, global_batch: int,
     """Returns (step, n_micro); step(state, batch) -> (state, metrics) with
     metrics {"loss", "grad_norm"} as 0-d tensors.  The state is updated in
     place and returned.  batch: tokens and labels, (global_batch, seq_len)
-    integer tensors on the state's device."""
+    integer tensors on the state's device; for a VLM config tokens hold
+    seq_len - num_modal_tokens text positions, and modal_embeds
+    (global_batch, num_modal_tokens, d) come before them."""
     n_micro = resolve_microbatches(tc, global_batch)
     if global_batch % n_micro:
         raise ValueError(f"global batch {global_batch} does not split into "
                          f"{n_micro} microbatches")
 
     def step(state: Dict[str, Any], batch: Batch):
-        if batch["tokens"].shape != (global_batch, seq_len):
+        want = (global_batch, seq_len - cfg.num_modal_tokens)
+        if batch["tokens"].shape != want:
             raise ValueError(f"batch {tuple(batch['tokens'].shape)} != "
-                             f"{(global_batch, seq_len)}")
+                             f"{want}")
         grads, loss = accumulate_grads(cfg, tc, state["params"], batch,
                                        n_micro)
         gnorm = adam_update(tc, state["params"], state["opt"], grads,

@@ -77,7 +77,14 @@ def test_train_config_fields_match():
 
 
 def test_configs_cover_the_trained_arch():
+    """The trained memory-validation model and every arch the JAX package
+    assigns, with the JAX registry's lists of assigned and long-context
+    archs."""
     assert "gpt2-350m" in registry.ARCHS
+    assert set(jax_registry.ASSIGNED) <= set(registry.ARCHS)
+    assert sorted(registry.ARCHS) == sorted(jax_registry.ARCHS)
+    assert registry.ASSIGNED == jax_registry.ASSIGNED
+    assert registry.LONG_CONTEXT_OK == jax_registry.LONG_CONTEXT_OK
 
 
 @pytest.mark.parametrize("arch", sorted(registry.ARCHS))

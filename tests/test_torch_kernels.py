@@ -60,6 +60,21 @@ ATTN_CASES = [
 # float32 rounding noise (~1e-7) there
 BWD_CASES = [c for c in ATTN_CASES if c[2] > 1]
 
+# the head dims this slice's kernels were built for: the forward and the
+# GQA decode at stablelm-12b's 160 (5120 / 32), the backward at
+# deepseek-v2's MLA qk width 192 (dn + dr), with GQA groups, windows,
+# sq != sk and ragged tiles (b, sq, sk, H, K, D, causal, window)
+WIDE_ATTN_CASES = [
+    (1, 40, 40, 4, 2, 160, True, 0),
+    (1, 70, 70, 4, 1, 160, True, 16),         # G = 4, window
+    (2, 24, 56, 2, 2, 160, False, 0),         # sq != sk
+    (1, 40, 40, 4, 4, 192, True, 0),
+    (1, 70, 70, 2, 2, 192, True, 16),
+]
+# stablelm-12b's GQA at its smoke-sized cache: 8 query heads on 2 KV heads
+# of 160, G = 4 as at full width
+WIDE_DECODE = dict(H=8, K=2, D=160)
+
 BLOCK_S = 256            # the Pallas kernels' default cache block
 
 
@@ -143,6 +158,39 @@ def test_attention_ref_matches_pallas_kernel(jx, case, dtype):
     np.testing.assert_allclose(_f32(got), _f32(want), atol=tol, rtol=tol)
 
 
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("case", WIDE_ATTN_CASES)
+def test_attention_ref_at_wide_head_dims_matches_jax(jx, case, dtype):
+    """The plain forward at head dims 160 and 192 against JAX's
+    attention_ref, as at the narrower widths."""
+    test_attention_ref_matches_jax_ref(jx, case, dtype)
+
+
+@pytest.mark.parametrize("case", WIDE_ATTN_CASES)
+def test_attention_bwd_ref_at_wide_head_dims_matches_jax_vjp(jx, case):
+    """The plain backward (explicit formulas from o and lse) and autograd
+    through the plain forward at head dims 160 and 192, float32, against
+    jax.vjp of JAX's attention_ref: 2e-5 (sum order)."""
+    import jax
+    causal, window = case[6], case[7]
+    kw = dict(causal=causal, window=window)
+    q, k, v = _attn_inputs(case, "float32", seed=4)
+    do = _randn(np.random.default_rng(5), q.shape, "float32")
+    _, vjp = jax.vjp(lambda a, b_, c: jx.attention_ref(a, b_, c, **kw),
+                     *(_to_jax(jx, t) for t in (q, k, v)))
+    want = vjp(_to_jax(jx, do))
+    o = attention_ref(q, k, v, **kw)
+    explicit = attention_bwd_ref(q, k, v, o, attention_lse_ref(q, k, **kw),
+                                 do, **kw)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    attention_ref(*leaves, **kw).backward(do)
+    for name, w, e, a in zip("qkv", want, explicit, leaves):
+        np.testing.assert_allclose(_f32(e), _f32(w), atol=2e-5, rtol=2e-5,
+                                   err_msg=f"d{name} explicit")
+        np.testing.assert_allclose(_f32(a.grad), _f32(w), atol=2e-5,
+                                   rtol=2e-5, err_msg=f"d{name} autograd")
+
+
 # ------------------------------------------------------------------ decode --
 
 @pytest.mark.parametrize("dtype", list(DTYPES))
@@ -160,6 +208,27 @@ def test_decode_refs_match_jax(jx, S, dtype):
     np.testing.assert_allclose(
         _f32(split), _f32(jx.fd_ref.gqa_decode_splitk(*jargs, block_s=BLOCK_S)),
         atol=tol, rtol=tol)
+    pallas = jx.flash_decode_gqa(*jargs, block_s=BLOCK_S, interpret=True)
+    np.testing.assert_allclose(_f32(split), _f32(pallas), atol=tol, rtol=tol)
+    np.testing.assert_allclose(_f32(ref), _f32(split), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("S", [48, 300])
+def test_decode_refs_at_head_dim_160_match_jax(jx, S, dtype):
+    """The plain GQA decode and its split-KV form at stablelm-12b's head
+    dim 160 (G = 4) against JAX's gqa_decode_ref and the Pallas kernel in
+    interpret mode."""
+    w = WIDE_DECODE
+    (q, k, v), valid = _decode_inputs(3, S, w["H"], w["K"], w["D"], dtype,
+                                      seed=11)
+    jargs = [_to_jax(jx, t) for t in (q, k, v)] + [jx.jnp.asarray(valid)]
+    tvalid = torch.from_numpy(valid)
+    tol = DTYPES[dtype][1]
+    ref = gqa_decode_ref(q, k, v, tvalid)
+    np.testing.assert_allclose(_f32(ref), _f32(jx.fd_ref.gqa_decode_ref(*jargs)),
+                               atol=tol, rtol=tol)
+    split = gqa_decode_splitk(q, k, v, tvalid, block_s=BLOCK_S)
     pallas = jx.flash_decode_gqa(*jargs, block_s=BLOCK_S, interpret=True)
     np.testing.assert_allclose(_f32(split), _f32(pallas), atol=tol, rtol=tol)
     np.testing.assert_allclose(_f32(ref), _f32(split), atol=tol, rtol=tol)
@@ -287,15 +356,24 @@ def test_kernels_without_a_backward_refuse_inputs_that_require_grad(name):
 def test_wrappers_reject_head_dims_they_were_not_built_for():
     """Each wrapper checks its own tuple of head dims before it looks at
     the device, so this holds on the CPU: the forward takes the MLA widths
-    48 and 192 (and then refuses the CPU tensor), the backward and the GQA
-    decode do not, and the MLA decode takes r in (32, 512), dr in (16, 64)."""
+    48 and 192 and stablelm's 160 (and then refuses the CPU tensor) but not
+    96, the backward takes 192 but not 160, the GQA decode takes 160 but
+    not 192, and the MLA decode takes r in (32, 512), dr in (16, 64)."""
     q = torch.zeros((1, 8, 2, 192))
+    q160 = torch.zeros((1, 8, 2, 160))
+    for t in (q, q160):
+        with pytest.raises(ValueError, match="CUDA"):
+            flash_attention(t, t, t)
+    with pytest.raises(ValueError, match="head dim 96"):
+        flash_attention(*(torch.zeros((1, 8, 2, 96)),) * 3)
     with pytest.raises(ValueError, match="CUDA"):
-        flash_attention(q, q, q)
-    with pytest.raises(ValueError, match="head dim 160"):
-        flash_attention(*(torch.zeros((1, 8, 2, 160)),) * 3)
-    with pytest.raises(ValueError, match="flash_attention_bwd: head dim 192"):
         flash_attention_bwd(q, q, q, q, torch.zeros((1, 2, 8)), q)
+    with pytest.raises(ValueError, match="flash_attention_bwd: head dim 160"):
+        flash_attention_bwd(q160, q160, q160, q160, torch.zeros((1, 2, 8)),
+                            q160)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_decode_gqa(q160[:, :1], q160, q160,
+                         torch.ones((1, 8), dtype=torch.bool))
     with pytest.raises(ValueError, match="flash_decode_gqa: head dim 192"):
         flash_decode_gqa(q[:, :1], q, q, torch.ones((1, 8), dtype=torch.bool))
     valid = torch.ones((1, 8), dtype=torch.bool)
@@ -445,13 +523,66 @@ class TestKernelsOnCard:
         assert torch.equal(flash_decode_gqa(q, k_bad, v_bad, valid), clean)
 
     def test_kernels_raise_on_unsupported_head_dim(self, cuda):
-        q = torch.zeros((1, 8, 2, 160), device=cuda)
+        q = torch.zeros((1, 8, 2, 96), device=cuda)
         with pytest.raises(ValueError, match="head dim"):
             flash_attention(q, q, q)
-        q = torch.zeros((1, 8, 2, 48), device=cuda)
+        q = torch.zeros((1, 8, 2, 160), device=cuda)
         with pytest.raises(ValueError, match="head dim"):
-            flash_decode_gqa(q[:, :1], q, q,
-                             torch.ones((1, 8), dtype=torch.bool, device=cuda))
+            flash_attention_bwd(q, q, q, q, torch.zeros((1, 2, 8), device=cuda),
+                                q)
+        for D in (48, 192):
+            q = torch.zeros((1, 8, 2, D), device=cuda)
+            with pytest.raises(ValueError, match="head dim"):
+                flash_decode_gqa(q[:, :1], q, q, torch.ones(
+                    (1, 8), dtype=torch.bool, device=cuda))
+
+    @pytest.mark.parametrize("dtype", list(DTYPES))
+    @pytest.mark.parametrize("case", [c for c in WIDE_ATTN_CASES
+                                      if c[5] == 160])
+    def test_flash_attention_at_head_dim_160(self, cuda, case, dtype):
+        """stablelm-12b's width: GQA, a window, sq != sk, against the plain
+        version, and the lse at 2e-5."""
+        causal, window = case[6], case[7]
+        kw = dict(causal=causal, window=window)
+        q, k, v = (t.to(cuda) for t in _attn_inputs(case, dtype))
+        got, lse = flash_attention_lse(q, k, v, **kw)
+        want = attention_ref(q, k, v, **kw)
+        tol = DTYPES[dtype][1]
+        torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                                   rtol=tol)
+        torch.testing.assert_close(lse, attention_lse_ref(q, k, **kw),
+                                   atol=2e-5, rtol=2e-5)
+
+    @pytest.mark.parametrize("dtype", list(DTYPES))
+    @pytest.mark.parametrize("S", [300, 544])
+    def test_flash_decode_at_head_dim_160(self, cuda, S, dtype):
+        """stablelm-12b's decode: 32 query heads on 8 KV heads of 160 (G =
+        4), two whole splits masked, an all-invalid row, against the
+        split-KV oracle at the kernel's split and the plain version."""
+        (q, k, v), valid = _decode_inputs(4, S, 32, 8, 160, dtype, seed=12)
+        q, k, v = q.to(cuda), k.to(cuda), v.to(cuda)
+        valid = torch.from_numpy(valid).to(cuda)
+        bs = block_s(k)
+        valid[0, bs:3 * bs] = False
+        valid[0, 0] = True
+        valid[3] = False
+        n = LAUNCHES["flash_decode_gqa"]
+        got = flash_decode_gqa(q, k, v, valid)
+        assert LAUNCHES["flash_decode_gqa"] == n + 1
+        tol = DTYPES[dtype][1]
+        torch.testing.assert_close(
+            got.float(), gqa_decode_splitk(q, k, v, valid,
+                                           block_s=bs).float(),
+            atol=tol, rtol=tol)
+        assert torch.all(got[3] == 0)
+        torch.testing.assert_close(
+            got[:3].float(), gqa_decode_ref(q[:3], k[:3], v[:3],
+                                            valid[:3]).float(),
+            atol=tol, rtol=tol)
+        k_bad, v_bad = k.clone(), v.clone()
+        k_bad[~valid] = float("nan")
+        v_bad[~valid] = float("inf")
+        assert torch.equal(flash_decode_gqa(q, k_bad, v_bad, valid), got)
 
     @pytest.mark.parametrize("dtype", list(DTYPES))
     @pytest.mark.parametrize("D", [48, 192])
@@ -651,6 +782,36 @@ class TestKernelsOnCard:
             assert err <= tol * leaf.grad.float().abs().max(), err
         assert all(torch.equal(a, b) for a, b in
                    zip(got, flash_attention_bwd(q, k, v, o, lse, do, **kw)))
+
+    @pytest.mark.parametrize("dtype", list(DTYPES))
+    @pytest.mark.parametrize("case", [c for c in WIDE_ATTN_CASES
+                                      if c[5] == 192]
+                             + [(2, 96, 200, 4, 2, 192, False, 0)])
+    def test_flash_attention_bwd_at_head_dim_192(self, cuda, case, dtype):
+        """deepseek-v2's MLA training width (the split dK/dV block) against
+        the explicit formulas and autograd through the plain forward,
+        bit-identical on a rerun, causal with and without a window, GQA and
+        sq != sk."""
+        self.test_flash_attention_bwd_matches_plain(cuda, case, dtype)
+
+    @pytest.mark.parametrize("dtype", list(DTYPES))
+    def test_flash_attention_bwd_at_head_dim_192_rows_with_no_key(self, cuda,
+                                                                  dtype):
+        """Window 4 over 8 keys leaves rows 11.. of 40 with no key: their
+        dq is 0 and every gradient is finite, as the explicit formulas give
+        (autograd through the plain forward sees the mean of V there)."""
+        kw = dict(causal=True, window=4)
+        q, k, v = (t.to(cuda) for t in _attn_inputs(
+            (1, 40, 8, 2, 2, 192, True, 4), dtype))
+        do = _randn(np.random.default_rng(6), q.shape, dtype).to(cuda)
+        o, lse = flash_attention_lse(q, k, v, **kw)
+        got = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+        assert not got[0][:, 11:].any()
+        want = attention_bwd_ref(q, k, v, o, lse, do, **kw)
+        for g, w in zip(got, want):
+            assert bool(torch.isfinite(g.float()).all())
+            err = (g.float() - w.float()).abs().max()
+            assert err <= DTYPES[dtype][1] * w.float().abs().max(), err
 
     def test_trainable_attention_goes_through_both_kernels(self, cuda):
         q, k, v = (t.to(cuda).requires_grad_(True)

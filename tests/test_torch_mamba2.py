@@ -25,8 +25,9 @@ from repro_torch.configs import smoke_config
 from repro_torch.kernels import LAUNCHES
 from repro_torch.models import init_params
 from repro_torch.models.common import gated_rms_norm
-from repro_torch.models.mamba2 import (_causal_conv, mamba2_decode,
-                                       mamba2_forward, mamba2_param_shapes)
+from repro_torch.models.mamba2 import (_causal_conv, c_dot_state,
+                                       mamba2_decode, mamba2_forward,
+                                       mamba2_param_shapes)
 
 ARCH = "mamba2-130m"
 TOL = dict(atol=1e-4, rtol=1e-4)
@@ -152,6 +153,27 @@ def test_prefill_then_decode_equals_the_full_forward(layer, s):
     _, cache = mamba2_forward(cfg, p, x[:, :s])
     step, _ = mamba2_decode(cfg, p, x[:, s:], cache)
     np.testing.assert_allclose(_f32(step), _f32(full[:, -1:]), **TOL)
+
+
+@pytest.mark.parametrize("n", [16, 128])
+def test_c_dot_state_is_batch_invariant(n):
+    """The decode step's float32 C . state (the smoke and the full state
+    width): each row alone gives the same bits as in a batch of 8, which
+    the continuous batchers need to match per-request greedy; and it is
+    the einsum it replaces, within float32 rounding."""
+    rng = np.random.default_rng(9)
+    C = torch.from_numpy(rng.standard_normal((8, n)).astype(np.float32))
+    state = torch.from_numpy(rng.standard_normal((8, 24, 64, n)
+                                                 ).astype(np.float32))
+    eight = c_dot_state(C, state)
+    one = torch.cat([c_dot_state(C[i:i + 1], state[i:i + 1]) for i in range(8)])
+    assert eight.dtype == torch.float32 and tuple(eight.shape) == (8, 24, 64)
+    assert torch.equal(one, eight)
+    torch.testing.assert_close(eight, torch.einsum("bn,bhpn->bhp", C, state),
+                               atol=1e-4, rtol=1e-5)
+    # C arrives in the activations' dtype and is widened first
+    assert torch.equal(c_dot_state(C.bfloat16(), state),
+                       c_dot_state(C.bfloat16().float(), state))
 
 
 def test_forward_on_cpu_launches_no_kernel(layer):

@@ -331,8 +331,8 @@ def test_cache_from_prefill_does_not_alias(fp32_pair):
 def test_mamba2_cache_has_no_sequence_axis():
     """init_cache gives Mamba2 a conv window of w - 1 rows in the cache
     dtype and an always-float32 state, whatever the cache length; a hybrid
-    config holds one cache kind per sub-layer, and a modal prefix is
-    refused."""
+    config holds one cache kind per sub-layer, and a modal prefix adds no
+    parameters."""
     cfg = smoke_config("mamba2-130m")
     cache = init_cache(cfg, 3, 1000, dtype=torch.bfloat16, device="cpu")["sub0"]
     ch = cfg.d_inner + 2 * cfg.ssm_state
@@ -347,8 +347,7 @@ def test_mamba2_cache_has_no_sequence_axis():
     assert sorted(both["sub0"]) == ["k", "v"]
     assert sorted(both["sub1"]) == ["conv", "ssd"]
     assert tuple(both["sub0"]["k"].shape) == (1, 3, 20, 4, 32)
-    with pytest.raises(NotImplementedError):
-        param_shapes(cfg.scaled(num_modal_tokens=8))
+    assert param_shapes(cfg.scaled(num_modal_tokens=8)) == param_shapes(cfg)
 
 
 def test_mamba2_forward_at_a_ragged_prompt_matches_the_pallas_path():
