@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving paths (llama3.2-3b, deepseek-v2-236b,
 mamba2-130m, jamba-1.5-large-398b, stablelm-12b) and its training paths
-(gpt2-350m, mamba2-130m, deepseek-v2-236b) on one NVIDIA card.
+(gpt2-350m, mamba2-130m, deepseek-v2-236b, stablelm-12b) on one NVIDIA
+card.
 
     python3 chip_smoke.py
 
@@ -12,7 +13,8 @@ Phases, each printing its lines before the last:
    kernel's registers, spills and static shared memory from the ptxas log
    and its tensor-core instructions from ``cuobjdump -sass`` (every bf16
    attention, SSD scan, SSD gradient and MLA decode body at every width
-   must have some, and the attention and SSD gradient kernels no atomics);
+   must have some, and the attention and SSD gradient kernels and the
+   norm no atomics);
 2. each kernel against its plain PyTorch version on the card, at the shapes
    the main paths give it and at edge cases (window, GQA, sq != sk,
    float32, ragged tails, two fully masked splits of each decode kernel's
@@ -30,10 +32,14 @@ Phases, each printing its lines before the last:
    on the final state, bf16 and float32), at a ragged length, at b=4 and
    at the smoke widths, also against autograd through the plain scan and
    run twice for bit-identical gradients, with its scratch bytes and
-   grid at the training shape; the variants at the wide head dims:
+   grid at the training shape; the RMSNorm kernel at llama's prefill
+   and decode, Mamba2's gated norms and stablelm's width, in float32 and
+   with a float32 scale, 8 rows alone required equal to the same rows in
+   a batch; the variants at the wide head dims:
    the attention forward at 160 (stablelm-12b's prefill, a window, sq !=
-   sk, float32), its backward at 192 (deepseek-v2's MLA training shape,
-   also against autograd, run twice, a row with no key, float32) and the
+   sk, float32), its backward at 160 and 192 (stablelm-12b's and
+   deepseek-v2's MLA training shapes, GQA with a window, also against
+   autograd, run twice, rows with no key, sq != sk, float32) and the
    GQA decode at 160 (stablelm-12b's decode, two whole splits masked, an
    all-invalid row, non-finite masked slots, float32); each with its time,
    the plain version's,
@@ -45,9 +51,14 @@ Phases, each printing its lines before the last:
    torch.profiler trace of one prefill and one decode step for the
    device's busy time and idle share and the largest kernels; (b) its
    logits against the same path on the plain versions; (c) 16 requests
-   through the continuous and the disaggregated batchers, against
-   per-request greedy decoding, and one decode step alone against the same
-   step as a row of a batch of 8;
+   through the continuous and the disaggregated batchers, each request's
+   tokens required equal to its per-request greedy decoding -- for the
+   first request that leaves it (before the phase fails),
+   a probe re-runs both up to that token with the decode step's
+   sub-layers, norms, attention, MoE and Mamba2 functions hooked and
+   prints the first output of that request's row that differs between
+   the batch and the request alone, with its shapes and kernels -- and
+   one decode step alone against the same step as a row of a batch of 8;
 4. deepseek-v2-236b at its published widths and 4 of its 60 layers (all
    60 do not fit one card), bf16 weights with a float32 router, random
    from a seed: the same (a) serving run and trace, through MLA prefill
@@ -81,20 +92,29 @@ Phases, each printing its lines before the last:
    8, sequence 1024, microbatch 1 and block remat, 1 warm-up + 12 timed
    steps with the launch counts set to 0 just before and read just after:
    step time, tokens/s, MFU, peak device memory over step 1, the loss
-   falling; a torch.profiler trace of one step; one microbatch's loss and
-   grad norm against the plain versions;
+   falling; the port's own peak prediction
+   (``repro_torch.core.memory_model.exact_peak_bytes``, required equal to
+   the JAX package's, and the observed peak required not above it), its
+   accuracy and the paper formula's, and the sample's memory feedback
+   plane answers (``core.memtrace``); a torch.profiler trace of one step;
+   one microbatch's loss and grad norm against the plain versions;
 8. mamba2-130m at full width and depth, trained as gpt2-350m is (the
    same traffic), through ``ssd_scan``, its gradient ``ssd_scan_bwd`` and
    ``adam_update``;
 9. stablelm-12b whole (40 layers, d_model 5120, 32/8 heads of 160), bf16,
    random from a seed: the same (a), (b) and (c) as llama's, through the
    attention forward and the GQA decode at head dim 160, with the peak
-   device memory beside the JAX package's serving prediction;
+   device memory of the whole run and of the decode steps alone beside
+   the port's serving prediction (``serve_peak_bytes``, required equal to
+   the JAX package's);
 10. deepseek-v2-236b at its published widths, 4 of its 60 layers and 16
    of its 160 routed experts (top-6 and both shared experts kept), trained
    as gpt2-350m is, through the attention forward and backward at head dim
    192 and ``adam_update``: MFU on the active parameters, and the share of
-   routing choices the kernel and plain paths agree on.
+   routing choices the kernel and plain paths agree on;
+11. stablelm-12b at its published widths and 8 of its 40 layers, trained
+   as gpt2-350m is, through the attention forward and backward at head
+   dim 160 and ``adam_update``.
 
 The script sets the caching allocator's expandable segments as the entry
 points do (``repro_torch.launch.configure_allocator``).  Each phase prints
@@ -167,12 +187,17 @@ ADAM_ATOL, ADAM_RTOL = 1e-6, 1e-5
 # every gradient (the grad norm is dominated by the largest).  A wrong
 # mask, head mapping, decay or gradient term moves either by its own scale.
 LOSS_RTOL, GNORM_RTOL = 1e-2, 5e-2
-# The JAX package's exact_peak_bytes(arch, 8, 1024, d=1, t=1, zero=1,
-# microbatch=1) for the training cells, printed beside the card's peak.
+# The JAX package's exact_peak_bytes(cfg, 8, 1024, d=1, t=1, zero=1,
+# microbatch=1) for the training cells (cfg cut as TRAIN_CUTS says): the
+# port's own prediction (repro_torch.core.memory_model) must equal it, and
+# the card's peak over step 1 must not exceed it -- MARP places a job by the
+# prediction, so a peak above it is an out-of-memory on a real cluster.
 JAX_PREDICTED_PEAK = {"gpt2-350m": 8_691_153_715, "mamba2-130m": 4_841_272_883,
-                      "deepseek-v2-236b": 70_503_875_379}
+                      "deepseek-v2-236b": 70_503_875_379,
+                      "stablelm-12b": 67_480_961_843}
 TRAIN_PARAMS = {"gpt2-350m": 353_503_232, "mamba2-130m": 167_598_528,
-                "deepseek-v2-236b": 3_344_552_960}
+                "deepseek-v2-236b": 3_344_552_960,
+                "stablelm-12b": 3_250_672_640}
 # deepseek-v2's training cell: 4 of its 60 layers (the serving cell's) and
 # 16 of its 160 routed experts, top-6 and both shared experts kept, so a
 # token sees the published per-token work (2,400,834,560 active parameters
@@ -180,7 +205,13 @@ TRAIN_PARAMS = {"gpt2-350m": 353_503_232, "mamba2-130m": 167_598_528,
 # parameter in a step (bf16 param, fp32 master, m, v, gradient sum and a
 # microbatch's bf16 gradients): ~67 GB before activations, where all 160
 # experts would need ~520 GB.
-TRAIN_CUTS = {"deepseek-v2-236b": dict(num_layers=4, num_experts=16)}
+# stablelm-12b's training cell: 8 of its 40 layers at published widths
+# (32/8 heads of 160, d_model 5120, d_ff 13824): 3,250,672,640 parameters,
+# predicted 67,480,961,843 B by the JAX model above; all 40 layers are
+# predicted 245.7 GB, and the card's training peaks have run at 0.88-0.95
+# of the prediction, so 8 layers fit its 80 GB (6 would be 56.3 GB).
+TRAIN_CUTS = {"deepseek-v2-236b": dict(num_layers=4, num_experts=16),
+              "stablelm-12b": dict(num_layers=8)}
 # Kernel path vs plain path, max |logit delta| / max |logit|, bf16 at full
 # width: the two paths round attention differently (p to bf16 before PV in
 # the kernels, float32 throughout in the plain versions; bf16 steps are
@@ -245,15 +276,16 @@ JAMBA_LOGITS_ATOL = 0.64
 MMA_KERNELS = {"flash_attention": [(("flash_attention_mma",),
                                     (32, 48, 64, 128, 160, 192))],
                "flash_attention_bwd": [(("bwd_dkdv_mma",), (32, 64, 128)),
-                                       (("bwd_dkdv_split_mma",), (192,)),
-                                       (("bwd_dq_mma",), (32, 64, 128, 192))],
+                                       (("bwd_dkdv_split_mma",), (160, 192)),
+                                       (("bwd_dq_mma",), (32, 64, 128, 160, 192))],
                "ssd_scan": [(("ssd_cb",), (16, 128)),
                             (("ssd_seg_state", "ssd_chunk_scan"), (32, 64))],
                "ssd_scan_bwd": [(("ssd_bwd_chunk_mma", "ssd_bwd_grads_mma"), (32, 64))],
                "flash_decode_mla": [(("mla_partials_mma",), (32, 512))]}
 
 # stablelm-12b whole: 40 layers, 32/8 heads of 160, bf16; the JAX
-# package's serve_peak_bytes(cfg, 8, 544, d=1, t=1) beside the card's peak
+# package's serve_peak_bytes(cfg, 8, 544, d=1, t=1) beside the card's peaks
+# (the whole run's and the decode steps' alone, which it models)
 STABLELM_PARAMS = 12_142_924_800
 SERVE_PREDICTED_PEAK = {"stablelm-12b": 25_182_382_080}
 
@@ -285,11 +317,29 @@ STABLELM_DECODE = dict(b=8, S=544, H=32, K=8, D=160)
 # deepseek-v2's MLA training microbatch: b=1, s=1024, H=K=128 at qk width
 # dn + dr = 192 (v zero-padded to it), causal
 MLA_TRAIN = dict(b=1, s=1024, H=128, D=192)
+# stablelm-12b's training microbatch: b=1, s=1024, 32 query heads on 8 KV
+# heads of 160, causal
+STABLELM_TRAIN = dict(b=1, s=1024, H=32, K=8, D=160)
 
 
 def check(cond, msg):
     if not cond:
         raise RuntimeError(msg)
+
+
+def norms_per_pass(cfg):
+    """rms_norm launches in one forward pass of ``cfg`` (a prefill or a
+    decode step): each layer's input norm, its FFN's norm where it has an
+    FFN, Mamba2's gated norm, MLA's latent norms (kv_ln, and q_ln with a
+    query rank); then the final norm."""
+    n = 1
+    for l in range(cfg.num_layers):
+        n += 1 + (cfg.layer_is_moe(l) or cfg.d_ff > 0)
+        if cfg.layer_kind(l) == "ssm":
+            n += 1
+        elif cfg.attention == "mla":
+            n += 1 + bool(cfg.q_lora_rank)
+    return n
 
 
 def demangle(mangled):
@@ -364,7 +414,7 @@ def report_build():
     and tensor-core instructions from the SASS.  Fails unless every bf16
     body of MMA_KERNELS (attention at every head dim, the SSD scan's and
     the MLA decode's at both widths) has HMMA (or HGMMA) instructions and
-    the gradient kernels have no atomics."""
+    the gradient kernels and the norm have no atomics."""
     from repro_torch.kernels import _build
     for src in _build.sources():
         lib = _build.library(src)
@@ -376,7 +426,7 @@ def report_build():
                   f" {r['spill_stores']} B spill stores, {r['spill_loads']} B"
                   f" spill loads, {r['stack']} B stack, {r['static_smem']} B"
                   f" static smem, {ops['HMMA'] + ops['HGMMA']} HMMA/HGMMA")
-        if src in ("flash_attention_bwd", "ssd_scan_bwd"):
+        if src in ("flash_attention_bwd", "ssd_scan_bwd", "rms_norm"):
             # ATOM* and RED are memory atomics; REDUX is a warp reduction
             atomics = sum(c for ops in sass.values() for op, c in ops.items()
                           if op.startswith("ATOM") or op == "RED")
@@ -625,6 +675,7 @@ def phase_kernels(peaks, flush):
     rows.update(phase_adam(peaks, flush, gen))
     rows.update(phase_ssd_kernel(peaks, flush, gen))
     rows.update(phase_ssd_bwd(peaks, flush, gen))
+    rows.update(phase_rms_norm(peaks, flush, gen))
     for r in rows.values():
         library = ("none" if r["library_ms"] is None
                    else f"{r['library_ms']:.4f} ms")
@@ -632,6 +683,66 @@ def phase_kernels(peaks, flush):
               f" plain {r['plain_ms']:.4f} ms, library {library},"
               f" bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
     return rows
+
+
+def phase_rms_norm(peaks, flush, gen):
+    """The RMSNorm kernel against its plain version (within the kernels'
+    tolerance: they sum in other orders), rerun bit-identical, and 8 rows
+    at once against each alone bit for bit, at the main paths' widths:
+    llama's prefill (its row for the kernels line) and decode, Mamba2's
+    gated norm (mamba2-130m's d_inner 1536, jamba's 16384), stablelm's
+    5120, float32, and a bf16 x with a float32 scale."""
+    from repro_torch.kernels.rms_norm import rms_norm, rms_norm_ref
+    bf16, f32 = torch.bfloat16, torch.float32
+    row = {}
+    for name, rows_, d, dt, sdt in [
+            ("llama_prefill", 4096, 3072, bf16, bf16),
+            ("llama_decode", 8, 3072, bf16, bf16),
+            ("mamba2_gated", 8, 1536, bf16, bf16),
+            ("jamba_gated", 8, 16384, bf16, bf16),
+            ("stablelm_decode", 8, 5120, bf16, bf16),
+            ("fp32_rows37", 37, 768, f32, f32),
+            ("bf16_x_fp32_scale", 8, 4096, bf16, f32)]:
+        x = (3 * torch.randn(rows_, 1, d, generator=gen, device="cuda")).to(dt)
+        scale = torch.randn(d, generator=gen, device="cuda").to(sdt)
+        got, _ = rms_norm(x, scale)
+        want = rms_norm_ref(x, scale)
+        tol = BF16_TOL if dt == bf16 else FP32_TOL
+        err = rel_max_err(got, want)
+        same = torch.equal(rms_norm(x, scale)[0], got)
+        alone = torch.cat([rms_norm(x[i:i + 1], scale)[0] for i in range(8)])
+        invariant = torch.equal(alone, got[:8])
+        plain_alone = torch.cat([rms_norm_ref(x[i:i + 1], scale) for i in range(8)])
+        ok = err <= tol and same and invariant
+        print(f"kernel rms_norm {name} rows={rows_} d={d} {str(dt)[6:]} scale"
+              f" {str(sdt)[6:]}: max|d|/max|ref| {err:.3e} tol={tol:g},"
+              f" bit-identical rerun {same}, 8 rows alone = in a batch"
+              f" {invariant} (plain version: {torch.equal(plain_alone, want[:8])})"
+              f" {'ok' if ok else 'FAIL'}")
+        check(ok, f"rms_norm {name} disagrees with its plain version or"
+                  f" depends on the rows beside it")
+        if name not in ("llama_prefill", "llama_decode"):
+            continue
+        # x in, y out, the scale and the row scales: one pass of each
+        nbytes = 2 * x.numel() * x.element_size() + d * scale.element_size() \
+            + 4 * rows_
+        bound_ms, bound_by = bound(nbytes, 4 * x.numel(), peaks, rate=peaks[2])
+        ms = time_ms(lambda: rms_norm(x, scale), flush)
+        plain_ms = time_ms(lambda: rms_norm_ref(x, scale), flush)
+        library_ms = time_ms(lambda: F.rms_norm(x, (d,), scale, 1e-5), flush)
+        print(f"time rms_norm {name} ({nbytes} bytes): kernel {ms:.4f} ms, plain"
+              f" {plain_ms:.4f} ms, library (F.rms_norm) {library_ms:.4f} ms,"
+              f" bound {bound_ms:.6f} ms ({bound_by})")
+        if name == "llama_prefill":
+            row["rms_norm"] = dict(
+                name="rms_norm", route="cuda",
+                source="src/repro_torch/kernels/csrc/rms_norm.cu",
+                replaces="src/repro/models/common.py:8 (rms_norm; no Pallas"
+                         " kernel)",
+                max_abs_err=(got.float() - want.float()).abs().max().item(),
+                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=library_ms)
+    return row
 
 
 def phase_mla_kernels(peaks, flush, gen, randn):
@@ -783,7 +894,13 @@ def phase_attention_bwd(peaks, flush, randn):
             ("mla_gqa_window", 2, 300, 300, 8, 2, 192, True, 64, bf16),
             ("mla_no_key_rows", 1, 40, 8, 4, 4, 192, True, 4, bf16),
             ("mla_noncausal_sq!=sk", 2, 96, 200, 4, 2, 192, False, 0, bf16),
-            ("mla_fp32_ragged", 1, 130, 130, 4, 4, 192, True, 0, f32)]:
+            ("mla_fp32_ragged", 1, 130, 130, 4, 4, 192, True, 0, f32),
+            ("stablelm_train", *(STABLELM_TRAIN[k] for k in "bss"),
+             *(STABLELM_TRAIN[k] for k in "HKD"), True, 0, bf16),
+            ("stablelm_gqa_window", 2, 300, 300, 8, 2, 160, True, 64, bf16),
+            ("stablelm_no_key_rows", 1, 40, 8, 8, 2, 160, True, 4, bf16),
+            ("stablelm_noncausal_sq!=sk", 2, 96, 200, 4, 2, 160, False, 0, bf16),
+            ("stablelm_fp32_ragged", 1, 130, 130, 8, 2, 160, True, 0, f32)]:
         kw = dict(causal=causal, window=window)
         q, k, v = randn(b, sq, H, D, dtype=dt), randn(b, sk, K, D, dtype=dt), \
             randn(b, sk, K, D, dtype=dt)
@@ -797,7 +914,7 @@ def phase_attention_bwd(peaks, flush, randn):
         err = max(rel_max_err(g, e) for g, e in zip(got, explicit))
         ok = err <= tol and same and all(
             bool(torch.isfinite(g.float()).all()) for g in got)
-        if name == "mla_no_key_rows":
+        if name.endswith("no_key_rows"):
             # rows 11.. see no key: zero gradients, where autograd through
             # the plain forward (the mean of V there) has none to compare
             err_ag = float("nan")
@@ -815,7 +932,7 @@ def phase_attention_bwd(peaks, flush, randn):
               f" {'ok' if ok else 'FAIL'}")
         check(ok, f"flash_attention_bwd {name} disagrees with its plain"
                   f" versions or is not deterministic")
-        if name not in ("train", "mla_train"):
+        if name not in ("train", "mla_train", "stablelm_train"):
             continue
         pairs = sq * (sq + 1) // 2
         nbytes = 2 * (4 * q.numel() + 2 * k.numel() + 2 * v.numel()) \
@@ -827,15 +944,17 @@ def phase_attention_bwd(peaks, flush, randn):
         # backends, the fastest kept -- the default choice moved between
         # runs (cuDNN's ~0.044 ms, the memory-efficient kernel's ~0.14 ms)
         library = sdpa_backward_ms(q, k, v, do, flush, is_causal=True)
-        if name == "mla_train":
+        if name != "train":
             ms = time_ms(lambda: flash_attention_bwd(q, k, v, o, lse, do, **kw),
                          flush)
             plain_ms = time_ms(lambda: attention_bwd_ref(q, k, v, o, lse, do,
                                                          **kw), flush)
             _, parts, _ = device_profile(
                 lambda: flash_attention_bwd(q, k, v, o, lse, do, **kw), 10)
-            print(f"time flash_attention_bwd D=192 (deepseek-v2 MLA training"
-                  f" b={b} s={sq} H=K={H}, {nbytes} bytes,"
+            cell = ("deepseek-v2 MLA training" if name == "mla_train"
+                    else "stablelm-12b training")
+            print(f"time flash_attention_bwd D={D} ({cell}"
+                  f" b={b} s={sq} H={H} K={K}, {nbytes} bytes,"
                   f" {10 * D * b * H * pairs} flops): kernel {ms:.4f} ms, plain"
                   f" {plain_ms:.4f} ms, library (SDPA's backward alone) "
                   + ", ".join(f"{kb} {m:.4f}" for kb, m in library.items())
@@ -864,10 +983,14 @@ def phase_attention_bwd(peaks, flush, randn):
 def sdpa_backward_ms(q, k, v, do, flush, **kw):
     """{backend: ms} of SDPA's backward alone (one autograd.grad on a
     retained graph) on (b, s, heads, D) inputs, under each backend that
-    takes them: a yardstick, never called on a path."""
+    takes them: a yardstick, never called on a path.  With fewer KV heads
+    than query heads (GQA) K and V are repeated to the query heads first,
+    since SDPA's fused backwards take one head count: its dK and dV are
+    then per query head, without the sum over each group."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
-    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True)
-                  for t in (q, k, v))
+    G = q.shape[2] // k.shape[2]
+    qt, kt, vt = (t.repeat_interleave(g, dim=2).transpose(1, 2).contiguous()
+                  .requires_grad_(True) for t, g in ((q, 1), (k, G), (v, G)))
     dot = do.transpose(1, 2).contiguous()
     library = {}
     for backend in (SDPBackend.CUDNN_ATTENTION, SDPBackend.FLASH_ATTENTION,
@@ -1192,14 +1315,189 @@ def serve_main_path(cfg, params, prompt, new, want_launches):
     return toks, launches
 
 
+# The functions of a decode step that the batch probe hooks, by module
+# (repro_torch.models.* and repro_torch.kernels.dispatch): each sub-layer's
+# end (_ffn_residual, its sub{j} output), the norms, the mixers (GQA and
+# MLA attention, Mamba2) and the FFNs (dense, MoE), and the parts inside
+# them (projections, the attention kernel's dispatch, C . state, the
+# experts' products).
+PROBE_HOOKS = {
+    "models.transformer": ("rms_norm", "mlp", "_ffn_residual", "_head"),
+    "models.attention": ("gqa_project_qkv", "_out_project",
+                         "gqa_attend_decode", "mla_attend_decode"),
+    "models.mamba2": ("_project", "c_dot_state", "gated_rms_norm",
+                      "mamba2_decode"),
+    "models.moe": ("_expert_ffn", "moe_ffn"),
+    "kernels.dispatch": ("flash_decode", "mla_flash_decode"),
+}
+
+
+def _tensors(x):
+    """The tensors of a value: itself, or those in a tuple, list or dict."""
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if isinstance(x, dict):
+        return [t for v in x.values() for t in _tensors(v)]
+    if isinstance(x, (tuple, list)):
+        return [t for v in x for t in _tensors(v)]
+    return []
+
+
+class _Recorder:
+    """While ``on``, each hooked function's call in a decode step is kept as
+    (label, input shapes, the output tensors' row ``row``, the function,
+    its arguments); ``layer`` counts the sub-layers finished in the step."""
+
+    def __init__(self, period):
+        self.period, self.on, self.row = period, False, 0
+        self.calls, self.layer = [], 0
+
+    def start(self, row):
+        self.on, self.row, self.calls, self.layer = True, row, [], 0
+
+
+@contextmanager
+def decode_hooks(rec):
+    """Wraps every function of PROBE_HOOKS to record into ``rec``."""
+    import importlib
+    saved = []
+
+    def hook(mod, name, inner):
+        def wrapped(*args, **kw):
+            out = inner(*args, **kw)
+            if rec.on:
+                # the activation: the first tensor argument (weights and
+                # caches come in dicts, or after it)
+                nb = next(a for a in args if isinstance(a, torch.Tensor)
+                          and a.ndim).shape[0]
+                rows = [t[rec.row:rec.row + 1].clone()
+                        if t.ndim and t.shape[0] == nb else None
+                        for t in _tensors(out)]
+                i, j = divmod(rec.layer, rec.period)
+                # the arguments by reference, for the trace of the call:
+                # a cache written in place since keeps its shapes
+                rec.calls.append((f"block {i} sub{j} {name}"
+                                  if name != "_head" else name,
+                                  [tuple(a.shape) for a in args
+                                   if isinstance(a, torch.Tensor)],
+                                  rows, inner, args, kw))
+                if name == "_ffn_residual":
+                    rec.layer += 1
+            return out
+        return wrapped
+
+    try:
+        for path, names in PROBE_HOOKS.items():
+            mod = importlib.import_module(f"repro_torch.{path}")
+            for name in names:
+                inner = getattr(mod, name)
+                saved.append((mod, name, inner))
+                setattr(mod, name, hook(mod, name, inner))
+        yield rec
+    finally:
+        for mod, name, inner in saved:
+            setattr(mod, name, inner)
+
+
+class _ProbeDone(Exception):
+    """Raised out of the batcher once the probed token's step is kept."""
+
+
+def batch_probe(cfg, params, prompts, new, cls, r, t):
+    """Request ``r``'s row through ``cls`` against its per-request greedy
+    decode, whose token ``t`` it first leaves: both re-run up to that token
+    with every PROBE_HOOKS function recorded, then the row's outputs are
+    compared bit for bit, decode step by decode step and, inside a step, in
+    the order they were computed.  Prints the first output that differs,
+    the shapes it ran at on both sides and the batch's live rows and
+    positions, and the device kernels of that call on each side.  Returns
+    (token, label) of that output, or None when none differs."""
+    from repro_torch.serve import ServeRequest, engine, greedy_decode
+    n, s = prompts.shape
+    cache_len = s + new
+    rec = _Recorder(cfg.block_period)
+    inner_step = engine.decode_step
+    kept = {"greedy": {}, "batch": {}}
+    side = {}
+
+    def step(cfg_, params_, tokens, cache, pos):
+        k, row, ctx = side["where"]()
+        if k is not None and 1 <= k <= t:
+            rec.start(row)
+        try:
+            out = inner_step(cfg_, params_, tokens, cache, pos)
+        finally:
+            rec.on = False
+        if k is not None and 1 <= k <= t:
+            kept[side["name"]][k] = (rec.calls, ctx)
+            if side["name"] == "batch" and k == t:
+                raise _ProbeDone
+        return out
+
+    calls = iter(range(1, t + 1))
+    side.update(name="greedy", where=lambda: (next(calls), 0, "alone, b=1"))
+    engine.decode_step = step
+    try:
+        with decode_hooks(rec):
+            greedy_decode(cfg, params, prompts[r:r + 1], t + 1, cache_len)
+            cb = cls(cfg, params, slots=8, cache_len=cache_len)
+
+            def where():
+                slot = next((i for i, q in enumerate(cb.active)
+                             if q is not None and q.request_id == r), None)
+                if slot is None:
+                    return None, 0, ""
+                live = [i for i, q in enumerate(cb.active) if q is not None]
+                return (len(cb.active[slot].tokens), slot,
+                        f"slot {slot} of {cb.slots}, live slots {live},"
+                        f" positions {cb.pos.tolist()}")
+
+            side.update(name="batch", where=where)
+            for i in range(n):
+                cb.submit(ServeRequest(i, prompts[i], new))
+            try:
+                cb.run()
+            except _ProbeDone:
+                pass
+    finally:
+        engine.decode_step = inner_step
+    for k in range(1, t + 1):
+        (bat, ctx), (alone, _) = kept["batch"][k], kept["greedy"][k]
+        check([c[0] for c in bat] == [c[0] for c in alone],
+              f"probe: the batch and the lone row ran other functions at"
+              f" token {k}")
+        for m, (cb_, ca) in enumerate(zip(bat, alone)):
+            diff = [(x.float() - y.float()).abs().max().item()
+                    for x, y in zip(cb_[2], ca[2])
+                    if x is not None and y is not None and not torch.equal(x, y)]
+            if not diff:
+                continue
+            print(f"(c) probe {cls.__name__}, request {r} (first leaves"
+                  f" per-request greedy at token {t}): its row first differs"
+                  f" at token {k}, output {m + 1} of {len(bat)} of the step,"
+                  f" {cb_[0]} (max|d| {max(diff):.3e}); ran at {cb_[1]} in"
+                  f" the batch ({ctx}), at {ca[1]} alone; every earlier"
+                  f" output and step bit-identical")
+            for where_, (_, _, _, fn, args, kw) in (("batch", cb_), ("alone", ca)):
+                if any(a.is_cuda for a in args if isinstance(a, torch.Tensor)):
+                    _, kernels, _ = device_profile(lambda: fn(*args, **kw), 1)
+                    print(f"(c) probe {cb_[0]} {where_}: kernels "
+                          + "; ".join(f"{kn[:90]}" for kn, _ in kernels[:8]))
+            return k, cb_[0]
+    print(f"(c) probe {cls.__name__}, request {r}: no hooked output of its row"
+          f" differs up to token {t}")
+    return None
+
+
 def serve_batchers(cfg, params, prompts, new):
     """(c) the requests through 8 slots of the continuous and the
-    disaggregated batchers, against per-request greedy decoding (the share
-    that agrees, and where the others first differ, are reported, not
-    required); then the first decode step of requests 0-7, each alone
-    against the same rows as one batch of 8 (what the batchers run), which
-    measures how far a step's logits depend on the batch around a row on
-    this card."""
+    disaggregated batchers, against per-request greedy decoding: every
+    request's tokens must equal its own (the reference's batcher contract,
+    kept since the norms sum each row in a fixed order); for each batcher,
+    the first request that leaves greedy goes through ``batch_probe`` before
+    the phase fails; then the first decode step of requests 0-7, each alone
+    against the same rows as one batch of 8, which measures how far a step's
+    logits depend on the batch around a row on this card."""
     from repro_torch.serve import (ContinuousBatcher, DisaggregatedBatcher,
                                    ServeRequest, greedy_decode, prefill,
                                    serve_step)
@@ -1207,6 +1505,7 @@ def serve_batchers(cfg, params, prompts, new):
     cache_len = s + new
     want = {i: greedy_decode(cfg, params, prompts[i:i + 1], new, cache_len)[0].tolist()
             for i in range(n)}
+    shares = []
     for cls in (ContinuousBatcher, DisaggregatedBatcher):
         cb = cls(cfg, params, slots=8, cache_len=cache_len)
         torch.cuda.synchronize()
@@ -1221,12 +1520,16 @@ def serve_batchers(cfg, params, prompts, new):
               and all(len(t) == new for t in out.values()),
               f"{cls.__name__} did not serve all {n} requests")
         same = sum(out[i] == want[i] for i in range(n)) / n
+        shares.append(same)
         first = [next(k for k, (a, c) in enumerate(zip(out[i], want[i])) if a != c)
                  for i in range(n) if out[i] != want[i]]
         print(f"(c) {cls.__name__}: {len(out)} requests, {n_tok} tokens,"
               f" {cb.decode_steps} decode steps, {dt:.3f}s {n_tok / dt:.1f} tok/s,"
               f" share equal to per-request greedy {same:.3f}; the others"
               f" first differ at token {first}")
+        if first:
+            r = next(i for i in range(n) if out[i] != want[i])
+            batch_probe(cfg, params, prompts, new, cls, r, first[0])
     caches = [prefill(cfg, params, {"tokens": prompts[i:i + 1]}, cache_len)[1]
               for i in range(8)]
     batch = {j: {k: torch.cat([c[j][k] for c in caches], dim=1) for k in sub}
@@ -1237,6 +1540,8 @@ def serve_batchers(cfg, params, prompts, new):
     together, _ = serve_step(cfg, params, tok, batch, s)
     print(f"(c) first decode step of requests 0-7, each alone vs as one batch"
           f" of 8: max|dlogit|/max|logit| {rel_max_err(together, alone):.3e}")
+    check(shares == [1.0, 1.0], f"{cfg.name}: the batchers' tokens leave"
+                                f" per-request greedy ({shares})")
 
 
 def phase_model(arch="llama3.2-3b", seed=2, want_params=None):
@@ -1244,6 +1549,7 @@ def phase_model(arch="llama3.2-3b", seed=2, want_params=None):
     stablelm-12b (head dim 160) with its parameter count checked and its
     peak device memory beside the JAX package's serving prediction."""
     from repro_torch.configs import get_arch
+    from repro_torch.core.memory_model import serve_bytes_split, serve_peak_bytes
     from repro_torch.kernels import LAUNCHES, dispatch
     from repro_torch.models import init_params, param_count
     from repro_torch.serve import prefill, serve_step
@@ -1265,7 +1571,8 @@ def phase_model(arch="llama3.2-3b", seed=2, want_params=None):
     prompt = torch.randint(0, cfg.vocab_size, (b, s), generator=gen, device="cuda")
     want = dict.fromkeys(LAUNCHES, 0)
     want.update(flash_attention=cfg.num_layers,
-                flash_decode_gqa=cfg.num_layers * (new - 1))
+                flash_decode_gqa=cfg.num_layers * (new - 1),
+                rms_norm=norms_per_pass(cfg) * new)
     torch.cuda.reset_peak_memory_stats()
     toks, launches = serve_main_path(cfg, params, prompt, new, want)
     if arch in SERVE_PREDICTED_PEAK:
@@ -1273,6 +1580,27 @@ def phase_model(arch="llama3.2-3b", seed=2, want_params=None):
         print(f"(a) peak device memory over the serving run and its trace:"
               f" {peak} B; the JAX package's serve_peak_bytes(b={b},"
               f" cache_len={cache_len}) prediction {SERVE_PREDICTED_PEAK[arch]} B")
+        # the decode steps alone, which serve_peak_bytes models (weights,
+        # cache, a small workspace): the peak is reset after the prefill
+        # and the ring caches' build
+        _, cache = prefill(cfg, params, {"tokens": prompt}, cache_len)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for i in range(new - 1):
+            _, cache = serve_step(cfg, params, toks[:, i:i + 1], cache, s + i)
+        torch.cuda.synchronize()
+        decode_peak = torch.cuda.max_memory_allocated()
+        del cache
+        w, c, ws = serve_bytes_split(cfg, b, cache_len, 1, 1)
+        predicted = serve_peak_bytes(cfg, b, cache_len, 1, 1)
+        check(predicted == SERVE_PREDICTED_PEAK[arch],
+              f"the port's serve_peak_bytes {predicted} != the JAX package's")
+        print(f"(a) peak device memory over the {new - 1} decode steps alone:"
+              f" {decode_peak} B; the port's serve_peak_bytes {predicted:.0f} B"
+              f" (weights {w:.0f}, cache {c:.0f}, workspace {ws:.0f});"
+              f" decode peak / predicted {decode_peak / predicted:.4f}, whole"
+              f" run / predicted {peak / predicted:.4f} (reported, not"
+              f" required)")
 
     # (b) kernel path against the plain path: prefill logits, first decode
     def first_two():
@@ -1325,7 +1653,8 @@ def phase_deepseek():
     prompt = torch.randint(0, cfg.vocab_size, (b, s), generator=gen, device="cuda")
     want = dict.fromkeys(LAUNCHES, 0)
     want.update(flash_attention=cfg.num_layers,
-                flash_decode_mla=cfg.num_layers * (new - 1))
+                flash_decode_mla=cfg.num_layers * (new - 1),
+                rms_norm=norms_per_pass(cfg) * new)
     toks, launches = serve_main_path(cfg, params, prompt, new, want)
 
     # (b1) layer 0's MLA, which no routing precedes: prefill output, and the
@@ -1389,7 +1718,7 @@ def phase_mamba2():
     gen = torch.Generator(device="cuda").manual_seed(4)
     prompt = torch.randint(0, cfg.vocab_size, (b, s), generator=gen, device="cuda")
     want = dict.fromkeys(LAUNCHES, 0)
-    want.update(ssd_scan=cfg.num_layers)
+    want.update(ssd_scan=cfg.num_layers, rms_norm=norms_per_pass(cfg) * new)
     toks, launches = serve_main_path(cfg, params, prompt, new, want)
 
     # (a') one prompt of 32,768 tokens, timed after a warm-up prefill
@@ -1606,7 +1935,8 @@ def phase_jamba():
     prompt = torch.randint(0, cfg.vocab_size, (b, s), generator=gen, device="cuda")
     want = dict.fromkeys(LAUNCHES, 0)
     want.update(flash_attention=n_attn, flash_decode_gqa=n_attn * (new - 1),
-                ssd_scan=cfg.num_layers - n_attn)
+                ssd_scan=cfg.num_layers - n_attn,
+                rms_norm=norms_per_pass(cfg) * new)
     toks, launches = serve_main_path(cfg, params, prompt, new, want)
 
     # (a') one prompt of 32,768 tokens, timed after a warm-up prefill
@@ -1709,6 +2039,7 @@ def phase_train(peaks, arch):
     """Training ``arch`` at full width (and depth, but for TRAIN_CUTS):
     global batch 8 x 1024, microbatch 1, block remat, 1 warm-up + 12 timed
     steps."""
+    from repro_torch.core import memtrace
     from repro_torch.data import SyntheticTokens
     from repro_torch.kernels import LAUNCHES, dispatch, reset_launches
     from repro_torch.launch.train import loss_fell, to_device, train
@@ -1748,9 +2079,11 @@ def phase_train(peaks, arch):
     launches = dict(LAUNCHES)
     n_micro = out["n_micro"]
     # a layer's forward kernel runs twice a microbatch (the forward, and its
-    # recompute under block remat in the backward), its gradient once
+    # recompute under block remat in the backward), its gradient once; the
+    # final norm, outside the blocks, once
     want = dict.fromkeys(LAUNCHES, 0)
-    want.update(flash_attention=2 * n_attn * n_micro * steps,
+    want.update(rms_norm=(2 * norms_per_pass(cfg) - 1) * n_micro * steps,
+                flash_attention=2 * n_attn * n_micro * steps,
                 flash_attention_bwd=n_attn * n_micro * steps,
                 ssd_scan=2 * n_ssm * n_micro * steps,
                 ssd_scan_bwd=n_ssm * n_micro * steps,
@@ -1769,11 +2102,25 @@ def phase_train(peaks, arch):
           f" ((6 N_active tokens + {attn_flops:.3e} attention flops, no SSD"
           f" term; N_active {n_active} of {n_params})"
           f" / (step x {peaks[1]:.3g})), launches {launches}")
-    peak, predicted = out["peak_bytes"], JAX_PREDICTED_PEAK[arch]
+    peak, memory = out["peak_bytes"], out["memory"]
+    predicted = memory["exact_bytes"]
+    with memtrace.feedback():             # the corrector reads the samples
+        corrected = memtrace.corrected_bytes(cfg.family, tc.zero, "H100-80G",
+                                             predicted)
+        margin = memtrace.margin_for(cfg.family, tc.zero, "H100-80G")
     print(f"(t) peak device memory over step 1: {peak} B"
-          f" ({peak / 2**30:.3f} GiB); the JAX package's exact_peak_bytes"
-          f" prediction for the cell: {predicted} B"
-          f" ({predicted / 2**30:.3f} GiB)")
+          f" ({peak / 2**30:.3f} GiB); the port's exact_peak_bytes prediction"
+          f" {predicted:.0f} B ({predicted / 2**30:.3f} GiB; the JAX package's"
+          f" {JAX_PREDICTED_PEAK[arch]} B), accuracy {memory['acc_exact']:.4f};"
+          f" paper_peak_bytes {memory['paper_bytes']:.0f} B, accuracy"
+          f" {memory['acc_paper']:.4f}; observed / predicted"
+          f" {peak / predicted:.4f}; memtrace ({memory['device_type']}):"
+          f" corrected_bytes {corrected:.0f} B, margin_for {margin:.4f}")
+    check(predicted == JAX_PREDICTED_PEAK[arch],
+          f"the port's prediction {predicted} != the JAX package's"
+          f" {JAX_PREDICTED_PEAK[arch]}")
+    check(peak <= predicted, f"{arch}'s peak {peak} B exceeds the prediction"
+                             f" {predicted:.0f} B")
     check(all(math.isfinite(x) for x in losses), f"non-finite loss {losses}")
     check(loss_fell(losses), f"loss did not fall: {losses}")
     check(launches == want, f"training path launch counts {launches} != {want}")
@@ -2037,7 +2384,7 @@ def main():
           f" use {expandable_segments()}")
     rows = timed_phase("kernels", lambda: phase_kernels(peaks, flush))
     del flush
-    # launches: the sum over the eight main-path runs, each counted from 0
+    # launches: the sum over the nine main-path runs, each counted from 0
     path_launches = [timed_phase("llama3.2-3b serving", phase_model),
                      timed_phase("deepseek-v2-236b serving", phase_deepseek),
                      timed_phase("mamba2-130m serving", phase_mamba2),
@@ -2049,13 +2396,16 @@ def main():
                      timed_phase("stablelm-12b serving", lambda: phase_model(
                          "stablelm-12b", seed=8, want_params=STABLELM_PARAMS)),
                      timed_phase("deepseek-v2-236b training",
-                                 lambda: phase_train(peaks, "deepseek-v2-236b"))]
+                                 lambda: phase_train(peaks, "deepseek-v2-236b")),
+                     timed_phase("stablelm-12b training",
+                                 lambda: phase_train(peaks, "stablelm-12b"))]
     for kname, row in rows.items():
         row["launches"] = sum(launches[kname] for launches in path_launches)
     print(f"total wall time {time.perf_counter() - t0:.1f}s")
     print(json.dumps({"kernels": [rows[k] for k in (
         "flash_attention", "flash_attention_bwd", "flash_decode_gqa",
-        "flash_decode_mla", "adam_update", "ssd_scan", "ssd_scan_bwd")]}))
+        "flash_decode_mla", "adam_update", "ssd_scan", "ssd_scan_bwd",
+        "rms_norm")]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))
     return 0

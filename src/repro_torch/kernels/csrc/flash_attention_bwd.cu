@@ -76,6 +76,19 @@
 // with 32-key tiles at D = 192 (dQ's 96 accumulators a thread, S and dP
 // of 32 keys): no exchange, the same products.
 //
+// D = 160 (stablelm-12b's training: b=1, s=1024, H=32, K=8, causal) takes
+// the same two blocks.  The 4-warp dK/dV block would hold 2 x 80 float32
+// accumulators a thread before S^T, dP^T and their fragments, past 255
+// registers; a 32-row q tile would halve the products a K/V tile's load
+// buys.  So the split block runs at D/2 = 80 columns a warp group (10
+// n-tiles of 8: 2 x 40 accumulators a thread), and the dQ block at 32-key
+// tiles (80 accumulators).  A 160-wide row is 20 16-byte chunks, no power
+// of two: Tile<160> gives each row 24 chunk slots (the forward's layout),
+// so the XOR swizzle stays inside each 8-chunk group and the head dim is
+// not padded (zero columns would cost a fifth more products).  The
+// function needs 5 products of 2 x 32 x 524,800 x 160 flops at that shape
+// (2.69e10, ~0.027 ms at 989 TFLOP/s) against ~52 MB (~0.016 ms).
+//
 // float32 keeps the first version's bodies on the CUDA cores, chosen by
 // the template type (TF32 cannot hold the 2e-5 the float32 callers are
 // held to): 256 threads, 32 x 32 float32 tiles with rows padded by one
@@ -352,8 +365,8 @@ constexpr int dkdv_smem_bytes() {
          4 * QR * (int)sizeof(float);
 }
 
-// keys per k tile of the dQ block: 32 at D = 192, where dQ alone is 96
-// float32 registers a thread
+// keys per k tile of the dQ block: 32 at D = 160 and 192, where dQ alone
+// is 80 and 96 float32 registers a thread
 template <int D>
 struct DqKeys {
   static constexpr int value = D > 128 ? 32 : MMA_KEYS;
@@ -365,7 +378,7 @@ constexpr int dq_smem_bytes() {
          (int)sizeof(bf16);
 }
 
-// the dK/dV block of D = 192: two groups of four warps split D
+// the dK/dV block of D = 160 and 192: two groups of four warps split D
 constexpr int SPLIT_THREADS = 256;
 constexpr int SPLIT_QR = 64;  // query rows per q tile
 
@@ -804,7 +817,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
         static_cast<const T*>(v), static_cast<const T*>(dout), lse, Di,
         static_cast<T*>(dq), sq, sk, H, K, causal, window, scale);
   } else {
-    if constexpr (D > 128) {  // the split dK/dV block: two groups of four warps
+    if constexpr (D > 128) {  // 160, 192: the split dK/dV block, two groups of four warps
       constexpr int dkdv_smem = dkdv_split_smem_bytes<D>();
       auto dkdv = bwd_dkdv_split_mma<D>;
       err = cudaFuncSetAttribute(dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, dkdv_smem);
@@ -850,6 +863,7 @@ cudaError_t launch_d(int D, const void* q, const void* k, const void* v,
     case 32: return launch<T, 32>(q, k, v, o, dout, lse, Di, dq, dk, dv, b, sq, sk, H, K, causal, window, scale, s);
     case 64: return launch<T, 64>(q, k, v, o, dout, lse, Di, dq, dk, dv, b, sq, sk, H, K, causal, window, scale, s);
     case 128: return launch<T, 128>(q, k, v, o, dout, lse, Di, dq, dk, dv, b, sq, sk, H, K, causal, window, scale, s);
+    case 160: return launch<T, 160>(q, k, v, o, dout, lse, Di, dq, dk, dv, b, sq, sk, H, K, causal, window, scale, s);
     case 192: return launch<T, 192>(q, k, v, o, dout, lse, Di, dq, dk, dv, b, sq, sk, H, K, causal, window, scale, s);
     default: return cudaErrorInvalidValue;
   }

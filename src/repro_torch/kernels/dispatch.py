@@ -3,7 +3,9 @@ input tensors.
 
 * a CUDA tensor goes to the hand-written kernel, which launches or raises
   (attention and the SSD scan that must be differentiated go through the
-  autograd ops whose forward and backward are kernels);
+  autograd ops whose forward and backward are kernels; RMSNorm through
+  one whose forward is the kernel and whose backward is PyTorch, as the
+  JAX package has no kernel for it);
 * a CPU tensor goes to the plain PyTorch version in the kernel's ``ref.py``
   (whose gradient, where one is taken, is PyTorch's autograd).
 
@@ -28,6 +30,8 @@ from repro_torch.kernels.flash_decode import (flash_decode_gqa,
                                               gqa_decode_ref, mla_decode_ref)
 from repro_torch.kernels.ssd_scan import (ssd_scan, ssd_scan_ref,
                                           ssd_scan_trainable)
+from repro_torch.kernels.rms_norm import (rms_norm_ref, rms_norm_trainable)
+from repro_torch.kernels.rms_norm import rms_norm as rms_norm_kernel
 
 _forced_ref = False
 
@@ -107,6 +111,19 @@ def ssd(x: torch.Tensor, dt_raw: torch.Tensor, A_log: torch.Tensor,
             return ssd_scan_trainable(*args)
         return ssd_scan(*args)
     return ssd_scan_ref(x, dt_raw, A_log, B, C, D, dt_bias, chunk=chunk)
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5
+             ) -> torch.Tensor:
+    """RMSNorm over the last axis, float32 inside, output in x's dtype.
+    On the card each row's output depends on that row alone (the kernel's
+    fixed summation order); a strided x is made contiguous first."""
+    if _use_kernel(x):
+        x = x.contiguous()
+        if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad):
+            return rms_norm_trainable(x, scale, eps)
+        return rms_norm_kernel(x, scale, eps)[0]
+    return rms_norm_ref(x, scale, eps)
 
 
 @torch.no_grad()

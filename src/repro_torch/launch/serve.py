@@ -26,6 +26,12 @@ starts (on the card this also builds and loads the kernels), then prefill
 and decode are timed separately, each window closed by
 ``torch.cuda.synchronize()`` on the card.
 
+After the timed run the driver prints the local device type's
+decode-bandwidth efficiency and prefill MFU (``core.calibration``'s
+``measured_decode_eff`` and ``measured_prefill_eff``, the JAX driver's
+calibration lines); a device off the catalog (the CPU) gets a line that
+says so.
+
 ``--continuous N`` drives ``ContinuousBatcher`` instead: N requests through
 ``--batch`` cache slots with admissions between decode steps;
 ``--disaggregated`` swaps in ``DisaggregatedBatcher``.
@@ -38,6 +44,8 @@ import time
 import torch
 
 from repro_torch.configs.registry import get_arch, smoke_config
+from repro_torch.core import calibration, memtrace
+from repro_torch.core.devices import DEVICE_TYPES
 from repro_torch.launch import configure_allocator
 from repro_torch.models import init_params
 from repro_torch.serve import (ContinuousBatcher, DisaggregatedBatcher,
@@ -130,6 +138,21 @@ def main(argv=None):
           f" prefill {args.batch}x{args.prompt_len} in {dt_prefill:.4f}s"
           f" ({prefill_tok_s:.1f} tok/s), decode {args.gen - 1} steps in"
           f" {dt_decode:.4f}s ({decode_tok_s:.1f} tok/s)")
+    kind = (torch.cuda.get_device_name(device) if device.type == "cuda"
+            else device.type)
+    dt_name = memtrace.device_type_for(kind)
+    if dt_name == memtrace.ANY_DEVICE:
+        print(f"calibration: {kind} is off the device catalog; decode-bandwidth"
+              f" efficiency and prefill MFU not measured")
+    else:
+        dev = DEVICE_TYPES[dt_name]
+        eff = calibration.measured_decode_eff(decode_tok_s, cfg, args.batch,
+                                              cache_len, 1, 1, dev)
+        print(f"decode-bandwidth efficiency {eff:.3f} of {dt_name}"
+              f" peak (calibration.enable_decode table entry)")
+        pf_eff = calibration.measured_prefill_eff(prefill_tok_s, cfg, 1, dev)
+        print(f"prefill MFU {pf_eff:.3f} of {dt_name} peak"
+              f" (prefill-pool rate model input)")
     print("sample:", toks[0, :12].tolist())
     return toks
 

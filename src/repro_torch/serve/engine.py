@@ -8,8 +8,12 @@ independently).  ``DisaggregatedBatcher`` splits that further: a prefill
 front-end turns pending requests into handoff packets (prefilled cache row
 + first token) and the decode loop only splices ready rows.  Greedy tokens
 equal what ``greedy_decode`` produces for each request alone, as long as
-the matrix products give a row the same bits whatever the batch around it
-(true of the CPU's bfloat16 products; not promised by cuBLAS).
+every op of a decode step gives a row the same bits whatever the batch
+around it: the port's own ops do by construction (the norms' kernel sums
+a row in a fixed order, Mamba2's C . state is ``c_dot_state``, the decode
+kernels' splits follow the cache, not the batch); the matrix products do
+on the CPU in bfloat16, and cuBLAS did at every shape ``chip_smoke.py``
+serves, without promising it.
 
 Everything here runs under ``torch.inference_mode()`` on the device of the
 parameters.  Decode steps write the caches in place.

@@ -44,6 +44,9 @@ def test_importing_the_port_loads_no_jax():
     assert "repro_torch.launch.train" in result["imported"]
     assert "repro_torch.models.mamba2" in result["imported"]
     assert "repro_torch.kernels.ssd_scan.ssd_scan" in result["imported"]
+    for name in ("core.memory_model", "core.memtrace", "core.calibration",
+                 "core.devices", "ckpt.checkpoint"):
+        assert f"repro_torch.{name}" in result["imported"]
     assert result["bad"] == []
 
 

@@ -71,6 +71,15 @@ WIDE_ATTN_CASES = [
     (1, 40, 40, 4, 4, 192, True, 0),
     (1, 70, 70, 2, 2, 192, True, 16),
 ]
+# the backward at stablelm-12b's 160: 4 query heads a KV head as at full
+# width, causal, across the 64-key k tiles and the dQ block's 32-key tiles
+# (b, sq, sk, H, K, D, causal, window)
+BWD_160_CASES = [
+    (1, 100, 100, 8, 2, 160, True, 0),
+    (2, 130, 130, 4, 1, 160, True, 0),        # MQA, a row past two k tiles
+    (1, 70, 70, 4, 1, 160, True, 16),         # G = 4, window
+    (2, 24, 56, 2, 2, 160, False, 0),         # sq != sk
+]
 # stablelm-12b's GQA at its smoke-sized cache: 8 query heads on 2 KV heads
 # of 160, G = 4 as at full width
 WIDE_DECODE = dict(H=8, K=2, D=160)
@@ -166,7 +175,7 @@ def test_attention_ref_at_wide_head_dims_matches_jax(jx, case, dtype):
     test_attention_ref_matches_jax_ref(jx, case, dtype)
 
 
-@pytest.mark.parametrize("case", WIDE_ATTN_CASES)
+@pytest.mark.parametrize("case", WIDE_ATTN_CASES + BWD_160_CASES[:2])
 def test_attention_bwd_ref_at_wide_head_dims_matches_jax_vjp(jx, case):
     """The plain backward (explicit formulas from o and lse) and autograd
     through the plain forward at head dims 160 and 192, float32, against
@@ -357,20 +366,21 @@ def test_wrappers_reject_head_dims_they_were_not_built_for():
     """Each wrapper checks its own tuple of head dims before it looks at
     the device, so this holds on the CPU: the forward takes the MLA widths
     48 and 192 and stablelm's 160 (and then refuses the CPU tensor) but not
-    96, the backward takes 192 but not 160, the GQA decode takes 160 but
-    not 192, and the MLA decode takes r in (32, 512), dr in (16, 64)."""
+    96, the backward takes 160 and 192 but not 48, the GQA decode takes 160
+    but not 192, and the MLA decode takes r in (32, 512), dr in (16, 64)."""
     q = torch.zeros((1, 8, 2, 192))
     q160 = torch.zeros((1, 8, 2, 160))
+    q48 = torch.zeros((1, 8, 2, 48))
     for t in (q, q160):
         with pytest.raises(ValueError, match="CUDA"):
             flash_attention(t, t, t)
     with pytest.raises(ValueError, match="head dim 96"):
         flash_attention(*(torch.zeros((1, 8, 2, 96)),) * 3)
-    with pytest.raises(ValueError, match="CUDA"):
-        flash_attention_bwd(q, q, q, q, torch.zeros((1, 2, 8)), q)
-    with pytest.raises(ValueError, match="flash_attention_bwd: head dim 160"):
-        flash_attention_bwd(q160, q160, q160, q160, torch.zeros((1, 2, 8)),
-                            q160)
+    for t in (q, q160):
+        with pytest.raises(ValueError, match="CUDA"):
+            flash_attention_bwd(t, t, t, t, torch.zeros((1, 2, 8)), t)
+    with pytest.raises(ValueError, match="flash_attention_bwd: head dim 48"):
+        flash_attention_bwd(q48, q48, q48, q48, torch.zeros((1, 2, 8)), q48)
     with pytest.raises(ValueError, match="CUDA"):
         flash_decode_gqa(q160[:, :1], q160, q160,
                          torch.ones((1, 8), dtype=torch.bool))
@@ -526,7 +536,7 @@ class TestKernelsOnCard:
         q = torch.zeros((1, 8, 2, 96), device=cuda)
         with pytest.raises(ValueError, match="head dim"):
             flash_attention(q, q, q)
-        q = torch.zeros((1, 8, 2, 160), device=cuda)
+        q = torch.zeros((1, 8, 2, 48), device=cuda)
         with pytest.raises(ValueError, match="head dim"):
             flash_attention_bwd(q, q, q, q, torch.zeros((1, 2, 8), device=cuda),
                                 q)
@@ -803,6 +813,34 @@ class TestKernelsOnCard:
         kw = dict(causal=True, window=4)
         q, k, v = (t.to(cuda) for t in _attn_inputs(
             (1, 40, 8, 2, 2, 192, True, 4), dtype))
+        do = _randn(np.random.default_rng(6), q.shape, dtype).to(cuda)
+        o, lse = flash_attention_lse(q, k, v, **kw)
+        got = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+        assert not got[0][:, 11:].any()
+        want = attention_bwd_ref(q, k, v, o, lse, do, **kw)
+        for g, w in zip(got, want):
+            assert bool(torch.isfinite(g.float()).all())
+            err = (g.float() - w.float()).abs().max()
+            assert err <= DTYPES[dtype][1] * w.float().abs().max(), err
+
+    @pytest.mark.parametrize("dtype", list(DTYPES))
+    @pytest.mark.parametrize("case", BWD_160_CASES)
+    def test_flash_attention_bwd_at_head_dim_160(self, cuda, case, dtype):
+        """stablelm-12b's training width (the split dK/dV block at 80
+        columns a warp group) against the explicit formulas and autograd
+        through the plain forward, bit-identical on a rerun: GQA at G = 4,
+        MQA, a window and sq != sk."""
+        self.test_flash_attention_bwd_matches_plain(cuda, case, dtype)
+
+    @pytest.mark.parametrize("dtype", list(DTYPES))
+    def test_flash_attention_bwd_at_head_dim_160_rows_with_no_key(self, cuda,
+                                                                  dtype):
+        """Window 4 over 8 keys at head dim 160: rows 11.. of 40 see no key
+        and get dq = 0; every gradient is finite and within tolerance of the
+        explicit formulas."""
+        kw = dict(causal=True, window=4)
+        q, k, v = (t.to(cuda) for t in _attn_inputs(
+            (1, 40, 8, 8, 2, 160, True, 4), dtype))
         do = _randn(np.random.default_rng(6), q.shape, dtype).to(cuda)
         o, lse = flash_attention_lse(q, k, v, **kw)
         got = flash_attention_bwd(q, k, v, o, lse, do, **kw)
