@@ -45,6 +45,12 @@ Phases, each printing its lines before the last:
    the plain version's,
    one PyTorch library call's (none computes the SSD scan or its gradient)
    and the card's bound for the same work;
+(s) the serverless front door (``repro_torch.core.serverless``: MARP
+   predicts, HAS places, the lifecycle engine owns the job) on a cluster
+   of one H100-80G: whole stablelm-12b at batch 8 x 1024 must come back
+   queued with plans of two devices or more only, and llama3.2-3b's
+   serving submission (batch 8, cache 544) must start; its plan's
+   ``pred_bytes`` is printed beside phase 3's peaks;
 3. llama3.2-3b at full width in bfloat16 with random weights from a seed:
    (a) batch prefill + greedy decode -- the serving path, run with the
    launch counts set to 0 just before and read just after, then a
@@ -59,6 +65,9 @@ Phases, each printing its lines before the last:
    prints the first output of that request's row that differs between
    the batch and the request alone, with its shapes and kernels -- and
    one decode step alone against the same step as a row of a batch of 8;
+   the peak device memory of the whole run and of the decode steps alone
+   beside the serving plan's ``pred_bytes`` from (s) (reported, not
+   required);
 4. deepseek-v2-236b at its published widths and 4 of its 60 layers (all
    60 do not fit one card), bf16 weights with a float32 router, random
    from a seed: the same (a) serving run and trace, through MLA prefill
@@ -90,7 +99,14 @@ Phases, each printing its lines before the last:
 7. gpt2-350m at full width (24 layers, bf16 params, fp32 Adam state) --
    the training path, ``repro_torch.launch.train.train`` with global batch
    8, sequence 1024, microbatch 1 and block remat, 1 warm-up + 12 timed
-   steps with the launch counts set to 0 just before and read just after:
+   steps with the launch counts set to 0 just before and read just after,
+   after the cell was submitted through ``serverless.submit`` to a cluster
+   of one H100-80G (the job must be running on plan d=1 t=1, its
+   ``pred_bytes`` equal to the JAX package's prediction, and the cell
+   trains under that plan's batch, sequence and ZeRO stage; after step 1
+   the peak must not exceed ``pred_bytes``, and the job is released and
+   must end done -- were the peak over, the out-of-memory report's replan
+   is printed before the phase fails):
    step time, tokens/s, MFU, peak device memory over step 1, the loss
    falling; the port's own peak prediction
    (``repro_torch.core.memory_model.exact_peak_bytes``, required equal to
@@ -116,7 +132,8 @@ Phases, each printing its lines before the last:
    as gpt2-350m is, through the attention forward and backward at head
    dim 160 and ``adam_update``.
 
-The script sets the caching allocator's expandable segments as the entry
+Every training cell (7, 8, 10, 11) is started through (s)'s front door
+as gpt2-350m's is.  The script sets the caching allocator's expandable segments as the entry
 points do (``repro_torch.launch.configure_allocator``).  Each phase prints
 its wall time.  Then one JSON line of per-kernel numbers and, last, the
 JSON result line.
@@ -189,7 +206,8 @@ ADAM_ATOL, ADAM_RTOL = 1e-6, 1e-5
 LOSS_RTOL, GNORM_RTOL = 1e-2, 5e-2
 # The JAX package's exact_peak_bytes(cfg, 8, 1024, d=1, t=1, zero=1,
 # microbatch=1) for the training cells (cfg cut as TRAIN_CUTS says): the
-# port's own prediction (repro_torch.core.memory_model) must equal it, and
+# port's own prediction (repro_torch.core.memory_model) and the pred_bytes
+# of the plan the port's MARP gives the cell on one H100 must equal it, and
 # the card's peak over step 1 must not exceed it -- MARP places a job by the
 # prediction, so a peak above it is an out-of-memory on a real cluster.
 JAX_PREDICTED_PEAK = {"gpt2-350m": 8_691_153_715, "mamba2-130m": 4_841_272_883,
@@ -212,6 +230,9 @@ TRAIN_PARAMS = {"gpt2-350m": 353_503_232, "mamba2-130m": 167_598_528,
 # of the prediction, so 8 layers fit its 80 GB (6 would be 56.3 GB).
 TRAIN_CUTS = {"deepseek-v2-236b": dict(num_layers=4, num_experts=16),
               "stablelm-12b": dict(num_layers=8)}
+# The cluster the serverless front door places the card's jobs on: one
+# node of one H100-80G (``repro_torch.core.orchestrator.make_cluster``).
+ONE_H100 = [(1, 1, "H100-80G")]
 # Kernel path vs plain path, max |logit delta| / max |logit|, bf16 at full
 # width: the two paths round attention differently (p to bf16 before PV in
 # the kernels, float32 throughout in the plain versions; bf16 steps are
@@ -1544,10 +1565,12 @@ def serve_batchers(cfg, params, prompts, new):
                                 f" per-request greedy ({shares})")
 
 
-def phase_model(arch="llama3.2-3b", seed=2, want_params=None):
+def phase_model(arch="llama3.2-3b", seed=2, want_params=None, serve_plan=None):
     """A dense GQA model at full width and depth: llama3.2-3b, and
     stablelm-12b (head dim 160) with its parameter count checked and its
-    peak device memory beside the JAX package's serving prediction."""
+    peak device memory beside the JAX package's serving prediction; with
+    ``serve_plan`` (llama's, from the front door), its peaks beside the
+    plan's ``pred_bytes``."""
     from repro_torch.configs import get_arch
     from repro_torch.core.memory_model import serve_bytes_split, serve_peak_bytes
     from repro_torch.kernels import LAUNCHES, dispatch
@@ -1575,11 +1598,13 @@ def phase_model(arch="llama3.2-3b", seed=2, want_params=None):
                 rms_norm=norms_per_pass(cfg) * new)
     torch.cuda.reset_peak_memory_stats()
     toks, launches = serve_main_path(cfg, params, prompt, new, want)
-    if arch in SERVE_PREDICTED_PEAK:
+    if arch in SERVE_PREDICTED_PEAK or serve_plan is not None:
         peak = torch.cuda.max_memory_allocated()
         print(f"(a) peak device memory over the serving run and its trace:"
               f" {peak} B; the JAX package's serve_peak_bytes(b={b},"
-              f" cache_len={cache_len}) prediction {SERVE_PREDICTED_PEAK[arch]} B")
+              f" cache_len={cache_len}) prediction"
+              f" {SERVE_PREDICTED_PEAK.get(arch, 'not on record')}"
+              f"{' B' if arch in SERVE_PREDICTED_PEAK else ''}")
         # the decode steps alone, which serve_peak_bytes models (weights,
         # cache, a small workspace): the peak is reset after the prefill
         # and the ring caches' build
@@ -1593,8 +1618,19 @@ def phase_model(arch="llama3.2-3b", seed=2, want_params=None):
         del cache
         w, c, ws = serve_bytes_split(cfg, b, cache_len, 1, 1)
         predicted = serve_peak_bytes(cfg, b, cache_len, 1, 1)
-        check(predicted == SERVE_PREDICTED_PEAK[arch],
-              f"the port's serve_peak_bytes {predicted} != the JAX package's")
+        if arch in SERVE_PREDICTED_PEAK:
+            check(predicted == SERVE_PREDICTED_PEAK[arch],
+                  f"the port's serve_peak_bytes {predicted} != the JAX"
+                  f" package's")
+        if serve_plan is not None:
+            print(f"(s) {arch} serving plan d={serve_plan.d}"
+                  f" t={serve_plan.t} {serve_plan.n_devices}x"
+                  f" {serve_plan.device_type}: pred_bytes"
+                  f" {serve_plan.pred_bytes:.0f} B; the card's decode-only"
+                  f" peak {decode_peak} B"
+                  f" ({decode_peak / serve_plan.pred_bytes:.4f}), whole-run"
+                  f" peak {peak} B ({peak / serve_plan.pred_bytes:.4f})"
+                  f" (reported, not required)")
         print(f"(a) peak device memory over the {new - 1} decode steps alone:"
               f" {decode_peak} B; the port's serve_peak_bytes {predicted:.0f} B"
               f" (weights {w:.0f}, cache {c:.0f}, workspace {ws:.0f});"
@@ -1621,6 +1657,40 @@ def phase_model(arch="llama3.2-3b", seed=2, want_params=None):
     prompts = torch.randint(0, cfg.vocab_size, (16, s), generator=gen, device="cuda")
     serve_batchers(cfg, params, prompts, new)
     return launches
+
+
+def phase_serverless():
+    """(s) The serverless front door on a cluster of one H100-80G: whole
+    stablelm-12b (predicted 245.7 GB on one device) must come back queued
+    with plans of two devices or more only, and llama3.2-3b's serving
+    submission at batch 8, cache 544 must start on d=1 t=1.  Returns the
+    serving plan, whose ``pred_bytes`` phase 3 prints beside its peaks."""
+    from repro_torch.configs import TrainConfig, get_arch
+    from repro_torch.core.orchestrator import Orchestrator, make_cluster
+    from repro_torch.core.serverless import submit, submit_serve
+    orch = Orchestrator(make_cluster(ONE_H100))
+    whole = submit(orch, get_arch("stablelm-12b"),
+                   TrainConfig(global_batch=8, seq_len=1024, zero=1))
+    sizes = sorted({p.n_devices for p in whole.plans})
+    print(f"(s) stablelm-12b whole at 8 x 1024: {whole.job.state},"
+          f" {len(whole.plans)} feasible plans of {sizes} devices; top:"
+          f" d={whole.plans[0].d} t={whole.plans[0].t}, pred_bytes"
+          f" {whole.plans[0].pred_bytes:.0f} B")
+    check(whole.job.state == "queued" and whole.plans and sizes[0] >= 2,
+          f"whole stablelm-12b is {whole.job.state} with plans of {sizes}"
+          f" devices, not queued with plans of two or more")
+    serve = submit_serve(orch, get_arch("llama3.2-3b"), batch=8,
+                         cache_len=544)
+    plan = serve.job.allocation.plan if serve.job.allocation else None
+    print(f"(s) llama3.2-3b serving at batch 8, cache 544: "
+          + serve.describe().replace("\n", ";"))
+    check(serve.job.state == "running" and plan is not None
+          and (plan.d, plan.t, plan.device_type) == (1, 1, "H100-80G"),
+          f"llama3.2-3b's serving submission is {serve.job.state} on {plan}")
+    orch.release(serve.job.job_id)
+    check(serve.job.state == "done",
+          f"llama3.2-3b's serving job is {serve.job.state} after release")
+    return plan
 
 
 def phase_deepseek():
@@ -2013,12 +2083,40 @@ def phase_jamba():
     return launches
 
 
-def train_config(steps):
+def train_config(steps, batch=8, seq=1024, zero=1):
     """The training cells' traffic: global batch 8 x 1024, microbatch 1,
-    block remat."""
+    block remat (a submitted cell passes its job's batch and sequence and
+    its plan's ZeRO stage)."""
     from repro_torch.configs import TrainConfig
-    return TrainConfig(global_batch=8, seq_len=1024, microbatch=1,
-                       steps=steps, warmup_steps=1, remat="block", seed=0)
+    return TrainConfig(global_batch=batch, seq_len=seq, microbatch=1,
+                       steps=steps, warmup_steps=1, remat="block", seed=0,
+                       zero=zero)
+
+
+def submit_train(arch):
+    """The training cell through the port's serverless front door on a
+    cluster of one H100-80G: MARP predicts the plans, HAS places the job.
+    Requires it running on plan d=1 t=1 of the H100-80G with the JAX
+    package's predicted peak as its ``pred_bytes``.  Returns the
+    orchestrator and the submission."""
+    from repro_torch.configs import TrainConfig
+    from repro_torch.core.orchestrator import Orchestrator, make_cluster
+    from repro_torch.core.serverless import submit
+    orch = Orchestrator(make_cluster(ONE_H100))
+    res = submit(orch, train_cfg(arch),
+                 TrainConfig(global_batch=8, seq_len=1024, zero=1))
+    job = res.job
+    plan = job.allocation.plan if job.allocation else None
+    print(f"(s) {arch} submitted: {len(res.plans)} feasible plans;"
+          f" {res.describe()}".replace("\n", ";"))
+    check(job.state == "running" and plan is not None
+          and (plan.d, plan.t, plan.device_type) == (1, 1, "H100-80G"),
+          f"{arch}'s submission is {job.state} on {plan}, not running on"
+          f" d=1 t=1 of the H100-80G")
+    check(plan.pred_bytes == JAX_PREDICTED_PEAK[arch],
+          f"{arch}'s plan predicts {plan.pred_bytes} B, the JAX package"
+          f" {JAX_PREDICTED_PEAK[arch]} B")
+    return orch, res
 
 
 def expandable_segments():
@@ -2040,17 +2138,21 @@ def phase_train(peaks, arch):
     global batch 8 x 1024, microbatch 1, block remat, 1 warm-up + 12 timed
     steps."""
     from repro_torch.core import memtrace
+    from repro_torch.core.marp import predict_plans
+    from repro_torch.core.serverless import report_oom
     from repro_torch.data import SyntheticTokens
     from repro_torch.kernels import LAUNCHES, dispatch, reset_launches
     from repro_torch.launch.train import loss_fell, to_device, train
     from repro_torch.models import active_param_count, moe, param_count
     from repro_torch.train import accumulate_grads, build_train_step
     from repro_torch.train.optimizer import global_norm, tree_leaves
+    orch, sub = submit_train(arch)
+    job, plan = sub.job, sub.job.allocation.plan
     cfg = train_cfg(arch)
     n_params, n_active = param_count(cfg), active_param_count(cfg)
     check(n_params == TRAIN_PARAMS[arch], f"{arch} has {n_params} parameters")
     steps = 13                            # 1 warm-up + 12 timed steps
-    tc = train_config(steps)
+    tc = train_config(steps, job.global_batch, job.seq_len, plan.zero)
     b, s = tc.global_batch, tc.seq_len
     n_attn = sum(cfg.layer_kind(l) == "attn" for l in range(cfg.num_layers))
     n_ssm = cfg.num_layers - n_attn
@@ -2119,8 +2221,26 @@ def phase_train(peaks, arch):
     check(predicted == JAX_PREDICTED_PEAK[arch],
           f"the port's prediction {predicted} != the JAX package's"
           f" {JAX_PREDICTED_PEAK[arch]}")
-    check(peak <= predicted, f"{arch}'s peak {peak} B exceeds the prediction"
-                             f" {predicted:.0f} B")
+    if peak > plan.pred_bytes:            # the lifecycle's answer, then fail
+        report_oom(orch, sub, peak)
+        print(f"(s) {arch} out of memory reported: "
+              + sub.describe().replace("\n", ";"))
+    check(peak <= plan.pred_bytes, f"{arch}'s peak {peak} B exceeds its"
+                                   f" plan's pred_bytes {plan.pred_bytes:.0f} B")
+    orch.release(job.job_id)
+    check(job.state == "done", f"{arch}'s job is {job.state} after release")
+    with memtrace.feedback():             # the replan after this sample
+        fed = [p for p in predict_plans(cfg, job.global_batch, job.seq_len,
+                                        device_types=["H100-80G"],
+                                        zero=plan.zero)
+               if (p.d, p.t) == (1, 1)]
+    print(f"(s) {arch}: plan d={plan.d} t={plan.t} {plan.n_devices}x"
+          f" {plan.device_type}, pred_bytes {plan.pred_bytes:.0f} B, min_mem"
+          f" {plan.min_mem} B; observed peak over step 1 {peak} B, accuracy"
+          f" {memory['acc_exact']:.4f}; min_mem under memtrace.feedback()"
+          f" after the driver's sample "
+          f"{fed[0].min_mem if fed else 'none (no d=1 t=1 plan)'}"
+          f"{' B' if fed else ''}; job {job.state}")
     check(all(math.isfinite(x) for x in losses), f"non-finite loss {losses}")
     check(loss_fell(losses), f"loss did not fall: {losses}")
     check(launches == want, f"training path launch counts {launches} != {want}")
@@ -2384,8 +2504,10 @@ def main():
           f" use {expandable_segments()}")
     rows = timed_phase("kernels", lambda: phase_kernels(peaks, flush))
     del flush
+    serve_plan = timed_phase("serverless front door", phase_serverless)
     # launches: the sum over the nine main-path runs, each counted from 0
-    path_launches = [timed_phase("llama3.2-3b serving", phase_model),
+    path_launches = [timed_phase("llama3.2-3b serving", lambda: phase_model(
+                         serve_plan=serve_plan)),
                      timed_phase("deepseek-v2-236b serving", phase_deepseek),
                      timed_phase("mamba2-130m serving", phase_mamba2),
                      timed_phase("jamba-1.5-large-398b serving", phase_jamba),

@@ -1,10 +1,11 @@
-"""PyTorch / CUDA port of the Frenzy reproduction's model side.
+"""PyTorch / CUDA port of the Frenzy reproduction.
 
-It serves the dense GQA archs (llama3.2-3b, starcoder2-3b) and trains them
-and gpt2-350m on one NVIDIA H100, with hand-written Hopper kernels for
-attention forward and backward (``kernels/csrc/flash_attention.cu``,
-``flash_attention_bwd.cu``), split-KV decode attention
-(``flash_decode.cu``) and the fused Adam update (``adam_update.cu``).  It
-imports torch and never JAX or the JAX package ``repro``; its subpackages
-mirror that package's names.
+The model side serves and trains the JAX package's configs on one NVIDIA
+H100 through hand-written Hopper kernels (``kernels/csrc/*.cu``); the
+control plane (``core``: MARP, HAS, the lifecycle engine and the
+serverless API; ``cluster``: the simulator and its schedulers; ``obs``)
+is the JAX package's, decision for decision, and places jobs on the
+port's device catalog, which holds the H100 too.  It imports torch and
+never JAX or the JAX package ``repro``; its subpackages mirror that
+package's names.
 """

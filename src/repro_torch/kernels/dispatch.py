@@ -13,6 +13,14 @@ There is no environment variable, no fallback on error and no capability
 check: a card the kernel was not built for fails loudly.  ``force("ref")``
 runs the plain version on any device; tests and ``chip_smoke.py`` use it to
 hold the kernel path against the plain path on the card.
+
+With the observability plane's metrics enabled (``repro_torch.obs``), each
+op counts its calls as ``ops/<op>`` under the JAX package's op names
+(``attention``, ``flash_decode``, ``mla_flash_decode``, ``ssd_scan``,
+``adam_update``; RMSNorm, which the JAX package does not dispatch, as
+``rms_norm``); disabled, that costs one attribute read a call.  The JAX
+package's per-op wall times (``ops_s/<op>``, ``op_timing=True``) are not
+taken: a kernel launch returns before the card has run it.
 """
 from __future__ import annotations
 
@@ -32,6 +40,7 @@ from repro_torch.kernels.ssd_scan import (ssd_scan, ssd_scan_ref,
                                           ssd_scan_trainable)
 from repro_torch.kernels.rms_norm import (rms_norm_ref, rms_norm_trainable)
 from repro_torch.kernels.rms_norm import rms_norm as rms_norm_kernel
+from repro_torch.obs.metrics import METRICS
 
 _forced_ref = False
 
@@ -62,6 +71,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, window: int = 0,
               softmax_scale: Optional[float] = None) -> torch.Tensor:
     """q: (b, sq, H, D); k, v: (b, sk, K, D), H = K*G.  Returns (b, sq, H, D)."""
+    if METRICS.enabled:
+        METRICS.inc("ops/attention")
     if not _use_kernel(q):
         fn = attention_ref
     elif torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
@@ -80,6 +91,8 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
 
     q: (b, 1, H, D); k_cache, v_cache: (b, S, K, D); valid: (b, S) bool.
     Returns (b, 1, H, D)."""
+    if METRICS.enabled:
+        METRICS.inc("ops/flash_decode")
     fn = flash_decode_gqa if _use_kernel(q) else gqa_decode_ref
     return fn(q, k_cache, v_cache, valid, softmax_scale=softmax_scale)
 
@@ -92,6 +105,8 @@ def mla_flash_decode(q_lat: torch.Tensor, q_rope: torch.Tensor,
     q_lat: (b, H, r); q_rope: (b, H, dr); c_kv: (b, S, r); k_rope:
     (b, S, dr); valid: (b, S) bool; denom = sqrt(dn + dr).  Returns o_lat
     (b, H, r)."""
+    if METRICS.enabled:
+        METRICS.inc("ops/mla_flash_decode")
     fn = flash_decode_mla if _use_kernel(q_lat) else mla_decode_ref
     return fn(q_lat, q_rope, c_kv, k_rope, valid, denom=denom)
 
@@ -105,6 +120,8 @@ def ssd(x: torch.Tensor, dt_raw: torch.Tensor, A_log: torch.Tensor,
     (b, s, n).  Returns (y (b, s, h, p) in x's dtype, final state
     (b, h, p, n) float32).  ``chunk`` is the plain version's chunk length;
     the kernel walks chunks of its own length (chunking is exact in math)."""
+    if METRICS.enabled:
+        METRICS.inc("ops/ssd_scan")
     if _use_kernel(x):
         args = (x, dt_raw, A_log, B, C, D, dt_bias)
         if torch.is_grad_enabled() and any(t.requires_grad for t in args):
@@ -118,6 +135,8 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5
     """RMSNorm over the last axis, float32 inside, output in x's dtype.
     On the card each row's output depends on that row alone (the kernel's
     fixed summation order); a strided x is made contiguous first."""
+    if METRICS.enabled:
+        METRICS.inc("ops/rms_norm")
     if _use_kernel(x):
         x = x.contiguous()
         if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad):
@@ -134,6 +153,8 @@ def adam_update_leaf(g: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
     """One mixed-precision Adam step on one parameter leaf, in place: fp32
     m, v, master <- m', v', master' and param <- master' in param's dtype.
     (The JAX package's ``adam_update_leaf`` returns new arrays instead.)"""
+    if METRICS.enabled:
+        METRICS.inc("ops/adam_update")
     kw = dict(lr=lr, beta1=beta1, beta2=beta2, eps=eps, wd=wd, c1=c1, c2=c2)
     if _use_kernel(g):
         adam_update(g, m, v, master, param, **kw)

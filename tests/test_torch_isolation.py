@@ -45,7 +45,13 @@ def test_importing_the_port_loads_no_jax():
     assert "repro_torch.models.mamba2" in result["imported"]
     assert "repro_torch.kernels.ssd_scan.ssd_scan" in result["imported"]
     for name in ("core.memory_model", "core.memtrace", "core.calibration",
-                 "core.devices", "ckpt.checkpoint"):
+                 "core.devices", "ckpt.checkpoint",
+                 # the control plane
+                 "core.reliability", "core.marp", "core.has", "obs.trace",
+                 "obs.metrics", "obs", "obs.export", "core.lifecycle",
+                 "core.orchestrator", "core.serverless", "cluster.simulator",
+                 "cluster.schedulers", "cluster.traces", "cluster",
+                 "launch.submit"):
         assert f"repro_torch.{name}" in result["imported"]
     assert result["bad"] == []
 
