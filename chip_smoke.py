@@ -21,7 +21,8 @@ Phases, each printing its lines before the last:
    own size, an all-invalid row,
    the MLA decode at deepseek-v2's widths and at its smoke config's, each
    decode call's kernels traced, the
-   forward attention at the MLA head dims 192 and 48, the SSD scan at
+   forward attention at the MLA head dims 192 and 48, the backward at
+   one rank's shape of gpt2-7b at t=2 (16 heads of 128), the SSD scan at
    mamba2-130m's prefill, at a 32k prompt, at a ragged length, at b=1
    lengths of several segments, one ending inside a segment, in float32
    and at its smoke widths; jamba's attention forward at 64 query and 8 KV
@@ -130,10 +131,20 @@ Phases, each printing its lines before the last:
    routing choices the kernel and plain paths agree on;
 11. stablelm-12b at its published widths and 8 of its 40 layers, trained
    as gpt2-350m is, through the attention forward and backward at head
-   dim 160 and ``adam_update``.
+   dim 160 and ``adam_update``;
+(m) Fig 6 on the card: the ten plans of ``repro_torch.launch.memcheck``
+   (gpt2-350m and gpt2-7b at full width under the JAX package's (d, t)
+   plans and batches) at ZeRO 1, each as rank 0 of its plan under
+   PyTorch's fake process group -- the sharded train step on the rank's
+   own shards, through the attention forward and backward on its H/t
+   heads (gpt2-7b's at head dim 128), RMSNorm and ``adam_update`` -- one
+   line each with the peak, both predictions and both accuracies, then
+   the mean accuracy beside the paper's 0.92.  It fails on an
+   out-of-memory and on a rank-0 state that is not its specs' shards.
 
 Every training cell (7, 8, 10, 11) is started through (s)'s front door
-as gpt2-350m's is.  The script sets the caching allocator's expandable segments as the entry
+as gpt2-350m's is, and its peak over step 1 must equal the one-device
+path's (``ONE_DEVICE_PEAK``) to the byte.  The script sets the caching allocator's expandable segments as the entry
 points do (``repro_torch.launch.configure_allocator``).  Each phase prints
 its wall time.  Then one JSON line of per-kernel numbers and, last, the
 JSON result line.
@@ -210,6 +221,12 @@ LOSS_RTOL, GNORM_RTOL = 1e-2, 5e-2
 # of the plan the port's MARP gives the cell on one H100 must equal it, and
 # the card's peak over step 1 must not exceed it -- MARP places a job by the
 # prediction, so a peak above it is an out-of-memory on a real cluster.
+# The training cells' peaks over step 1 on an NVIDIA H100 80GB HBM3 before
+# the sharded step existed (chip_smoke.py's own runs, equal in every run):
+# the one-device path must stay byte for byte what it was.
+ONE_DEVICE_PEAK = {"gpt2-350m": 7_615_967_744, "mamba2-130m": 4_256_577_024,
+                   "deepseek-v2-236b": 67_179_781_120,
+                   "stablelm-12b": 65_401_494_016}
 JAX_PREDICTED_PEAK = {"gpt2-350m": 8_691_153_715, "mamba2-130m": 4_841_272_883,
                       "deepseek-v2-236b": 70_503_875_379,
                       "stablelm-12b": 67_480_961_843}
@@ -341,6 +358,9 @@ MLA_TRAIN = dict(b=1, s=1024, H=128, D=192)
 # stablelm-12b's training microbatch: b=1, s=1024, 32 query heads on 8 KV
 # heads of 160, causal
 STABLELM_TRAIN = dict(b=1, s=1024, H=32, K=8, D=160)
+# one rank of gpt2-7b's (d=8, t=2) plan in phase (m): b=1, s=1024, 16 of its
+# 32 heads of 128, causal
+GPT2_7B_T2 = dict(b=1, s=1024, H=16, D=128)
 
 
 def check(cond, msg):
@@ -921,7 +941,9 @@ def phase_attention_bwd(peaks, flush, randn):
             ("stablelm_gqa_window", 2, 300, 300, 8, 2, 160, True, 64, bf16),
             ("stablelm_no_key_rows", 1, 40, 8, 8, 2, 160, True, 4, bf16),
             ("stablelm_noncausal_sq!=sk", 2, 96, 200, 4, 2, 160, False, 0, bf16),
-            ("stablelm_fp32_ragged", 1, 130, 130, 8, 2, 160, True, 0, f32)]:
+            ("stablelm_fp32_ragged", 1, 130, 130, 8, 2, 160, True, 0, f32),
+            ("gpt2_7b_t2", *(GPT2_7B_T2[k] for k in "bss"),
+             *(GPT2_7B_T2[k] for k in "HHD"), True, 0, bf16)]:
         kw = dict(causal=causal, window=window)
         q, k, v = randn(b, sq, H, D, dtype=dt), randn(b, sk, K, D, dtype=dt), \
             randn(b, sk, K, D, dtype=dt)
@@ -953,7 +975,7 @@ def phase_attention_bwd(peaks, flush, randn):
               f" {'ok' if ok else 'FAIL'}")
         check(ok, f"flash_attention_bwd {name} disagrees with its plain"
                   f" versions or is not deterministic")
-        if name not in ("train", "mla_train", "stablelm_train"):
+        if name not in ("train", "mla_train", "stablelm_train", "gpt2_7b_t2"):
             continue
         pairs = sq * (sq + 1) // 2
         nbytes = 2 * (4 * q.numel() + 2 * k.numel() + 2 * v.numel()) \
@@ -972,8 +994,9 @@ def phase_attention_bwd(peaks, flush, randn):
                                                          **kw), flush)
             _, parts, _ = device_profile(
                 lambda: flash_attention_bwd(q, k, v, o, lse, do, **kw), 10)
-            cell = ("deepseek-v2 MLA training" if name == "mla_train"
-                    else "stablelm-12b training")
+            cell = {"mla_train": "deepseek-v2 MLA training",
+                    "stablelm_train": "stablelm-12b training",
+                    "gpt2_7b_t2": "gpt2-7b at t=2, phase (m)"}[name]
             print(f"time flash_attention_bwd D={D} ({cell}"
                   f" b={b} s={sq} H={H} K={K}, {nbytes} bytes,"
                   f" {10 * D * b * H * pairs} flops): kernel {ms:.4f} ms, plain"
@@ -2221,6 +2244,9 @@ def phase_train(peaks, arch):
     check(predicted == JAX_PREDICTED_PEAK[arch],
           f"the port's prediction {predicted} != the JAX package's"
           f" {JAX_PREDICTED_PEAK[arch]}")
+    check(peak == ONE_DEVICE_PEAK[arch],
+          f"{arch}'s peak {peak} B != the one-device path's"
+          f" {ONE_DEVICE_PEAK[arch]} B")
     if peak > plan.pred_bytes:            # the lifecycle's answer, then fail
         report_oom(orch, sub, peak)
         print(f"(s) {arch} out of memory reported: "
@@ -2292,6 +2318,36 @@ def phase_train(peaks, arch):
           f" {gk:.6f} vs {gp:.6f} (rel {rg:.3e}, tol {GNORM_RTOL:g}){agree}")
     check(rl <= LOSS_RTOL and rg <= GNORM_RTOL,
           f"{arch} training kernel path differs from the plain path")
+    return launches
+
+
+def phase_memcheck():
+    """(m) Fig 6 on the card: the ten ``launch.memcheck.COMBOS`` at ZeRO 1,
+    each as rank 0 of its (d, t) plan under the fake process group (an
+    out-of-memory, or a state whose bytes are not the specs' shards, raises
+    out of ``run_one``), the mean accuracy beside the paper's 0.92; the
+    attention forward and backward, RMSNorm and Adam must have run."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.memcheck import COMBOS, card, describe, run_one
+    smi = card()
+    reset_launches()
+    rows = []
+    for arch, b, s, d, t in COMBOS:
+        t0 = time.perf_counter()
+        rows.append(run_one(arch, b, s, d, t, zero=1, smi=smi))
+        print(f"(m) {describe(rows[-1])}; rank 0's state"
+              f" {rows[-1]['state_bytes']} B, held before it"
+              f" {rows[-1]['base_bytes']} B; {time.perf_counter() - t0:.1f} s")
+    launches = dict(LAUNCHES)
+    under = sum(r["actual_bytes"] <= r["pred_exact"] for r in rows)
+    print(f"(m) mean accuracy over the {len(rows)} combos at ZeRO 1: exact"
+          f" {sum(r['acc_exact'] for r in rows) / len(rows):.4f}, paper"
+          f" {sum(r['acc_paper'] for r in rows) / len(rows):.4f} (the paper"
+          f" reports 0.92); observed <= exact prediction in {under} of"
+          f" {len(rows)}; launches {launches}")
+    for k in ("flash_attention", "flash_attention_bwd", "adam_update",
+              "rms_norm"):
+        check(launches[k] > 0, f"phase (m) never launched {k}")
     return launches
 
 
@@ -2505,7 +2561,7 @@ def main():
     rows = timed_phase("kernels", lambda: phase_kernels(peaks, flush))
     del flush
     serve_plan = timed_phase("serverless front door", phase_serverless)
-    # launches: the sum over the nine main-path runs, each counted from 0
+    # launches: the sum over the ten main-path runs, each counted from 0
     path_launches = [timed_phase("llama3.2-3b serving", lambda: phase_model(
                          serve_plan=serve_plan)),
                      timed_phase("deepseek-v2-236b serving", phase_deepseek),
@@ -2520,7 +2576,8 @@ def main():
                      timed_phase("deepseek-v2-236b training",
                                  lambda: phase_train(peaks, "deepseek-v2-236b")),
                      timed_phase("stablelm-12b training",
-                                 lambda: phase_train(peaks, "stablelm-12b"))]
+                                 lambda: phase_train(peaks, "stablelm-12b")),
+                     timed_phase("(m) memcheck", phase_memcheck)]
     for kname, row in rows.items():
         row["launches"] = sum(launches[kname] for launches in path_launches)
     print(f"total wall time {time.perf_counter() - t0:.1f}s")

@@ -1,8 +1,9 @@
 """Model and training configuration dataclasses.
 
-The port keeps its own copies of the JAX package's ``ModelConfig`` and
-``TrainConfig``, field for field and with the same derived properties, so
-that it imports nothing of ``repro``.  ``tests/test_torch_isolation.py``
+The port keeps its own copies of the JAX package's ``ModelConfig``,
+``ShapeConfig`` (with ``INPUT_SHAPES``) and ``TrainConfig``, field for
+field and with the same derived properties, so that it imports nothing of
+``repro``.  ``tests/test_torch_isolation.py``
 holds the copies equal.
 """
 from __future__ import annotations
@@ -113,6 +114,23 @@ class ModelConfig:
 
 
 @dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                        # train | prefill | decode
+    cache_len: int = 0               # decode: existing KV/state length
+
+
+INPUT_SHAPES = {
+    "train_4k":    ShapeConfig("train_4k",    4_096,   256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768,  32,  "prefill"),
+    "decode_32k":  ShapeConfig("decode_32k",  32_768,  128, "decode", cache_len=32_768),
+    "long_500k":   ShapeConfig("long_500k",   524_288, 1,   "decode", cache_len=524_288),
+}
+
+
+@dataclass(frozen=True)
 class TrainConfig:
     global_batch: int = 256
     seq_len: int = 4096
@@ -127,6 +145,5 @@ class TrainConfig:
     zero: int = 1                    # 0: replicated opt state over data;
                                      # 1: opt state sharded over data;
                                      # 3: params also sharded over data
-                                     # (no effect on one device)
     remat: str = "block"             # none | block (checkpoint each layer block)
     seed: int = 0

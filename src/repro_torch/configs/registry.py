@@ -20,7 +20,7 @@ from repro_torch.configs import (deepseek_v2_236b, gpt2_350m, gpt2_7b,
                                  llava_next_34b, mamba2_130m, mixtral_8x22b,
                                  musicgen_medium, stablelm_12b, starcoder2_3b,
                                  starcoder2_7b)
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import INPUT_SHAPES, ModelConfig, ShapeConfig
 
 _MODULES = [
     starcoder2_7b, starcoder2_3b, stablelm_12b, mixtral_8x22b, mamba2_130m,
@@ -48,6 +48,16 @@ def get_arch(name: str) -> ModelConfig:
     if name not in ARCHS:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(ARCHS)}")
     return ARCHS[name]
+
+
+def get_shape(name: str) -> ShapeConfig:
+    return INPUT_SHAPES[name]
+
+
+def shape_applicable(arch: str, shape: str) -> bool:
+    if shape == "long_500k":
+        return arch in LONG_CONTEXT_OK
+    return True
 
 
 def smoke_config(name: str) -> ModelConfig:

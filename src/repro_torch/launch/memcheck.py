@@ -1,0 +1,203 @@
+"""Fig 6 on the card: MARP's peak-memory prediction against the peak of one
+rank of the plan, measured.
+
+    PYTHONPATH=src python -m repro_torch.launch.memcheck --zero 1
+
+For GPT2-350M / GPT2-7B (the paper's models) under the JAX package's
+(d, t) plans and batch sizes (``COMBOS``), each row runs rank 0 of the
+(d, t) plan in this one process, under PyTorch's fake process group: its
+collectives return without communicating, while every shard, gathered
+buffer and activation of the rank is a real CUDA allocation.  Rank 0's
+local state is built on the card one leaf at a time (the whole gpt2-7b
+state, ~140 GB, is never held), the peak statistics are reset, one
+sharded train step runs (``train.build_train_step(..., mesh=)``), and the
+caching allocator's peak over that step is the row's actual (with
+whatever the process held before the state, ``base_bytes``: cuBLAS's
+workspace once an earlier step made it, as a run of its own makes it in
+its step).  Each row carries ``core.memory_model``'s exact and paper
+predictions, both accuracies (``1 - |pred - actual| / actual``) and the
+card's name and power limit, and records the sample to ``core.memtrace``
+(source "memcheck").  The values the fake group leaves in gathered buffers
+mean nothing (losses may be NaN): only the allocator's peak is read.
+NCCL's own buffers lie outside the caching allocator, so the actual
+counts none, as a real run's would not either.
+
+Rows go to ``experiments/memcheck_torch/memcheck_zero{Z}.json``.  The
+JAX package's measurement (XLA's compile-time accounting on placeholder
+CPU devices) lives in ``experiments/memcheck/`` and is not this one.
+"""
+from __future__ import annotations
+
+import argparse
+import gc
+import json
+import math
+import os
+import subprocess
+from contextlib import contextmanager
+from typing import Any, Dict, Optional
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.configs.base import ModelConfig, TrainConfig
+from repro_torch.configs.registry import get_arch
+from repro_torch.core import memory_model as mm
+from repro_torch.core import memtrace
+from repro_torch.data import SyntheticTokens
+from repro_torch.launch.inputs import params_inputs
+from repro_torch.launch.mesh import make_plan_mesh
+from repro_torch.parallel import collectives as col
+from repro_torch.train.optimizer import tree_leaves
+from repro_torch.train.train_loop import (build_train_step, make_local_state,
+                                          state_specs)
+
+DEFAULT_OUT = os.path.join(os.path.dirname(__file__),
+                           "../../../experiments/memcheck_torch")
+
+# (arch, global_batch, seq, d, t) -- the paper sweeps batch sizes and (d, t)
+COMBOS = [
+    ("gpt2-350m", 8, 1024, 1, 1),
+    ("gpt2-350m", 8, 1024, 2, 1),
+    ("gpt2-350m", 8, 1024, 4, 1),
+    ("gpt2-350m", 16, 1024, 4, 2),
+    ("gpt2-350m", 16, 1024, 2, 4),
+    ("gpt2-7b", 2, 1024, 1, 4),
+    ("gpt2-7b", 2, 1024, 2, 4),
+    ("gpt2-7b", 2, 1024, 2, 8),
+    ("gpt2-7b", 4, 1024, 4, 4),
+    ("gpt2-7b", 8, 1024, 8, 2),
+]
+
+
+@contextmanager
+def fake_world(world_size: int):
+    """Rank 0 of a process group of ``world_size`` ranks whose collectives
+    do not communicate (torch's fake backend), for the block."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=world_size)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def local_state_bytes(cfg: ModelConfig, tc: TrainConfig, mesh) -> int:
+    """Bytes of one rank's state by the specs: its params (in their
+    dtypes) and its fp32 master, m and v."""
+    params, _ = params_inputs(cfg, mesh)
+    specs = state_specs(cfg, tc, mesh, params)
+    return sum(p.element_size() * math.prod(col.local_shape(p.shape, ps, mesh))
+               + 3 * 4 * math.prod(col.local_shape(p.shape, os_, mesh))
+               for p, ps, os_ in zip(tree_leaves(params),
+                                     tree_leaves(specs["params"]),
+                                     tree_leaves(specs["opt"]["master"])))
+
+
+def storage_bytes(state: Dict[str, Any]) -> int:
+    """Bytes of the distinct storages the state's tensors hold (a shard
+    that were a view of a whole leaf would count the leaf)."""
+    seen = {}
+    for part in (state["params"], state["opt"]):
+        for t in tree_leaves(part):
+            st = t.untyped_storage()
+            seen[st.data_ptr()] = st.nbytes()
+    return sum(seen.values())
+
+
+def card() -> Dict[str, str]:
+    """The card's name and power limit as nvidia-smi gives them."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip().splitlines()[0]
+    name, limit = (s.strip() for s in out.split(","))
+    return {"device": name, "power_limit": limit}
+
+
+def run_one(arch: str, batch: int, seq: int, d: int, t: int, zero: int = 0, *,
+            cfg: Optional[ModelConfig] = None, device="cuda",
+            smi: Optional[Dict[str, str]] = None) -> Dict[str, Any]:
+    """One combo as rank 0 of its (d, t) plan on the card; ``cfg`` in place
+    of ``get_arch(arch)`` (a smoke config).  Raises off CUDA: the actual is
+    the card's allocator's, and there is no CPU stand-in for it."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"memcheck measures the CUDA caching allocator's "
+                         f"peak; {device} has none")
+    cfg = cfg or get_arch(arch)
+    tc = TrainConfig(global_batch=batch, seq_len=seq, microbatch=1, zero=zero)
+    # what an earlier caller left in reference cycles is freed before the
+    # base is read
+    gc.collect()
+    with fake_world(d * t):
+        mesh = make_plan_mesh(d, t, device_type="cuda")
+        torch.cuda.synchronize(device)
+        base = torch.cuda.memory_allocated(device)
+        state = make_local_state(cfg, tc, mesh, device=device)
+        want = local_state_bytes(cfg, tc, mesh)
+        held = storage_bytes(state)
+        grown = torch.cuda.memory_allocated(device) - base
+        n_tensors = 4 * len(tree_leaves(state["params"]))
+        # the allocator rounds each block up to 512 bytes
+        if held != want or not want <= grown <= want + 512 * n_tensors:
+            raise RuntimeError(
+                f"{arch} d={d} t={t} zero={zero}: rank 0's state holds {held}"
+                f" B ({grown} B allocated), its specs' shards {want} B")
+        step, _ = build_train_step(cfg, tc, batch, seq, mesh=mesh)
+        raw = next(SyntheticTokens(cfg, batch, seq, seed=tc.seed))
+        data = {k: torch.from_numpy(raw[k]).to(device)
+                for k in ("tokens", "labels", "modal_embeds") if k in raw}
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        step(state, data)
+        torch.cuda.synchronize(device)
+        actual = torch.cuda.max_memory_allocated(device)
+        del state, data, step
+    pred_exact = mm.exact_peak_bytes(cfg, batch, seq, d, t, zero=zero,
+                                     microbatch=1)
+    pred_paper = mm.paper_peak_bytes(cfg, batch, seq, d, t)
+    smi = smi or card()
+    memtrace.record(cfg.family, zero, memtrace.device_type_for(smi["device"]),
+                    pred_exact, actual, source="memcheck")
+    return {"arch": arch, "batch": batch, "seq": seq, "d": d, "t": t,
+            "zero": zero, "actual_bytes": int(actual),
+            "state_bytes": int(want), "base_bytes": int(base),
+            "pred_exact": pred_exact, "pred_paper": pred_paper,
+            "acc_exact": round(1 - abs(pred_exact - actual) / actual, 4),
+            "acc_paper": round(1 - abs(pred_paper - actual) / actual, 4),
+            **smi}
+
+
+def describe(r: Dict[str, Any]) -> str:
+    return (f"{r['arch']} b={r['batch']} d={r['d']} t={r['t']} zero={r['zero']}:"
+            f" actual {r['actual_bytes']} B ({r['actual_bytes'] / 2**30:.2f}"
+            f" GiB), exact-pred {r['pred_exact']:.0f} B ({r['acc_exact']:.4f}),"
+            f" paper-pred {r['pred_paper']:.0f} B ({r['acc_paper']:.4f})")
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--out", default=DEFAULT_OUT)
+    ap.add_argument("--force", action="store_true")
+    ap.add_argument("--zero", type=int, default=0)
+    args = ap.parse_args(argv)
+    from repro_torch.launch import configure_allocator
+    configure_allocator()
+    os.makedirs(args.out, exist_ok=True)
+    path = os.path.join(args.out, f"memcheck_zero{args.zero}.json")
+    if os.path.exists(path) and not args.force:
+        print(f"cached: {path}")
+        return
+    smi = card()
+    rows = []
+    for arch, batch, seq, d, t in COMBOS:
+        r = run_one(arch, batch, seq, d, t, args.zero, smi=smi)
+        rows.append(r)
+        print(describe(r), flush=True)
+    with open(path, "w") as f:
+        json.dump(rows, f, indent=1)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,4 +1,5 @@
-"""Training driver for the port, on one device.
+"""Training driver for the port: one device, or one rank of a (d, t) plan
+under ``torchrun``.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch gpt2-350m \
         --batch 8 --seq 1024 --microbatch 1 --steps 12
@@ -10,28 +11,38 @@
         --arch deepseek-v2-236b --smoke --device cpu --steps 12
     PYTHONPATH=src python -m repro_torch.launch.train --arch gpt2-350m \
         --smoke --device cpu --steps 12 --ckpt-dir /path/to/ckpts
+    torchrun --nproc-per-node 2 -m repro_torch.launch.train \
+        --arch llama3.2-3b --smoke --device cpu --zero 3 --steps 12
 
 The flags are the JAX driver's (``repro.launch.train``) plus ``--device``.
-``--zero`` is accepted and has no effect on the run: it chooses how the
-optimizer state is sharded over data-parallel devices, and there is one
-device; the memory prediction prices it.  After the first step the driver
+Under ``torchrun`` (``WORLD_SIZE`` > 1) the mesh is sized as the JAX
+driver sizes it: d = min(world, batch) data shards, t = world // d model
+shards; each rank holds its shards of the state and runs the sharded step
+(``train.build_train_step(..., mesh=)``; ``gloo`` on the CPU, ``nccl`` on
+cards, one card a rank), and ``--zero`` chooses how the state shards over
+data (0: optimizer state replicated, 1: sharded, 3: params too).  With one
+process there is nothing to shard, and ``--zero`` only prices the memory
+prediction.  After the first step the driver
 prints the port's prediction of the peak (``core.memory_model``'s
-``exact_peak_bytes`` and ``paper_peak_bytes`` for one device) and, on a
+``exact_peak_bytes`` and ``paper_peak_bytes`` for the plan) and, on a
 card, the peak of allocated device memory over that step beside it, the
 accuracy of each prediction (``1 - |pred - actual| / actual``, the JAX
 ``launch/memcheck``'s) and the memory feedback plane's class of the
 sample, which it records (``core.memtrace.record``; the JAX driver records
 XLA's compile-time memory analysis there).  ``--ckpt-dir DIR`` saves the
-parameters after the last step (``ckpt.save``, the JAX package's layout).
+parameters after the last step (``ckpt.save``, the JAX package's layout;
+one process only).  Rank 0 prints.
 """
 from __future__ import annotations
 
 import argparse
+import os
 import time
 from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import ckpt
 from repro_torch.configs.base import ModelConfig, TrainConfig
@@ -40,7 +51,10 @@ from repro_torch.core import memory_model as mm
 from repro_torch.core import memtrace
 from repro_torch.data import SyntheticTokens
 from repro_torch.launch import configure_allocator
-from repro_torch.train import build_train_step, make_train_state
+from repro_torch.launch.mesh import make_plan_mesh
+from repro_torch.parallel import sharding as sh
+from repro_torch.train import (build_train_step, make_local_state,
+                               make_train_state)
 
 
 def to_device(raw: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
@@ -57,15 +71,16 @@ def accuracy(pred: float, actual: float) -> float:
 
 
 def memory_report(cfg: ModelConfig, tc: TrainConfig, peak: Optional[int],
-                  device: torch.device, log: Callable[[str], None]
-                  ) -> Dict[str, Any]:
-    """The port's peak predictions for ``cfg`` under ``tc`` on one device
-    beside the observed ``peak`` (None off a card); a sample with a peak
-    goes into the memory feedback plane.  Returns the numbers printed."""
-    exact = mm.exact_peak_bytes(cfg, tc.global_batch, tc.seq_len, 1, 1,
+                  device: torch.device, log: Callable[[str], None],
+                  d: int = 1, t: int = 1) -> Dict[str, Any]:
+    """The port's peak predictions for ``cfg`` under ``tc`` on a device of
+    the (d, t) plan beside the observed ``peak`` (None off a card); a
+    sample with a peak goes into the memory feedback plane.  Returns the
+    numbers printed."""
+    exact = mm.exact_peak_bytes(cfg, tc.global_batch, tc.seq_len, d, t,
                                 zero=tc.zero, microbatch=tc.microbatch,
                                 remat=tc.remat)
-    paper = mm.paper_peak_bytes(cfg, tc.global_batch, tc.seq_len, 1, 1)
+    paper = mm.paper_peak_bytes(cfg, tc.global_batch, tc.seq_len, d, t)
     out = {"exact_bytes": exact, "paper_bytes": paper}
     if peak is None:
         log(f"memory: predicted peak {exact:.0f} B (exact), {paper:.0f} B"
@@ -84,17 +99,26 @@ def memory_report(cfg: ModelConfig, tc: TrainConfig, peak: Optional[int],
 
 
 def train(cfg: ModelConfig, tc: TrainConfig, *, device="cuda",
-          log_every: int = 10, log: Callable[[str], None] = print
-          ) -> Dict[str, Any]:
-    """Run ``tc.steps`` steps on SyntheticTokens drawn from ``tc.seed``.
-    Returns the per-step losses and wall times (each step ends in a device
-    synchronise), the peak allocated device memory over step 1 (None off
-    a card) and ``memory_report``'s numbers, the final state and the
-    number of microbatches."""
+          log_every: int = 10, log: Callable[[str], None] = print,
+          mesh=None) -> Dict[str, Any]:
+    """Run ``tc.steps`` steps on SyntheticTokens drawn from ``tc.seed``:
+    on one device, or with ``mesh`` (a ("data", "model") DeviceMesh) as
+    this rank of the plan, on its shards of the state and the whole
+    global batch.  Returns the per-step losses and wall times (each step
+    ends in a device synchronise), the peak allocated device memory over
+    step 1 (None off a card) and ``memory_report``'s numbers, the final
+    state and the number of microbatches."""
     device = torch.device(device)
     on_card = device.type == "cuda"
-    state = make_train_state(cfg, tc, device=device)
-    step, n_micro = build_train_step(cfg, tc, tc.global_batch, tc.seq_len)
+    if mesh is None:
+        state = make_train_state(cfg, tc, device=device)
+        d = t = 1
+    else:
+        state = make_local_state(cfg, tc, mesh, device=device)
+        sizes = sh.axis_sizes(mesh)
+        d, t = sizes["data"], sizes["model"]
+    step, n_micro = build_train_step(cfg, tc, tc.global_batch, tc.seq_len,
+                                     mesh=mesh)
     data = SyntheticTokens(cfg, tc.global_batch, tc.seq_len, seed=tc.seed)
     losses, step_s, peak, memory = [], [], None, None
     for i in range(tc.steps):
@@ -112,7 +136,7 @@ def train(cfg: ModelConfig, tc: TrainConfig, *, device="cuda",
         if i == 0:
             if on_card:
                 peak = torch.cuda.max_memory_allocated(device)
-            memory = memory_report(cfg, tc, peak, device, log)
+            memory = memory_report(cfg, tc, peak, device, log, d, t)
         if i % log_every == 0 or i == tc.steps - 1:
             log(f"step {i:5d} loss {losses[-1]:.4f} "
                 f"gnorm {float(metrics['grad_norm']):.3f} "
@@ -137,8 +161,7 @@ def main(argv=None):
     ap.add_argument("--seq", type=int, default=256)
     ap.add_argument("--microbatch", type=int, default=0)
     ap.add_argument("--zero", type=int, default=1,
-                    help="accepted for the JAX driver's flags; no effect on "
-                         "one device")
+                    help="ZeRO stage over the data shards (under torchrun)")
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--ckpt-dir", default="",
                     help="save the parameters here after the last step")
@@ -152,19 +175,56 @@ def main(argv=None):
                      microbatch=args.microbatch, learning_rate=args.lr,
                      steps=args.steps, warmup_steps=max(args.steps // 10, 1),
                      zero=args.zero)
-    print(f"arch={cfg.name} device={args.device} batch={args.batch} "
-          f"seq={args.seq} microbatch={args.microbatch}", flush=True)
-    out = train(cfg, tc, device=args.device, log_every=args.log_every,
-                log=lambda s: print(s, flush=True))
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world == 1:
+        out = _run(cfg, tc, args, args.device, None, print)
+    else:
+        out = _run_rank(cfg, tc, args, world)
+    losses = out["losses"]
+    if not loss_fell(losses):
+        raise RuntimeError("loss did not fall")
+    return losses
+
+
+def _run(cfg, tc, args, device, mesh, say):
+    say(f"arch={cfg.name} device={device} batch={args.batch} "
+        f"seq={args.seq} microbatch={args.microbatch}", flush=True)
+    out = train(cfg, tc, device=device, log_every=args.log_every,
+                log=lambda s: say(s, flush=True), mesh=mesh)
     losses = out["losses"]
     if args.ckpt_dir:
         ckpt.save(args.ckpt_dir, args.steps, out["state"]["params"])
         print(f"checkpoint saved to {args.ckpt_dir}")
-    print(f"microbatches {out['n_micro']} first-10-mean "
-          f"{np.mean(losses[:10]):.4f} last-10-mean {np.mean(losses[-10:]):.4f}")
-    if not loss_fell(losses):
-        raise RuntimeError("loss did not fall")
-    return losses
+    say(f"microbatches {out['n_micro']} first-10-mean "
+        f"{np.mean(losses[:10]):.4f} last-10-mean {np.mean(losses[-10:]):.4f}")
+    return out
+
+
+def _run_rank(cfg, tc, args, world):
+    """This rank of a ``torchrun`` launch: the plan's mesh over the
+    process group (d = min(world, batch), t = world // d, the JAX
+    driver's sizing), its card (LOCAL_RANK) on CUDA."""
+    if args.ckpt_dir:
+        raise NotImplementedError("checkpoints of a sharded state: "
+                                  "ROADMAP.md queue 1 item 10")
+    device = torch.device(args.device)
+    if device.type == "cuda":
+        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
+        torch.cuda.set_device(device)
+    d = min(world, args.batch)
+    t = world // d
+    if d * t != world:
+        raise ValueError(f"{world} ranks do not form a plan of d={d} data "
+                         f"shards (batch {args.batch}) x t model shards")
+    dist.init_process_group("nccl" if device.type == "cuda" else "gloo")
+    try:
+        mesh = make_plan_mesh(d, t, device_type=device.type)
+        rank0 = dist.get_rank() == 0
+        say = print if rank0 else (lambda *a, **k: None)
+        say(f"plan d={d} t={t} zero={tc.zero} ({world} ranks)")
+        return _run(cfg, tc, args, device, mesh, say)
+    finally:
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -21,6 +21,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import dispatch
 from repro_torch.models.common import rms_norm
+from repro_torch.parallel.act import constrain
 
 Pos = Union[int, torch.Tensor]
 
@@ -80,6 +81,12 @@ def gqa_attend_train(cfg: ModelConfig, p: dict, x: torch.Tensor,
     """Full-sequence (prefill) attention.  Returns (out, kv) where kv holds
     the k/v tensors for cache construction."""
     q, k, v = gqa_project_qkv(cfg, p, x, positions)
+    b, s = x.shape[:2]
+    # one rank of the sharded step holds its heads (no-op on one device)
+    constrain(q, (b, s, cfg.num_heads, cfg.head_dim), None, None, "heads",
+              "head_dim")
+    constrain(k, (b, s, cfg.num_kv_heads, cfg.head_dim), None, None,
+              "heads", "head_dim")
     o = dispatch.attention(q, k, v, causal=True, window=cfg.sliding_window)
     return _out_project(o, p["wo"]), {"k": k, "v": v}
 

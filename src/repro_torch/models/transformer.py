@@ -32,6 +32,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models import mamba2
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.common import dense_init, embed_init, mlp, rms_norm
+from repro_torch.parallel.collectives import ModelParallel
 
 Params = Dict[str, Any]
 Cache = Dict[str, Any]
@@ -114,7 +115,8 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, Any]:
     return shapes
 
 
-def init_params(cfg: ModelConfig, seed: int, device="cuda") -> Params:
+def init_params(cfg: ModelConfig, seed: int, device="cuda",
+                take: Optional[Callable] = None) -> Params:
     """Random parameters drawn on ``device`` from a generator seeded with
     ``seed``, bfloat16 but the float32 ``FP32_LEAVES``: norms at 1,
     embeddings N(0, 0.02) truncated at 3 sigma, every matrix
@@ -125,7 +127,11 @@ def init_params(cfg: ModelConfig, seed: int, device="cuda") -> Params:
     ``out_proj``; Mamba2's
     conv biases at 0, A_log = log(linspace(1, 16, h)), D at 1 and dt_bias
     the inverse softplus of a dt drawn log-uniform in [1e-3, 0.1] -- the
-    JAX package's recipe (its random numbers differ)."""
+    JAX package's recipe (its random numbers differ).
+
+    ``take(path, leaf)``, when given, receives each leaf as it is drawn and
+    returns what the tree keeps in its place (one rank's shard: the whole
+    tree is then never held at once); the draws are the same."""
     gen = torch.Generator(device=device).manual_seed(seed)
     out_scale = 1.0 / math.sqrt(2 * cfg.num_layers)
 
@@ -149,7 +155,10 @@ def init_params(cfg: ModelConfig, seed: int, device="cuda") -> Params:
         dtype = torch.float32 if name in FP32_LEAVES else torch.bfloat16
         return dense_init(gen, shape, shape[in_axis], scale=scale, dtype=dtype)
 
-    return _map_tree(init, param_shapes(cfg))
+    if take is None:
+        return _map_tree(init, param_shapes(cfg))
+    return _map_tree(lambda path, shape: take(path, init(path, shape)),
+                     param_shapes(cfg))
 
 
 def _init_ssm_vector(gen: torch.Generator, name: str, shape: Tuple[int, ...]
@@ -205,10 +214,12 @@ def layer_params(blocks: Params) -> List[Params]:
 
 # ------------------------------------------------------------- forward ------
 
-def _ffn_residual(cfg: ModelConfig, j: int, p: Params, x: torch.Tensor
+def _ffn_residual(cfg: ModelConfig, j: int, p: Params, x: torch.Tensor,
+                  par: Optional[ModelParallel] = None
                   ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """x + FFN(norm2(x)) of sub-layer j and its MoE aux loss (None for a
-    dense FFN or none at all)."""
+    dense FFN or none at all).  With ``par`` the dense FFN's w1/w3 are
+    this rank's columns and w2 its rows (see ``forward``)."""
     if not _layer_has_ffn(cfg, j):
         return x, None
     h = rms_norm(x, p["norm2"], cfg.norm_eps)
@@ -216,41 +227,57 @@ def _ffn_residual(cfg: ModelConfig, j: int, p: Params, x: torch.Tensor
         out, aux = moe_mod.moe_ffn(cfg, p["ffn"], h)
         return x + out, aux
     ffn = p["ffn"]
-    return x + mlp(cfg.mlp_variant, h, ffn["w1"], ffn["w2"], ffn.get("w3")), None
+    if par is not None:
+        h = par.to_model(h)
+    out = mlp(cfg.mlp_variant, h, ffn["w1"], ffn["w2"], ffn.get("w3"))
+    if par is not None:
+        out = par.from_model(out)
+    return x + out, None
 
 
-def _head(cfg: ModelConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
+def _head(cfg: ModelConfig, params: Params, x: torch.Tensor,
+          par: Optional[ModelParallel] = None) -> torch.Tensor:
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    if par is not None:
+        return par.head(x, params)
     head = params.get("lm_head")
     return x @ head if head is not None else x @ params["embed"].T
 
 
 def _sublayer(cfg: ModelConfig, j: int, p: Params, x: torch.Tensor,
-              positions: torch.Tensor
+              positions: torch.Tensor, par: Optional[ModelParallel] = None
               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor],
                          Optional[torch.Tensor]]:
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
     kind = _mixer_kind(cfg, j)
+    if par is not None:
+        h = par.to_model(h)
     if kind == "ssm":
         out, cache = mamba2.mamba2_forward(cfg, p["mixer"], h)
     elif kind == "mla":
         out, cache = attn.mla_attend_train(cfg, p["mixer"], h, positions)
     else:
         out, cache = attn.gqa_attend_train(cfg, p["mixer"], h, positions)
-    x, aux = _ffn_residual(cfg, j, p, x + out)
+    if par is not None:
+        out = par.from_model(out)
+    x, aux = _ffn_residual(cfg, j, p, x + out, par)
     return x, cache, aux
 
 
 def _block(cfg: ModelConfig, bp: Dict[str, Params], x: torch.Tensor,
-           positions: torch.Tensor
+           positions: torch.Tensor, par: Optional[ModelParallel] = None
            ) -> Tuple[torch.Tensor, Dict[str, Dict[str, torch.Tensor]],
                       List[torch.Tensor]]:
     """One block: its sub-layers in order.  bp: {"sub{j}": sub-layer j's
-    parameters}.  Returns (x, {"sub{j}": cache entries}, the MoE aux losses
-    of its MoE sub-layers in order)."""
+    parameters}, with ``par`` at ZeRO 3 this rank's data shards, gathered
+    here (so a checkpointed block gathers them again in the backward).
+    Returns (x, {"sub{j}": cache entries}, the MoE aux losses of its MoE
+    sub-layers in order)."""
+    if par is not None:
+        bp = par.gather_block(bp)
     caches, auxes = {}, []
     for j, name in enumerate(_sub_names(cfg)):
-        x, caches[name], a = _sublayer(cfg, j, bp[name], x, positions)
+        x, caches[name], a = _sublayer(cfg, j, bp[name], x, positions, par)
         if a is not None:
             auxes.append(a)
     return x, caches, auxes
@@ -265,11 +292,13 @@ def _block_params(blocks: Params) -> List[Dict[str, Params]]:
 
 
 def _embed_inputs(cfg: ModelConfig, params: Params,
-                  batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+                  batch: Dict[str, torch.Tensor],
+                  par: Optional[ModelParallel] = None) -> torch.Tensor:
     """The token embeddings (b, s_text, d), after the modal prefix
     ``batch["modal_embeds"]`` (b, m, d) cast to their dtype when the config
     has one (transformer.py:140-148 of the JAX package)."""
-    tok = params["embed"][batch["tokens"]]
+    tok = (params["embed"][batch["tokens"]] if par is None
+           else par.embed(params["embed"], batch["tokens"]))
     if not cfg.num_modal_tokens:
         return tok
     return torch.cat([batch["modal_embeds"].to(tok.dtype), tok], dim=1)
@@ -277,7 +306,8 @@ def _embed_inputs(cfg: ModelConfig, params: Params,
 
 def forward(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
             *, want_cache: bool = False, last_only: bool = False,
-            remat: bool = False, want_aux: bool = False) -> tuple:
+            remat: bool = False, want_aux: bool = False,
+            par: Optional[ModelParallel] = None) -> tuple:
     """Full-sequence forward (train / prefill).
 
     batch: tokens (b, s_text) integer [+ modal_embeds (b, m, d) for a VLM
@@ -294,18 +324,28 @@ def forward(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
     a block's activations from its input instead of keeping them.  Each
     "sub{j}" of the cache holds sub-layer j's entries, stacked over the
     blocks.
+
+    ``par`` (``parallel.collectives.ModelParallel``) runs one rank of the
+    sharded train step on its shards: the dense family's attention on its
+    H/t heads (wq/wk/wv its heads, wo their rows, one all-reduce after) and
+    its FFN on d_ff/t columns (w1/w3 columns, w2 rows, one all-reduce), the
+    embedding and head under the embed's vocab-or-d_model sharding, and at
+    ZeRO 3 each leaf gathered over the data axis before use.  Without it
+    (one device) none of that code runs.
     """
     _check_supported(cfg)
-    x = _embed_inputs(cfg, params, batch)             # (b, s, d)
+    if par is not None:
+        params = par.gather_top(params)
+    x = _embed_inputs(cfg, params, batch, par)        # (b, s, d)
     positions = torch.arange(x.shape[1], device=x.device)
     entries: Dict[str, Dict[str, List[torch.Tensor]]] = {}
     auxes: List[torch.Tensor] = []
     for bp in _block_params(params["blocks"]):
         if remat:
-            x, caches, a = checkpoint(_block, cfg, bp, x, positions,
+            x, caches, a = checkpoint(_block, cfg, bp, x, positions, par,
                                       use_reentrant=False)
         else:
-            x, caches, a = _block(cfg, bp, x, positions)
+            x, caches, a = _block(cfg, bp, x, positions, par)
         auxes.extend(a)
         if want_cache:
             for sub, cache in caches.items():
@@ -313,7 +353,7 @@ def forward(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
                     entries.setdefault(sub, {}).setdefault(name, []).append(t)
     if last_only:
         x = x[:, -1:]
-    logits = _head(cfg, params, x)
+    logits = _head(cfg, params, x, par)
     caches = ({sub: {name: torch.stack(ts) for name, ts in cache.items()}
                for sub, cache in entries.items()} if want_cache else None)
     if not want_aux:

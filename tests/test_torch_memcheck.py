@@ -1,0 +1,120 @@
+"""The port's Fig 6 driver (``repro_torch.launch.memcheck``): its combos are
+the JAX package's, rank 0's state under the fake process group holds
+exactly the specs' shards, one sharded step runs on that state, and the
+driver refuses a device without CUDA's allocator.
+
+The JAX module sets ``XLA_FLAGS`` when it is imported, which would change
+the CPU device count of every later JAX test in this process, so its
+``COMBOS`` are read from its source instead.
+"""
+import ast
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro_torch.configs import TrainConfig, smoke_config
+from repro_torch.data import SyntheticTokens
+from repro_torch.launch import memcheck
+from repro_torch.launch.mesh import make_plan_mesh
+from repro_torch.launch.train import to_device
+from repro_torch.models import param_shapes
+from repro_torch.parallel import collectives as col
+from repro_torch.train.optimizer import tree_leaves
+from repro_torch.train.train_loop import (build_train_step, make_local_state,
+                                          state_specs)
+
+ROOT = Path(__file__).resolve().parents[1]
+COMBOS = memcheck.COMBOS
+
+
+def jax_combos():
+    tree = ast.parse((ROOT / "src/repro/launch/memcheck.py").read_text())
+    for node in tree.body:
+        if isinstance(node, ast.Assign) and \
+                getattr(node.targets[0], "id", None) == "COMBOS":
+            return ast.literal_eval(node.value)
+    raise AssertionError("no COMBOS in the JAX memcheck")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread: smoke-sized products, and the other test
+    processes share the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def test_combos_are_the_jax_packages():
+    assert COMBOS == jax_combos()
+
+
+@pytest.mark.parametrize("zero", [0, 1, 3])
+@pytest.mark.parametrize("arch,batch,seq,d,t", COMBOS,
+                         ids=[f"{a}-b{b}-{d}x{t}" for a, b, _, d, t in COMBOS])
+def test_rank0_state_is_the_specs_shards(arch, batch, seq, d, t, zero):
+    """Rank 0's state of each combo's plan (smoke widths, fake group): every
+    leaf has its spec's local shape in storage of its own, and the bytes
+    are the specs' sum (nothing of a whole leaf is kept)."""
+    cfg = smoke_config(arch)
+    tc = TrainConfig(global_batch=batch, seq_len=64, microbatch=1, zero=zero)
+    with memcheck.fake_world(d * t):
+        mesh = make_plan_mesh(d, t, device_type="cpu")
+        state = make_local_state(cfg, tc, mesh, device="cpu")
+        specs = state_specs(cfg, tc, mesh, param_shapes(cfg))
+        shapes = tree_leaves(param_shapes(cfg))
+        for part, spec_tree in ((state["params"], specs["params"]),
+                                *((state["opt"][k], specs["opt"][k])
+                                  for k in ("master", "m", "v"))):
+            for leaf, spec, shape in zip(tree_leaves(part),
+                                         tree_leaves(spec_tree), shapes):
+                assert tuple(leaf.shape) == col.local_shape(shape, spec, mesh)
+                assert leaf.untyped_storage().nbytes() == \
+                    leaf.numel() * leaf.element_size()
+        assert memcheck.storage_bytes(state) == \
+            memcheck.local_state_bytes(cfg, tc, mesh)
+
+
+@pytest.mark.parametrize("arch,batch,seq,d,t",
+                         [c for c in COMBOS if c[3] * c[4] > 1],
+                         ids=[f"{a}-b{b}-{d}x{t}" for a, b, _, d, t in COMBOS
+                              if d * t > 1])
+def test_one_sharded_step_runs_under_the_fake_group(arch, batch, seq, d, t):
+    """The memcheck path at smoke widths on the CPU: one sharded step of
+    rank 0 runs at ZeRO 1, the local state keeps its shapes (the values
+    the fake group leaves mean nothing)."""
+    cfg = smoke_config(arch)
+    tc = TrainConfig(global_batch=batch, seq_len=64, microbatch=1, zero=1)
+    with memcheck.fake_world(d * t):
+        mesh = make_plan_mesh(d, t, device_type="cpu")
+        state = make_local_state(cfg, tc, mesh, device="cpu")
+        before = [tuple(x.shape) for x in tree_leaves(state["params"])]
+        step, _ = build_train_step(cfg, tc, batch, 64, mesh=mesh)
+        batch_ = to_device(next(SyntheticTokens(cfg, batch, 64, seed=0)),
+                           "cpu")
+        state, _ = step(state, batch_)
+        assert state["step"] == 1
+        assert [tuple(x.shape) for x in tree_leaves(state["params"])] == before
+
+
+def test_run_one_refuses_the_cpu():
+    with pytest.raises(ValueError, match="CUDA"):
+        memcheck.run_one("gpt2-350m", 8, 1024, 2, 1, zero=1, device="cpu")
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+
+
+@pytest.mark.gpu
+def test_run_one_smoke_combo_on_the_card(cuda):
+    """One smoke combo as rank 0 of (2, 2) on the card: a row with a peak
+    above the state and both accuracies."""
+    row = memcheck.run_one("gpt2-350m", 8, 256, 2, 2, zero=1,
+                           cfg=smoke_config("gpt2-350m"))
+    assert row["actual_bytes"] > row["state_bytes"] > 0
+    assert -10 < row["acc_exact"] <= 1 and -10 < row["acc_paper"] <= 1
