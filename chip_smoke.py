@@ -141,6 +141,20 @@ Phases, each printing its lines before the last:
    line each with the peak, both predictions and both accuracies, then
    the mean accuracy beside the paper's 0.92.  It fails on an
    out-of-memory and on a rank-0 state that is not its specs' shards.
+(f) the sharded step for the MLA, MoE and Mamba2 families, as (m) runs
+   the Fig 6 combos (``FAMILY_PLANS``: deepseek-v2-236b whole on (16,16)
+   at ZeRO 3 -- 8 MLA heads of 192 and 10 of 160 experts a rank --, one
+   8-layer block of jamba-1.5-large-398b on (4,8) at ZeRO 1 and 3 -- 2
+   experts, 8/1 attention heads, 32 SSM heads a rank -- and mamba2-130m
+   whole on (2,4) and (1,8)): one line a plan with the peak, both predictions and accuracies and
+   whether the peak stays under the exact one (reported, not required).
+   It fails on an out-of-memory, on a rank-0 state that is not its
+   specs' shards and on a plan that never launched its attention forward
+   and backward, SSD scan and gradient, Adam or RMSNorm.  Phase 2 holds
+   each of these plans' new local shapes against its plain version and
+   times it (the attention forward and backward at 8 and 16 heads of 192
+   and at 8 query heads on 1 KV head of 128, the SSD scan and gradient at
+   32, 6 and 3 heads).
 
 Every training cell (7, 8, 10, 11) is started through (s)'s front door
 as gpt2-350m's is, and its peak over step 1 must equal the one-device
@@ -361,6 +375,42 @@ STABLELM_TRAIN = dict(b=1, s=1024, H=32, K=8, D=160)
 # one rank of gpt2-7b's (d=8, t=2) plan in phase (m): b=1, s=1024, 16 of its
 # 32 heads of 128, causal
 GPT2_7B_T2 = dict(b=1, s=1024, H=16, D=128)
+# one rank's attention in phase (f), b=1, s=1024, causal: deepseek-v2's MLA
+# at t=16 and t=8 (8 and 16 of its 128 heads of dn + dr = 192), jamba's GQA
+# at t=8 (8 of its 64 query heads on 1 of its 8 KV heads of 128)
+RANK_ATTENTION = {"mla_t16": dict(b=1, s=1024, H=8, K=8, D=192),
+                  "mla_t8": dict(b=1, s=1024, H=16, K=16, D=192),
+                  "jamba_t8": dict(b=1, s=1024, H=8, K=1, D=128)}
+# one rank's SSD scan and gradient in phase (f), b=1, s=1024, P=64, N=128:
+# jamba at t=8 (32 of its 256 heads), mamba2-130m at t=4 and t=8 (6 and 3
+# of its 24)
+SSD_RANKS = {"jamba_t8_h32": 32, "mamba2_t4_h6": 6, "mamba2_t8_h3": 3}
+
+# Phase (f): rank 0 of multi-device plans of the MLA, MoE and Mamba2
+# families, as phase (m) runs the Fig 6 combos (fake process group, s=1024,
+# microbatch 1, block remat, one step): (arch, cut, global batch, d, t,
+# ZeRO stages).  ``run_one`` draws rank 0's shards at their own shapes:
+# one stacked expert leaf of deepseek-v2 is 151 GB whole.  The port's
+# exact_peak_bytes for each, on
+# the CPU: deepseek 20,400,381,379 B; jamba 37,990,310,579 (ZeRO 1) and
+# 29,525,686,835 (ZeRO 3); mamba2 1,510,496,771 at (2,4) and 1,395,313,555
+# at (1,8).
+# - deepseek-v2-236b, no cut: 60 layers, 160 routed experts top-6 and 2
+#   shared, 128 heads of 192 -- rank 0 holds 8 heads and 10 experts of
+#   each layer, a 13.3 GB state.  Not at ZeRO 1: the model-local bf16
+#   gradient (2W/t, ~29.9 GB) beside its 48.5 GB prediction would crowd
+#   the card.
+# - jamba-1.5-large-398b, one 8-layer block of its 72 (the layer pattern
+#   repeats every 8), all 16 experts: rank 0 holds 2 experts, 8 query heads
+#   on 1 KV head and 32 SSM heads; the whole 72 layers at (4,8) are
+#   predicted ~9x the block.
+# - mamba2-130m, whole: 6 SSM heads a rank at (2,4), 3 at (1,8).
+# Every head count divides its t (the head_dim / seq fallback is not
+# ported); each plan is accepted by ``check_sharded_supported``.
+FAMILY_PLANS = [("deepseek-v2-236b", {}, 16, 16, 16, (3,)),
+                ("jamba-1.5-large-398b", dict(num_layers=8), 4, 4, 8, (1, 3)),
+                ("mamba2-130m", {}, 8, 2, 4, (1,)),
+                ("mamba2-130m", {}, 8, 1, 8, (1,))]
 
 
 def check(cond, msg):
@@ -588,6 +638,8 @@ def phase_kernels(peaks, flush):
         ("stablelm_window64", 2, 512, 512, 32, 8, 160, True, 64, bf16),
         ("stablelm_noncausal_sq!=sk", 2, 96, 200, 8, 2, 160, False, 0, bf16),
         ("stablelm_fp32_ragged", 2, 130, 130, 8, 2, 160, True, 0, f32),
+        *((name, c["b"], c["s"], c["s"], c["H"], c["K"], c["D"], True, 0, bf16)
+          for name, c in RANK_ATTENTION.items()),
     ]
     for name, b, sq, sk, H, K, D, causal, window, dt in attn_cases:
         q, k, v = randn(b, sq, H, D, dtype=dt), randn(b, sk, K, D, dtype=dt), \
@@ -605,7 +657,8 @@ def phase_kernels(peaks, flush):
               f"{err_lse:.3e} tol={FP32_TOL:g} {'ok' if ok and ok_lse else 'FAIL'}")
         check(ok and ok_lse,
               f"flash_attention {name} disagrees with its plain version")
-        if name not in ("prefill", "jamba_prefill", "stablelm_prefill"):
+        if name not in ("prefill", "jamba_prefill", "stablelm_prefill",
+                        *RANK_ATTENTION):
             continue
         pos_q = torch.arange(sq, device="cuda")[:, None]
         pos_k = torch.arange(sk, device="cuda")[None]
@@ -943,7 +996,9 @@ def phase_attention_bwd(peaks, flush, randn):
             ("stablelm_noncausal_sq!=sk", 2, 96, 200, 4, 2, 160, False, 0, bf16),
             ("stablelm_fp32_ragged", 1, 130, 130, 8, 2, 160, True, 0, f32),
             ("gpt2_7b_t2", *(GPT2_7B_T2[k] for k in "bss"),
-             *(GPT2_7B_T2[k] for k in "HHD"), True, 0, bf16)]:
+             *(GPT2_7B_T2[k] for k in "HHD"), True, 0, bf16),
+            *((name, c["b"], c["s"], c["s"], c["H"], c["K"], c["D"], True, 0,
+               bf16) for name, c in RANK_ATTENTION.items())]:
         kw = dict(causal=causal, window=window)
         q, k, v = randn(b, sq, H, D, dtype=dt), randn(b, sk, K, D, dtype=dt), \
             randn(b, sk, K, D, dtype=dt)
@@ -975,7 +1030,8 @@ def phase_attention_bwd(peaks, flush, randn):
               f" {'ok' if ok else 'FAIL'}")
         check(ok, f"flash_attention_bwd {name} disagrees with its plain"
                   f" versions or is not deterministic")
-        if name not in ("train", "mla_train", "stablelm_train", "gpt2_7b_t2"):
+        if name not in ("train", "mla_train", "stablelm_train", "gpt2_7b_t2",
+                        *RANK_ATTENTION):
             continue
         pairs = sq * (sq + 1) // 2
         nbytes = 2 * (4 * q.numel() + 2 * k.numel() + 2 * v.numel()) \
@@ -996,7 +1052,10 @@ def phase_attention_bwd(peaks, flush, randn):
                 lambda: flash_attention_bwd(q, k, v, o, lse, do, **kw), 10)
             cell = {"mla_train": "deepseek-v2 MLA training",
                     "stablelm_train": "stablelm-12b training",
-                    "gpt2_7b_t2": "gpt2-7b at t=2, phase (m)"}[name]
+                    "gpt2_7b_t2": "gpt2-7b at t=2, phase (m)",
+                    "mla_t16": "deepseek-v2 at t=16, phase (f)",
+                    "mla_t8": "deepseek-v2 at t=8",
+                    "jamba_t8": "jamba at t=8, phase (f)"}[name]
             print(f"time flash_attention_bwd D={D} ({cell}"
                   f" b={b} s={sq} H={H} K={K}, {nbytes} bytes,"
                   f" {10 * D * b * H * pairs} flops): kernel {ms:.4f} ms, plain"
@@ -1120,7 +1179,9 @@ def phase_ssd_kernel(peaks, flush, gen):
             ("mid_segment_b1", 1, 4000, 24, 64, 128, bf16),
             ("fp32_ragged", 2, 1000, 24, 64, 128, f32),
             ("smoke_dims", 2, 200, 16, 32, 16, bf16),
-            ("smoke_dims_fp32", 3, 77, 16, 32, 16, f32)]:
+            ("smoke_dims_fp32", 3, 77, 16, 32, 16, f32),
+            *((name, 1, 1024, h, 64, 128, bf16)
+              for name, h in SSD_RANKS.items())]:
         args = ssd_inputs(gen, b, s, h, P, N, dt)
         x, dt_raw, A_log, B, C, D, dt_bias = args
         got = ssd_scan(*args)
@@ -1137,7 +1198,7 @@ def phase_ssd_kernel(peaks, flush, gen):
               f" {want[1].abs().max().item():.3f}) tol={tol:g}"
               f" {'ok' if ok_y and ok_s else 'FAIL'}")
         check(ok_y and ok_s, f"ssd_scan {name} disagrees with its plain version")
-        if "prefill" not in name:
+        if "prefill" not in name and name not in SSD_RANKS:
             continue
         # reads x, dt_raw, B, C and the (h,) vectors, writes y and the
         # float32 state; the products that every chunk length L needs, per
@@ -1203,7 +1264,9 @@ def phase_ssd_bwd(peaks, flush, gen):
             ("ragged", (2, 1000, 24, 64, 128), bf16, True),
             ("b4", (4, 512, 24, 64, 128), bf16, False),
             ("smoke_dims", (2, 200, 16, 32, 16), bf16, True),
-            ("smoke_dims_fp32", (3, 77, 16, 32, 16), f32, False)]:
+            ("smoke_dims_fp32", (3, 77, 16, 32, 16), f32, False),
+            *((name, (1, 1024, h, 64, 128), bf16, False)
+              for name, h in SSD_RANKS.items())]:
         args = ssd_inputs(gen, b, s, h, P, N, dt)
         dy = torch.randn(b, s, h, P, generator=gen, device="cuda").to(dt)
         ds = (torch.randn(b, h, P, N, generator=gen, device="cuda")
@@ -1242,7 +1305,7 @@ def phase_ssd_bwd(peaks, flush, gen):
               + auto + f", rerun bit-identical {same} tol={tol:g}"
               f" {'ok' if ok else 'FAIL'}")
         check(ok, f"ssd_scan_bwd {name} disagrees with its plain versions")
-        if name != "train":
+        if name != "train" and name not in SSD_RANKS:
             continue
         # reads x, dt_raw, B, C, dy and the (h,) vectors, writes dx,
         # ddt_raw, dB, dC and the (h,) gradients; the products that every
@@ -1258,6 +1321,13 @@ def phase_ssd_bwd(peaks, flush, gen):
                   + 4 * 6 * h)
         flops = b * h * s * 2 * 6 * P * N
         bound_ms, bound_by = bound(nbytes, flops, peaks)
+        if name in SSD_RANKS:
+            ms = time_ms(lambda: ssd_scan_bwd(*args, dy, ds), flush)
+            plain_ms = time_ms(lambda: ssd_scan_bwd_ref(*args, dy, ds), flush)
+            print(f"time ssd_scan_bwd {name} (one rank, phase (f)): {nbytes}"
+                  f" bytes, {flops} flops: kernel {ms:.4f} ms, plain"
+                  f" {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+            continue
         # the call's scratch: its peak allocated memory less what was
         # allocated before it (the inputs among it) and its outputs
         torch.cuda.synchronize()
@@ -1892,12 +1962,12 @@ def routing_spy(moe):
     routes = []
     inner = moe.moe_ffn
 
-    def spy(cfg_, p, x):
+    def spy(cfg_, p, x, par=None):
         with torch.no_grad():
             probs = torch.softmax(x.float() @ p["router"], dim=-1)
             routes.append(torch.topk(probs, cfg_.top_k,
                                      dim=-1).indices.sort(-1).values)
-        return inner(cfg_, p, x)
+        return inner(cfg_, p, x, par)
 
     moe.moe_ffn = spy
     return routes, lambda: setattr(moe, "moe_ffn", inner)
@@ -2345,10 +2415,55 @@ def phase_memcheck():
           f" {sum(r['acc_paper'] for r in rows) / len(rows):.4f} (the paper"
           f" reports 0.92); observed <= exact prediction in {under} of"
           f" {len(rows)}; launches {launches}")
+    with open(os.path.join(ROOT, "experiments", "memcheck_torch",
+                           "memcheck_zero1.json")) as f:
+        kept = [r["actual_bytes"] for r in json.load(f)]
+    print(f"(m) peaks equal to the committed"
+          f" experiments/memcheck_torch/memcheck_zero1.json rows:"
+          f" {[r['actual_bytes'] for r in rows] == kept}")
     for k in ("flash_attention", "flash_attention_bwd", "adam_update",
               "rms_norm"):
         check(launches[k] > 0, f"phase (m) never launched {k}")
     return launches
+
+
+def phase_family():
+    """(f) rank 0 of each ``FAMILY_PLANS`` plan under the fake process
+    group, one sharded step (an out-of-memory, or a state whose bytes are
+    not the specs' shards, raises out of ``run_one``): the peak beside the
+    port's prediction, reported; the plan's attention forward and backward,
+    SSD scan and gradient, Adam and RMSNorm must have run."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.memcheck import card, describe, run_one
+    from repro_torch.models.transformer import _mixer_kind
+    smi = card()
+    total = Counter()
+    for arch, cut, b, d, t, zeros in FAMILY_PLANS:
+        cfg = get_arch(arch).scaled(**cut) if cut else get_arch(arch)
+        kinds = {_mixer_kind(cfg, j) for j in range(cfg.block_period)}
+        want = ["adam_update", "rms_norm"]
+        if kinds - {"ssm"}:
+            want += ["flash_attention", "flash_attention_bwd"]
+        if "ssm" in kinds:
+            want += ["ssd_scan", "ssd_scan_bwd"]
+        for zero in zeros:
+            reset_launches()
+            t0 = time.perf_counter()
+            row = run_one(arch, b, 1024, d, t, zero=zero, cfg=cfg, smi=smi)
+            launches = {k: n for k, n in LAUNCHES.items() if n}
+            total.update(launches)
+            print(f"(f) {describe(row)}{' cut ' + str(cut) if cut else ''};"
+                  f" observed <= exact prediction"
+                  f" {row['actual_bytes'] <= row['pred_exact']}; rank 0's"
+                  f" state {row['state_bytes']} B, held before it"
+                  f" {row['base_bytes']} B; launches {launches};"
+                  f" {time.perf_counter() - t0:.1f} s")
+            for k in want:
+                check(launches.get(k, 0) > 0,
+                      f"phase (f) {arch} d={d} t={t} zero={zero} never"
+                      f" launched {k}")
+    return total
 
 
 def train_peak(arch):
@@ -2561,7 +2676,7 @@ def main():
     rows = timed_phase("kernels", lambda: phase_kernels(peaks, flush))
     del flush
     serve_plan = timed_phase("serverless front door", phase_serverless)
-    # launches: the sum over the ten main-path runs, each counted from 0
+    # launches: the sum over the eleven main-path runs, each counted from 0
     path_launches = [timed_phase("llama3.2-3b serving", lambda: phase_model(
                          serve_plan=serve_plan)),
                      timed_phase("deepseek-v2-236b serving", phase_deepseek),
@@ -2577,7 +2692,8 @@ def main():
                                  lambda: phase_train(peaks, "deepseek-v2-236b")),
                      timed_phase("stablelm-12b training",
                                  lambda: phase_train(peaks, "stablelm-12b")),
-                     timed_phase("(m) memcheck", phase_memcheck)]
+                     timed_phase("(m) memcheck", phase_memcheck),
+                     timed_phase("(f) family plans", phase_family)]
     for kname, row in rows.items():
         row["launches"] = sum(launches[kname] for launches in path_launches)
     print(f"total wall time {time.perf_counter() - t0:.1f}s")

@@ -8,8 +8,11 @@ For GPT2-350M / GPT2-7B (the paper's models) under the JAX package's
 (d, t) plan in this one process, under PyTorch's fake process group: its
 collectives return without communicating, while every shard, gathered
 buffer and activation of the rank is a real CUDA allocation.  Rank 0's
-local state is built on the card one leaf at a time (the whole gpt2-7b
-state, ~140 GB, is never held), the peak statistics are reset, one
+local state is drawn on the card one shard at a time, at the shard's own
+shape (``make_local_state(whole_leaves=False)``: the whole gpt2-7b state
+is ~140 GB, one stacked expert leaf of deepseek-v2-236b 151 GB; the
+values, which the fake group makes meaningless anyway, are not the
+one-device state's), the peak statistics are reset, one
 sharded train step runs (``train.build_train_step(..., mesh=)``), and the
 caching allocator's peak over that step is the row's actual (with
 whatever the process held before the state, ``base_bytes``: cuBLAS's
@@ -119,8 +122,9 @@ def run_one(arch: str, batch: int, seq: int, d: int, t: int, zero: int = 0, *,
             cfg: Optional[ModelConfig] = None, device="cuda",
             smi: Optional[Dict[str, str]] = None) -> Dict[str, Any]:
     """One combo as rank 0 of its (d, t) plan on the card; ``cfg`` in place
-    of ``get_arch(arch)`` (a smoke config).  Raises off CUDA: the actual is
-    the card's allocator's, and there is no CPU stand-in for it."""
+    of ``get_arch(arch)`` (a smoke config, or a cut one).  Raises off
+    CUDA: the actual is the card's allocator's, and there is no CPU
+    stand-in for it."""
     device = torch.device(device)
     if device.type != "cuda":
         raise ValueError(f"memcheck measures the CUDA caching allocator's "
@@ -134,7 +138,8 @@ def run_one(arch: str, batch: int, seq: int, d: int, t: int, zero: int = 0, *,
         mesh = make_plan_mesh(d, t, device_type="cuda")
         torch.cuda.synchronize(device)
         base = torch.cuda.memory_allocated(device)
-        state = make_local_state(cfg, tc, mesh, device=device)
+        state = make_local_state(cfg, tc, mesh, device=device,
+                                 whole_leaves=False)
         want = local_state_bytes(cfg, tc, mesh)
         held = storage_bytes(state)
         grown = torch.cuda.memory_allocated(device) - base

@@ -13,7 +13,7 @@ functions return a new cache): no decode step copies the cache.
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple, Union
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -22,6 +22,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import dispatch
 from repro_torch.models.common import rms_norm
 from repro_torch.parallel.act import constrain
+from repro_torch.parallel.collectives import ModelParallel
 
 Pos = Union[int, torch.Tensor]
 
@@ -153,10 +154,19 @@ def mla_param_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
 
 
 def _mla_q(cfg: ModelConfig, p: dict, x: torch.Tensor,
-           positions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(q_nope (b, s, H, dn), q_rope (b, s, H, dr)); RoPE on the dr slice."""
+           positions: torch.Tensor, par: Optional[ModelParallel] = None
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(q_nope (b, s, H, dn), q_rope (b, s, H, dr)); RoPE on the dr slice.
+    With ``par``: ``wq_a`` holds r_q/t columns, whose latent is gathered
+    and normed whole on every rank before ``wq_b``'s local heads (the
+    gradient rule of ``parallel.collectives``)."""
     dn = cfg.qk_nope_head_dim
-    cq = rms_norm(x @ p["wq_a"], p["q_ln"], cfg.norm_eps)
+    if par is None:
+        cq = rms_norm(x @ p["wq_a"], p["q_ln"], cfg.norm_eps)
+    else:
+        cq = par.to_model(rms_norm(par.gather_model(par.to_model(x)
+                                                    @ p["wq_a"], -1),
+                                   p["q_ln"], cfg.norm_eps))
     q = _project(cq, p["wq_b"])
     return q[..., :dn], apply_rope(q[..., dn:], positions, cfg.rope_theta)
 
@@ -173,21 +183,31 @@ def _mla_latent(cfg: ModelConfig, p: dict, x: torch.Tensor,
 
 
 def mla_attend_train(cfg: ModelConfig, p: dict, x: torch.Tensor,
-                     positions: torch.Tensor
+                     positions: torch.Tensor,
+                     par: Optional[ModelParallel] = None
                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Full-sequence (prefill) MLA: per-head k/v from the latent, q and k
     concatenated to width dn + dr with the shared RoPE key broadcast over
     the heads, v zero-padded to that width so one attention call serves,
-    and the output sliced back to dv.  Returns (out, {c_kv, k_rope})."""
+    and the output sliced back to dv.  Returns (out, {c_kv, k_rope}).
+
+    With ``par`` (one rank of the sharded step; x the replicated,
+    pre-``to_model`` input): the latent and the RoPE key are computed on
+    every rank from x and go through ``to_model`` to ``wk_b``/``wv_b``'s
+    local heads; ``out`` is the rank's heads' share through its rows of
+    ``wo``, which the caller sums over the model axis."""
     b, s, _ = x.shape
-    H = cfg.num_heads
+    H = p["wq_b"].shape[1]                             # this rank's heads
     dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
-    q_nope, q_rope = _mla_q(cfg, p, x, positions)
+    q_nope, q_rope = _mla_q(cfg, p, x, positions, par)
     c_kv, k_rope = _mla_latent(cfg, p, x, positions)
-    k_nope = _project(c_kv, p["wk_b"])
-    v = _project(c_kv, p["wv_b"])
+    kv_c, kv_r = c_kv, k_rope
+    if par is not None:
+        kv_c, kv_r = par.to_model(c_kv), par.to_model(k_rope)
+    k_nope = _project(kv_c, p["wk_b"])
+    v = _project(kv_c, p["wv_b"])
     q = torch.cat([q_nope, q_rope], dim=-1)
-    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(b, s, H, dr)], dim=-1)
+    k = torch.cat([k_nope, kv_r[:, :, None, :].expand(b, s, H, dr)], dim=-1)
     v = F.pad(v, (0, dn + dr - dv))
     o = dispatch.attention(q, k, v, causal=True,
                            softmax_scale=1.0 / math.sqrt(dn + dr))

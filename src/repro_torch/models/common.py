@@ -7,6 +7,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import dispatch
+from repro_torch.parallel.collectives import ModelParallel
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5
@@ -26,23 +27,41 @@ def gated_rms_norm(x: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
     return rms_norm(x * F.silu(z.float()).to(x.dtype), scale, eps)
 
 
-def _truncated_normal(gen: torch.Generator, shape: Sequence[int]
-                      ) -> torch.Tensor:
-    """Standard normal truncated to [-3, 3], float32, on the generator's
-    device."""
-    t = torch.empty(tuple(shape), dtype=torch.float32, device=gen.device)
+def gated_rms_norm_sharded(x: torch.Tensor, z: torch.Tensor,
+                           scale: torch.Tensor, eps: float, width: int,
+                           par: ModelParallel) -> torch.Tensor:
+    """``gated_rms_norm`` over a ``width`` split on the model axis: x, z
+    and scale are this rank's slice of the channels, and the row's mean
+    of squares spans every rank's (its float32 sum of squares summed over
+    the model axis by ``par.sum_model``).  Plain PyTorch, as the plain
+    RMSNorm computes it: the JAX package computes this norm in XLA, so
+    it is no TPU kernel, and the one-device norm (the batch-invariant
+    kernel on the card) is not touched."""
+    g = (x * F.silu(z.float()).to(x.dtype)).float()
+    ss = par.sum_model(g.square().sum(dim=-1, keepdim=True))
+    return (g * torch.rsqrt(ss / width + eps) * scale.float()).to(x.dtype)
+
+
+def _truncated_normal(gen: torch.Generator, shape: Sequence[int],
+                      device=None) -> torch.Tensor:
+    """Standard normal truncated to [-3, 3], float32, on ``device`` (default
+    the generator's)."""
+    t = torch.empty(tuple(shape), dtype=torch.float32,
+                    device=device or gen.device)
     return torch.nn.init.trunc_normal_(t, 0.0, 1.0, -3.0, 3.0, generator=gen)
 
 
 def dense_init(gen: torch.Generator, shape: Sequence[int], fan_in: int, *,
-               scale: float = 1.0, dtype: torch.dtype = torch.bfloat16
-               ) -> torch.Tensor:
+               scale: float = 1.0, dtype: torch.dtype = torch.bfloat16,
+               device=None) -> torch.Tensor:
     """Truncated-normal fan-in init, std = scale / sqrt(fan_in)."""
-    return _truncated_normal(gen, shape).mul_(scale / fan_in ** 0.5).to(dtype)
+    return _truncated_normal(gen, shape, device).mul_(
+        scale / fan_in ** 0.5).to(dtype)
 
 
-def embed_init(gen: torch.Generator, shape: Sequence[int]) -> torch.Tensor:
-    return _truncated_normal(gen, shape).mul_(0.02).to(torch.bfloat16)
+def embed_init(gen: torch.Generator, shape: Sequence[int], device=None
+               ) -> torch.Tensor:
+    return _truncated_normal(gen, shape, device).mul_(0.02).to(torch.bfloat16)
 
 
 def mlp(variant: str, x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,

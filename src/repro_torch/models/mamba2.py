@@ -7,17 +7,25 @@ scan for a CPU tensor.  Layout follows the Mamba2 reference: projections
 to z, [x | B | C] and dt, a depthwise causal conv over [x | B | C], SSD
 with a scalar A per head, the gated RMSNorm, out_proj.  One B/C group.
 The single-token decode step is plain PyTorch, as in the JAX package.
+
+One rank of the sharded step (``mamba2_forward(..., par)``) holds its
+h/t heads: its columns of ``in_zx`` ([z | x] of its heads,
+``parallel.collectives.PACKED``), ``in_dt``, ``conv_x`` and ``norm``, its
+entries of ``A_log``, ``D`` and ``dt_bias`` and its rows of ``out_proj``;
+``in_bc`` and ``conv_bc`` are replicated and read the pre-``to_model``
+input.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import dispatch
-from repro_torch.models.common import gated_rms_norm
+from repro_torch.models.common import gated_rms_norm, gated_rms_norm_sharded
+from repro_torch.parallel.collectives import ModelParallel
 
 Params = Dict[str, torch.Tensor]
 
@@ -62,12 +70,17 @@ def _causal_conv(xBC: torch.Tensor, w: torch.Tensor, b: torch.Tensor
     return F.silu((out + b).float()).to(xBC.dtype)
 
 
-def mamba2_forward(cfg: ModelConfig, p: Params, x: torch.Tensor
+def mamba2_forward(cfg: ModelConfig, p: Params, x: torch.Tensor,
+                   par: Optional[ModelParallel] = None
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Full-sequence forward.  x: (b, s, d).  Returns (out (b, s, d), the
     decode cache: conv, the last w - 1 *pre-conv* xBC rows (b, w - 1, ch),
     left-padded with zeros when s < w - 1, and ssd, the final state
-    (b, h, p, n) float32)."""
+    (b, h, p, n) float32).  With ``par``, x is the replicated
+    (pre-``to_model``) input, out the rank's share (the caller sums it over
+    the model axis) and the cache its heads' channels."""
+    if par is not None:
+        return _forward_rank(cfg, p, x, par)
     b, s, _ = x.shape
     di, n, h, hp = cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads, cfg.ssm_head_dim
     w = cfg.ssm_conv
@@ -82,6 +95,36 @@ def mamba2_forward(cfg: ModelConfig, p: Params, x: torch.Tensor
     y, state = dispatch.ssd(xs, dt_raw, p["A_log"], B, C, p["D"],
                             p["dt_bias"])
     y = gated_rms_norm(y.reshape(b, s, di), z, p["norm"], cfg.norm_eps)
+    return y @ p["out_proj"], {"conv": conv_state, "ssd": state.float()}
+
+
+def _forward_rank(cfg: ModelConfig, p: Params, x: torch.Tensor,
+                  par: ModelParallel
+                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """``mamba2_forward`` on this rank's heads.  B and C come from the
+    replicated ``in_bc`` and ``conv_bc`` on x and go through ``to_model``
+    after the conv, so the SSD gradient's dB and dC (summed over the
+    rank's heads) are summed over the model axis once; the depthwise conv
+    runs on x's and on [B | C]'s channels apart, which is exact."""
+    b, s, _ = x.shape
+    n, hp, w = cfg.ssm_state, cfg.ssm_head_dim, cfg.ssm_conv
+    h = p["A_log"].shape[0]
+    di = h * hp
+    xm = par.to_model(x)
+    zx = xm @ p["in_zx"]
+    z, xs = zx[..., :di], zx[..., di:]
+    dt_raw = xm @ p["in_dt"]
+    bc = x @ p["in_bc"]
+    pre = torch.cat([xs, bc], dim=-1)
+    conv_state = (pre[:, s - (w - 1):] if s >= w - 1
+                  else F.pad(pre, (0, 0, w - 1 - s, 0)))
+    xs = _causal_conv(xs, p["conv_x_w"], p["conv_x_b"])
+    bc = par.to_model(_causal_conv(bc, p["conv_bc_w"], p["conv_bc_b"]))
+    y, state = dispatch.ssd(xs.reshape(b, s, h, hp).contiguous(), dt_raw,
+                            p["A_log"], bc[..., :n].contiguous(),
+                            bc[..., n:].contiguous(), p["D"], p["dt_bias"])
+    y = gated_rms_norm_sharded(y.reshape(b, s, di), z, p["norm"],
+                               cfg.norm_eps, cfg.d_inner, par)
     return y @ p["out_proj"], {"conv": conv_state, "ssd": state.float()}
 
 

@@ -11,17 +11,27 @@ empty slots of the capacity.
 Leaves per layer: ``router`` (d, E) float32, ``w1``/``w3`` (E, d, f),
 ``w2`` (E, f, d) and, with shared experts, ``shared_w1``/``shared_w3``
 (d, S*f) and ``shared_w2`` (S*f, d).
+
+One rank of the sharded step (``par``) routes and dispatches every row
+as one device does, on the replicated input, then runs its own part on
+the model axis: its E/t experts' slots when t divides E (expert
+parallel), else every expert's slots on its f/t columns (ffn-sharded
+experts), and its S*f/t columns of the shared experts; the combine reads
+zeros for other ranks' slots and one all-reduce sums the partial outputs.
+The load-balance statistics are averaged over the data axis, so the aux
+loss is the global microbatch's, as in the JAX step.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.common import act, mlp
+from repro_torch.parallel.collectives import ModelParallel
 
 CAPACITY_FACTOR = 1.25
 
@@ -61,21 +71,29 @@ def _expert_ffn(cfg: ModelConfig, p: dict, xg: torch.Tensor) -> torch.Tensor:
     return torch.bmm(h, p["w2"]).view(E, b, C, d).transpose(0, 1)
 
 
-def moe_ffn(cfg: ModelConfig, p: dict, x: torch.Tensor
+def moe_ffn(cfg: ModelConfig, p: dict, x: torch.Tensor,
+            par: Optional[ModelParallel] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (b, s, d).  Returns (out (b, s, d) in x's dtype, aux loss fp32)."""
+    """x: (b, s, d).  Returns (out (b, s, d) in x's dtype, aux loss fp32).
+    With ``par``, x is the replicated (pre-``to_model``) input, ``p`` this
+    rank's shards and ``out`` summed over the model axis."""
     b, s, d = x.shape
     E, k = cfg.num_experts, cfg.top_k
     C = moe_capacity(s, E, k)
 
     logits = x.float() @ p["router"]                   # fp32 router
     probs = torch.softmax(logits, dim=-1)
-    w, idx = torch.topk(probs, k, dim=-1)              # (b, s, k)
+    # the combine weights feed the rank's experts: their gradient is
+    # summed over the model axis; the aux loss reads probs before that
+    w, idx = torch.topk(probs if par is None else par.to_model(probs), k,
+                        dim=-1)                        # (b, s, k)
     w = w / w.sum(dim=-1, keepdim=True)
 
     # load-balance aux loss (Switch-style)
     me = probs.mean(dim=(0, 1))                        # (E,)
     ce = F.one_hot(idx[..., 0], E).float().mean(dim=(0, 1))
+    if par is not None:                                # the global microbatch
+        me, ce = par.mean_data(me), par.mean_data(ce)
     aux = E * torch.sum(me * ce)
 
     # row-local sort-based dispatch; the sort must be stable, as jnp.argsort
@@ -99,6 +117,10 @@ def moe_ffn(cfg: ModelConfig, p: dict, x: torch.Tensor
                           device=x.device).scatter_(1, dest, sorted_tok)[:, :-1]
     slot_w = torch.zeros((b, E * C + 1), dtype=torch.float32,
                          device=x.device).scatter_(1, dest, sorted_w)[:, :-1]
+    if par is not None:
+        entry_dest = torch.empty_like(dest).scatter_(1, order, dest)
+        return _moe_rank(cfg, p, par.to_model(x), slot_tok, slot_w,
+                         entry_dest, C, par), aux
     x_pad = torch.cat([x, x.new_zeros(b, 1, d)], dim=1)
     xg = torch.gather(x_pad, 1, slot_tok[..., None].expand(b, E * C, d))
     yg = _expert_ffn(cfg, p, xg.view(b, E, C, d)).reshape(b, E * C, d)
@@ -117,3 +139,34 @@ def moe_ffn(cfg: ModelConfig, p: dict, x: torch.Tensor
         out = out + mlp(cfg.mlp_variant, x, p["shared_w1"], p["shared_w2"],
                         p.get("shared_w3"))
     return out, aux
+
+
+def _moe_rank(cfg: ModelConfig, p: dict, x: torch.Tensor,
+              slot_tok: torch.Tensor, slot_w: torch.Tensor,
+              entry_dest: torch.Tensor, C: int, par: ModelParallel
+              ) -> torch.Tensor:
+    """One model rank's routed and shared experts from the dispatch every
+    rank computed, summed over the model axis: ``moe_ffn``'s gather,
+    experts and combine restricted to the rank's slots (the one-device
+    lines are left as they are, so its step's memory stays what was
+    measured).  x: (b, s, d) after ``to_model``.  Expert-parallel (``w1``
+    holds E/t experts): the rank's slots [lo, lo + E/t C); ffn-sharded:
+    every slot on its f/t columns.  Entries in other ranks' slots read the
+    appended zero row."""
+    b, s, d = x.shape
+    k = cfg.top_k
+    n = p["w1"].shape[0] * C                           # the rank's slots
+    lo = par.model_idx * n if p["w1"].shape[0] < cfg.num_experts else 0
+    x_pad = torch.cat([x, x.new_zeros(b, 1, d)], dim=1)
+    xg = torch.gather(x_pad, 1, slot_tok[:, lo:lo + n, None].expand(b, n, d))
+    yg = _expert_ffn(cfg, p, xg.view(b, n // C, C, d)).reshape(b, n, d)
+    yg = yg * slot_w[:, lo:lo + n, None].to(yg.dtype)
+    local = entry_dest - lo
+    local = torch.where((local >= 0) & (local < n), local, n)
+    y_pad = torch.cat([yg, yg.new_zeros(b, 1, d)], dim=1)
+    picked = torch.gather(y_pad, 1, local[..., None].expand(b, s * k, d))
+    out = picked.view(b, s, k, d).float().sum(dim=2).to(x.dtype)
+    if cfg.num_shared_experts:
+        out = out + mlp(cfg.mlp_variant, x, p["shared_w1"], p["shared_w2"],
+                        p.get("shared_w3"))
+    return par.from_model(out)

@@ -116,7 +116,8 @@ def param_shapes(cfg: ModelConfig) -> Dict[str, Any]:
 
 
 def init_params(cfg: ModelConfig, seed: int, device="cuda",
-                take: Optional[Callable] = None) -> Params:
+                take: Optional[Callable] = None,
+                local: Optional[Callable] = None) -> Params:
     """Random parameters drawn on ``device`` from a generator seeded with
     ``seed``, bfloat16 but the float32 ``FP32_LEAVES``: norms at 1,
     embeddings N(0, 0.02) truncated at 3 sigma, every matrix
@@ -127,22 +128,30 @@ def init_params(cfg: ModelConfig, seed: int, device="cuda",
     ``out_proj``; Mamba2's
     conv biases at 0, A_log = log(linspace(1, 16, h)), D at 1 and dt_bias
     the inverse softplus of a dt drawn log-uniform in [1e-3, 0.1] -- the
-    JAX package's recipe (its random numbers differ).
+    JAX package's recipe (its random numbers differ).  On the ``meta``
+    device (shapes only) a CPU generator stands in.
 
     ``take(path, leaf)``, when given, receives each leaf as it is drawn and
     returns what the tree keeps in its place (one rank's shard: the whole
-    tree is then never held at once); the draws are the same."""
-    gen = torch.Generator(device=device).manual_seed(seed)
+    tree is then never held at once); the draws are the same.
+    ``local(path, shape)``, when given, is the shape each leaf is drawn at
+    in place of its own (one rank's shard shape, for a rank whose whole
+    leaves would not fit its card): the fan-in stays the whole leaf's, the
+    values are not the whole leaf's."""
+    meta = torch.device(device).type == "meta"
+    gen = torch.Generator(device="cpu" if meta else device).manual_seed(seed)
+    where = device if meta else None
     out_scale = 1.0 / math.sqrt(2 * cfg.num_layers)
 
-    def init(path, shape):
+    def init(path, full):
+        shape = full if local is None else local(path, full)
         name = path[-1]
         if name in NORM_LEAVES:
             return torch.ones(shape, dtype=torch.bfloat16, device=device)
         if name == "embed":
-            return embed_init(gen, shape)
+            return embed_init(gen, shape, where)
         if name in SSM_VECTORS:
-            return _init_ssm_vector(gen, name, shape)
+            return _init_ssm_vector(gen, name, shape, where)
         in_axis = 0
         if path[0] == "blocks":                 # (nb, ...) stacked leaves
             # path: ("blocks", "sub{j}", ..., name); a dense FFN's w1/w2/w3
@@ -153,7 +162,8 @@ def init_params(cfg: ModelConfig, seed: int, device="cuda",
         scale = (out_scale if name in ("wo", "w2", "shared_w2", "out_proj")
                  else 1.0)
         dtype = torch.float32 if name in FP32_LEAVES else torch.bfloat16
-        return dense_init(gen, shape, shape[in_axis], scale=scale, dtype=dtype)
+        return dense_init(gen, shape, full[in_axis], scale=scale, dtype=dtype,
+                          device=where)
 
     if take is None:
         return _map_tree(init, param_shapes(cfg))
@@ -161,12 +171,13 @@ def init_params(cfg: ModelConfig, seed: int, device="cuda",
                      param_shapes(cfg))
 
 
-def _init_ssm_vector(gen: torch.Generator, name: str, shape: Tuple[int, ...]
-                     ) -> torch.Tensor:
+def _init_ssm_vector(gen: torch.Generator, name: str, shape: Tuple[int, ...],
+                     device=None) -> torch.Tensor:
     """One of ``SSM_VECTORS``, stacked (nb, ...): conv biases 0 (bf16),
     A_log = log(linspace(1, 16, h)), D = 1 and dt_bias the inverse softplus
-    of a dt drawn log-uniform in [1e-3, 0.1] (float32)."""
-    device = gen.device
+    of a dt drawn log-uniform in [1e-3, 0.1] (float32), on ``device``
+    (default the generator's)."""
+    device = device or gen.device
     if name == "A_log":
         return torch.log(torch.linspace(1.0, 16.0, shape[-1], device=device)
                          ).expand(shape).contiguous()
@@ -219,12 +230,13 @@ def _ffn_residual(cfg: ModelConfig, j: int, p: Params, x: torch.Tensor,
                   ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """x + FFN(norm2(x)) of sub-layer j and its MoE aux loss (None for a
     dense FFN or none at all).  With ``par`` the dense FFN's w1/w3 are
-    this rank's columns and w2 its rows (see ``forward``)."""
+    this rank's columns and w2 its rows, and the MoE runs its experts'
+    share (see ``forward``)."""
     if not _layer_has_ffn(cfg, j):
         return x, None
     h = rms_norm(x, p["norm2"], cfg.norm_eps)
     if cfg.layer_is_moe(j):
-        out, aux = moe_mod.moe_ffn(cfg, p["ffn"], h)
+        out, aux = moe_mod.moe_ffn(cfg, p["ffn"], h, par)
         return x + out, aux
     ffn = p["ffn"]
     if par is not None:
@@ -250,13 +262,17 @@ def _sublayer(cfg: ModelConfig, j: int, p: Params, x: torch.Tensor,
                          Optional[torch.Tensor]]:
     h = rms_norm(x, p["norm1"], cfg.norm_eps)
     kind = _mixer_kind(cfg, j)
-    if par is not None:
-        h = par.to_model(h)
+    # the MLA and Mamba2 mixers take the replicated input and put
+    # ``to_model`` where their sharded parts start (their latent, B and C
+    # are computed on every rank)
     if kind == "ssm":
-        out, cache = mamba2.mamba2_forward(cfg, p["mixer"], h)
+        out, cache = mamba2.mamba2_forward(cfg, p["mixer"], h, par)
     elif kind == "mla":
-        out, cache = attn.mla_attend_train(cfg, p["mixer"], h, positions)
+        out, cache = attn.mla_attend_train(cfg, p["mixer"], h, positions,
+                                           par)
     else:
+        if par is not None:
+            h = par.to_model(h)
         out, cache = attn.gqa_attend_train(cfg, p["mixer"], h, positions)
     if par is not None:
         out = par.from_model(out)
@@ -326,9 +342,11 @@ def forward(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
     blocks.
 
     ``par`` (``parallel.collectives.ModelParallel``) runs one rank of the
-    sharded train step on its shards: the dense family's attention on its
-    H/t heads (wq/wk/wv its heads, wo their rows, one all-reduce after) and
-    its FFN on d_ff/t columns (w1/w3 columns, w2 rows, one all-reduce), the
+    sharded train step on its shards: attention on its H/t heads (GQA's
+    wq/wk/wv its heads; MLA's wq_b/wk_b/wv_b, from the latent every rank
+    computes; wo their rows, one all-reduce after), the dense FFN on d_ff/t
+    columns (w1/w3 columns, w2 rows, one all-reduce), the MoE on its E/t
+    experts or f/t columns of each, Mamba2 on its h/t SSD heads, the
     embedding and head under the embed's vocab-or-d_model sharding, and at
     ZeRO 3 each leaf gathered over the data axis before use.  Without it
     (one device) none of that code runs.

@@ -5,21 +5,56 @@ plain tensors holding its own shard, and the step moves data between
 ranks with explicit collectives over the mesh's process groups (the JAX
 package leaves this to GSPMD):
 
-* the model axis (Megatron's tensor parallelism, dense family):
-  ``ModelParallel.to_model`` before a column-sharded product (identity
-  forward, gradient all-reduced), ``from_model`` after a row-sharded one
-  (all-reduce forward, identity backward), ``gather_model`` for an
-  activation sharded along a dim (all-gather forward, the rank's own slice
-  backward), and the embedding and the output head under the embed's
-  vocab-or-d_model rule;
-* the data axis at ZeRO 3: each leaf is all-gathered before use and its
-  gradient reduce-scattered back to the shard (``ModelParallel.gather_top``,
+* the model axis (Megatron's tensor parallelism): the dense family's
+  attention by head and FFN by column, MLA by head, the MoE's experts
+  (expert-parallel, or ffn-sharded inside every expert) and Mamba2 by
+  head.  ``ModelParallel.to_model`` goes before a column-sharded product
+  (identity forward, gradient all-reduced), ``from_model`` after a
+  row-sharded one (all-reduce forward, identity backward),
+  ``gather_model`` gathers an activation sharded along a dim (all-gather
+  forward, the rank's own slice backward) and ``sum_model`` sums a
+  quantity that the rank's own part reads back (all-reduce both ways:
+  Mamba2's gated norm over a sharded ``d_inner``); the embedding and the
+  output head follow the embed's vocab-or-d_model rule.
+
+  The gradient rule: these pairs are right when every path from a
+  sub-layer's (replicated) input to its output meets exactly one gradient
+  all-reduce.  A computation that every model rank repeats inside a
+  sharded sub-layer breaks that unless it reads the input *before*
+  ``to_model`` and a ``to_model`` goes on its output where that output
+  feeds a sharded part: its gradient then arrives complete, and its
+  weights' gradients are complete and the same on every rank.  The three
+  instances: the MoE router (its probabilities go through ``to_model``
+  before they weight the rank's experts; the aux loss reads them before,
+  since a loss term every model rank computes must enter no all-reduce
+  or its gradient comes out t times too large), MLA's ``wkv_a``/``kv_ln``
+  latent and shared RoPE key (``c_kv`` and ``k_rope`` through
+  ``to_model`` before the rank's heads) and Mamba2's ``in_bc``/``conv_bc``
+  (B and C through ``to_model`` after the conv).  ``gather_model``'s
+  own-slice backward is right only for a complete upstream gradient:
+  MLA's q latent is gathered, normed by ``q_ln`` on every rank, and only
+  then goes through ``to_model`` to the rank's heads.
+* the data axis: ``mean_data`` averages a quantity over the data ranks
+  with a backward that averages the upstream gradients (the MoE's
+  load-balance statistics, global over the microbatch as in JAX); at
+  ZeRO 3 each leaf is all-gathered before use and its gradient
+  reduce-scattered back to the shard (``ModelParallel.gather_top``,
   ``gather_block``; the train step calls the latter inside each
   checkpointed block, so the backward gathers again instead of keeping
   the gathered weights).
 
 ``shard_leaf`` / ``gather_leaf`` cut a rank's shard out of a full leaf and
-rebuild the full leaf from the shards.
+rebuild the full leaf from the shards.  A leaf that packs parts along its
+model-sharded dim (``PACKED``: Mamba2's ``in_zx`` = [z | x]) keeps its
+spec's shard shape, but rank r's shard holds its own heads' chunk of each
+part side by side ([z_r | x_r]), not the r-th contiguous columns of the
+packed leaf (at t=2 those would be all of z on rank 0): the model reads
+it as it reads the whole leaf.  Only the model axis regroups; a data
+split (another dim under the model axis, or this one at t=1) is plain.
+Under the fake process group (``launch.memcheck``), which writes nothing,
+what a rank receives is zeroed, so nothing derived from it (the MoE's
+routing) reads uninitialised memory; that writes into buffers already
+allocated and moves no peak.
 """
 from __future__ import annotations
 
@@ -44,6 +79,12 @@ def _reduce_scatter_single(out: torch.Tensor, inp: torch.Tensor,
     fn(out, inp, group=group)
 
 
+def _received(out: torch.Tensor, group) -> None:
+    """Zero what a collective of the fake backend left unwritten."""
+    if dist.get_backend(group) == "fake":
+        out.zero_()
+
+
 def all_gather(x: torch.Tensor, dim: int, group, n: int) -> torch.Tensor:
     """The n ranks' ``x`` concatenated along ``dim`` in rank order."""
     if n == 1:
@@ -51,6 +92,7 @@ def all_gather(x: torch.Tensor, dim: int, group, n: int) -> torch.Tensor:
     x = x.contiguous()
     out = x.new_empty((n * x.shape[0],) + tuple(x.shape[1:]))
     _gather_single(out, x, group)
+    _received(out, group)
     return out if dim == 0 else torch.cat(out.chunk(n, 0), dim=dim)
 
 
@@ -63,6 +105,7 @@ def reduce_scatter(x: torch.Tensor, dim: int, group, n: int) -> torch.Tensor:
     shape[dim] //= n
     out = x.new_empty(shape)
     _reduce_scatter_single(out, inp, group)
+    _received(out, group)
     return out
 
 
@@ -103,6 +146,21 @@ class _GatherFromModel(torch.autograd.Function):
             None, None
 
 
+class _MeanOverData(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, n):
+        ctx.group, ctx.n = group, n
+        out = x.clone()
+        dist.all_reduce(out, group=group)
+        return out / n
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g / ctx.n, None, None
+
+
 class _GatherFromData(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, dim, group, n):
@@ -133,26 +191,59 @@ def local_shape(shape: Sequence[int], spec, mesh) -> Tuple[int, ...]:
     return tuple(d // sh._axis_size(mesh, ax) for d, ax in zip(shape, spec))
 
 
+# leaves whose model-sharded dim packs parts that the model axis splits
+# each on its own (see the module docstring): {leaf name: parts}
+PACKED = {"in_zx": 2}
+
+
+def _packed_index(size: int, parts: int, i: int, n: int, device
+                  ) -> torch.Tensor:
+    """Positions along a packed dim of ``size`` held by shard i of n: its
+    chunk of each of the ``parts`` equal parts, side by side."""
+    part = size // parts
+    w = part // n
+    return torch.cat([torch.arange(p * part + i * w, p * part + (i + 1) * w,
+                                   device=device) for p in range(parts)])
+
+
+def _unpack(t: torch.Tensor, dim: int, parts: int, n: int) -> torch.Tensor:
+    """The packed leaf's own order from the n shards gathered along
+    ``dim`` (each [part 0 chunk | part 1 chunk | ...])."""
+    blocks = t.chunk(n * parts, dim)
+    return torch.cat([blocks[r * parts + p] for p in range(parts)
+                      for r in range(n)], dim=dim)
+
+
 def shard_leaf(t: torch.Tensor, spec, mesh, coords: Mapping[str, int],
-               dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+               dtype: Optional[torch.dtype] = None,
+               name: Optional[str] = None) -> torch.Tensor:
     """This rank's shard of the full leaf ``t`` (in ``dtype``, default its
     own) in fresh storage of its own, never a view that would keep the
-    full leaf alive."""
+    full leaf alive.  ``name``: the leaf's name, which says whether it is
+    ``PACKED``."""
     sizes = sh.axis_sizes(mesh)
-    index = []
-    for dim, ax in zip(t.shape, spec):
+    index, packed = [], None
+    for dim, (size, ax) in enumerate(zip(t.shape, spec)):
         if ax is None:
             index.append(slice(None))
             continue
         i, n = _axis_index(ax, sizes, coords)
-        index.append(slice(i * dim // n, (i + 1) * dim // n))
-    return t[tuple(index)].to(dtype or t.dtype, copy=True,
-                              memory_format=torch.contiguous_format)
+        if ax == "model" and name in PACKED:
+            index.append(slice(None))
+            packed = (dim, _packed_index(size, PACKED[name], i, n, t.device))
+            continue
+        index.append(slice(i * size // n, (i + 1) * size // n))
+    out = t[tuple(index)]
+    if packed is not None:
+        out = out.index_select(*packed)
+    return out.to(dtype or t.dtype, copy=True,
+                  memory_format=torch.contiguous_format)
 
 
-def gather_leaf(t: torch.Tensor, spec, mesh) -> torch.Tensor:
+def gather_leaf(t: torch.Tensor, spec, mesh, name: Optional[str] = None
+                ) -> torch.Tensor:
     """The full leaf from every rank's shard ``t`` (a collective over the
-    mesh: every rank calls it)."""
+    mesh: every rank calls it); ``name`` as for ``shard_leaf``."""
     sizes = sh.axis_sizes(mesh)
     for dim, ax in enumerate(spec):
         if ax is None:
@@ -162,14 +253,16 @@ def gather_leaf(t: torch.Tensor, spec, mesh) -> torch.Tensor:
                 "leaves sharded over several data axes (the pod axis): "
                 "ROADMAP.md queue 1 item 10")
         t = all_gather(t, dim, mesh.get_group(ax), sizes[ax])
+        if ax == "model" and name in PACKED and sizes[ax] > 1:
+            t = _unpack(t, dim, PACKED[name], sizes[ax])
     return t
 
 
 def map_specs(fn, tree: Mapping[str, Any], specs: Mapping[str, Any]
               ) -> Dict[str, Any]:
-    """{key: fn(leaf, spec)} over a tree and its spec tree."""
+    """{key: fn(leaf, spec, key)} over a tree and its spec tree."""
     return {k: map_specs(fn, v, specs[k]) if isinstance(v, Mapping)
-            else fn(v, specs[k]) for k, v in tree.items()}
+            else fn(v, specs[k], k) for k, v in tree.items()}
 
 
 def shard_state(state: Mapping[str, Any], specs: Mapping[str, Any], mesh
@@ -177,7 +270,8 @@ def shard_state(state: Mapping[str, Any], specs: Mapping[str, Any], mesh
     """This rank's train state from the full one: each leaf of "params"
     and "opt" cut to its spec (``train_loop.state_specs``)."""
     coords = mesh_coords(mesh)
-    out = {k: map_specs(lambda t, s: shard_leaf(t, s, mesh, coords),
+    out = {k: map_specs(lambda t, s, name: shard_leaf(t, s, mesh, coords,
+                                                      name=name),
                         state[k], specs[k]) for k in ("params", "opt")}
     out["step"] = state["step"]
     return out
@@ -187,8 +281,8 @@ def gather_state(state: Mapping[str, Any], specs: Mapping[str, Any], mesh
                  ) -> Dict[str, Any]:
     """The full train state from every rank's shards (a collective: every
     rank calls it)."""
-    out = {k: map_specs(lambda t, s: gather_leaf(t, s, mesh), state[k],
-                        specs[k]) for k in ("params", "opt")}
+    out = {k: map_specs(lambda t, s, name: gather_leaf(t, s, mesh, name),
+                        state[k], specs[k]) for k in ("params", "opt")}
     out["step"] = state["step"]
     return out
 
@@ -203,9 +297,10 @@ def data_dim(spec) -> Optional[int]:
 
 class ModelParallel:
     """What the model needs to run one rank of a (d, t) plan: the model
-    axis's group for the dense family's tensor parallelism, and at ZeRO 3
-    the data axis's group and each parameter leaf's data-sharded dim
-    (``gather_dims``: the params' spec tree mapped through ``data_dim``).
+    axis's group for tensor parallelism, the data axis's group (the MoE's
+    load-balance statistics) and at ZeRO 3 each parameter leaf's
+    data-sharded dim (``gather_dims``: the params' spec tree mapped through
+    ``data_dim``).
 
     The model calls it only when the train step passes one
     (``forward(..., par=...)``): the one-device path never does.
@@ -236,6 +331,21 @@ class ModelParallel:
             return x
         return _GatherFromModel.apply(x, dim, self.model_group, self.t,
                                       self.model_idx)
+
+    def sum_model(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum of ``x`` over the model axis, for the rank's own part to
+        read: each rank's gradient of it is partial, so the backward
+        all-reduces too (``to_model`` after ``from_model``)."""
+        return self.to_model(self.from_model(x))
+
+    # ---- the data axis -------------------------------------------------
+    def mean_data(self, x: torch.Tensor) -> torch.Tensor:
+        """The mean of ``x`` over the data ranks, whose backward is the mean
+        of the ranks' upstream gradients (each rank differentiates its own
+        loss; the step averages the gradients over data)."""
+        if self.nd == 1:
+            return x
+        return _MeanOverData.apply(x, self.data_group, self.nd)
 
     def _my_slice(self, x: torch.Tensor, dim: int) -> torch.Tensor:
         """This rank's chunk of a replicated activation along ``dim``, its

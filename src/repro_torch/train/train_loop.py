@@ -36,8 +36,7 @@ AUX_WEIGHT = 0.01
 
 Batch = Dict[str, torch.Tensor]
 
-# where the model-axis and data-parallel paths this slice does not run are
-# listed
+# where the sharded-step paths this slice does not run are listed
 DEFERRED = "ROADMAP.md queue 1 item 10"
 
 
@@ -76,26 +75,45 @@ def state_specs(cfg: ModelConfig, tc: TrainConfig, mesh, state_shape: Any
             "step": ()}
 
 
-def make_local_state(cfg: ModelConfig, tc: TrainConfig, mesh, device="cuda"
-                     ) -> Dict[str, Any]:
+def make_local_state(cfg: ModelConfig, tc: TrainConfig, mesh, device="cuda",
+                     whole_leaves: bool = True) -> Dict[str, Any]:
     """This rank's shards of ``make_train_state(cfg, tc)``, built one leaf
     at a time: each leaf is drawn whole (the same draws), cut to its
     param and optimizer specs and dropped, so the whole state is never
-    held."""
+    held.  ``whole_leaves=False`` draws each params shard at its own shape
+    instead (``init_params(local=)``: no whole leaf is ever held, the
+    values are not the one-device state's) and cuts the optimizer shard
+    from it -- for a rank whose whole leaves would not fit its card."""
     specs = state_specs(cfg, tc, mesh, param_shapes(cfg))
     coords = col.mesh_coords(mesh)
     master: Dict[str, Any] = {}
 
-    def take(path, leaf):
-        p_spec, o_spec, node = specs["params"], specs["opt"]["master"], master
-        for k in path[:-1]:
-            p_spec, o_spec = p_spec[k], o_spec[k]
-            node = node.setdefault(k, {})
-        node[path[-1]] = col.shard_leaf(leaf, o_spec[path[-1]], mesh, coords,
-                                        dtype=torch.float32)
-        return col.shard_leaf(leaf, p_spec[path[-1]], mesh, coords)
+    def spec_at(tree, path):
+        for k in path:
+            tree = tree[k]
+        return tree
 
-    params = init_params(cfg, tc.seed, device=device, take=take)
+    def take(path, leaf):
+        p_spec = spec_at(specs["params"], path)
+        o_spec = spec_at(specs["opt"]["master"], path)
+        node = master
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        name = path[-1]
+        if whole_leaves:
+            node[name] = col.shard_leaf(leaf, o_spec, mesh, coords,
+                                        dtype=torch.float32, name=name)
+            return col.shard_leaf(leaf, p_spec, mesh, coords, name=name)
+        # the optimizer shard of the params shard: its data split only
+        rel = tuple("data" if o == "data" and p != "data" else None
+                    for p, o in zip(p_spec, o_spec))
+        node[name] = col.shard_leaf(leaf, rel, mesh, coords,
+                                    dtype=torch.float32)
+        return leaf
+
+    local = None if whole_leaves else (lambda path, shape: col.local_shape(
+        shape, spec_at(specs["params"], path), mesh))
+    params = init_params(cfg, tc.seed, device=device, take=take, local=local)
     return {"params": params,
             "opt": {"master": master, "m": tree_map(torch.zeros_like, master),
                     "v": tree_map(torch.zeros_like, master)},
@@ -183,23 +201,28 @@ def check_sharded_supported(cfg: ModelConfig, tc: TrainConfig, mesh) -> None:
                                   f"mesh, not {tuple(sizes)}: {DEFERRED}")
     if t > 1:
         kinds = {cfg.layer_kind(j) for j in range(cfg.block_period)}
-        if "ssm" in kinds or cfg.attention != "gqa" or cfg.num_experts:
-            raise NotImplementedError(
-                f"{cfg.name}: model-axis execution of MLA, MoE and Mamba2 "
-                f"layers: {DEFERRED}")
-        if not sh.attn_head_sharded(cfg, t):
+        if "attn" in kinds and not sh.attn_head_sharded(cfg, t):
             raise NotImplementedError(
                 f"{cfg.name}: {cfg.num_heads}/{cfg.num_kv_heads} heads on a "
                 f"model axis of {t} (the head_dim / seq fallback): {DEFERRED}")
-        if cfg.d_ff % t or cfg.d_model % t:
-            raise NotImplementedError(
-                f"{cfg.name}: d_ff {cfg.d_ff} or d_model {cfg.d_model} not "
-                f"divisible by the model axis {t}: {DEFERRED}")
-    if nd > 1 and cfg.num_experts:
-        raise NotImplementedError(
-            f"{cfg.name}: data-parallel MoE (its load-balance loss is global "
-            f"over the batch): {DEFERRED}")
-    if tc.zero >= 3:
+        # every width the model axis splits (a width it does not divide
+        # would be kept whole by enforce_divisibility)
+        widths = {"d_model": cfg.d_model, "d_ff": cfg.d_ff}
+        if cfg.attention == "mla":
+            widths["q_lora_rank"] = cfg.q_lora_rank
+        if cfg.num_experts and not sh.expert_sharded(cfg, t):
+            widths["moe_d_ff"] = cfg.moe_d_ff
+        if cfg.num_shared_experts:
+            widths["shared experts' width"] = (cfg.num_shared_experts
+                                               * cfg.moe_d_ff)
+        if "ssm" in kinds:
+            widths["n_ssm_heads"] = cfg.n_ssm_heads
+        for what, n in widths.items():
+            if n % t:
+                raise NotImplementedError(
+                    f"{cfg.name}: {what} {n} not divisible by the model "
+                    f"axis {t}: {DEFERRED}")
+    if tc.zero >= 3 and nd > 1:
         specs = sh.param_specs(cfg, param_shapes(cfg), mesh, zero_data=True)
         if any(s[0] == "data" for s in tree_leaves(specs["blocks"])):
             raise NotImplementedError(
@@ -218,7 +241,8 @@ def build_sharded_step(cfg: ModelConfig, tc: TrainConfig, global_batch: int,
     and divided by n_micro * d, the mean over the global batch.
     ``step.accumulate(params, batch)`` returns those fp32 gradients (this
     rank's optimizer shards, in the params' leaf order) and the mean loss
-    without updating anything."""
+    without updating anything; ``step.global_norm(grads)`` their norm over
+    the mesh, the step's ``grad_norm``."""
     check_sharded_supported(cfg, tc, mesh)
     nd = n_data_shards(mesh)
     n_micro = resolve_microbatches(tc, global_batch, mesh)
@@ -343,4 +367,5 @@ def build_sharded_step(cfg: ModelConfig, tc: TrainConfig, global_batch: int,
         return state, {"loss": loss, "grad_norm": gnorm}
 
     step.accumulate = accumulate
+    step.global_norm = global_norm
     return step, n_micro

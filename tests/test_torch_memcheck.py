@@ -1,19 +1,24 @@
 """The port's Fig 6 driver (``repro_torch.launch.memcheck``): its combos are
 the JAX package's, rank 0's state under the fake process group holds
 exactly the specs' shards, one sharded step runs on that state, and the
-driver refuses a device without CUDA's allocator.
+driver refuses a device without CUDA's allocator.  The same for
+``chip_smoke.py``'s phase (f) plans of the MLA, MoE and Mamba2 families
+(``FAMILY_PLANS``): rank 0's state of each whole plan on the meta device,
+and one step of each at smoke widths.
 
 The JAX module sets ``XLA_FLAGS`` when it is imported, which would change
 the CPU device count of every later JAX test in this process, so its
 ``COMBOS`` are read from its source instead.
 """
 import ast
+import importlib.util
+import math
 from pathlib import Path
 
 import pytest
 import torch
 
-from repro_torch.configs import TrainConfig, smoke_config
+from repro_torch.configs import TrainConfig, get_arch, smoke_config
 from repro_torch.data import SyntheticTokens
 from repro_torch.launch import memcheck
 from repro_torch.launch.mesh import make_plan_mesh
@@ -21,11 +26,26 @@ from repro_torch.launch.train import to_device
 from repro_torch.models import param_shapes
 from repro_torch.parallel import collectives as col
 from repro_torch.train.optimizer import tree_leaves
-from repro_torch.train.train_loop import (build_train_step, make_local_state,
-                                          state_specs)
+from repro_torch.train.train_loop import (build_train_step,
+                                          check_sharded_supported,
+                                          make_local_state, state_specs)
 
 ROOT = Path(__file__).resolve().parents[1]
 COMBOS = memcheck.COMBOS
+
+
+def _family_plans():
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return [(arch, cut, b, d, t, zero)
+            for arch, cut, b, d, t, zeros in mod.FAMILY_PLANS
+            for zero in zeros]
+
+
+FAMILY = _family_plans()
+FAMILY_IDS = [f"{a}-b{b}-{d}x{t}-zero{z}" for a, _, b, d, t, z in FAMILY]
 
 
 def jax_combos():
@@ -96,6 +116,64 @@ def test_one_sharded_step_runs_under_the_fake_group(arch, batch, seq, d, t):
                            "cpu")
         state, _ = step(state, batch_)
         assert state["step"] == 1
+        assert [tuple(x.shape) for x in tree_leaves(state["params"])] == before
+
+
+def _assert_specs_shards(cfg, tc, mesh, state):
+    """Every leaf of params, master, m and v has its spec's local shape,
+    and their bytes are the specs' sum."""
+    specs = state_specs(cfg, tc, mesh, param_shapes(cfg))
+    shapes = tree_leaves(param_shapes(cfg))
+    total = 0
+    for part, spec_tree in ((state["params"], specs["params"]),
+                            *((state["opt"][k], specs["opt"][k])
+                              for k in ("master", "m", "v"))):
+        for leaf, spec, shape in zip(tree_leaves(part),
+                                     tree_leaves(spec_tree), shapes):
+            assert tuple(leaf.shape) == col.local_shape(shape, spec, mesh)
+            total += leaf.numel() * leaf.element_size()
+    assert total == memcheck.local_state_bytes(cfg, tc, mesh)
+
+
+@pytest.mark.parametrize("whole_leaves", [True, False])
+@pytest.mark.parametrize("arch,cut,batch,d,t,zero", FAMILY, ids=FAMILY_IDS)
+def test_family_plan_rank0_state_is_the_specs_shards(arch, cut, batch, d, t,
+                                                     zero, whole_leaves):
+    """Phase (f)'s plans whole (deepseek-v2-236b on (16,16) among them):
+    the step accepts each, and rank 0's state on the meta device -- its
+    leaves drawn whole and cut, or drawn at their shard shapes as phase (f)
+    draws them -- is exactly its specs' shards."""
+    cfg = get_arch(arch).scaled(**cut) if cut else get_arch(arch)
+    tc = TrainConfig(global_batch=batch, seq_len=1024, microbatch=1,
+                     zero=zero)
+    with memcheck.fake_world(d * t):
+        mesh = make_plan_mesh(d, t, device_type="cpu")
+        check_sharded_supported(cfg, tc, mesh)
+        state = make_local_state(cfg, tc, mesh, device="meta",
+                                 whole_leaves=whole_leaves)
+        _assert_specs_shards(cfg, tc, mesh, state)
+
+
+@pytest.mark.parametrize("arch,cut,batch,d,t,zero", FAMILY, ids=FAMILY_IDS)
+def test_family_plan_step_runs_under_the_fake_group(arch, cut, batch, d, t,
+                                                    zero):
+    """Phase (f)'s path at smoke widths on (2, 2): rank 0's shards drawn at
+    their own shapes, one sharded step under the fake group.  What the
+    rank receives is zeroed, so the loss is finite; the state keeps its
+    shapes."""
+    cfg = smoke_config(arch).scaled(**cut)
+    tc = TrainConfig(global_batch=4, seq_len=64, microbatch=1, zero=zero)
+    with memcheck.fake_world(4):
+        mesh = make_plan_mesh(2, 2, device_type="cpu")
+        state = make_local_state(cfg, tc, mesh, device="cpu",
+                                 whole_leaves=False)
+        _assert_specs_shards(cfg, tc, mesh, state)
+        before = [tuple(x.shape) for x in tree_leaves(state["params"])]
+        step, _ = build_train_step(cfg, tc, 4, 64, mesh=mesh)
+        batch_ = to_device(next(SyntheticTokens(cfg, 4, 64, seed=0)), "cpu")
+        state, metrics = step(state, batch_)
+        assert state["step"] == 1
+        assert math.isfinite(float(metrics["loss"]))
         assert [tuple(x.shape) for x in tree_leaves(state["params"])] == before
 
 
