@@ -155,6 +155,26 @@ Phases, each printing its lines before the last:
    times it (the attention forward and backward at 8 and 16 heads of 192
    and at 8 query heads on 1 KV head of 128, the SSD scan and gradient at
    32, 6 and 3 heads).
+(q) the head_dim / seq fallback (``SEQ_PLANS``): rank 0 of the (16, 16)
+   train_4k plan (s = 4,096, global batch 16, ZeRO 3 above 20e9
+   parameters, else 1) of stablelm-12b, llama3.2-3b, mixtral-8x22b,
+   jamba-1.5-large-398b (all 72 layers and 16 experts), starcoder2-7b,
+   musicgen-medium and llava-next-34b, whole at published widths, whose
+   head counts do not divide t = 16; stablelm-12b and jamba also as rank
+   15, whose 256 query rows sit at offset 3,840.  As (f): one line a run
+   with the peak beside both predictions (reported, not required); it
+   fails on an out-of-memory, on a state that is not the rank's specs'
+   shards, on a plan that never launched the attention forward and
+   backward, Adam, RMSNorm (jamba: the SSD scan and gradient), and on a
+   rank-15 run that never launched the attention forward and backward at
+   a nonzero offset.  Phase 2 holds the local shapes (``SEQ_ATTENTION``:
+   256 query rows against 4,096 keys at offsets 0 and 3,840, stablelm's
+   D=160 and G=4, jamba's G=8, musicgen's D=64 and G=1, starcoder2-7b's
+   G=9; starcoder2-7b's last rank at s=8,192 under its 4,096-key window;
+   float32 at D=64 and 160) against the plain versions, forward and
+   backward, the backward run twice for bit-identical gradients and with
+   dK and dV exactly zero on every key no local query reaches, and times
+   each bf16 shape beside its bound, its plain version and SDPA.
 
 Every training cell (7, 8, 10, 11) is started through (s)'s front door
 as gpt2-350m's is, and its peak over step 1 must equal the one-device
@@ -411,6 +431,50 @@ FAMILY_PLANS = [("deepseek-v2-236b", {}, 16, 16, 16, (3,)),
                 ("jamba-1.5-large-398b", dict(num_layers=8), 4, 4, 8, (1, 3)),
                 ("mamba2-130m", {}, 8, 2, 4, (1,)),
                 ("mamba2-130m", {}, 8, 1, 8, (1,))]
+
+
+# Phase (q): rank 0 (and rank t - 1 = 15 where a second rank is listed) of
+# the (16, 16) production plan of each GQA config whose head counts do not
+# divide t = 16, so that its attention runs the head_dim / seq fallback:
+# the weights shard their head_dim, each rank attends its 256 of train_4k's
+# 4,096 query rows against every key at query offset 256 r.  Under the fake
+# process group a rank's collectives do not communicate, so rank 0 runs at
+# offset 0 and rank 15 at 3,840, the largest offset and the most causal
+# work.  Whole configs at published widths and depth, global batch 16
+# (microbatch 1, one row a data rank), one step, ZeRO from
+# ``launch.inputs.default_train_config`` (3 above 20e9 parameters, else 1).
+# The port's exact_peak_bytes for each, on the CPU: stablelm-12b 5.45 GB,
+# llama3.2-3b 2.70, mixtral-8x22b 15.17, jamba-1.5-large-398b (all 72
+# layers, 16 experts) 37.53, starcoder2-7b 3.92, musicgen-medium 1.86,
+# llava-next-34b 7.65 (its 2,880 modal positions inside the 4,096).
+# (arch, ranks)
+SEQ_PLANS = [("stablelm-12b", (0, 15)), ("llama3.2-3b", (0,)),
+             ("mixtral-8x22b", (0,)), ("jamba-1.5-large-398b", (0, 15)),
+             ("starcoder2-7b", (0,)), ("musicgen-medium", (0,)),
+             ("llava-next-34b", (0,))]
+SEQ_MESH, SEQ_LEN, SEQ_BATCH = (16, 16), 4096, 16
+# Phase 2's cases at those plans' local shapes, b=1: 256 query rows against
+# 4,096 keys at offset 0 (rank 0) or 3,840 (rank 15); starcoder2-7b's last
+# rank at s=8,192, where its 4,096-key window leaves keys 0-3,584 unseen.
+# (sq, sk, H, K, D, offset, window)
+SEQ_ATTENTION = {"stablelm_r0": (256, 4096, 32, 8, 160, 0, 0),
+                 "stablelm_r15": (256, 4096, 32, 8, 160, 3840, 0),
+                 "jamba_r15": (256, 4096, 64, 8, 128, 3840, 0),
+                 "musicgen_r15": (256, 4096, 24, 24, 64, 3840, 0),
+                 "starcoder2_7b_r15": (256, 4096, 36, 4, 128, 3840, 0),
+                 "starcoder2_7b_band": (512, 8192, 36, 4, 128, 7680, 4096)}
+
+
+def seq_plan_config(arch):
+    """(cfg, tc, d, t) of a ``SEQ_PLANS`` plan."""
+    import dataclasses
+    from repro_torch.configs.base import INPUT_SHAPES
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch.inputs import default_train_config
+    cfg = get_arch(arch)
+    shape = dataclasses.replace(INPUT_SHAPES["train_4k"], seq_len=SEQ_LEN,
+                                global_batch=SEQ_BATCH)
+    return (cfg, default_train_config(cfg, shape), *SEQ_MESH)
 
 
 def check(cond, msg):
@@ -766,6 +830,7 @@ def phase_kernels(peaks, flush):
                 qt, kt, vt, attn_mask=mask, enable_gqa=True), flush))
     rows.update(phase_mla_kernels(peaks, flush, gen, randn))
     rows.update(phase_attention_bwd(peaks, flush, randn))
+    phase_attention_offset(peaks, flush, randn)
     rows.update(phase_adam(peaks, flush, gen))
     rows.update(phase_ssd_kernel(peaks, flush, gen))
     rows.update(phase_ssd_bwd(peaks, flush, gen))
@@ -1081,6 +1146,106 @@ def phase_attention_bwd(peaks, flush, randn):
         print("time flash_attention_bwd library: SDPA backward alone, "
               + ", ".join(f"{k} {ms:.4f} ms" for k, ms in library.items()))
     return rows
+
+
+def live_pairs(sq, sk, offset, window):
+    """(sq, sk) bool: the causal (and window) pairs of query rows at
+    positions offset.. against keys 0.. -- the work the kernels do."""
+    qp = torch.arange(offset, offset + sq, device="cuda")[:, None]
+    kp = torch.arange(sk, device="cuda")[None]
+    ok = kp <= qp
+    return ok & (kp > qp - window) if window else ok
+
+
+def phase_attention_offset(peaks, flush, randn):
+    """The attention forward and backward at a query offset against their
+    plain versions: ``SEQ_ATTENTION``'s local shapes of phase (q)'s plans
+    and float32 at two head dims with a window; the backward run twice
+    for bit-identical gradients, and dK and dV exactly zero on the keys no
+    local query reaches.  Each bf16 shape timed beside its bound, its
+    plain version and SDPA (K and V repeated to the query heads; the mask
+    as ``causal_lower_right`` where the rows end at the last key, else a
+    boolean one), never called on a path."""
+    from torch.nn.attention.bias import causal_lower_right
+    from repro_torch.kernels.flash_attention import (attention_bwd_ref,
+                                                     attention_lse_ref,
+                                                     attention_ref,
+                                                     flash_attention,
+                                                     flash_attention_bwd,
+                                                     flash_attention_lse)
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [(name, 1, *c, bf16) for name, c in SEQ_ATTENTION.items()]
+    cases += [("fp32_D64_window", 2, 200, 700, 8, 2, 64, 300, 100, f32),
+              ("fp32_D160_window", 2, 200, 700, 8, 2, 160, 300, 100, f32)]
+    for name, b, sq, sk, H, K, D, offset, window, dt in cases:
+        kw = dict(causal=True, window=window, q_offset=offset)
+        q, do = randn(b, sq, H, D, dtype=dt), randn(b, sq, H, D, dtype=dt)
+        k, v = randn(b, sk, K, D, dtype=dt), randn(b, sk, K, D, dtype=dt)
+        tol = BF16_TOL if dt == bf16 else FP32_TOL
+        o, lse = flash_attention_lse(q, k, v, **kw)
+        ok_f, err_f = close(o, attention_ref(q, k, v, **kw), tol)
+        ok_l, err_l = close(lse, attention_lse_ref(q, k, **kw), FP32_TOL)
+        got = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+        same = all(torch.equal(a, c) for a, c in
+                   zip(got, flash_attention_bwd(q, k, v, o, lse, do, **kw)))
+        explicit = attention_bwd_ref(q, k, v, o, lse, do, **kw)
+        err_b = max(rel_max_err(g, e) for g, e in zip(got, explicit))
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        attention_ref(*leaves, **kw).backward(do)
+        err_ag = max(rel_max_err(g, t.grad) for g, t in zip(got, leaves))
+        del leaves, explicit
+        live = live_pairs(sq, sk, offset, window)
+        dead = ~live.any(0)
+        zeros = all(not g[:, dead].any() for g in got[1:])
+        ok = (ok_f and ok_l and err_b <= tol and err_ag <= tol and same
+              and zeros)
+        print(f"kernel flash_attention offset {name} b={b} sq={sq} sk={sk}"
+              f" H={H} K={K} D={D} q_offset={offset} window={window}"
+              f" {str(dt)[6:]}: forward max_abs_err={err_f:.3e}, lse"
+              f" {err_l:.3e}; backward max|d|/max|ref| {err_b:.3e}"
+              f" (explicit), {err_ag:.3e} (autograd) tol={tol:g},"
+              f" bit-identical rerun {same}, dK dV exactly 0 on the"
+              f" {int(dead.sum())} keys no row reaches {zeros}"
+              f" {'ok' if ok else 'FAIL'}")
+        check(ok, f"flash_attention at q_offset {name} disagrees with its"
+                  f" plain versions, is not deterministic or leaves unseen"
+                  f" keys' dK/dV nonzero")
+        if dt != bf16:
+            continue
+        pairs = int(live.sum())
+        nbytes = 2 * (q.numel() + k.numel() + v.numel() + o.numel())
+        bwd_bytes = 2 * (4 * q.numel() + 2 * k.numel() + 2 * v.numel()) \
+            + 4 * lse.numel()
+        fwd_bound = bound(nbytes, 4 * D * b * H * pairs, peaks)
+        bwd_bound = bound(bwd_bytes, 10 * D * b * H * pairs, peaks)
+        mask = (causal_lower_right(sq, sk) if offset + sq == sk and not window
+                else live)
+        G = H // K
+        qt, kt, vt = (t.repeat_interleave(g, dim=2).transpose(1, 2)
+                      .contiguous() for t, g in ((q, 1), (k, G), (v, G)))
+        fwd = [time_ms(lambda: flash_attention(q, k, v, **kw), flush),
+               time_ms(lambda: attention_ref(q, k, v, **kw), flush),
+               time_ms(lambda: F.scaled_dot_product_attention(
+                   qt, kt, vt, attn_mask=mask), flush)]
+        del qt, kt, vt
+        bwd = [time_ms(lambda: flash_attention_bwd(q, k, v, o, lse, do, **kw),
+                       flush),
+               time_ms(lambda: attention_bwd_ref(q, k, v, o, lse, do, **kw),
+                       flush)]
+        library = sdpa_backward_ms(q, k, v, do, flush, attn_mask=mask)
+        _, parts, _ = device_profile(
+            lambda: flash_attention_bwd(q, k, v, o, lse, do, **kw), 10)
+        print(f"time flash_attention offset {name} (D={D}, q_offset={offset},"
+              f" {pairs} live pairs, {nbytes} bytes): bound"
+              f" {fwd_bound[0]:.4f} ms ({fwd_bound[1]}), kernel {fwd[0]:.4f}"
+              f" ms, plain {fwd[1]:.4f} ms, library (SDPA) {fwd[2]:.4f} ms")
+        print(f"time flash_attention_bwd offset {name} ({bwd_bytes} bytes,"
+              f" {10 * D * b * H * pairs} flops): bound {bwd_bound[0]:.4f} ms"
+              f" ({bwd_bound[1]}), kernel {bwd[0]:.4f} ms, plain"
+              f" {bwd[1]:.4f} ms, library (SDPA's backward alone) "
+              + (", ".join(f"{kb} {m:.4f}" for kb, m in library.items())
+                 or "none") + " ms; kernels (traced, L2 warm) "
+              + "; ".join(f"{kn[:40]} {tm:.4f}" for kn, tm in parts))
 
 
 def sdpa_backward_ms(q, k, v, do, flush, **kw):
@@ -2466,6 +2631,50 @@ def phase_family():
     return total
 
 
+def phase_seq():
+    """(q) each ``SEQ_PLANS`` plan as rank 0 (and rank 15) of (16, 16)
+    under the fake process group, one sharded step on the head_dim / seq
+    fallback (an out-of-memory, or a state whose bytes are not the specs'
+    shards, raises out of ``run_one``): the peak beside the port's
+    prediction, reported; the plan's attention forward and backward, Adam
+    and RMSNorm (and jamba's SSD scan and gradient) must have run, and at
+    rank 15 the attention forward and backward at a nonzero query
+    offset."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.memcheck import card, describe, run_one
+    from repro_torch.models.transformer import _mixer_kind
+    from repro_torch.parallel import sharding as sh
+    smi = card()
+    total = Counter()
+    for arch, ranks in SEQ_PLANS:
+        cfg, tc, d, t = seq_plan_config(arch)
+        check(not sh.attn_head_sharded(cfg, t),
+              f"phase (q) {arch}: its heads divide t={t}")
+        want = ["adam_update", "rms_norm", "flash_attention",
+                "flash_attention_bwd"]
+        if "ssm" in {_mixer_kind(cfg, j) for j in range(cfg.block_period)}:
+            want += ["ssd_scan", "ssd_scan_bwd"]
+        for rank in ranks:
+            reset_launches()
+            t0 = time.perf_counter()
+            row = run_one(arch, tc.global_batch, tc.seq_len, d, t,
+                          zero=tc.zero, cfg=cfg, smi=smi, rank=rank)
+            launches = {k: n for k, n in LAUNCHES.items() if n}
+            total.update(launches)
+            offset = (rank % t) * tc.seq_len // t
+            print(f"(q) rank {rank} (query offset {offset}): {describe(row)};"
+                  f" observed <= exact prediction"
+                  f" {row['actual_bytes'] <= row['pred_exact']}; the rank's"
+                  f" state {row['state_bytes']} B, held before it"
+                  f" {row['base_bytes']} B; launches {launches};"
+                  f" {time.perf_counter() - t0:.1f} s")
+            for k in want + (["flash_attention_offset",
+                              "flash_attention_bwd_offset"] if offset else []):
+                check(launches.get(k, 0) > 0,
+                      f"phase (q) {arch} rank {rank} never launched {k}")
+    return total
+
+
 def train_peak(arch):
     """--train-peak ARCH: the peak allocated (and reserved) device memory
     over step 1 of ARCH's training cell, under the PYTORCH_CUDA_ALLOC_CONF
@@ -2676,7 +2885,7 @@ def main():
     rows = timed_phase("kernels", lambda: phase_kernels(peaks, flush))
     del flush
     serve_plan = timed_phase("serverless front door", phase_serverless)
-    # launches: the sum over the eleven main-path runs, each counted from 0
+    # launches: the sum over the main-path runs, each counted from 0
     path_launches = [timed_phase("llama3.2-3b serving", lambda: phase_model(
                          serve_plan=serve_plan)),
                      timed_phase("deepseek-v2-236b serving", phase_deepseek),
@@ -2693,7 +2902,8 @@ def main():
                      timed_phase("stablelm-12b training",
                                  lambda: phase_train(peaks, "stablelm-12b")),
                      timed_phase("(m) memcheck", phase_memcheck),
-                     timed_phase("(f) family plans", phase_family)]
+                     timed_phase("(f) family plans", phase_family),
+                     timed_phase("(q) query offset", phase_seq)]
     for kname, row in rows.items():
         row["launches"] = sum(launches[kname] for launches in path_launches)
     print(f"total wall time {time.perf_counter() - t0:.1f}s")

@@ -2,7 +2,9 @@
 
 ``LAUNCHES`` counts, per kernel, the calls in which its wrapper launched
 the kernel on the card; a run reads it to show that its path went through
-the kernels.  The wrappers import ``LAUNCHES`` from here, so it is defined
+the kernels.  The attention wrappers also count their launches at a
+nonzero query offset (one rank of the sharded step's sequence fallback)
+under ``flash_attention_offset`` and ``flash_attention_bwd_offset``.  The wrappers import ``LAUNCHES`` from here, so it is defined
 before any submodule is imported.
 """
 from typing import Dict, Iterable
@@ -12,7 +14,9 @@ import torch
 LAUNCHES: Dict[str, int] = {"flash_attention": 0, "flash_attention_bwd": 0,
                             "flash_decode_gqa": 0, "flash_decode_mla": 0,
                             "adam_update": 0, "ssd_scan": 0,
-                            "ssd_scan_bwd": 0, "rms_norm": 0}
+                            "ssd_scan_bwd": 0, "rms_norm": 0,
+                            "flash_attention_offset": 0,
+                            "flash_attention_bwd_offset": 0}
 
 
 def reset_launches() -> None:

@@ -62,6 +62,11 @@
 // float32 (b, H, sq) and in the scaled units of the scores, from which the
 // backward (flash_attention_bwd.cu) recomputes P; a row the mask leaves
 // with no key gets NEG_INF.  The serving path passes a null pointer.
+//
+// Query row i sits at position q_offset + i of the key axis (keys start at
+// 0): one rank of the sharded step's sequence fallback holds rows
+// [r s/t, (r+1) s/t) of the queries against every key.  The mask, the band
+// of k tiles and the edge test read positions; loads and stores read rows.
 #include <stdint.h>
 
 #include <type_traits>
@@ -94,7 +99,7 @@ __global__ void __launch_bounds__(NT, 2)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ o,
                        float* __restrict__ lse, int sq, int sk, int H, int K,
-                       int causal, int window, float scale) {
+                       int causal, int window, int q_offset, float scale) {
   constexpr int LD = D + 1;   // padded row stride of the q and k tiles
   constexpr int DPT = D / 4;  // output columns per thread
   extern __shared__ float smem[];
@@ -112,6 +117,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int kh = h / (H / K);
   const int q0 = qt * BQ;
   const int qrow = q0 + r;
+  const int p0 = q_offset + q0, qpos = q_offset + qrow;  // key-axis positions
 
   for (int e = tid; e < BQ * D; e += NT) {
     const int rr = e / D, d = e % D;
@@ -127,8 +133,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int k0 = 0; k0 < sk; k0 += BK) {
     // the TPU kernel's `live` test for the (q tile, k tile) pair
-    if (causal && k0 > q0 + BQ - 1) break;            // past the diagonal
-    if (window && k0 + BK - 1 <= q0 - window) continue;  // before the band
+    if (causal && k0 > p0 + BQ - 1) break;            // past the diagonal
+    if (window && k0 + BK - 1 <= p0 - window) continue;  // before the band
     __syncthreads();  // the previous tile's readers are done
     for (int e = tid; e < BK * D; e += NT) {
       const int rr = e / D, d = e % D;
@@ -159,8 +165,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < CPT; ++j) {
       const int kp = k0 + g + 4 * j;
-      const bool live = kp < sk && (!causal || kp <= qrow) &&
-                        (!window || kp > qrow - window);
+      const bool live = kp < sk && (!causal || kp <= qpos) &&
+                        (!window || kp > qpos - window);
       s[j] = live ? s[j] * scale : NEG_INF;
       ok |= (unsigned)live << j;
       mx = fmaxf(mx, s[j]);
@@ -229,7 +235,7 @@ __global__ void __launch_bounds__(NW * 32)
 flash_attention_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, bf16* __restrict__ o,
                     float* __restrict__ lse, int sq, int sk, int H, int K,
-                    int causal, int window, float scale) {
+                    int causal, int window, int q_offset, float scale) {
   constexpr int THREADS = NW * 32, ROWS = 16 * NW, KEYS = MMA_KEYS;
   constexpr int QE = Tile<D>::elems(ROWS), KE = Tile<D>::elems(KEYS);
   extern __shared__ uint4 smem_mma[];
@@ -245,10 +251,12 @@ flash_attention_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int kh = h / (H / K);
   const int q0 = qt * ROWS;
   const int q_last = min(q0 + ROWS, sq) - 1;  // the tile's last real row
+  // positions of the tile's first and last rows on the key axis
+  const int p0 = q_offset + q0, p_last = q_offset + q_last;
   // the band of k tiles: the TPU kernel's `live` test, as a range
   const int n_kt = (sk + KEYS - 1) / KEYS;
-  const int kt_end = causal ? min(n_kt, q_last / KEYS + 1) : n_kt;
-  const int kt_begin = (window && q0 - window + 1 > 0) ? (q0 - window + 1) / KEYS : 0;
+  const int kt_end = causal ? min(n_kt, p_last / KEYS + 1) : n_kt;
+  const int kt_begin = (window && p0 - window + 1 > 0) ? (p0 - window + 1) / KEYS : 0;
 
   const long long qstride = (long long)H * D, kstride = (long long)K * D;
   const bf16* qb = q + ((size_t)b * sq * H + h) * D;
@@ -293,8 +301,8 @@ flash_attention_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
     repro::mma_abt<D, KEYS / 8>(s, Qs, 16 * w, Kt, lane);
 
     const int k0 = kt * KEYS;
-    const bool edge = k0 + KEYS > sk || (causal && k0 + KEYS - 1 > q0) ||
-                      (window && k0 <= q_last - window);
+    const bool edge = k0 + KEYS > sk || (causal && k0 + KEYS - 1 > p0) ||
+                      (window && k0 <= p_last - window);
     float mx[2] = {ninf, ninf};
 #pragma unroll
     for (int n = 0; n < KEYS / 8; ++n)
@@ -303,7 +311,7 @@ flash_attention_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
         float x = s[n][e] * sl2;
         if (edge) {
           const int kp = k0 + 8 * n + 2 * t + (e & 1);
-          const int qr = row0 + 8 * (e >> 1);
+          const int qr = q_offset + row0 + 8 * (e >> 1);
           const bool live = kp < sk && (!causal || kp <= qr) && (!window || kp > qr - window);
           x = live ? x : ninf;
         }
@@ -374,7 +382,7 @@ flash_attention_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    float* lse, int b, int sq, int sk, int H, int K, int causal,
-                   int window, float scale, cudaStream_t stream) {
+                   int window, int q_offset, float scale, cudaStream_t stream) {
   if constexpr (std::is_same<T, float>::value) {
     const int smem = smem_floats<D>() * (int)sizeof(float);
     auto kern = flash_attention_kernel<T, D>;
@@ -385,7 +393,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
     kern<<<grid, NT, smem, stream>>>(static_cast<const T*>(q),
                                      static_cast<const T*>(k),
                                      static_cast<const T*>(v), static_cast<T*>(o),
-                                     lse, sq, sk, H, K, causal, window, scale);
+                                     lse, sq, sk, H, K, causal, window, q_offset, scale);
   } else {
     constexpr int NW = MmaWarps<D>::value;
     constexpr int smem = mma_smem_bytes<D>();
@@ -397,7 +405,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
     kern<<<grid, NW * 32, smem, stream>>>(static_cast<const bf16*>(q),
                                           static_cast<const bf16*>(k),
                                           static_cast<const bf16*>(v), static_cast<bf16*>(o),
-                                          lse, sq, sk, H, K, causal, window, scale);
+                                          lse, sq, sk, H, K, causal, window, q_offset, scale);
   }
   return cudaGetLastError();
 }
@@ -405,14 +413,15 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 template <typename T>
 cudaError_t launch_d(int D, const void* q, const void* k, const void* v,
                      void* o, float* lse, int b, int sq, int sk, int H, int K,
-                     int causal, int window, float scale, cudaStream_t stream) {
+                     int causal, int window, int q_offset, float scale,
+                     cudaStream_t stream) {
   switch (D) {
-    case 32: return launch<T, 32>(q, k, v, o, lse, b, sq, sk, H, K, causal, window, scale, stream);
-    case 48: return launch<T, 48>(q, k, v, o, lse, b, sq, sk, H, K, causal, window, scale, stream);
-    case 64: return launch<T, 64>(q, k, v, o, lse, b, sq, sk, H, K, causal, window, scale, stream);
-    case 128: return launch<T, 128>(q, k, v, o, lse, b, sq, sk, H, K, causal, window, scale, stream);
-    case 160: return launch<T, 160>(q, k, v, o, lse, b, sq, sk, H, K, causal, window, scale, stream);
-    case 192: return launch<T, 192>(q, k, v, o, lse, b, sq, sk, H, K, causal, window, scale, stream);
+    case 32: return launch<T, 32>(q, k, v, o, lse, b, sq, sk, H, K, causal, window, q_offset, scale, stream);
+    case 48: return launch<T, 48>(q, k, v, o, lse, b, sq, sk, H, K, causal, window, q_offset, scale, stream);
+    case 64: return launch<T, 64>(q, k, v, o, lse, b, sq, sk, H, K, causal, window, q_offset, scale, stream);
+    case 128: return launch<T, 128>(q, k, v, o, lse, b, sq, sk, H, K, causal, window, q_offset, scale, stream);
+    case 160: return launch<T, 160>(q, k, v, o, lse, b, sq, sk, H, K, causal, window, q_offset, scale, stream);
+    case 192: return launch<T, 192>(q, k, v, o, lse, b, sq, sk, H, K, causal, window, q_offset, scale, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -421,17 +430,19 @@ cudaError_t launch_d(int D, const void* q, const void* k, const void* v,
 
 // q (b, sq, H, D), k/v (b, sk, K, D), o (b, sq, H, D), all contiguous,
 // 16-byte aligned and of one dtype; lse (b, H, sq) float32, or null where it is not wanted.
+// Query row i is at key position q_offset + i; q_offset >= 0, and a nonzero
+// q_offset keeps q_offset + sq <= sk.
 // Returns the cudaError_t of the launch (0 on success).
 extern "C" int repro_flash_attention(const void* q, const void* k,
                                      const void* v, void* o, void* lse, int b,
                                      int sq, int sk, int H, int K, int D,
                                      int dtype, int causal, int window,
-                                     float scale, void* stream) {
+                                     int q_offset, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
   if (dtype == 0)
-    return (int)launch_d<float>(D, q, k, v, o, l, b, sq, sk, H, K, causal, window, scale, s);
+    return (int)launch_d<float>(D, q, k, v, o, l, b, sq, sk, H, K, causal, window, q_offset, scale, s);
   if (dtype == 1)
-    return (int)launch_d<__nv_bfloat16>(D, q, k, v, o, l, b, sq, sk, H, K, causal, window, scale, s);
+    return (int)launch_d<__nv_bfloat16>(D, q, k, v, o, l, b, sq, sk, H, K, causal, window, q_offset, scale, s);
   return (int)cudaErrorInvalidValue;
 }

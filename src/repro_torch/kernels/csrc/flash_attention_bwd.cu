@@ -45,6 +45,13 @@
 // cross the diagonal, the window's edge, sq or sk; rows and keys past sq
 // and sk are zero-filled by the copy and never stored.  A row the mask
 // leaves with no key (lse = NEG_INF) gets P = 0 and so zero gradients.
+// Query row i sits at position q_offset + i of the key axis, as in the
+// forward (one rank of the sharded step's sequence fallback): the masks,
+// bands and edge tests read positions, the loads and stores rows.  A key
+// tile that no query row reaches -- past the last row's position under
+// the causal mask, or before the first row's window -- runs no step, and
+// its block stores the zeros its dK and dV start from (the wrapper hands
+// the kernel uninitialised dK and dV).
 // The gradients leave through the warp's own rows of a staged tile as
 // 16-byte stores.  Registers: up to 252 a thread at D = 64 and 128 (no
 // spills).  On an H100 at the training shape the three kernels together
@@ -163,7 +170,7 @@ __device__ __forceinline__ void scores(const float* Qs, const float* dOs,
                                        const float* lse_s, const float* Di_s,
                                        float* Ps, float* dSs, int q0, int k0,
                                        int sq, int sk, int causal, int window,
-                                       float scale) {
+                                       int q_offset, float scale) {
   constexpr int LD = D + 1;
   const int r = threadIdx.x >> 3;
   const int c0 = threadIdx.x & 7;
@@ -180,13 +187,13 @@ __device__ __forceinline__ void scores(const float* Qs, const float* dOs,
       dp[j] = fmaf(ov, Vs[(c0 + 8 * j) * LD + d], dp[j]);
     }
   }
-  const int qi = q0 + r;
+  const int qi = q0 + r, qp = q_offset + qi;
   const float l = lse_s[r], di = Di_s[r];
 #pragma unroll
   for (int j = 0; j < CPT; ++j) {
     const int kp = k0 + c0 + 8 * j;
-    const bool live = qi < sq && kp < sk && (!causal || kp <= qi) &&
-                      (!window || kp > qi - window);
+    const bool live = qi < sq && kp < sk && (!causal || kp <= qp) &&
+                      (!window || kp > qp - window);
     const float p = live ? expf(s[j] * scale - l) : 0.f;
     if (WANT_P) Ps[r * LP + c0 + 8 * j] = p;
     dSs[r * LP + c0 + 8 * j] = p * (dp[j] - di);
@@ -214,7 +221,7 @@ bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 const T* __restrict__ v, const T* __restrict__ dout,
                 const float* __restrict__ lse, const float* __restrict__ Di,
                 T* __restrict__ dk, T* __restrict__ dv, int sq, int sk, int H,
-                int K, int causal, int window, float scale) {
+                int K, int causal, int window, int q_offset, float scale) {
   constexpr int LD = D + 1;
   constexpr int DPT = D / 8;  // output columns per thread
   extern __shared__ float smem[];
@@ -241,10 +248,11 @@ bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < DPT; ++i) dk_acc[i] = dv_acc[i] = 0.f;
 
-  // the q tiles whose rows see a key of this tile: row i sees key j iff
-  // j <= i (causal) and i < j + window (window)
-  const int q_first = causal ? (k0 / BQ) * BQ : 0;
-  const int q_end = window ? min(sq, k0 + BK - 1 + window) : sq;
+  // the q tiles whose rows see a key of this tile: row i (position
+  // q_offset + i) sees key j iff j <= q_offset + i (causal) and q_offset +
+  // i < j + window (window); a tile no row sees keeps dK = dV = 0
+  const int q_first = causal ? (max(0, k0 - q_offset) / BQ) * BQ : 0;
+  const int q_end = window ? min(sq, k0 + BK - 1 + window - q_offset) : sq;
 
   for (int g = 0; g < G; ++g) {
     const int h = kh * G + g;
@@ -255,7 +263,7 @@ bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       load_rows(lse_s, Di_s, lse, Di, b, h, H, q0, sq);
       __syncthreads();
       scores<D, true>(Qs, dOs, Ks, Vs, lse_s, Di_s, Ps, dSs, q0, k0, sq, sk,
-                      causal, window, scale);
+                      causal, window, q_offset, scale);
       __syncthreads();
 #pragma unroll 2
       for (int r = 0; r < BQ; ++r) {
@@ -287,7 +295,7 @@ bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, const T* __restrict__ dout,
               const float* __restrict__ lse, const float* __restrict__ Di,
               T* __restrict__ dq, int sq, int sk, int H, int K, int causal,
-              int window, float scale) {
+              int window, int q_offset, float scale) {
   constexpr int LD = D + 1;
   constexpr int DPT = D / 8;
   extern __shared__ float smem[];
@@ -316,14 +324,14 @@ bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < DPT; ++i) dq_acc[i] = 0.f;
 
   for (int k0 = 0; k0 < sk; k0 += BK) {
-    if (causal && k0 > q0 + BQ - 1) break;               // past the diagonal
-    if (window && k0 + BK - 1 <= q0 - window) continue;  // before the band
+    if (causal && k0 > q_offset + q0 + BQ - 1) break;               // past the diagonal
+    if (window && k0 + BK - 1 <= q_offset + q0 - window) continue;  // before the band
     __syncthreads();  // the previous tile's readers are done
     load_tile<T, D>(Ks, k, b, k0, sk, K, kh);
     load_tile<T, D>(Vs, v, b, k0, sk, K, kh);
     __syncthreads();
     scores<D, false>(Qs, dOs, Ks, Vs, lse_s, Di_s, nullptr, dSs, q0, k0, sq,
-                     sk, causal, window, scale);
+                     sk, causal, window, q_offset, scale);
     __syncwarp();  // row r's dS values come from lanes of this warp only
 #pragma unroll 4
     for (int c = 0; c < BK; ++c) {
@@ -402,7 +410,7 @@ bwd_dkdv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
              const bf16* __restrict__ v, const bf16* __restrict__ dout,
              const float* __restrict__ lse, const float* __restrict__ Di,
              bf16* __restrict__ dk, bf16* __restrict__ dv, int sq, int sk, int H,
-             int K, int causal, int window, float scale) {
+             int K, int causal, int window, int q_offset, float scale) {
   constexpr int KEYS = MMA_KEYS, QR = DkdvRows<D>::value, THREADS = MMA_THREADS;
   constexpr int KE = Tile<D>::elems(KEYS), QE = Tile<D>::elems(QR);
   extern __shared__ uint4 smem_mma[];
@@ -423,10 +431,13 @@ bwd_dkdv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* kb = k + ((size_t)b * sk * K + kh) * D;
   const bf16* vb = v + ((size_t)b * sk * K + kh) * D;
 
-  // the q tiles whose rows see a key of this tile: row i sees key j iff
-  // j <= i (causal) and i < j + window (window); for each of the G heads
-  const int qt_first = causal ? k0 / QR : 0;
-  const int q_end = window ? min(sq, k0 + KEYS - 1 + window) : sq;
+  // the q tiles whose rows see a key of this tile: row i (position
+  // q_offset + i) sees key j iff j <= q_offset + i (causal) and q_offset +
+  // i < j + window (window); for each of the G heads.  A tile no row sees
+  // (past the last row's position, or before the first row's window) has
+  // no step and stores the zeros dK and dV start from.
+  const int qt_first = causal ? max(0, k0 - q_offset) / QR : 0;
+  const int q_end = window ? min(sq, k0 + KEYS - 1 + window - q_offset) : sq;
   const int nq = max(0, (q_end + QR - 1) / QR - qt_first);
   const int n_it = G * nq;
 
@@ -479,8 +490,9 @@ bwd_dkdv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
     repro::mma_abt<D, QR / 8>(s, Ks, 16 * w, Qt, lane);    // S^T = K Q^T
     repro::mma_abt<D, QR / 8>(dp, Vs, 16 * w, dOt, lane);  // dP^T = V dO^T
 
-    const bool edge = q0 + QR > sq || k0 + KEYS > sk || (causal && k0 + KEYS - 1 > q0) ||
-                      (window && k0 <= q0 + QR - 1 - window);
+    const int p0 = q_offset + q0;  // the tile's first row's position
+    const bool edge = q0 + QR > sq || k0 + KEYS > sk || (causal && k0 + KEYS - 1 > p0) ||
+                      (window && k0 <= p0 + QR - 1 - window);
 #pragma unroll
     for (int n = 0; n < QR / 8; ++n)
 #pragma unroll
@@ -488,9 +500,9 @@ bwd_dkdv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
         const int ql = 8 * n + 2 * t + (e & 1);  // the column's query row in the tile
         float p = exp2f(s[n][e] * sl2 - lt[ql] * LOG2E);
         if (edge) {
-          const int qi = q0 + ql, kp = key0 + 8 * (e >> 1);
-          const bool live = qi < sq && kp < sk && (!causal || kp <= qi) &&
-                            (!window || kp > qi - window);
+          const int qi = q0 + ql, qp = p0 + ql, kp = key0 + 8 * (e >> 1);
+          const bool live = qi < sq && kp < sk && (!causal || kp <= qp) &&
+                            (!window || kp > qp - window);
           p = live ? p : 0.f;  // a select: p may be inf off the band
         }
         s[n][e] = p;
@@ -522,7 +534,7 @@ bwd_dkdv_split_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
                    const float* __restrict__ lse, const float* __restrict__ Di,
                    bf16* __restrict__ dk, bf16* __restrict__ dv, int sq, int sk, int H,
-                   int K, int causal, int window, float scale) {
+                   int K, int causal, int window, int q_offset, float scale) {
   constexpr int KEYS = MMA_KEYS, QR = SPLIT_QR, THREADS = SPLIT_THREADS;
   constexpr int DH = D / 2;  // the columns of dK and dV a group keeps
   constexpr int KE = Tile<D>::elems(KEYS), QE = Tile<D>::elems(QR);
@@ -548,8 +560,9 @@ bwd_dkdv_split_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* kb = k + ((size_t)b * sk * K + kh) * D;
   const bf16* vb = v + ((size_t)b * sk * K + kh) * D;
 
-  const int qt_first = causal ? k0 / QR : 0;
-  const int q_end = window ? min(sq, k0 + KEYS - 1 + window) : sq;
+  // the q tiles, as in bwd_dkdv_mma
+  const int qt_first = causal ? max(0, k0 - q_offset) / QR : 0;
+  const int q_end = window ? min(sq, k0 + KEYS - 1 + window - q_offset) : sq;
   const int nq = max(0, (q_end + QR - 1) / QR - qt_first);
   const int n_it = G * nq;
 
@@ -604,8 +617,9 @@ bwd_dkdv_split_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
       repro::mma_abt<D, NP>(s, Ks, 16 * w4, Qt, lane);
-      const bool edge = q0 + QR > sq || k0 + KEYS > sk || (causal && k0 + KEYS - 1 > q0) ||
-                        (window && k0 <= q0 + QR - 1 - window);
+      const int p0 = q_offset + q0;  // the tile's first row's position
+      const bool edge = q0 + QR > sq || k0 + KEYS > sk || (causal && k0 + KEYS - 1 > p0) ||
+                        (window && k0 <= p0 + QR - 1 - window);
 #pragma unroll
       for (int n = 0; n < NP; ++n)
 #pragma unroll
@@ -613,9 +627,9 @@ bwd_dkdv_split_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
           const int ql = 8 * n + 2 * t + (e & 1);  // the column's query row in the tile
           float p = exp2f(s[n][e] * sl2 - lt[ql] * LOG2E);
           if (edge) {
-            const int qi = q0 + ql, kp = key0 + 8 * (e >> 1);
-            const bool live = qi < sq && kp < sk && (!causal || kp <= qi) &&
-                              (!window || kp > qi - window);
+            const int qi = q0 + ql, qp = p0 + ql, kp = key0 + 8 * (e >> 1);
+            const bool live = qi < sq && kp < sk && (!causal || kp <= qp) &&
+                              (!window || kp > qp - window);
             p = live ? p : 0.f;  // a select: p may be inf off the band
           }
           s[n][e] = p;
@@ -679,7 +693,7 @@ bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
            const bf16* __restrict__ v, const bf16* __restrict__ dout,
            const float* __restrict__ lse, const float* __restrict__ Di,
            bf16* __restrict__ dq, int sq, int sk, int H, int K, int causal,
-           int window, float scale) {
+           int window, int q_offset, float scale) {
   constexpr int KEYS = DqKeys<D>::value, ROWS = MMA_ROWS, THREADS = MMA_THREADS;
   constexpr int QE = Tile<D>::elems(ROWS), KE = Tile<D>::elems(KEYS);
   extern __shared__ uint4 smem_mma[];
@@ -696,9 +710,10 @@ bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int kh = h / (H / K);
   const int q0 = qt * ROWS;
   const int q_last = min(q0 + ROWS, sq) - 1;
+  const int p0 = q_offset + q0, p_last = q_offset + q_last;  // their positions
   const int n_kt = (sk + KEYS - 1) / KEYS;
-  const int kt_end = causal ? min(n_kt, q_last / KEYS + 1) : n_kt;
-  const int kt_begin = (window && q0 - window + 1 > 0) ? (q0 - window + 1) / KEYS : 0;
+  const int kt_end = causal ? min(n_kt, p_last / KEYS + 1) : n_kt;
+  const int kt_begin = (window && p0 - window + 1 > 0) ? (p0 - window + 1) / KEYS : 0;
 
   const long long qstride = (long long)H * D, kstride = (long long)K * D;
   const size_t qoff = ((size_t)b * sq * H + h) * D;
@@ -750,8 +765,8 @@ bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
     repro::mma_abt<D, KEYS / 8>(dp, dOs, 16 * w, Vt, lane);  // dP = dO V^T
 
     const int k0 = kt * KEYS;
-    const bool edge = q0 + ROWS > sq || k0 + KEYS > sk || (causal && k0 + KEYS - 1 > q0) ||
-                      (window && k0 <= q_last - window);
+    const bool edge = q0 + ROWS > sq || k0 + KEYS > sk || (causal && k0 + KEYS - 1 > p0) ||
+                      (window && k0 <= p_last - window);
 #pragma unroll
     for (int n = 0; n < KEYS / 8; ++n)
 #pragma unroll
@@ -759,9 +774,9 @@ bwd_dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
         float p = exp2f(s[n][e] * sl2 - l2[e >> 1]);
         if (edge) {
           const int kp = k0 + 8 * n + 2 * t + (e & 1);
-          const int qi = row0 + 8 * (e >> 1);
-          const bool live = qi < sq && kp < sk && (!causal || kp <= qi) &&
-                            (!window || kp > qi - window);
+          const int qi = row0 + 8 * (e >> 1), qp = q_offset + qi;
+          const bool live = qi < sq && kp < sk && (!causal || kp <= qp) &&
+                            (!window || kp > qp - window);
           p = live ? p : 0.f;  // a select: p may be inf off the band
         }
         dp[n][e] = p * (dp[n][e] - di[e >> 1]);
@@ -788,7 +803,7 @@ template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
                    const void* dout, const float* lse, float* Di, void* dq,
                    void* dk, void* dv, int b, int sq, int sk, int H, int K,
-                   int causal, int window, float scale, cudaStream_t stream) {
+                   int causal, int window, int q_offset, float scale, cudaStream_t stream) {
   const long long rows = (long long)b * sq * H;
   const unsigned dot_blocks = (unsigned)((rows * 32 + NT - 1) / NT);
   bwd_dot_kernel<T, D><<<dot_blocks, NT, 0, stream>>>(
@@ -805,7 +820,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
         static_cast<const T*>(q), static_cast<const T*>(k),
         static_cast<const T*>(v), static_cast<const T*>(dout), lse, Di,
         static_cast<T*>(dk), static_cast<T*>(dv), sq, sk, H, K, causal, window,
-        scale);
+        q_offset, scale);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
 
@@ -815,7 +830,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
     dqk<<<dim3((sq + BQ - 1) / BQ, H, b), NT, smem, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k),
         static_cast<const T*>(v), static_cast<const T*>(dout), lse, Di,
-        static_cast<T*>(dq), sq, sk, H, K, causal, window, scale);
+        static_cast<T*>(dq), sq, sk, H, K, causal, window, q_offset, scale);
   } else {
     if constexpr (D > 128) {  // 160, 192: the split dK/dV block, two groups of four warps
       constexpr int dkdv_smem = dkdv_split_smem_bytes<D>();
@@ -826,7 +841,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
           static_cast<const bf16*>(q), static_cast<const bf16*>(k),
           static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse, Di,
           static_cast<bf16*>(dk), static_cast<bf16*>(dv), sq, sk, H, K, causal, window,
-          scale);
+          q_offset, scale);
     } else {
       constexpr int dkdv_smem = dkdv_smem_bytes<D>();
       auto dkdv = bwd_dkdv_mma<D>;
@@ -836,7 +851,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
           static_cast<const bf16*>(q), static_cast<const bf16*>(k),
           static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse, Di,
           static_cast<bf16*>(dk), static_cast<bf16*>(dv), sq, sk, H, K, causal, window,
-          scale);
+          q_offset, scale);
     }
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
@@ -848,7 +863,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
     dqk<<<dim3((sq + MMA_ROWS - 1) / MMA_ROWS, H, b), MMA_THREADS, dq_smem, stream>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k),
         static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse, Di,
-        static_cast<bf16*>(dq), sq, sk, H, K, causal, window, scale);
+        static_cast<bf16*>(dq), sq, sk, H, K, causal, window, q_offset, scale);
   }
   return cudaGetLastError();
 }
@@ -857,14 +872,14 @@ template <typename T>
 cudaError_t launch_d(int D, const void* q, const void* k, const void* v,
                      const void* o, const void* dout, const float* lse,
                      float* Di, void* dq, void* dk, void* dv, int b, int sq,
-                     int sk, int H, int K, int causal, int window, float scale,
-                     cudaStream_t s) {
+                     int sk, int H, int K, int causal, int window, int q_offset,
+                     float scale, cudaStream_t s) {
   switch (D) {
-    case 32: return launch<T, 32>(q, k, v, o, dout, lse, Di, dq, dk, dv, b, sq, sk, H, K, causal, window, scale, s);
-    case 64: return launch<T, 64>(q, k, v, o, dout, lse, Di, dq, dk, dv, b, sq, sk, H, K, causal, window, scale, s);
-    case 128: return launch<T, 128>(q, k, v, o, dout, lse, Di, dq, dk, dv, b, sq, sk, H, K, causal, window, scale, s);
-    case 160: return launch<T, 160>(q, k, v, o, dout, lse, Di, dq, dk, dv, b, sq, sk, H, K, causal, window, scale, s);
-    case 192: return launch<T, 192>(q, k, v, o, dout, lse, Di, dq, dk, dv, b, sq, sk, H, K, causal, window, scale, s);
+    case 32: return launch<T, 32>(q, k, v, o, dout, lse, Di, dq, dk, dv, b, sq, sk, H, K, causal, window, q_offset, scale, s);
+    case 64: return launch<T, 64>(q, k, v, o, dout, lse, Di, dq, dk, dv, b, sq, sk, H, K, causal, window, q_offset, scale, s);
+    case 128: return launch<T, 128>(q, k, v, o, dout, lse, Di, dq, dk, dv, b, sq, sk, H, K, causal, window, q_offset, scale, s);
+    case 160: return launch<T, 160>(q, k, v, o, dout, lse, Di, dq, dk, dv, b, sq, sk, H, K, causal, window, q_offset, scale, s);
+    case 192: return launch<T, 192>(q, k, v, o, dout, lse, Di, dq, dk, dv, b, sq, sk, H, K, causal, window, q_offset, scale, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -873,7 +888,8 @@ cudaError_t launch_d(int D, const void* q, const void* k, const void* v,
 
 // q, o, dout, dq (b, sq, H, D); k, v, dk, dv (b, sk, K, D), all contiguous,
 // 16-byte aligned and of one dtype; lse (b, H, sq) float32 from the forward kernel; Di
-// (b, H, sq) float32 scratch.  Returns the cudaError_t of the first launch
+// (b, H, sq) float32 scratch.  Query row i is at key position q_offset + i;
+// q_offset >= 0, and a nonzero q_offset keeps q_offset + sq <= sk.  Returns the cudaError_t of the first launch
 // that failed (0 on success).
 extern "C" int repro_flash_attention_bwd(const void* q, const void* k,
                                          const void* v, const void* o,
@@ -881,14 +897,14 @@ extern "C" int repro_flash_attention_bwd(const void* q, const void* k,
                                          void* Di, void* dq, void* dk, void* dv,
                                          int b, int sq, int sk, int H, int K,
                                          int D, int dtype, int causal,
-                                         int window, float scale,
+                                         int window, int q_offset, float scale,
                                          void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   float* di = static_cast<float*>(Di);
   if (dtype == 0)
-    return (int)launch_d<float>(D, q, k, v, o, dout, l, di, dq, dk, dv, b, sq, sk, H, K, causal, window, scale, s);
+    return (int)launch_d<float>(D, q, k, v, o, dout, l, di, dq, dk, dv, b, sq, sk, H, K, causal, window, q_offset, scale, s);
   if (dtype == 1)
-    return (int)launch_d<__nv_bfloat16>(D, q, k, v, o, dout, l, di, dq, dk, dv, b, sq, sk, H, K, causal, window, scale, s);
+    return (int)launch_d<__nv_bfloat16>(D, q, k, v, o, dout, l, di, dq, dk, dv, b, sq, sk, H, K, causal, window, q_offset, scale, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -69,8 +69,10 @@ def _use_kernel(x: torch.Tensor) -> bool:
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, window: int = 0,
-              softmax_scale: Optional[float] = None) -> torch.Tensor:
-    """q: (b, sq, H, D); k, v: (b, sk, K, D), H = K*G.  Returns (b, sq, H, D)."""
+              softmax_scale: Optional[float] = None,
+              q_offset: int = 0) -> torch.Tensor:
+    """q: (b, sq, H, D); k, v: (b, sk, K, D), H = K*G.  Returns (b, sq, H, D).
+    Key positions start at 0 and query row i sits at ``q_offset + i``."""
     if METRICS.enabled:
         METRICS.inc("ops/attention")
     if not _use_kernel(q):
@@ -81,7 +83,7 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     else:
         fn = flash_attention
     return fn(q, k, v, causal=causal, window=window,
-              softmax_scale=softmax_scale)
+              softmax_scale=softmax_scale, q_offset=q_offset)
 
 
 def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,

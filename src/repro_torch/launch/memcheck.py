@@ -2,6 +2,8 @@
 rank of the plan, measured.
 
     PYTHONPATH=src python -m repro_torch.launch.memcheck --zero 1
+    PYTHONPATH=src python -m repro_torch.launch.memcheck --arch stablelm-12b \
+        --batch 16 --seq 4096 --d 16 --t 16 --zero 1 --rank 15
 
 For GPT2-350M / GPT2-7B (the paper's models) under the JAX package's
 (d, t) plans and batch sizes (``COMBOS``), each row runs rank 0 of the
@@ -25,7 +27,10 @@ mean nothing (losses may be NaN): only the allocator's peak is read.
 NCCL's own buffers lie outside the caching allocator, so the actual
 counts none, as a real run's would not either.
 
-Rows go to ``experiments/memcheck_torch/memcheck_zero{Z}.json``.  The
+With ``--arch`` it runs that one plan, as rank ``--rank`` (default 0), and
+prints its row (a plan on the head_dim / seq fallback runs each rank's
+sequence rows at its own query offset; rank t - 1 has the largest).
+Otherwise rows go to ``experiments/memcheck_torch/memcheck_zero{Z}.json``.  The
 JAX package's measurement (XLA's compile-time accounting on placeholder
 CPU devices) lives in ``experiments/memcheck/`` and is not this one.
 """
@@ -74,11 +79,11 @@ COMBOS = [
 
 
 @contextmanager
-def fake_world(world_size: int):
-    """Rank 0 of a process group of ``world_size`` ranks whose collectives
-    do not communicate (torch's fake backend), for the block."""
+def fake_world(world_size: int, rank: int = 0):
+    """Rank ``rank`` of a process group of ``world_size`` ranks whose
+    collectives do not communicate (torch's fake backend), for the block."""
     from torch.testing._internal.distributed.fake_pg import FakeStore
-    dist.init_process_group("fake", store=FakeStore(), rank=0,
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
                             world_size=world_size)
     try:
         yield
@@ -120,11 +125,12 @@ def card() -> Dict[str, str]:
 
 def run_one(arch: str, batch: int, seq: int, d: int, t: int, zero: int = 0, *,
             cfg: Optional[ModelConfig] = None, device="cuda",
-            smi: Optional[Dict[str, str]] = None) -> Dict[str, Any]:
-    """One combo as rank 0 of its (d, t) plan on the card; ``cfg`` in place
-    of ``get_arch(arch)`` (a smoke config, or a cut one).  Raises off
-    CUDA: the actual is the card's allocator's, and there is no CPU
-    stand-in for it."""
+            smi: Optional[Dict[str, str]] = None,
+            rank: int = 0) -> Dict[str, Any]:
+    """One combo as rank ``rank`` (default 0) of its (d, t) plan on the
+    card; ``cfg`` in place of ``get_arch(arch)`` (a smoke config, or a cut
+    one).  Raises off CUDA: the actual is the card's allocator's, and there
+    is no CPU stand-in for it."""
     device = torch.device(device)
     if device.type != "cuda":
         raise ValueError(f"memcheck measures the CUDA caching allocator's "
@@ -134,7 +140,7 @@ def run_one(arch: str, batch: int, seq: int, d: int, t: int, zero: int = 0, *,
     # what an earlier caller left in reference cycles is freed before the
     # base is read
     gc.collect()
-    with fake_world(d * t):
+    with fake_world(d * t, rank):
         mesh = make_plan_mesh(d, t, device_type="cuda")
         torch.cuda.synchronize(device)
         base = torch.cuda.memory_allocated(device)
@@ -147,7 +153,7 @@ def run_one(arch: str, batch: int, seq: int, d: int, t: int, zero: int = 0, *,
         # the allocator rounds each block up to 512 bytes
         if held != want or not want <= grown <= want + 512 * n_tensors:
             raise RuntimeError(
-                f"{arch} d={d} t={t} zero={zero}: rank 0's state holds {held}"
+                f"{arch} d={d} t={t} zero={zero}: rank {rank}'s state holds {held}"
                 f" B ({grown} B allocated), its specs' shards {want} B")
         step, _ = build_train_step(cfg, tc, batch, seq, mesh=mesh)
         raw = next(SyntheticTokens(cfg, batch, seq, seed=tc.seed))
@@ -166,7 +172,7 @@ def run_one(arch: str, batch: int, seq: int, d: int, t: int, zero: int = 0, *,
     memtrace.record(cfg.family, zero, memtrace.device_type_for(smi["device"]),
                     pred_exact, actual, source="memcheck")
     return {"arch": arch, "batch": batch, "seq": seq, "d": d, "t": t,
-            "zero": zero, "actual_bytes": int(actual),
+            "zero": zero, "rank": rank, "actual_bytes": int(actual),
             "state_bytes": int(want), "base_bytes": int(base),
             "pred_exact": pred_exact, "pred_paper": pred_paper,
             "acc_exact": round(1 - abs(pred_exact - actual) / actual, 4),
@@ -186,9 +192,21 @@ def main(argv=None):
     ap.add_argument("--out", default=DEFAULT_OUT)
     ap.add_argument("--force", action="store_true")
     ap.add_argument("--zero", type=int, default=0)
+    ap.add_argument("--arch", help="run this one plan (with --batch, --seq, "
+                    "--d, --t, --rank) and print its row")
+    ap.add_argument("--batch", type=int, default=16)
+    ap.add_argument("--seq", type=int, default=4096)
+    ap.add_argument("--d", type=int, default=1)
+    ap.add_argument("--t", type=int, default=1)
+    ap.add_argument("--rank", type=int, default=0)
     args = ap.parse_args(argv)
     from repro_torch.launch import configure_allocator
     configure_allocator()
+    if args.arch:
+        r = run_one(args.arch, args.batch, args.seq, args.d, args.t,
+                    args.zero, rank=args.rank)
+        print(f"rank {args.rank}: {describe(r)}", flush=True)
+        return
     os.makedirs(args.out, exist_ok=True)
     path = os.path.join(args.out, f"memcheck_zero{args.zero}.json")
     if os.path.exists(path) and not args.force:

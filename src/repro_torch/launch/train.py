@@ -30,8 +30,9 @@ accuracy of each prediction (``1 - |pred - actual| / actual``, the JAX
 ``launch/memcheck``'s) and the memory feedback plane's class of the
 sample, which it records (``core.memtrace.record``; the JAX driver records
 XLA's compile-time memory analysis there).  ``--ckpt-dir DIR`` saves the
-parameters after the last step (``ckpt.save``, the JAX package's layout;
-one process only).  Rank 0 prints.
+parameters after the last step (``ckpt.save``, the JAX package's layout);
+under ``torchrun`` every rank gathers them from the shards
+(``save_checkpoint``) and rank 0 writes the files.  Rank 0 prints.
 """
 from __future__ import annotations
 
@@ -52,9 +53,12 @@ from repro_torch.core import memtrace
 from repro_torch.data import SyntheticTokens
 from repro_torch.launch import configure_allocator
 from repro_torch.launch.mesh import make_plan_mesh
+from repro_torch.models import param_shapes
+from repro_torch.parallel import collectives as col
 from repro_torch.parallel import sharding as sh
 from repro_torch.train import (build_train_step, make_local_state,
                                make_train_state)
+from repro_torch.train.train_loop import state_specs
 
 
 def to_device(raw: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
@@ -145,6 +149,24 @@ def train(cfg: ModelConfig, tc: TrainConfig, *, device="cuda",
             "memory": memory, "state": state, "n_micro": n_micro}
 
 
+def save_checkpoint(ckpt_dir: str, step: int, cfg: ModelConfig,
+                    tc: TrainConfig, state: Dict[str, Any], mesh=None) -> bool:
+    """``ckpt.save`` of the state's parameters; with ``mesh`` (a
+    collective: every rank of the plan calls it) they are gathered from the
+    ranks' shards first and rank 0 writes.  Returns whether this process
+    wrote the files."""
+    params = state["params"]
+    if mesh is not None:
+        specs = state_specs(cfg, tc, mesh, param_shapes(cfg))
+        with torch.no_grad():
+            params = col.gather_state(state, specs, mesh,
+                                      parts=("params",))["params"]
+        if dist.get_rank() != 0:
+            return False
+    ckpt.save(ckpt_dir, step, params)
+    return True
+
+
 def loss_fell(losses) -> bool:
     """The JAX driver's test: the mean of the last 10 steps' losses is below
     the mean of the first 10."""
@@ -192,8 +214,8 @@ def _run(cfg, tc, args, device, mesh, say):
     out = train(cfg, tc, device=device, log_every=args.log_every,
                 log=lambda s: say(s, flush=True), mesh=mesh)
     losses = out["losses"]
-    if args.ckpt_dir:
-        ckpt.save(args.ckpt_dir, args.steps, out["state"]["params"])
+    if args.ckpt_dir and save_checkpoint(args.ckpt_dir, args.steps, cfg, tc,
+                                         out["state"], mesh):
         print(f"checkpoint saved to {args.ckpt_dir}")
     say(f"microbatches {out['n_micro']} first-10-mean "
         f"{np.mean(losses[:10]):.4f} last-10-mean {np.mean(losses[-10:]):.4f}")
@@ -204,9 +226,6 @@ def _run_rank(cfg, tc, args, world):
     """This rank of a ``torchrun`` launch: the plan's mesh over the
     process group (d = min(world, batch), t = world // d, the JAX
     driver's sizing), its card (LOCAL_RANK) on CUDA."""
-    if args.ckpt_dir:
-        raise NotImplementedError("checkpoints of a sharded state: "
-                                  "ROADMAP.md queue 1 item 10")
     device = torch.device(args.device)
     if device.type == "cuda":
         device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))

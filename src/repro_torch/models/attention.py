@@ -77,10 +77,19 @@ def gqa_project_qkv(cfg: ModelConfig, p: dict, x: torch.Tensor,
 
 
 def gqa_attend_train(cfg: ModelConfig, p: dict, x: torch.Tensor,
-                     positions: torch.Tensor
+                     positions: torch.Tensor,
+                     par: Optional[ModelParallel] = None
                      ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Full-sequence (prefill) attention.  Returns (out, kv) where kv holds
-    the k/v tensors for cache construction."""
+    the k/v tensors for cache construction.
+
+    With ``par`` (one rank of the sharded step; x after ``to_model``) the
+    weights hold the rank's heads, or on the head_dim / seq fallback
+    (``par.attn_head_sharded`` false) its head_dim columns
+    (``_gqa_attend_seq``); either way ``out`` is the rank's partial
+    output, which the caller sums over the model axis."""
+    if par is not None and not par.attn_head_sharded:
+        return _gqa_attend_seq(cfg, p, x, positions, par)
     q, k, v = gqa_project_qkv(cfg, p, x, positions)
     b, s = x.shape[:2]
     # one rank of the sharded step holds its heads (no-op on one device)
@@ -90,6 +99,38 @@ def gqa_attend_train(cfg: ModelConfig, p: dict, x: torch.Tensor,
               "heads", "head_dim")
     o = dispatch.attention(q, k, v, causal=True, window=cfg.sliding_window)
     return _out_project(o, p["wo"]), {"k": k, "v": v}
+
+
+def _gqa_attend_seq(cfg: ModelConfig, p: dict, x: torch.Tensor,
+                    positions: torch.Tensor, par: ModelParallel
+                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One rank of the head_dim / seq fallback (the JAX package's
+    ``"seq"`` activation sharding): ``wq``/``wk``/``wv`` hold the rank's
+    hd/t columns and ``wo`` its hd/t rows.  k and v are gathered whole
+    over head_dim; q moves to the rank's s/t sequence rows with every
+    column, and only then takes RoPE (the split-half rotation pairs column
+    i with i + hd/2, so a head_dim shard cannot be rotated); the attention
+    runs those rows against every key at query offset r s/t, and its output
+    moves back to the rank's columns for ``wo``."""
+    b, s, _ = x.shape
+    if s % par.t:
+        raise ValueError(f"{cfg.name}: sequence {s} does not split over the "
+                         f"model axis of {par.t} (the head_dim / seq "
+                         f"fallback shards the sequence)")
+    rows = s // par.t
+    lo = par.model_idx * rows
+    q = par.head_dim_to_seq(_project(x, p["wq"]))          # (b, s/t, H, hd)
+    k = par.gather_model_sum(_project(x, p["wk"]), -1)     # (b, s, K, hd)
+    v = par.gather_model_sum(_project(x, p["wv"]), -1)
+    q = apply_rope(q, positions[..., lo:lo + rows], cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    constrain(q, (b, s, cfg.num_heads, cfg.head_dim), None, "seq", "heads",
+              "head_dim")
+    constrain(k, (b, s, cfg.num_kv_heads, cfg.head_dim), None, None,
+              "heads", "head_dim")
+    o = dispatch.attention(q, k, v, causal=True, window=cfg.sliding_window,
+                           q_offset=lo)
+    return _out_project(par.seq_to_head_dim(o), p["wo"]), {"k": k, "v": v}
 
 
 def ring_index(pos: Pos, S: int, b: int, device):
@@ -196,6 +237,10 @@ def mla_attend_train(cfg: ModelConfig, p: dict, x: torch.Tensor,
     every rank from x and go through ``to_model`` to ``wk_b``/``wv_b``'s
     local heads; ``out`` is the rank's heads' share through its rows of
     ``wo``, which the caller sums over the model axis."""
+    if par is not None and not par.attn_head_sharded:
+        raise NotImplementedError(
+            f"{cfg.name}: MLA on the head_dim / seq fallback: ROADMAP.md "
+            f"queue 1 item 10")
     b, s, _ = x.shape
     H = p["wq_b"].shape[1]                             # this rank's heads
     dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim

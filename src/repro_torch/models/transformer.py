@@ -273,7 +273,8 @@ def _sublayer(cfg: ModelConfig, j: int, p: Params, x: torch.Tensor,
     else:
         if par is not None:
             h = par.to_model(h)
-        out, cache = attn.gqa_attend_train(cfg, p["mixer"], h, positions)
+        out, cache = attn.gqa_attend_train(cfg, p["mixer"], h, positions,
+                                           par)
     if par is not None:
         out = par.from_model(out)
     x, aux = _ffn_residual(cfg, j, p, x + out, par)

@@ -34,6 +34,17 @@ package leaves this to GSPMD):
   own-slice backward is right only for a complete upstream gradient:
   MLA's q latent is gathered, normed by ``q_ln`` on every rank, and only
   then goes through ``to_model`` to the rank's heads.
+
+  When a head count does not divide t (``sharding.attn_head_sharded``
+  false), GQA's weights shard their head_dim and its attention the
+  sequence (the JAX package's head_dim / ``seq`` fallback, which GSPMD
+  lowers there): the rank projects q, k and v onto its head_dim columns;
+  ``gather_model_sum`` gathers k and v whole (all-gather forward,
+  reduce-scatter backward: every rank's queries add to dK and dV);
+  ``head_dim_to_seq`` moves q to the rank's sequence rows with every
+  column (an all-to-all whose backward is ``seq_to_head_dim``'s) and
+  ``seq_to_head_dim`` moves the attention output back, for the rank's
+  rows of ``wo``, whose partial output ``from_model`` sums.
 * the data axis: ``mean_data`` averages a quantity over the data ranks
   with a backward that averages the upstream gradients (the MoE's
   load-balance statistics, global over the microbatch as in JAX); at
@@ -109,6 +120,55 @@ def reduce_scatter(x: torch.Tensor, dim: int, group, n: int) -> torch.Tensor:
     return out
 
 
+def _all_to_all(x: torch.Tensor, group) -> torch.Tensor:
+    """Chunk j of x (along dim 0, one a rank) to rank j; chunk j of the
+    result came from rank j."""
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    dist.all_to_all_single(out, x, group=group)
+    _received(out, group)
+    return out
+
+
+def head_dim_to_seq(x: torch.Tensor, group, n: int) -> torch.Tensor:
+    """(b, s, h, w) holding this rank's w columns of every row -> (b, s/n,
+    h, n w) holding every column of this rank's rows, over the n ranks."""
+    b, s, h, w = x.shape
+    got = _all_to_all(x.reshape(b, n, s // n, h, w).transpose(0, 1), group)
+    return got.permute(1, 2, 3, 0, 4).reshape(b, s // n, h, n * w)
+
+
+def seq_to_head_dim(x: torch.Tensor, group, n: int) -> torch.Tensor:
+    """The inverse of ``head_dim_to_seq``: (b, s, h, w) of this rank's
+    rows -> (b, n s, h, w/n) of every row, this rank's columns."""
+    b, s, h, w = x.shape
+    got = _all_to_all(x.reshape(b, s, h, n, w // n).permute(3, 0, 1, 2, 4),
+                      group)
+    return got.transpose(0, 1).reshape(b, n * s, h, w // n)
+
+
+class _HeadDimToSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, n):
+        ctx.group, ctx.n = group, n
+        return head_dim_to_seq(x, group, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        return seq_to_head_dim(g, ctx.group, ctx.n), None, None
+
+
+class _SeqToHeadDim(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, n):
+        ctx.group, ctx.n = group, n
+        return seq_to_head_dim(x, group, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        return head_dim_to_seq(g, ctx.group, ctx.n), None, None
+
+
 class _CopyToModel(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
@@ -161,7 +221,9 @@ class _MeanOverData(torch.autograd.Function):
         return g / ctx.n, None, None
 
 
-class _GatherFromData(torch.autograd.Function):
+class _GatherSumBack(torch.autograd.Function):
+    """All-gather forward, reduce-scatter backward: the gathered tensor's
+    gradient is partial on every rank of the group."""
     @staticmethod
     def forward(ctx, x, dim, group, n):
         ctx.dim, ctx.group, ctx.n = dim, group, n
@@ -277,12 +339,12 @@ def shard_state(state: Mapping[str, Any], specs: Mapping[str, Any], mesh
     return out
 
 
-def gather_state(state: Mapping[str, Any], specs: Mapping[str, Any], mesh
-                 ) -> Dict[str, Any]:
+def gather_state(state: Mapping[str, Any], specs: Mapping[str, Any], mesh,
+                 parts: Sequence[str] = ("params", "opt")) -> Dict[str, Any]:
     """The full train state from every rank's shards (a collective: every
-    rank calls it)."""
+    rank calls it); ``parts``: which of "params" and "opt" to gather."""
     out = {k: map_specs(lambda t, s, name: gather_leaf(t, s, mesh, name),
-                        state[k], specs[k]) for k in ("params", "opt")}
+                        state[k], specs[k]) for k in parts}
     out["step"] = state["step"]
     return out
 
@@ -297,8 +359,10 @@ def data_dim(spec) -> Optional[int]:
 
 class ModelParallel:
     """What the model needs to run one rank of a (d, t) plan: the model
-    axis's group for tensor parallelism, the data axis's group (the MoE's
-    load-balance statistics) and at ZeRO 3 each parameter leaf's
+    axis's group for tensor parallelism, whether GQA attention shards by
+    head or falls back to head_dim / sequence (``attn_head_sharded``,
+    ``sharding.attn_head_sharded``'s answer), the data axis's group (the
+    MoE's load-balance statistics) and at ZeRO 3 each parameter leaf's
     data-sharded dim (``gather_dims``: the params' spec tree mapped through
     ``data_dim``).
 
@@ -307,7 +371,8 @@ class ModelParallel:
     """
 
     def __init__(self, mesh, embed_spec, head_spec=None,
-                 gather_dims: Optional[Dict[str, Any]] = None):
+                 gather_dims: Optional[Dict[str, Any]] = None,
+                 attn_head_sharded: bool = True):
         sizes = sh.axis_sizes(mesh)
         coords = mesh_coords(mesh)
         self.t = sizes.get("model", 1)
@@ -317,6 +382,7 @@ class ModelParallel:
         self.data_group = mesh.get_group("data") if self.nd > 1 else None
         self.embed_spec, self.head_spec = embed_spec, head_spec
         self.gather_dims = gather_dims or {}
+        self.attn_head_sharded = attn_head_sharded or self.t == 1
 
     # ---- the model axis ------------------------------------------------
     def to_model(self, x: torch.Tensor) -> torch.Tensor:
@@ -331,6 +397,27 @@ class ModelParallel:
             return x
         return _GatherFromModel.apply(x, dim, self.model_group, self.t,
                                       self.model_idx)
+
+    def gather_model_sum(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """``x`` gathered along ``dim`` over the model axis, for every
+        rank's own use: its gradient, partial on each rank, is summed and
+        scattered back (the head_dim / seq fallback's k and v)."""
+        if self.t == 1:
+            return x
+        return _GatherSumBack.apply(x, dim, self.model_group, self.t)
+
+    def head_dim_to_seq(self, x: torch.Tensor) -> torch.Tensor:
+        """(b, s, h, w/t) of this rank's columns -> (b, s/t, h, w) of its
+        rows (``head_dim_to_seq``), with the inverse as its backward."""
+        if self.t == 1:
+            return x
+        return _HeadDimToSeq.apply(x, self.model_group, self.t)
+
+    def seq_to_head_dim(self, x: torch.Tensor) -> torch.Tensor:
+        """The inverse of ``head_dim_to_seq``, with it as the backward."""
+        if self.t == 1:
+            return x
+        return _SeqToHeadDim.apply(x, self.model_group, self.t)
 
     def sum_model(self, x: torch.Tensor) -> torch.Tensor:
         """The sum of ``x`` over the model axis, for the rank's own part to
@@ -390,7 +477,7 @@ class ModelParallel:
     def _gather(self, t: torch.Tensor, dim: Optional[int]) -> torch.Tensor:
         if dim is None or self.nd == 1:
             return t
-        return _GatherFromData.apply(t, dim, self.data_group, self.nd)
+        return _GatherSumBack.apply(t, dim, self.data_group, self.nd)
 
     def gather_top(self, params: Dict[str, Any]) -> Dict[str, Any]:
         """``params`` with the leaves outside the blocks gathered."""

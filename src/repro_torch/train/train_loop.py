@@ -201,10 +201,13 @@ def check_sharded_supported(cfg: ModelConfig, tc: TrainConfig, mesh) -> None:
                                   f"mesh, not {tuple(sizes)}: {DEFERRED}")
     if t > 1:
         kinds = {cfg.layer_kind(j) for j in range(cfg.block_period)}
-        if "attn" in kinds and not sh.attn_head_sharded(cfg, t):
+        # GQA whose head counts t does not divide runs the head_dim / seq
+        # fallback; MLA does not yet
+        if "attn" in kinds and cfg.attention == "mla" \
+                and not sh.attn_head_sharded(cfg, t):
             raise NotImplementedError(
-                f"{cfg.name}: {cfg.num_heads}/{cfg.num_kv_heads} heads on a "
-                f"model axis of {t} (the head_dim / seq fallback): {DEFERRED}")
+                f"{cfg.name}: MLA's {cfg.num_heads} heads on a model axis of "
+                f"{t} (the head_dim / seq fallback): {DEFERRED}")
         # every width the model axis splits (a width it does not divide
         # would be kept whole by enforce_divisibility)
         widths = {"d_model": cfg.d_model, "d_ff": cfg.d_ff}
@@ -217,6 +220,8 @@ def check_sharded_supported(cfg: ModelConfig, tc: TrainConfig, mesh) -> None:
                                                * cfg.moe_d_ff)
         if "ssm" in kinds:
             widths["n_ssm_heads"] = cfg.n_ssm_heads
+        if "attn" in kinds and not sh.attn_head_sharded(cfg, t):
+            widths["head_dim"] = cfg.head_dim
         for what, n in widths.items():
             if n % t:
                 raise NotImplementedError(
@@ -265,7 +270,8 @@ def build_sharded_step(cfg: ModelConfig, tc: TrainConfig, global_batch: int,
     par = col.ModelParallel(
         mesh, model_specs["embed"], model_specs.get("lm_head"),
         gather_dims=(tree_map(col.data_dim, specs["params"])
-                     if tc.zero >= 3 and nd > 1 else None))
+                     if tc.zero >= 3 and nd > 1 else None),
+        attn_head_sharded=sh.attn_head_sharded(cfg, sizes.get("model", 1)))
     # how each leaf's gradient reaches the optimizer's placement: already
     # summed over data by the ZeRO-3 gather's backward, reduce-scattered
     # over data along the optimizer spec's data dim, or all-reduced

@@ -4,7 +4,8 @@ exactly the specs' shards, one sharded step runs on that state, and the
 driver refuses a device without CUDA's allocator.  The same for
 ``chip_smoke.py``'s phase (f) plans of the MLA, MoE and Mamba2 families
 (``FAMILY_PLANS``): rank 0's state of each whole plan on the meta device,
-and one step of each at smoke widths.
+and one step of each at smoke widths; and for its phase (q) plans on the
+head_dim / seq fallback (``SEQ_PLANS``), rank 0's and rank 15's.
 
 The JAX module sets ``XLA_FLAGS`` when it is imported, which would change
 the CPU device count of every later JAX test in this process, so its
@@ -34,18 +35,21 @@ ROOT = Path(__file__).resolve().parents[1]
 COMBOS = memcheck.COMBOS
 
 
-def _family_plans():
+def _chip_smoke():
     spec = importlib.util.spec_from_file_location("chip_smoke",
                                                   ROOT / "chip_smoke.py")
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return [(arch, cut, b, d, t, zero)
-            for arch, cut, b, d, t, zeros in mod.FAMILY_PLANS
-            for zero in zeros]
+    return mod
 
 
-FAMILY = _family_plans()
+CHIP_SMOKE = _chip_smoke()
+FAMILY = [(arch, cut, b, d, t, zero)
+          for arch, cut, b, d, t, zeros in CHIP_SMOKE.FAMILY_PLANS
+          for zero in zeros]
 FAMILY_IDS = [f"{a}-b{b}-{d}x{t}-zero{z}" for a, _, b, d, t, z in FAMILY]
+SEQ = [(arch, rank) for arch, ranks in CHIP_SMOKE.SEQ_PLANS for rank in ranks]
+SEQ_IDS = [f"{a}-rank{r}" for a, r in SEQ]
 
 
 def jax_combos():
@@ -173,6 +177,43 @@ def test_family_plan_step_runs_under_the_fake_group(arch, cut, batch, d, t,
         batch_ = to_device(next(SyntheticTokens(cfg, 4, 64, seed=0)), "cpu")
         state, metrics = step(state, batch_)
         assert state["step"] == 1
+        assert math.isfinite(float(metrics["loss"]))
+        assert [tuple(x.shape) for x in tree_leaves(state["params"])] == before
+
+
+@pytest.mark.parametrize("arch,rank", SEQ, ids=SEQ_IDS)
+def test_seq_plan_state_is_the_specs_shards(arch, rank):
+    """Phase (q)'s plans on the head_dim / seq fallback, whole at (16, 16)
+    and train_4k: the step accepts each at the serverless default ZeRO
+    stage, and the rank's state on the meta device, drawn at its shard
+    shapes as phase (q) draws it, is exactly its specs' shards."""
+    cfg, tc, d, t = CHIP_SMOKE.seq_plan_config(arch)
+    with memcheck.fake_world(d * t, rank):
+        mesh = make_plan_mesh(d, t, device_type="cpu")
+        assert col.mesh_coords(mesh) == {"data": rank // t,
+                                         "model": rank % t}
+        check_sharded_supported(cfg, tc, mesh)
+        state = make_local_state(cfg, tc, mesh, device="meta",
+                                 whole_leaves=False)
+        _assert_specs_shards(cfg, tc, mesh, state)
+
+
+@pytest.mark.parametrize("rank", [0, 3])
+def test_seq_fallback_step_runs_under_the_fake_group(rank):
+    """Phase (q)'s path at smoke widths: starcoder2-3b smoke (8/2 heads)
+    on (1, 4), as rank 0 and rank 3 (query offset 48 of 64) under the fake
+    group, whose all-to-all and gathers write nothing (what the rank
+    receives is zeroed): one step, a finite loss, the shapes kept."""
+    cfg = smoke_config("starcoder2-3b")
+    tc = TrainConfig(global_batch=4, seq_len=64, microbatch=1, zero=1)
+    with memcheck.fake_world(4, rank):
+        mesh = make_plan_mesh(1, 4, device_type="cpu")
+        state = make_local_state(cfg, tc, mesh, device="cpu",
+                                 whole_leaves=False)
+        before = [tuple(x.shape) for x in tree_leaves(state["params"])]
+        step, _ = build_train_step(cfg, tc, 4, 64, mesh=mesh)
+        batch_ = to_device(next(SyntheticTokens(cfg, 4, 64, seed=0)), "cpu")
+        state, metrics = step(state, batch_)
         assert math.isfinite(float(metrics["loss"]))
         assert [tuple(x.shape) for x in tree_leaves(state["params"])] == before
 

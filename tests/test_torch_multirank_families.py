@@ -33,7 +33,6 @@ reasons, as tests/test_torch_multirank.py's:
   >= 1 its optimizer bytes are 1/d of the (1, t) run's, but for the leaves
   ``enforce_divisibility`` keeps whole (counted from the specs).
 """
-import argparse
 import json
 import os
 import socket
@@ -46,7 +45,6 @@ import torch.multiprocessing as mp
 
 from repro_torch.configs import TrainConfig, smoke_config
 from repro_torch.data import SyntheticTokens
-from repro_torch.launch import train as train_driver
 from repro_torch.launch.mesh import make_plan_mesh
 from repro_torch.launch.train import to_device
 from repro_torch.models import forward, init_params, param_shapes
@@ -466,17 +464,18 @@ def test_the_families_are_accepted_on_the_model_axis(arch, t):
                                 {"data": 2, "model": t})
 
 
-@pytest.mark.parametrize("mesh,zero,match", [
-    ({"data": 1, "model": 8}, 1, "head_dim / seq fallback"),
-    ({"pod": 2, "data": 1, "model": 1}, 1, "not \\('pod'"),
+@pytest.mark.parametrize("arch,mesh,zero,match", [
+    ("deepseek-v2-236b", {"data": 1, "model": 16}, 1,
+     "head_dim / seq fallback"),
+    ("llama3.2-3b", {"pod": 2, "data": 1, "model": 1}, 1, "not \\('pod'"),
 ], ids=["fallback", "pod"])
-def test_deferred_plans_still_raise(mesh, zero, match):
-    """llama3.2-3b smoke (8/4 heads) at t=8 needs the head_dim / seq
-    fallback, and a mesh with the pod axis is not a (data, model) one:
-    both raise naming ROADMAP item 10 and never run replicated."""
+def test_deferred_plans_still_raise(arch, mesh, zero, match):
+    """deepseek-v2 smoke's 8 MLA heads at t=16 need the head_dim / seq
+    fallback, which GQA runs and MLA does not yet, and a mesh with the pod
+    axis is not a (data, model) one: both raise naming ROADMAP item 10 and
+    never run replicated."""
     with pytest.raises(NotImplementedError, match="item 10") as e:
-        check_sharded_supported(smoke_config("llama3.2-3b"),
-                                train_config(zero), mesh)
+        check_sharded_supported(smoke_config(arch), train_config(zero), mesh)
     assert e.match(match)
 
 
@@ -488,9 +487,10 @@ def test_zero3_over_the_stacked_axis_still_raises():
 
 
 def test_sharded_checkpoint_still_raises():
-    """``--ckpt-dir`` under ``torchrun`` (the driver's rank path) raises
-    before any process group comes up."""
-    args = argparse.Namespace(ckpt_dir="unused", device="cpu", batch=B)
+    """A checkpoint of a state sharded over the pod axis still raises
+    naming ROADMAP item 10, before any collective: gathering a leaf
+    sharded over several data axes is not written (checkpoints of (data,
+    model) plans are, tests/test_torch_ckpt_sharded.py)."""
     with pytest.raises(NotImplementedError, match="item 10"):
-        train_driver._run_rank(config("deepseek-v2-236b"), train_config(1),
-                               args, 2)
+        col.gather_leaf(torch.zeros(4, 2), (("pod", "data"), None),
+                        {"pod": 2, "data": 2, "model": 1})
