@@ -830,7 +830,6 @@ def phase_kernels(peaks, flush):
                 qt, kt, vt, attn_mask=mask, enable_gqa=True), flush))
     rows.update(phase_mla_kernels(peaks, flush, gen, randn))
     rows.update(phase_attention_bwd(peaks, flush, randn))
-    phase_attention_offset(peaks, flush, randn)
     rows.update(phase_adam(peaks, flush, gen))
     rows.update(phase_ssd_kernel(peaks, flush, gen))
     rows.update(phase_ssd_bwd(peaks, flush, gen))
@@ -1035,36 +1034,57 @@ def phase_mla_kernels(peaks, flush, gen, randn):
 
 
 def phase_attention_bwd(peaks, flush, randn):
+    """The attention backward against its plain versions (explicit and
+    autograd through the plain forward), run twice for bit-identical
+    gradients, with dK and dV exactly zero on the keys no query row
+    reaches.  The cases at a query offset (``SEQ_ATTENTION``'s local shapes
+    of phase (q)'s plans, and float32 at two head dims with a window) also
+    check the forward and its lse, and time both directions.  Each timed
+    shape stands beside its bound, its plain version and SDPA on the keys
+    some row reaches (K and V repeated to the query heads), never called on
+    a path."""
+    from torch.nn.attention.bias import causal_lower_right
     from repro_torch.kernels.flash_attention import (attention_bwd_ref,
+                                                     attention_lse_ref,
                                                      attention_ref,
+                                                     flash_attention,
                                                      flash_attention_bwd,
                                                      flash_attention_lse)
     bf16, f32 = torch.bfloat16, torch.float32
     rows = {}
-    for name, b, sq, sk, H, K, D, causal, window, dt in [
-            ("train", 1, 1024, 1024, 16, 16, 64, True, 0, bf16),
-            ("window64", 2, 512, 512, 24, 8, 128, True, 64, bf16),
-            ("gqa", 2, 512, 512, 24, 8, 128, True, 0, bf16),
-            ("noncausal_sq!=sk", 2, 96, 200, 8, 2, 64, False, 0, bf16),
-            ("fp32_D32", 2, 160, 160, 8, 4, 32, True, 0, f32),
-            ("ragged", 2, 100, 100, 8, 4, 64, True, 0, bf16),
-            ("mla_train", *(MLA_TRAIN[k] for k in "bss"), MLA_TRAIN["H"],
-             *(MLA_TRAIN[k] for k in "HD"), True, 0, bf16),
-            ("mla_gqa_window", 2, 300, 300, 8, 2, 192, True, 64, bf16),
-            ("mla_no_key_rows", 1, 40, 8, 4, 4, 192, True, 4, bf16),
-            ("mla_noncausal_sq!=sk", 2, 96, 200, 4, 2, 192, False, 0, bf16),
-            ("mla_fp32_ragged", 1, 130, 130, 4, 4, 192, True, 0, f32),
-            ("stablelm_train", *(STABLELM_TRAIN[k] for k in "bss"),
-             *(STABLELM_TRAIN[k] for k in "HKD"), True, 0, bf16),
-            ("stablelm_gqa_window", 2, 300, 300, 8, 2, 160, True, 64, bf16),
-            ("stablelm_no_key_rows", 1, 40, 8, 8, 2, 160, True, 4, bf16),
-            ("stablelm_noncausal_sq!=sk", 2, 96, 200, 4, 2, 160, False, 0, bf16),
-            ("stablelm_fp32_ragged", 1, 130, 130, 8, 2, 160, True, 0, f32),
-            ("gpt2_7b_t2", *(GPT2_7B_T2[k] for k in "bss"),
-             *(GPT2_7B_T2[k] for k in "HHD"), True, 0, bf16),
-            *((name, c["b"], c["s"], c["s"], c["H"], c["K"], c["D"], True, 0,
-               bf16) for name, c in RANK_ATTENTION.items())]:
-        kw = dict(causal=causal, window=window)
+    # (name, b, sq, sk, H, K, D, causal, window, q_offset, dtype)
+    cases = [
+        ("train", 1, 1024, 1024, 16, 16, 64, True, 0, 0, bf16),
+        ("window64", 2, 512, 512, 24, 8, 128, True, 64, 0, bf16),
+        ("gqa", 2, 512, 512, 24, 8, 128, True, 0, 0, bf16),
+        ("noncausal_sq!=sk", 2, 96, 200, 8, 2, 64, False, 0, 0, bf16),
+        ("fp32_D32", 2, 160, 160, 8, 4, 32, True, 0, 0, f32),
+        ("ragged", 2, 100, 100, 8, 4, 64, True, 0, 0, bf16),
+        ("mla_train", *(MLA_TRAIN[k] for k in "bss"), MLA_TRAIN["H"],
+         *(MLA_TRAIN[k] for k in "HD"), True, 0, 0, bf16),
+        ("mla_gqa_window", 2, 300, 300, 8, 2, 192, True, 64, 0, bf16),
+        ("mla_no_key_rows", 1, 40, 8, 4, 4, 192, True, 4, 0, bf16),
+        ("mla_noncausal_sq!=sk", 2, 96, 200, 4, 2, 192, False, 0, 0, bf16),
+        ("mla_fp32_ragged", 1, 130, 130, 4, 4, 192, True, 0, 0, f32),
+        ("stablelm_train", *(STABLELM_TRAIN[k] for k in "bss"),
+         *(STABLELM_TRAIN[k] for k in "HKD"), True, 0, 0, bf16),
+        ("stablelm_gqa_window", 2, 300, 300, 8, 2, 160, True, 64, 0, bf16),
+        ("stablelm_no_key_rows", 1, 40, 8, 8, 2, 160, True, 4, 0, bf16),
+        ("stablelm_noncausal_sq!=sk", 2, 96, 200, 4, 2, 160, False, 0, 0,
+         bf16),
+        ("stablelm_fp32_ragged", 1, 130, 130, 8, 2, 160, True, 0, 0, f32),
+        ("gpt2_7b_t2", *(GPT2_7B_T2[k] for k in "bss"),
+         *(GPT2_7B_T2[k] for k in "HHD"), True, 0, 0, bf16),
+        *((name, c["b"], c["s"], c["s"], c["H"], c["K"], c["D"], True, 0, 0,
+           bf16) for name, c in RANK_ATTENTION.items()),
+        *((name, 1, sq, sk, H, K, D, True, window, offset, bf16)
+          for name, (sq, sk, H, K, D, offset, window)
+          in SEQ_ATTENTION.items()),
+        ("fp32_D64_window", 2, 200, 700, 8, 2, 64, True, 100, 300, f32),
+        ("fp32_D160_window", 2, 200, 700, 8, 2, 160, True, 100, 300, f32)]
+    for name, b, sq, sk, H, K, D, causal, window, q_offset, dt in cases:
+        kw = dict(causal=causal, window=window, q_offset=q_offset)
+        at_offset = q_offset > 0 or name in SEQ_ATTENTION
         q, k, v = randn(b, sq, H, D, dtype=dt), randn(b, sk, K, D, dtype=dt), \
             randn(b, sk, K, D, dtype=dt)
         do = randn(b, sq, H, D, dtype=dt)
@@ -1077,6 +1097,12 @@ def phase_attention_bwd(peaks, flush, randn):
         err = max(rel_max_err(g, e) for g, e in zip(got, explicit))
         ok = err <= tol and same and all(
             bool(torch.isfinite(g.float()).all()) for g in got)
+        forward = ""
+        if at_offset:
+            ok_f, err_f = close(o, attention_ref(q, k, v, **kw), tol)
+            ok_l, err_l = close(lse, attention_lse_ref(q, k, **kw), FP32_TOL)
+            ok = ok and ok_f and ok_l
+            forward = f" forward max_abs_err={err_f:.3e}, lse {err_l:.3e};"
         if name.endswith("no_key_rows"):
             # rows 11.. see no key: zero gradients, where autograd through
             # the plain forward (the mean of V there) has none to compare
@@ -1088,33 +1114,78 @@ def phase_attention_bwd(peaks, flush, randn):
             err_ag = max(rel_max_err(g, t.grad) for g, t in zip(got, leaves))
             ok = ok and err_ag <= tol
             del leaves
+        live = live_pairs(sq, sk, q_offset, causal, window)
+        reached = live.any(0)
+        zeros = all(not g[:, ~reached].any() for g in got[1:])
+        ok = ok and zeros
         print(f"kernel flash_attention_bwd {name} b={b} sq={sq} sk={sk} H={H}"
-              f" K={K} D={D} causal={causal} window={window} {str(dt)[6:]}:"
+              f" K={K} D={D} causal={causal} window={window}"
+              f" q_offset={q_offset} {str(dt)[6:]}:{forward}"
               f" max|d|/max|ref| {err:.3e} (explicit), {err_ag:.3e}"
-              f" (autograd) tol={tol:g}, bit-identical rerun {same}"
-              f" {'ok' if ok else 'FAIL'}")
+              f" (autograd) tol={tol:g}, bit-identical rerun {same}, dK dV"
+              f" exactly 0 on the {int((~reached).sum())} keys no row"
+              f" reaches {zeros} {'ok' if ok else 'FAIL'}")
         check(ok, f"flash_attention_bwd {name} disagrees with its plain"
-                  f" versions or is not deterministic")
-        if name not in ("train", "mla_train", "stablelm_train", "gpt2_7b_t2",
-                        *RANK_ATTENTION):
+                  f" versions, is not deterministic or leaves unreached"
+                  f" keys' dK/dV nonzero")
+        if dt != bf16 or name not in ("train", "mla_train", "stablelm_train",
+                                      "gpt2_7b_t2", *RANK_ATTENTION,
+                                      *SEQ_ATTENTION):
             continue
-        pairs = sq * (sq + 1) // 2
-        nbytes = 2 * (4 * q.numel() + 2 * k.numel() + 2 * v.numel()) \
+        pairs = int(live.sum())
+        # each input read once and each output written once: q, o, dO and
+        # dQ whole, K and V read at the keys some row reaches, dK and dV
+        # written at every key
+        kv_reached = 2 * b * K * D * int(reached.sum())
+        nbytes = 2 * (4 * q.numel() + kv_reached + k.numel() + v.numel()) \
             + 4 * lse.numel()
-        # the gradient's five products (S, dP, dV, dK, dQ) over the causal
+        # the gradient's five products (S, dP, dV, dK, dQ) over the live
         # pairs: 2.5x the forward's two
         bound_ms, bound_by = bound(nbytes, 10 * D * b * H * pairs, peaks)
+        # SDPA on the reached keys [lo, hi): a square causal block is its
+        # flash path's is_causal; rows ending at the last key are
+        # causal_lower_right; a window has no built-in bias, so a boolean
+        # mask
+        lo, hi = (int(i) for i in reached.nonzero()[[0, -1], 0])
+        ks, vs = k[:, lo:hi + 1], v[:, lo:hi + 1]
+        if window:
+            lib_kw, lib_mask = dict(attn_mask=live[:, lo:hi + 1]), "boolean"
+        elif hi + 1 - lo == sq:
+            lib_kw, lib_mask = dict(is_causal=True), "is_causal"
+        else:
+            lib_kw = dict(attn_mask=causal_lower_right(sq, hi + 1 - lo))
+            lib_mask = "causal_lower_right"
         # the library time: SDPA's backward alone under each of its
         # backends, the fastest kept -- the default choice moved between
         # runs (cuDNN's ~0.044 ms, the memory-efficient kernel's ~0.14 ms)
-        library = sdpa_backward_ms(q, k, v, do, flush, is_causal=True)
-        if name != "train":
-            ms = time_ms(lambda: flash_attention_bwd(q, k, v, o, lse, do, **kw),
-                         flush)
-            plain_ms = time_ms(lambda: attention_bwd_ref(q, k, v, o, lse, do,
-                                                         **kw), flush)
-            _, parts, _ = device_profile(
-                lambda: flash_attention_bwd(q, k, v, o, lse, do, **kw), 10)
+        library = sdpa_backward_ms(q, ks, vs, do, flush, **lib_kw)
+        if name == "train":
+            rows["flash_attention_bwd"] = dict(
+                name="flash_attention_bwd", route="cuda",
+                source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+                replaces="src/repro/kernels/flash_attention/"
+                         "flash_attention.py:78 (its gradient)",
+                max_abs_err=max((g.float() - e.float()).abs().max().item()
+                                for g, e in zip(got, explicit)),
+                ms=time_ms(lambda: flash_attention_bwd(q, k, v, o, lse, do,
+                                                       **kw), flush),
+                plain_ms=time_ms(lambda: attention_bwd_ref(q, k, v, o, lse,
+                                                           do, **kw), flush),
+                bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=min(library.values()))
+            print("time flash_attention_bwd library: SDPA backward alone, "
+                  + ", ".join(f"{k} {ms:.4f} ms" for k, ms in library.items()))
+            continue
+        ms = time_ms(lambda: flash_attention_bwd(q, k, v, o, lse, do, **kw),
+                     flush)
+        plain_ms = time_ms(lambda: attention_bwd_ref(q, k, v, o, lse, do,
+                                                     **kw), flush)
+        _, parts, _ = device_profile(
+            lambda: flash_attention_bwd(q, k, v, o, lse, do, **kw), 10)
+        library = (", ".join(f"{kb} {m:.4f}" for kb, m in library.items())
+                   or "none")
+        parts = "; ".join(f"{kn[:40]} {tm:.4f}" for kn, tm in parts)
+        if not at_offset:
             cell = {"mla_train": "deepseek-v2 MLA training",
                     "stablelm_train": "stablelm-12b training",
                     "gpt2_7b_t2": "gpt2-7b at t=2, phase (m)",
@@ -1125,127 +1196,40 @@ def phase_attention_bwd(peaks, flush, randn):
                   f" b={b} s={sq} H={H} K={K}, {nbytes} bytes,"
                   f" {10 * D * b * H * pairs} flops): kernel {ms:.4f} ms, plain"
                   f" {plain_ms:.4f} ms, library (SDPA's backward alone) "
-                  + ", ".join(f"{kb} {m:.4f}" for kb, m in library.items())
-                  + f" ms, bound {bound_ms:.4f} ms ({bound_by}); kernels"
-                  f" (traced, L2 warm) " + "; ".join(
-                      f"{kn[:40]} {tm:.4f}" for kn, tm in parts))
+                  f"{library} ms, bound {bound_ms:.4f} ms ({bound_by});"
+                  f" kernels (traced, L2 warm) {parts}")
             continue
-        rows["flash_attention_bwd"] = dict(
-            name="flash_attention_bwd", route="cuda",
-            source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
-            replaces="src/repro/kernels/flash_attention/flash_attention.py:78"
-                     " (its gradient)",
-            max_abs_err=max((g.float() - e.float()).abs().max().item()
-                            for g, e in zip(got, explicit)),
-            ms=time_ms(lambda: flash_attention_bwd(q, k, v, o, lse, do, **kw),
-                       flush),
-            plain_ms=time_ms(lambda: attention_bwd_ref(q, k, v, o, lse, do,
-                                                       **kw), flush),
-            bound_ms=bound_ms, bound_by=bound_by,
-            library_ms=min(library.values()))
-        print("time flash_attention_bwd library: SDPA backward alone, "
-              + ", ".join(f"{k} {ms:.4f} ms" for k, ms in library.items()))
-    return rows
-
-
-def live_pairs(sq, sk, offset, window):
-    """(sq, sk) bool: the causal (and window) pairs of query rows at
-    positions offset.. against keys 0.. -- the work the kernels do."""
-    qp = torch.arange(offset, offset + sq, device="cuda")[:, None]
-    kp = torch.arange(sk, device="cuda")[None]
-    ok = kp <= qp
-    return ok & (kp > qp - window) if window else ok
-
-
-def phase_attention_offset(peaks, flush, randn):
-    """The attention forward and backward at a query offset against their
-    plain versions: ``SEQ_ATTENTION``'s local shapes of phase (q)'s plans
-    and float32 at two head dims with a window; the backward run twice
-    for bit-identical gradients, and dK and dV exactly zero on the keys no
-    local query reaches.  Each bf16 shape timed beside its bound, its
-    plain version and SDPA (K and V repeated to the query heads; the mask
-    as ``causal_lower_right`` where the rows end at the last key, else a
-    boolean one), never called on a path."""
-    from torch.nn.attention.bias import causal_lower_right
-    from repro_torch.kernels.flash_attention import (attention_bwd_ref,
-                                                     attention_lse_ref,
-                                                     attention_ref,
-                                                     flash_attention,
-                                                     flash_attention_bwd,
-                                                     flash_attention_lse)
-    bf16, f32 = torch.bfloat16, torch.float32
-    cases = [(name, 1, *c, bf16) for name, c in SEQ_ATTENTION.items()]
-    cases += [("fp32_D64_window", 2, 200, 700, 8, 2, 64, 300, 100, f32),
-              ("fp32_D160_window", 2, 200, 700, 8, 2, 160, 300, 100, f32)]
-    for name, b, sq, sk, H, K, D, offset, window, dt in cases:
-        kw = dict(causal=True, window=window, q_offset=offset)
-        q, do = randn(b, sq, H, D, dtype=dt), randn(b, sq, H, D, dtype=dt)
-        k, v = randn(b, sk, K, D, dtype=dt), randn(b, sk, K, D, dtype=dt)
-        tol = BF16_TOL if dt == bf16 else FP32_TOL
-        o, lse = flash_attention_lse(q, k, v, **kw)
-        ok_f, err_f = close(o, attention_ref(q, k, v, **kw), tol)
-        ok_l, err_l = close(lse, attention_lse_ref(q, k, **kw), FP32_TOL)
-        got = flash_attention_bwd(q, k, v, o, lse, do, **kw)
-        same = all(torch.equal(a, c) for a, c in
-                   zip(got, flash_attention_bwd(q, k, v, o, lse, do, **kw)))
-        explicit = attention_bwd_ref(q, k, v, o, lse, do, **kw)
-        err_b = max(rel_max_err(g, e) for g, e in zip(got, explicit))
-        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
-        attention_ref(*leaves, **kw).backward(do)
-        err_ag = max(rel_max_err(g, t.grad) for g, t in zip(got, leaves))
-        del leaves, explicit
-        live = live_pairs(sq, sk, offset, window)
-        dead = ~live.any(0)
-        zeros = all(not g[:, dead].any() for g in got[1:])
-        ok = (ok_f and ok_l and err_b <= tol and err_ag <= tol and same
-              and zeros)
-        print(f"kernel flash_attention offset {name} b={b} sq={sq} sk={sk}"
-              f" H={H} K={K} D={D} q_offset={offset} window={window}"
-              f" {str(dt)[6:]}: forward max_abs_err={err_f:.3e}, lse"
-              f" {err_l:.3e}; backward max|d|/max|ref| {err_b:.3e}"
-              f" (explicit), {err_ag:.3e} (autograd) tol={tol:g},"
-              f" bit-identical rerun {same}, dK dV exactly 0 on the"
-              f" {int(dead.sum())} keys no row reaches {zeros}"
-              f" {'ok' if ok else 'FAIL'}")
-        check(ok, f"flash_attention at q_offset {name} disagrees with its"
-                  f" plain versions, is not deterministic or leaves unseen"
-                  f" keys' dK/dV nonzero")
-        if dt != bf16:
-            continue
-        pairs = int(live.sum())
-        nbytes = 2 * (q.numel() + k.numel() + v.numel() + o.numel())
-        bwd_bytes = 2 * (4 * q.numel() + 2 * k.numel() + 2 * v.numel()) \
-            + 4 * lse.numel()
-        fwd_bound = bound(nbytes, 4 * D * b * H * pairs, peaks)
-        bwd_bound = bound(bwd_bytes, 10 * D * b * H * pairs, peaks)
-        mask = (causal_lower_right(sq, sk) if offset + sq == sk and not window
-                else live)
+        fwd_bytes = 2 * (2 * q.numel() + kv_reached)
+        fwd_bound = bound(fwd_bytes, 4 * D * b * H * pairs, peaks)
         G = H // K
         qt, kt, vt = (t.repeat_interleave(g, dim=2).transpose(1, 2)
-                      .contiguous() for t, g in ((q, 1), (k, G), (v, G)))
+                      .contiguous() for t, g in ((q, 1), (ks, G), (vs, G)))
         fwd = [time_ms(lambda: flash_attention(q, k, v, **kw), flush),
                time_ms(lambda: attention_ref(q, k, v, **kw), flush),
                time_ms(lambda: F.scaled_dot_product_attention(
-                   qt, kt, vt, attn_mask=mask), flush)]
+                   qt, kt, vt, **lib_kw), flush)]
         del qt, kt, vt
-        bwd = [time_ms(lambda: flash_attention_bwd(q, k, v, o, lse, do, **kw),
-                       flush),
-               time_ms(lambda: attention_bwd_ref(q, k, v, o, lse, do, **kw),
-                       flush)]
-        library = sdpa_backward_ms(q, k, v, do, flush, attn_mask=mask)
-        _, parts, _ = device_profile(
-            lambda: flash_attention_bwd(q, k, v, o, lse, do, **kw), 10)
-        print(f"time flash_attention offset {name} (D={D}, q_offset={offset},"
-              f" {pairs} live pairs, {nbytes} bytes): bound"
-              f" {fwd_bound[0]:.4f} ms ({fwd_bound[1]}), kernel {fwd[0]:.4f}"
-              f" ms, plain {fwd[1]:.4f} ms, library (SDPA) {fwd[2]:.4f} ms")
-        print(f"time flash_attention_bwd offset {name} ({bwd_bytes} bytes,"
-              f" {10 * D * b * H * pairs} flops): bound {bwd_bound[0]:.4f} ms"
-              f" ({bwd_bound[1]}), kernel {bwd[0]:.4f} ms, plain"
-              f" {bwd[1]:.4f} ms, library (SDPA's backward alone) "
-              + (", ".join(f"{kb} {m:.4f}" for kb, m in library.items())
-                 or "none") + " ms; kernels (traced, L2 warm) "
-              + "; ".join(f"{kn[:40]} {tm:.4f}" for kn, tm in parts))
+        print(f"time flash_attention offset {name} (D={D}, q_offset={q_offset},"
+              f" {pairs} live pairs, keys {lo}-{hi} reached, {fwd_bytes}"
+              f" bytes): bound {fwd_bound[0]:.4f} ms ({fwd_bound[1]}), kernel"
+              f" {fwd[0]:.4f} ms, plain {fwd[1]:.4f} ms, library (SDPA on the"
+              f" reached keys, {lib_mask}) {fwd[2]:.4f} ms")
+        print(f"time flash_attention_bwd offset {name} ({nbytes} bytes,"
+              f" {10 * D * b * H * pairs} flops): bound {bound_ms:.4f} ms"
+              f" ({bound_by}), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms,"
+              f" library (SDPA's backward alone on the reached keys,"
+              f" {lib_mask}) {library} ms; kernels (traced, L2 warm) {parts}")
+    return rows
+
+
+def live_pairs(sq, sk, offset, causal, window):
+    """(sq, sk) bool: the pairs of query rows at positions offset.. against
+    keys 0.. that the mask keeps -- the work the kernels do."""
+    qp = torch.arange(offset, offset + sq, device="cuda")[:, None]
+    kp = torch.arange(sk, device="cuda")[None]
+    ok = kp <= qp if causal else torch.ones(sq, sk, dtype=torch.bool,
+                                              device="cuda")
+    return ok & (kp > qp - window) if window else ok
 
 
 def sdpa_backward_ms(q, k, v, do, flush, **kw):

@@ -14,8 +14,10 @@ Plans (data, model):
 * mixtral-8x22b smoke with 2 KV heads on (1, 4) at ZeRO 1 (its smoke
   config's 8/4 heads divide t = 4, so ``num_kv_heads`` is cut to 2 to put
   its attention on the fallback beside its expert-parallel MoE);
-* starcoder2-3b smoke with 1 KV head on (2, 2) at ZeRO 1 (the fallback
-  beside the data axis).
+* starcoder2-3b smoke with 1 KV head on (2, 2) at ZeRO 1 and 3 (the
+  fallback beside the data axis; at ZeRO 3 the data gather of the
+  head_dim-sharded attention weights and its reduce-scatter backward run
+  with it, as on the (16, 16) plans of mixtral, jamba and llava).
 
 Tolerances, as tests/test_torch_multirank.py's and for the same reasons:
 step 1's accumulated fp32 gradients within 1e-5 max |g| per leaf and the
@@ -59,7 +61,8 @@ CASES = [("starcoder2-3b", "starcoder2-3b", {}, 1, 4, 0),
          ("starcoder2-3b", "starcoder2-3b", {}, 1, 4, 1),
          ("starcoder2-3b", "starcoder2-3b", {}, 1, 4, 3),
          ("mixtral-kv2", "mixtral-8x22b", dict(num_kv_heads=2), 1, 4, 1),
-         ("starcoder2-kv1", "starcoder2-3b", dict(num_kv_heads=1), 2, 2, 1)]
+         ("starcoder2-kv1", "starcoder2-3b", dict(num_kv_heads=1), 2, 2, 1),
+         ("starcoder2-kv1", "starcoder2-3b", dict(num_kv_heads=1), 2, 2, 3)]
 B, S, MB, STEPS = 8, 64, 2, 4
 GRAD_TOL, GNORM_RTOL, LOSS_TOL = 1e-5, 1e-5, 2e-2
 # the GQA configs of the assigned set whose head counts do not divide t = 16
