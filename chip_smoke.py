@@ -146,7 +146,9 @@ Phases, each printing its lines before the last:
    at ZeRO 3 -- 8 MLA heads of 192 and 10 of 160 experts a rank --, one
    8-layer block of jamba-1.5-large-398b on (4,8) at ZeRO 1 and 3 -- 2
    experts, 8/1 attention heads, 32 SSM heads a rank -- and mamba2-130m
-   whole on (2,4) and (1,8)): one line a plan with the peak, both predictions and accuracies and
+   whole on (2,4) at ZeRO 1 and 3 -- its per-head and per-channel vectors
+   gathered over data on the stacked layer axis -- and on (1,8)): one
+   line a plan with the peak, both predictions and accuracies and
    whether the peak stays under the exact one (reported, not required).
    It fails on an out-of-memory, on a rank-0 state that is not its
    specs' shards and on a plan that never launched its attention forward
@@ -154,7 +156,9 @@ Phases, each printing its lines before the last:
    each of these plans' new local shapes against its plain version and
    times it (the attention forward and backward at 8 and 16 heads of 192
    and at 8 query heads on 1 KV head of 128, the SSD scan and gradient at
-   32, 6 and 3 heads).
+   32, 6 and 3 heads).  The logits of a head sharded over the vocabulary
+   (t divides V) stay each model rank's V/t columns, reduced to the loss by
+   the vocabulary-parallel cross-entropy, in this phase and (m), (q), (p).
 (q) the head_dim / seq fallback (``SEQ_PLANS``): rank 0 of the (16, 16)
    train_4k plan (s = 4,096, global batch 16, ZeRO 3 above 20e9
    parameters, else 1) of stablelm-12b, llama3.2-3b, mixtral-8x22b,
@@ -162,7 +166,9 @@ Phases, each printing its lines before the last:
    musicgen-medium and llava-next-34b, whole at published widths, whose
    head counts do not divide t = 16; stablelm-12b and jamba also as rank
    15, whose 256 query rows sit at offset 3,840.  As (f): one line a run
-   with the peak beside both predictions (reported, not required); it
+   with the peak beside both predictions (reported, not required) and
+   beside the same rank's peak when every model rank gathered the whole
+   vocabulary's logits (``SEQ_GATHERED_PEAK``, a constant); it
    fails on an out-of-memory, on a state that is not the rank's specs'
    shards, on a plan that never launched the attention forward and
    backward, Adam, RMSNorm (jamba: the SSD scan and gradient), and on a
@@ -175,6 +181,18 @@ Phases, each printing its lines before the last:
    backward, the backward run twice for bit-identical gradients and with
    dK and dV exactly zero on every key no local query reaches, and times
    each bf16 shape beside its bound, its plain version and SDPA.
+(p) the pod axis (``POD_PLANS``): rank 0 of the two-pod (2, 16, 16)
+   train_4k plan (s = 4,096, global batch 32: one row a data shard over
+   the 32 pod-major data ranks) of llama3.2-3b (ZeRO 1: the head_dim /
+   seq fallback, a vocabulary-sharded tied head) and deepseek-v2-236b
+   (ZeRO 3: MLA by head, expert-parallel MoE, each leaf gathered over the
+   32 data shards), whole at published widths and depth.  One line a plan
+   with the peak beside both predictions and whether it stays under
+   (reported, not required); it fails on an out-of-memory, on a state
+   that is not rank 0's specs' shards and on a plan that never launched
+   the attention forward and backward, Adam or RMSNorm.  Phase 2 holds
+   deepseek-v2's new local attention shape (8 heads of 192 over s =
+   4,096) against its plain versions and times it.
 
 Every training cell (7, 8, 10, 11) is started through (s)'s front door
 as gpt2-350m's is, and its peak over step 1 must equal the one-device
@@ -397,10 +415,12 @@ STABLELM_TRAIN = dict(b=1, s=1024, H=32, K=8, D=160)
 GPT2_7B_T2 = dict(b=1, s=1024, H=16, D=128)
 # one rank's attention in phase (f), b=1, s=1024, causal: deepseek-v2's MLA
 # at t=16 and t=8 (8 and 16 of its 128 heads of dn + dr = 192), jamba's GQA
-# at t=8 (8 of its 64 query heads on 1 of its 8 KV heads of 128)
+# at t=8 (8 of its 64 query heads on 1 of its 8 KV heads of 128); and in
+# phase (p) deepseek-v2's at t=16 over train_4k's s=4,096
 RANK_ATTENTION = {"mla_t16": dict(b=1, s=1024, H=8, K=8, D=192),
                   "mla_t8": dict(b=1, s=1024, H=16, K=16, D=192),
-                  "jamba_t8": dict(b=1, s=1024, H=8, K=1, D=128)}
+                  "jamba_t8": dict(b=1, s=1024, H=8, K=1, D=128),
+                  "mla_t16_s4096": dict(b=1, s=4096, H=8, K=8, D=192)}
 # one rank's SSD scan and gradient in phase (f), b=1, s=1024, P=64, N=128:
 # jamba at t=8 (32 of its 256 heads), mamba2-130m at t=4 and t=8 (6 and 3
 # of its 24)
@@ -424,12 +444,16 @@ SSD_RANKS = {"jamba_t8_h32": 32, "mamba2_t4_h6": 6, "mamba2_t8_h3": 3}
 #   repeats every 8), all 16 experts: rank 0 holds 2 experts, 8 query heads
 #   on 1 KV head and 32 SSM heads; the whole 72 layers at (4,8) are
 #   predicted ~9x the block.
-# - mamba2-130m, whole: 6 SSM heads a rank at (2,4), 3 at (1,8).
-# Every head count divides its t (the head_dim / seq fallback is not
-# ported); each plan is accepted by ``check_sharded_supported``.
+# - mamba2-130m, whole: 6 SSM heads a rank at (2,4), 3 at (1,8); at (2,4)
+#   also ZeRO 3, where its per-head and per-channel vectors shard over data
+#   on the stacked layer axis only and are gathered whole before the
+#   blocks (1,510,496,771 B predicted at ZeRO 1, 1,468,597,139 at ZeRO 3;
+#   the six gathered leaves hold 112,320 B on rank 0).
+# Every head count divides its t; each plan is accepted by
+# ``check_sharded_supported``.
 FAMILY_PLANS = [("deepseek-v2-236b", {}, 16, 16, 16, (3,)),
                 ("jamba-1.5-large-398b", dict(num_layers=8), 4, 4, 8, (1, 3)),
-                ("mamba2-130m", {}, 8, 2, 4, (1,)),
+                ("mamba2-130m", {}, 8, 2, 4, (1, 3)),
                 ("mamba2-130m", {}, 8, 1, 8, (1,))]
 
 
@@ -453,6 +477,31 @@ SEQ_PLANS = [("stablelm-12b", (0, 15)), ("llama3.2-3b", (0,)),
              ("starcoder2-7b", (0,)), ("musicgen-medium", (0,)),
              ("llava-next-34b", (0,))]
 SEQ_MESH, SEQ_LEN, SEQ_BATCH = (16, 16), 4096, 16
+# The same ranks' peaks before the logits were kept sharded over the
+# vocabulary (every model rank gathered all of them), NVIDIA H100 80GB
+# HBM3 at 700.00 W, phase (q) of this script at the commit that added it:
+# {(arch, rank): bytes}; each plan's prediction is unchanged.
+SEQ_GATHERED_PEAK = {("stablelm-12b", 0): 13_148_228_096,
+                     ("stablelm-12b", 15): 13_148_228_096,
+                     ("llama3.2-3b", 0): 12_980_440_576,
+                     ("mixtral-8x22b", 0): 15_856_322_560,
+                     ("jamba-1.5-large-398b", 0): 41_960_960_000,
+                     ("jamba-1.5-large-398b", 15): 41_960_960_000,
+                     ("starcoder2-7b", 0): 7_167_567_360,
+                     ("musicgen-medium", 0): 1_177_666_560,
+                     ("llava-next-34b", 0): 13_271_535_616}
+
+# Phase (p): rank 0 of the two-pod (2, 16, 16) train_4k plan, ("pod",
+# "data", "model"), whose 32 data shards run over the flattened pod and
+# data axes: s = 4,096, global batch 32 (one row a data shard,
+# microbatch 1), one step, ZeRO from ``launch.inputs.default_train_config``
+# (3 above 20e9 parameters, else 1), whole at published widths and depth.
+# - llama3.2-3b (ZeRO 1): tied, 24/8 heads on t = 16, the head_dim / seq
+#   fallback and a vocabulary-sharded tied head; predicted 2,585,820,351 B.
+# - deepseek-v2-236b (ZeRO 3): MLA by head, expert-parallel MoE, every
+#   leaf gathered over 32 data shards; predicted 13,570,287,739 B.
+POD_PLANS = ["llama3.2-3b", "deepseek-v2-236b"]
+POD_MESH, POD_BATCH = (2, 16, 16), 32
 # Phase 2's cases at those plans' local shapes, b=1: 256 query rows against
 # 4,096 keys at offset 0 (rank 0) or 3,840 (rank 15); starcoder2-7b's last
 # rank at s=8,192, where its 4,096-key window leaves keys 0-3,584 unseen.
@@ -465,16 +514,22 @@ SEQ_ATTENTION = {"stablelm_r0": (256, 4096, 32, 8, 160, 0, 0),
                  "starcoder2_7b_band": (512, 8192, 36, 4, 128, 7680, 4096)}
 
 
-def seq_plan_config(arch):
-    """(cfg, tc, d, t) of a ``SEQ_PLANS`` plan."""
+def seq_plan_config(arch, batch=SEQ_BATCH, mesh=SEQ_MESH):
+    """(cfg, tc, *mesh) of a ``SEQ_PLANS`` plan, or at another global
+    batch on another mesh (a ``POD_PLANS`` plan: ``pod_plan_config``)."""
     import dataclasses
     from repro_torch.configs.base import INPUT_SHAPES
     from repro_torch.configs.registry import get_arch
     from repro_torch.launch.inputs import default_train_config
     cfg = get_arch(arch)
     shape = dataclasses.replace(INPUT_SHAPES["train_4k"], seq_len=SEQ_LEN,
-                                global_batch=SEQ_BATCH)
-    return (cfg, default_train_config(cfg, shape), *SEQ_MESH)
+                                global_batch=batch)
+    return (cfg, default_train_config(cfg, shape), *mesh)
+
+
+def pod_plan_config(arch):
+    """(cfg, tc, pods, d, t) of a ``POD_PLANS`` plan."""
+    return seq_plan_config(arch, POD_BATCH, POD_MESH)
 
 
 def check(cond, msg):
@@ -1190,6 +1245,8 @@ def phase_attention_bwd(peaks, flush, randn):
                     "stablelm_train": "stablelm-12b training",
                     "gpt2_7b_t2": "gpt2-7b at t=2, phase (m)",
                     "mla_t16": "deepseek-v2 at t=16, phase (f)",
+                    "mla_t16_s4096": "deepseek-v2 at t=16, s=4,096, phase"
+                                     " (p)",
                     "mla_t8": "deepseek-v2 at t=8",
                     "jamba_t8": "jamba at t=8, phase (f)"}[name]
             print(f"time flash_attention_bwd D={D} ({cell}"
@@ -2646,9 +2703,13 @@ def phase_seq():
             launches = {k: n for k, n in LAUNCHES.items() if n}
             total.update(launches)
             offset = (rank % t) * tc.seq_len // t
+            before = SEQ_GATHERED_PEAK[arch, rank]
             print(f"(q) rank {rank} (query offset {offset}): {describe(row)};"
                   f" observed <= exact prediction"
-                  f" {row['actual_bytes'] <= row['pred_exact']}; the rank's"
+                  f" {row['actual_bytes'] <= row['pred_exact']}; with the"
+                  f" logits gathered {before} B (exact accuracy"
+                  f" {1 - abs(row['pred_exact'] - before) / before:.4f}),"
+                  f" now {row['actual_bytes'] - before:+d} B; the rank's"
                   f" state {row['state_bytes']} B, held before it"
                   f" {row['base_bytes']} B; launches {launches};"
                   f" {time.perf_counter() - t0:.1f} s")
@@ -2656,6 +2717,38 @@ def phase_seq():
                               "flash_attention_bwd_offset"] if offset else []):
                 check(launches.get(k, 0) > 0,
                       f"phase (q) {arch} rank {rank} never launched {k}")
+    return total
+
+
+def phase_pod():
+    """(p) rank 0 of each ``POD_PLANS`` plan on the two-pod (2, 16, 16)
+    mesh under the fake process group, one sharded step (an
+    out-of-memory, or a state whose bytes are not the specs' shards,
+    raises out of ``run_one``): the peak beside both predictions and
+    whether it stays under, reported; the attention forward and backward,
+    Adam and RMSNorm must have run."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.memcheck import card, describe, run_one
+    smi = card()
+    total = Counter()
+    for arch in POD_PLANS:
+        cfg, tc, pods, d, t = pod_plan_config(arch)
+        reset_launches()
+        t0 = time.perf_counter()
+        row = run_one(arch, tc.global_batch, tc.seq_len, d, t, zero=tc.zero,
+                      cfg=cfg, smi=smi, pods=pods)
+        launches = {k: n for k, n in LAUNCHES.items() if n}
+        total.update(launches)
+        print(f"(p) rank 0 of ({pods}, {d}, {t}): {describe(row)}; observed"
+              f" <= exact prediction {row['actual_bytes'] <= row['pred_exact']}"
+              f", <= paper prediction {row['actual_bytes'] <= row['pred_paper']};"
+              f" rank 0's state {row['state_bytes']} B, held before it"
+              f" {row['base_bytes']} B; launches {launches};"
+              f" {time.perf_counter() - t0:.1f} s")
+        for k in ("flash_attention", "flash_attention_bwd", "adam_update",
+                  "rms_norm"):
+            check(launches.get(k, 0) > 0,
+                  f"phase (p) {arch} on {POD_MESH} never launched {k}")
     return total
 
 
@@ -2887,7 +2980,8 @@ def main():
                                  lambda: phase_train(peaks, "stablelm-12b")),
                      timed_phase("(m) memcheck", phase_memcheck),
                      timed_phase("(f) family plans", phase_family),
-                     timed_phase("(q) query offset", phase_seq)]
+                     timed_phase("(q) query offset", phase_seq),
+                     timed_phase("(p) pod axis", phase_pod)]
     for kname, row in rows.items():
         row["launches"] = sum(launches[kname] for launches in path_launches)
     print(f"total wall time {time.perf_counter() - t0:.1f}s")

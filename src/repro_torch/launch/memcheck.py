@@ -4,6 +4,8 @@ rank of the plan, measured.
     PYTHONPATH=src python -m repro_torch.launch.memcheck --zero 1
     PYTHONPATH=src python -m repro_torch.launch.memcheck --arch stablelm-12b \
         --batch 16 --seq 4096 --d 16 --t 16 --zero 1 --rank 15
+    PYTHONPATH=src python -m repro_torch.launch.memcheck --arch llama3.2-3b \
+        --batch 32 --seq 4096 --pods 2 --d 16 --t 16 --zero 1
 
 For GPT2-350M / GPT2-7B (the paper's models) under the JAX package's
 (d, t) plans and batch sizes (``COMBOS``), each row runs rank 0 of the
@@ -29,7 +31,9 @@ counts none, as a real run's would not either.
 
 With ``--arch`` it runs that one plan, as rank ``--rank`` (default 0), and
 prints its row (a plan on the head_dim / seq fallback runs each rank's
-sequence rows at its own query offset; rank t - 1 has the largest).
+sequence rows at its own query offset; rank t - 1 has the largest);
+``--pods`` > 1 puts a "pod" axis before the data axis, (pods, d, t), and
+the memory model sees pods x d data shards, as MARP's plan does.
 Otherwise rows go to ``experiments/memcheck_torch/memcheck_zero{Z}.json``.  The
 JAX package's measurement (XLA's compile-time accounting on placeholder
 CPU devices) lives in ``experiments/memcheck/`` and is not this one.
@@ -126,11 +130,12 @@ def card() -> Dict[str, str]:
 def run_one(arch: str, batch: int, seq: int, d: int, t: int, zero: int = 0, *,
             cfg: Optional[ModelConfig] = None, device="cuda",
             smi: Optional[Dict[str, str]] = None,
-            rank: int = 0) -> Dict[str, Any]:
+            rank: int = 0, pods: int = 1) -> Dict[str, Any]:
     """One combo as rank ``rank`` (default 0) of its (d, t) plan on the
-    card; ``cfg`` in place of ``get_arch(arch)`` (a smoke config, or a cut
-    one).  Raises off CUDA: the actual is the card's allocator's, and there
-    is no CPU stand-in for it."""
+    card, or of its (pods, d, t) plan with a "pod" axis when ``pods`` > 1
+    (the row's d is then pods x d); ``cfg`` in place of ``get_arch(arch)``
+    (a smoke config, or a cut one).  Raises off CUDA: the actual is the
+    card's allocator's, and there is no CPU stand-in for it."""
     device = torch.device(device)
     if device.type != "cuda":
         raise ValueError(f"memcheck measures the CUDA caching allocator's "
@@ -140,8 +145,8 @@ def run_one(arch: str, batch: int, seq: int, d: int, t: int, zero: int = 0, *,
     # what an earlier caller left in reference cycles is freed before the
     # base is read
     gc.collect()
-    with fake_world(d * t, rank):
-        mesh = make_plan_mesh(d, t, device_type="cuda")
+    with fake_world(pods * d * t, rank):
+        mesh = make_plan_mesh(d, t, device_type="cuda", pods=pods)
         torch.cuda.synchronize(device)
         base = torch.cuda.memory_allocated(device)
         state = make_local_state(cfg, tc, mesh, device=device,
@@ -165,13 +170,15 @@ def run_one(arch: str, batch: int, seq: int, d: int, t: int, zero: int = 0, *,
         torch.cuda.synchronize(device)
         actual = torch.cuda.max_memory_allocated(device)
         del state, data, step
+    d *= pods
     pred_exact = mm.exact_peak_bytes(cfg, batch, seq, d, t, zero=zero,
                                      microbatch=1)
     pred_paper = mm.paper_peak_bytes(cfg, batch, seq, d, t)
     smi = smi or card()
     memtrace.record(cfg.family, zero, memtrace.device_type_for(smi["device"]),
                     pred_exact, actual, source="memcheck")
-    return {"arch": arch, "batch": batch, "seq": seq, "d": d, "t": t,
+    return {"arch": arch, "batch": batch, "seq": seq, "pods": pods, "d": d,
+            "t": t,
             "zero": zero, "rank": rank, "actual_bytes": int(actual),
             "state_bytes": int(want), "base_bytes": int(base),
             "pred_exact": pred_exact, "pred_paper": pred_paper,
@@ -181,7 +188,9 @@ def run_one(arch: str, batch: int, seq: int, d: int, t: int, zero: int = 0, *,
 
 
 def describe(r: Dict[str, Any]) -> str:
-    return (f"{r['arch']} b={r['batch']} d={r['d']} t={r['t']} zero={r['zero']}:"
+    pods = f" ({r['pods']} pods)" if r.get("pods", 1) > 1 else ""
+    return (f"{r['arch']} b={r['batch']} d={r['d']}{pods} t={r['t']}"
+            f" zero={r['zero']}:"
             f" actual {r['actual_bytes']} B ({r['actual_bytes'] / 2**30:.2f}"
             f" GiB), exact-pred {r['pred_exact']:.0f} B ({r['acc_exact']:.4f}),"
             f" paper-pred {r['pred_paper']:.0f} B ({r['acc_paper']:.4f})")
@@ -199,12 +208,13 @@ def main(argv=None):
     ap.add_argument("--d", type=int, default=1)
     ap.add_argument("--t", type=int, default=1)
     ap.add_argument("--rank", type=int, default=0)
+    ap.add_argument("--pods", type=int, default=1)
     args = ap.parse_args(argv)
     from repro_torch.launch import configure_allocator
     configure_allocator()
     if args.arch:
         r = run_one(args.arch, args.batch, args.seq, args.d, args.t,
-                    args.zero, rank=args.rank)
+                    args.zero, rank=args.rank, pods=args.pods)
         print(f"rank {args.rank}: {describe(r)}", flush=True)
         return
     os.makedirs(args.out, exist_ok=True)

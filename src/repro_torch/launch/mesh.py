@@ -15,7 +15,12 @@ def make_production_mesh(*, multi_pod: bool = False, device_type: str = "cuda"):
     return init_device_mesh(device_type, shape, mesh_dim_names=axes)
 
 
-def make_plan_mesh(d: int, t: int, device_type: str = "cuda"):
+def make_plan_mesh(d: int, t: int, device_type: str = "cuda", pods: int = 1):
     """Mesh for a MARP plan: d data x t model shards over the d * t ranks
-    of the process group that is up."""
+    of the process group that is up; with ``pods`` > 1, pods x d x t ranks
+    under a leading "pod" axis (``make_production_mesh(multi_pod=True)``
+    is pods = 2, d = t = 16)."""
+    if pods > 1:
+        return init_device_mesh(device_type, (pods, d, t),
+                                mesh_dim_names=("pod", "data", "model"))
     return init_device_mesh(device_type, (d, t), mesh_dim_names=("data", "model"))

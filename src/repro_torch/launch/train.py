@@ -58,7 +58,7 @@ from repro_torch.parallel import collectives as col
 from repro_torch.parallel import sharding as sh
 from repro_torch.train import (build_train_step, make_local_state,
                                make_train_state)
-from repro_torch.train.train_loop import state_specs
+from repro_torch.train.train_loop import n_data_shards, state_specs
 
 
 def to_device(raw: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
@@ -120,7 +120,7 @@ def train(cfg: ModelConfig, tc: TrainConfig, *, device="cuda",
     else:
         state = make_local_state(cfg, tc, mesh, device=device)
         sizes = sh.axis_sizes(mesh)
-        d, t = sizes["data"], sizes["model"]
+        d, t = n_data_shards(mesh), sizes.get("model", 1)
     step, n_micro = build_train_step(cfg, tc, tc.global_batch, tc.seq_len,
                                      mesh=mesh)
     data = SyntheticTokens(cfg, tc.global_batch, tc.seq_len, seed=tc.seed)

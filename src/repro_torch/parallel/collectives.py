@@ -15,7 +15,11 @@ package leaves this to GSPMD):
   forward, the rank's own slice backward) and ``sum_model`` sums a
   quantity that the rank's own part reads back (all-reduce both ways:
   Mamba2's gated norm over a sharded ``d_inner``); the embedding and the
-  output head follow the embed's vocab-or-d_model rule.
+  output head follow the embed's vocab-or-d_model rule.  A head sharded
+  over the vocabulary leaves each rank its own V/t columns of the logits,
+  never gathered: ``vocab_parallel_cross_entropy`` reduces them over the
+  model axis to the loss (the JAX package constrains its logits to
+  ("batch", None, "vocab")).
 
   The gradient rule: these pairs are right when every path from a
   sub-layer's (replicated) input to its output meets exactly one gradient
@@ -45,14 +49,18 @@ package leaves this to GSPMD):
   column (an all-to-all whose backward is ``seq_to_head_dim``'s) and
   ``seq_to_head_dim`` moves the attention output back, for the rank's
   rows of ``wo``, whose partial output ``from_model`` sums.
-* the data axis: ``mean_data`` averages a quantity over the data ranks
+* the data axes: "data", or ("pod", "data") flattened pod-major into one
+  group (``data_group``), as JAX's ``PartitionSpec(("pod", "data"))``
+  orders them.  ``mean_data`` averages a quantity over the data ranks
   with a backward that averages the upstream gradients (the MoE's
   load-balance statistics, global over the microbatch as in JAX); at
   ZeRO 3 each leaf is all-gathered before use and its gradient
   reduce-scattered back to the shard (``ModelParallel.gather_top``,
   ``gather_block``; the train step calls the latter inside each
   checkpointed block, so the backward gathers again instead of keeping
-  the gathered weights).
+  the gathered weights).  A block leaf whose only data-sharded dim is the
+  stacked layer axis (Mamba2's per-head and per-channel vectors) is
+  gathered whole once, before the blocks, by ``gather_top``.
 
 ``shard_leaf`` / ``gather_leaf`` cut a rank's shard out of a full leaf and
 rebuild the full leaf from the shards.  A leaf that packs parts along its
@@ -234,9 +242,96 @@ class _GatherSumBack(torch.autograd.Function):
         return reduce_scatter(g, ctx.dim, ctx.group, ctx.n), None, None, None
 
 
+class _VocabParallelCE(torch.autograd.Function):
+    """The mean cross-entropy of logits whose last dim each model rank
+    holds V/t columns of (rank ``idx`` columns [idx V/t, (idx+1) V/t))."""
+    @staticmethod
+    def forward(ctx, logits, labels, group, idx):
+        vl = logits.shape[-1]
+        lf = logits.to(torch.float32, copy=True)
+        m = lf.amax(-1)
+        dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
+        se = lf.sub_(m[..., None]).exp_().sum(-1)
+        del lf
+        dist.all_reduce(se, group=group)
+        local = labels.long() - idx * vl
+        inside = (local >= 0) & (local < vl)
+        local = torch.where(inside, local, 0)
+        gold = torch.gather(logits, -1, local[..., None])[..., 0].float()
+        gold = torch.where(inside, gold, 0.0)
+        dist.all_reduce(gold, group=group)
+        nll = torch.log(se) + m - gold
+        # the bf16 logits and two floats a row; the float32 softmax is
+        # built in the backward
+        ctx.save_for_backward(logits, m, se, local, inside)
+        ctx.n = nll.numel()
+        return torch.mean(nll)
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, m, se, local, inside = ctx.saved_tensors
+        p = logits.to(torch.float32, copy=True)
+        p.sub_(m[..., None]).exp_().div_(se[..., None])
+        p.scatter_add_(-1, local[..., None], -inside[..., None].float())
+        p.mul_(g / ctx.n)
+        return p.to(logits.dtype), None, None, None
+
+
+def vocab_parallel_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                                 group, idx: int) -> torch.Tensor:
+    """The mean token cross-entropy in float32 of logits sharded over the
+    vocabulary: ``logits`` (..., V/t) this rank's columns (rank ``idx`` of
+    the model axis's ``group``), ``labels`` (...) global vocabulary ids.
+    The row max, the sum of exp(l - max) and the gold logit (from the rank
+    whose columns hold the label) are reduced over the model axis; the
+    loss, the same on every rank, is ``models.cross_entropy`` of the
+    gathered logits.  Its backward, (softmax - one_hot) g / n on the local
+    columns, communicates nothing."""
+    return _VocabParallelCE.apply(logits, labels, group, idx)
+
+
 def mesh_coords(mesh) -> Dict[str, int]:
     """{axis: this rank's index along it} of a DeviceMesh."""
     return dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
+
+
+# {(mesh, the default process group): this rank's group over the flattened
+# data axes}, filled by ``data_group``
+_DATA_GROUPS: Dict[Tuple[Any, Any], Any] = {}
+
+
+def data_group(mesh) -> Tuple[Any, int, int]:
+    """(group, size, this rank's index) of the mesh's data axes: "data", or
+    ("pod", "data") flattened pod-major -- rank pod * d + data, the order
+    of ``_axis_index`` and of JAX's ``PartitionSpec(("pod", "data"))``.
+    The group is None at size 1, the axis's own where one axis has more
+    than one rank, else one group over both, built once for the mesh
+    (every rank builds every model index's group, in the same order).  A
+    group orders its ranks by global rank, so each group's ranks must
+    ascend in pod-major order, as ``init_device_mesh``'s layout has
+    them."""
+    sizes = sh.axis_sizes(mesh)
+    axes = sh.data_axes(mesh)
+    idx, n = _axis_index(axes, sizes, mesh_coords(mesh))
+    if n == 1:
+        return None, 1, 0
+    wide = [a for a in axes if sizes[a] > 1]
+    if len(wide) == 1:
+        return mesh.get_group(wide[0]), n, idx
+    key = (mesh, dist.group.WORLD)
+    if key not in _DATA_GROUPS:
+        names = list(mesh.mesh_dim_names)
+        dims = [names.index(a) for a in axes]
+        rest = [i for i in range(len(names)) if i not in dims]
+        me = dist.get_rank()
+        for ranks in mesh.mesh.permute(*rest, *dims).reshape(-1, n).tolist():
+            if ranks != sorted(ranks):
+                raise ValueError(f"the data axes' ranks {ranks} do not "
+                                 f"ascend pod-major")
+            group = dist.new_group(ranks)
+            if me in ranks:
+                _DATA_GROUPS[key] = group
+    return _DATA_GROUPS[key], n, idx
 
 
 def _axis_index(axis, sizes: Mapping[str, int], coords: Mapping[str, int]
@@ -310,10 +405,13 @@ def gather_leaf(t: torch.Tensor, spec, mesh, name: Optional[str] = None
     for dim, ax in enumerate(spec):
         if ax is None:
             continue
-        if isinstance(ax, tuple):
-            raise NotImplementedError(
-                "leaves sharded over several data axes (the pod axis): "
-                "ROADMAP.md queue 1 item 10")
+        if isinstance(ax, tuple):             # ("pod", "data"), pod-major
+            if ax != sh.data_axes(mesh):
+                raise ValueError(f"a leaf sharded over {ax}, not the data "
+                                 f"axes {sh.data_axes(mesh)}")
+            group, n, _ = data_group(mesh)
+            t = all_gather(t, dim, group, n)
+            continue
         t = all_gather(t, dim, mesh.get_group(ax), sizes[ax])
         if ax == "model" and name in PACKED and sizes[ax] > 1:
             t = _unpack(t, dim, PACKED[name], sizes[ax])
@@ -350,21 +448,31 @@ def gather_state(state: Mapping[str, Any], specs: Mapping[str, Any], mesh,
 
 
 def data_dim(spec) -> Optional[int]:
-    """The dim a spec shards over the data axis, or None."""
+    """The dim a spec shards over the data axes ("data" or ("pod",
+    "data")), or None."""
     for i, ax in enumerate(spec):
-        if ax == "data":
+        if ax == "data" or isinstance(ax, tuple) and "data" in ax:
             return i
     return None
+
+
+def spec_axes(spec) -> set:
+    """The mesh axes a spec uses (a tuple entry's each)."""
+    out = set()
+    for ax in spec:
+        out.update(ax if isinstance(ax, tuple) else (ax,) if ax else ())
+    return out
 
 
 class ModelParallel:
     """What the model needs to run one rank of a (d, t) plan: the model
     axis's group for tensor parallelism, whether GQA attention shards by
     head or falls back to head_dim / sequence (``attn_head_sharded``,
-    ``sharding.attn_head_sharded``'s answer), the data axis's group (the
-    MoE's load-balance statistics) and at ZeRO 3 each parameter leaf's
-    data-sharded dim (``gather_dims``: the params' spec tree mapped through
-    ``data_dim``).
+    ``sharding.attn_head_sharded``'s answer), whether the head shards the
+    vocabulary (``vocab_sharded``: the logits stay this rank's V/t
+    columns), the data axes' group (``data_group``: the MoE's load-balance
+    statistics) and at ZeRO 3 each parameter leaf's data-sharded dim
+    (``gather_dims``: the params' spec tree mapped through ``data_dim``).
 
     The model calls it only when the train step passes one
     (``forward(..., par=...)``): the one-device path never does.
@@ -378,9 +486,11 @@ class ModelParallel:
         self.t = sizes.get("model", 1)
         self.model_idx = coords.get("model", 0)
         self.model_group = mesh.get_group("model") if self.t > 1 else None
-        self.nd = sizes.get("data", 1)
-        self.data_group = mesh.get_group("data") if self.nd > 1 else None
+        self.data_group, self.nd, _ = data_group(mesh)
         self.embed_spec, self.head_spec = embed_spec, head_spec
+        # the head's (d, V) spec: lm_head's, or the tied embed's transposed
+        spec = head_spec if head_spec is not None else embed_spec[::-1]
+        self.vocab_sharded = self.t > 1 and spec[1] == "model"
         self.gather_dims = gather_dims or {}
         self.attn_head_sharded = attn_head_sharded or self.t == 1
 
@@ -457,9 +567,11 @@ class ModelParallel:
         return self.gather_model(table[tokens], -1)    # (V, d/t)
 
     def head(self, x: torch.Tensor, params: Mapping[str, Any]) -> torch.Tensor:
-        """Full-vocabulary logits, replicated over the model axis, from
-        this rank's shard of the head: the embedding table when tied
-        (logits = x E^T), else ``lm_head`` (d, V)."""
+        """The logits from this rank's shard of the head: the embedding
+        table when tied (logits = x E^T), else ``lm_head`` (d, V).  With
+        the head sharded over the vocabulary (``vocab_sharded``) they are
+        this rank's V/t columns, for ``loss``; else the whole vocabulary,
+        replicated over the model axis."""
         head = params.get("lm_head")
         if self.t == 1:
             return x @ head if head is not None else x @ params["embed"].T
@@ -468,31 +580,51 @@ class ModelParallel:
         else:
             w, spec = head, self.head_spec
         if spec[1] == "model":                          # (d, V/t)
-            return self.gather_model(self.to_model(x) @ w, -1)
+            return self.to_model(x) @ w
         if spec[0] == "model":                          # (d/t, V)
             return self.from_model(self._my_slice(x, -1) @ w)
         return x @ w
 
-    # ---- the data axis at ZeRO 3 ---------------------------------------
+    def loss(self, logits: torch.Tensor, labels: torch.Tensor
+             ) -> torch.Tensor:
+        """The mean cross-entropy of ``head``'s logits: over the model
+        axis (``vocab_parallel_cross_entropy``) when they are this rank's
+        V/t columns, else ``models.cross_entropy`` of the whole row."""
+        if self.vocab_sharded:
+            return vocab_parallel_cross_entropy(logits, labels,
+                                                self.model_group,
+                                                self.model_idx)
+        # imported here: the models import this module
+        from repro_torch.models.transformer import cross_entropy
+        return cross_entropy(logits, labels)
+
+    # ---- the data axes at ZeRO 3 ---------------------------------------
     def _gather(self, t: torch.Tensor, dim: Optional[int]) -> torch.Tensor:
         if dim is None or self.nd == 1:
             return t
         return _GatherSumBack.apply(t, dim, self.data_group, self.nd)
 
+    def _walk(self, tree, dims, dim_of):
+        return {k: self._walk(v, dims[k], dim_of) if isinstance(v, dict)
+                else self._gather(v, dim_of(dims[k])) for k, v in tree.items()}
+
     def gather_top(self, params: Dict[str, Any]) -> Dict[str, Any]:
-        """``params`` with the leaves outside the blocks gathered."""
-        return {k: v if k == "blocks" else self._gather(v,
-                                                        self.gather_dims.get(k))
-                for k, v in params.items()}
+        """``params`` with the leaves outside the blocks gathered, and the
+        stacked block leaves sharded over data along the layer axis (dim
+        0) gathered whole, once for every layer."""
+        def top(k, v):
+            dims = self.gather_dims.get(k)
+            if k != "blocks":
+                return self._gather(v, dims)
+            return v if dims is None else self._walk(
+                v, dims, lambda d: 0 if d == 0 else None)
+        return {k: top(k, v) for k, v in params.items()}
 
     def gather_block(self, bp: Dict[str, Any]) -> Dict[str, Any]:
         """One block's layer views ({"sub{j}": ...}) gathered: a stacked
-        leaf's data-sharded dim i is dim i - 1 of a layer's view."""
-        def walk(tree, dims):
-            return {k: walk(v, dims[k]) if isinstance(v, dict)
-                    else self._gather(v, None if dims[k] is None
-                                      else dims[k] - 1)
-                    for k, v in tree.items()}
+        leaf's data-sharded dim i is dim i - 1 of a layer's view (a leaf
+        sharded on the layer axis, i = 0, ``gather_top`` gathered)."""
         if not self.gather_dims:
             return bp
-        return walk(bp, self.gather_dims["blocks"])
+        return self._walk(bp, self.gather_dims["blocks"],
+                          lambda d: d - 1 if d else None)

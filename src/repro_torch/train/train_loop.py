@@ -1,6 +1,7 @@
 """The training step: microbatch gradient accumulation (per-block remat
 inside the forward) and mixed-precision Adam, on one device or as one rank
-of a (d, t) plan over a ("data", "model") mesh at ZeRO 0, 1 or 3.
+of a (d, t) plan over a ("data", "model") or ("pod", "data", "model") mesh
+at ZeRO 0, 1 or 3 (d = pod x data).
 
 With no mesh (or a 1 x 1 one) the step holds the whole state and runs as
 it always has.  On a larger mesh each rank holds its shards of the state
@@ -8,11 +9,14 @@ it always has.  On a larger mesh each rank holds its shards of the state
 the fp32 master, m and v under ``param_specs(zero_data = zero >= 1)``) and
 runs the JAX package's sharded step (``repro/train/train_loop.py:61-129``)
 with explicit collectives (``parallel.collectives``) where the JAX package
-leaves them to GSPMD: the batch splits over the data axis; each microbatch's
-bf16 gradients are summed over the data axis into the fp32 accumulator in
-the optimizer's placement (reduce-scattered at ZeRO >= 1, all-reduced at
-ZeRO 0); Adam runs on each rank's local shards with the global grad norm;
-the params return to their placement (all-gathered over data at ZeRO 1).
+leaves them to GSPMD: the batch splits over the data axes; each
+microbatch's bf16 gradients are summed over the data axes into the fp32
+accumulator in the optimizer's placement (reduce-scattered at ZeRO >= 1,
+all-reduced at ZeRO 0); Adam runs on each rank's local shards with the
+global grad norm; the params return to their placement (all-gathered over
+data at ZeRO 1).  When the head shards the vocabulary the logits stay each
+model rank's V/t columns and the loss is their vocabulary-parallel
+cross-entropy.
 """
 from __future__ import annotations
 
@@ -105,8 +109,7 @@ def make_local_state(cfg: ModelConfig, tc: TrainConfig, mesh, device="cuda",
                                         dtype=torch.float32, name=name)
             return col.shard_leaf(leaf, p_spec, mesh, coords, name=name)
         # the optimizer shard of the params shard: its data split only
-        rel = tuple("data" if o == "data" and p != "data" else None
-                    for p, o in zip(p_spec, o_spec))
+        rel = tuple(o if o != p else None for p, o in zip(p_spec, o_spec))
         node[name] = col.shard_leaf(leaf, rel, mesh, coords,
                                     dtype=torch.float32)
         return leaf
@@ -195,10 +198,11 @@ def check_sharded_supported(cfg: ModelConfig, tc: TrainConfig, mesh) -> None:
     """Raise NotImplementedError for a (cfg, mesh, zero) this slice does not
     run sharded; never fall back to a replicated run."""
     sizes = sh.axis_sizes(mesh)
-    t, nd = sizes.get("model", 1), n_data_shards(mesh)
-    if set(sizes) - {"data", "model"}:
-        raise NotImplementedError(f"the sharded step runs a (data, model) "
-                                  f"mesh, not {tuple(sizes)}: {DEFERRED}")
+    t = sizes.get("model", 1)
+    if set(sizes) - {"pod", "data", "model"}:
+        raise NotImplementedError(f"the sharded step runs a ([pod,] data, "
+                                  f"model) mesh, not {tuple(sizes)}: "
+                                  f"{DEFERRED}")
     if t > 1:
         kinds = {cfg.layer_kind(j) for j in range(cfg.block_period)}
         # GQA whose head counts t does not divide runs the head_dim / seq
@@ -227,23 +231,20 @@ def check_sharded_supported(cfg: ModelConfig, tc: TrainConfig, mesh) -> None:
                 raise NotImplementedError(
                     f"{cfg.name}: {what} {n} not divisible by the model "
                     f"axis {t}: {DEFERRED}")
-    if tc.zero >= 3 and nd > 1:
-        specs = sh.param_specs(cfg, param_shapes(cfg), mesh, zero_data=True)
-        if any(s[0] == "data" for s in tree_leaves(specs["blocks"])):
-            raise NotImplementedError(
-                f"{cfg.name}: ZeRO 3 over the stacked layer axis: {DEFERRED}")
 
 
 def build_sharded_step(cfg: ModelConfig, tc: TrainConfig, global_batch: int,
                        seq_len: int, mesh) -> Tuple[Callable, int]:
     """One rank's step of the (d, t) plan ``mesh`` (a DeviceMesh with axes
-    ("data", "model") over the process group that is up).
+    ("data", "model") or ("pod", "data", "model") over the process group
+    that is up; d counts the pod and data axes together).
 
     The rank's microbatch i holds global rows i * mb * d + r * mb + [0, mb)
-    for its data index r (the JAX package's reshape of the batch into
-    microbatches sharded over data).  Each rank differentiates the mean
-    cross-entropy of its rows; the gradients are summed over the data axis
-    and divided by n_micro * d, the mean over the global batch.
+    for its index r along the data axes, pod-major (the JAX package's
+    reshape of the batch into microbatches sharded over ("pod", "data")).
+    Each rank differentiates the mean cross-entropy of its rows; the
+    gradients are summed over the data axes and divided by n_micro * d,
+    the mean over the global batch.
     ``step.accumulate(params, batch)`` returns those fp32 gradients (this
     rank's optimizer shards, in the params' leaf order) and the mean loss
     without updating anything; ``step.global_norm(grads)`` their norm over
@@ -262,9 +263,7 @@ def build_sharded_step(cfg: ModelConfig, tc: TrainConfig, global_batch: int,
     o_specs = tree_leaves(specs["opt"]["master"])
     model_specs = sh.param_specs(cfg, shapes, mesh)
     sizes = sh.axis_sizes(mesh)
-    coords = col.mesh_coords(mesh)
-    r = coords.get("data", 0)
-    data_group = mesh.get_group("data") if nd > 1 else None
+    data_group, _, r = col.data_group(mesh)
     model_group = mesh.get_group("model") if sizes.get("model", 1) > 1 \
         else None
     par = col.ModelParallel(
@@ -285,8 +284,8 @@ def build_sharded_step(cfg: ModelConfig, tc: TrainConfig, global_batch: int,
             reduce.append(("all_reduce", None))
     # each leaf's copies over the mesh (a replicated leaf's gradient is on
     # every rank of the axes it does not use), for the global norm
-    copies = [math.prod(n for a, n in sizes.items() if a not in os_)
-              for os_ in o_specs]
+    copies = [math.prod(n for a, n in sizes.items()
+                        if a not in col.spec_axes(os_)) for os_ in o_specs]
 
     def accumulate(params: Dict[str, Any], batch: Batch):
         leaves = tree_leaves(params)
@@ -307,7 +306,11 @@ def build_sharded_step(cfg: ModelConfig, tc: TrainConfig, global_batch: int,
             logits, _, aux = forward(cfg, params, inputs,
                                      remat=tc.remat != "none", want_aux=True,
                                      par=par)
-            ce = cross_entropy(logits[:, :-1], micro["labels"][:, 1:])
+            # the JAX package's ("batch", None, "vocab"): V/t columns a
+            # model rank when t divides V
+            act.constrain(logits, (mb * nd, seq_len, cfg.vocab_size),
+                          "batch", None, "vocab")
+            ce = par.loss(logits[:, :-1], micro["labels"][:, 1:])
             (ce + AUX_WEIGHT * aux).backward()
             for a, p, (how, dim) in zip(acc, leaves, reduce):
                 g, p.grad = p.grad, None

@@ -17,7 +17,6 @@ one spawn:
 """
 import json
 import os
-import socket
 
 import jax
 import jax.numpy as jnp
@@ -39,6 +38,7 @@ from repro_torch.parallel import collectives as col
 from repro_torch.train.optimizer import tree_leaves, tree_map
 from repro_torch.train.train_loop import (make_local_state, make_train_state,
                                           state_specs)
+from test_torch_multirank_harness import free_port
 
 ARCH = "starcoder2-3b"
 PLANS = [(1, 2), (2, 1)]
@@ -90,12 +90,6 @@ def _worker(rank, ports, out_dir):
                    for p in tree_leaves(kept[-1]["state"]["params"])))
 
 
-def _free_port():
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
 @pytest.fixture(scope="module")
 def out_dir(tmp_path_factory):
     """The 2-rank runs' files beside the one-process ones."""
@@ -103,7 +97,7 @@ def out_dir(tmp_path_factory):
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     try:
-        ports = [_free_port() for _ in range(1 + len(PLANS))]
+        ports = [free_port() for _ in range(1 + len(PLANS))]
         mp.spawn(_worker, args=(ports, str(tmp)), nprocs=2, join=True)
         cfg = smoke_config(ARCH)
         ckpt.save(str(tmp / "fp32_one"), 0,

@@ -4,8 +4,9 @@ exactly the specs' shards, one sharded step runs on that state, and the
 driver refuses a device without CUDA's allocator.  The same for
 ``chip_smoke.py``'s phase (f) plans of the MLA, MoE and Mamba2 families
 (``FAMILY_PLANS``): rank 0's state of each whole plan on the meta device,
-and one step of each at smoke widths; and for its phase (q) plans on the
-head_dim / seq fallback (``SEQ_PLANS``), rank 0's and rank 15's.
+and one step of each at smoke widths; for its phase (q) plans on the
+head_dim / seq fallback (``SEQ_PLANS``), rank 0's and rank 15's; and for
+its phase (p) plans on the two-pod (2, 16, 16) mesh (``POD_PLANS``).
 
 The JAX module sets ``XLA_FLAGS`` when it is imported, which would change
 the CPU device count of every later JAX test in this process, so its
@@ -50,6 +51,7 @@ FAMILY = [(arch, cut, b, d, t, zero)
 FAMILY_IDS = [f"{a}-b{b}-{d}x{t}-zero{z}" for a, _, b, d, t, z in FAMILY]
 SEQ = [(arch, rank) for arch, ranks in CHIP_SMOKE.SEQ_PLANS for rank in ranks]
 SEQ_IDS = [f"{a}-rank{r}" for a, r in SEQ]
+POD = CHIP_SMOKE.POD_PLANS
 
 
 def jax_combos():
@@ -237,3 +239,47 @@ def test_run_one_smoke_combo_on_the_card(cuda):
                            cfg=smoke_config("gpt2-350m"))
     assert row["actual_bytes"] > row["state_bytes"] > 0
     assert -10 < row["acc_exact"] <= 1 and -10 < row["acc_paper"] <= 1
+
+
+@pytest.mark.parametrize("arch", POD)
+def test_pod_plan_state_is_the_specs_shards(arch):
+    """Phase (p)'s plans whole on (2, 16, 16) with the pod axis, at
+    train_4k and global batch 32: the step accepts each at the serverless
+    default ZeRO stage, and rank 0's state on the meta device, drawn at
+    its shard shapes as phase (p) draws it, is exactly its specs' shards
+    (the data axes split as one axis of 32)."""
+    cfg, tc, pods, d, t = CHIP_SMOKE.pod_plan_config(arch)
+    assert (pods, d, t) == (2, 16, 16) and tc.global_batch == 32
+    with memcheck.fake_world(pods * d * t):
+        mesh = make_plan_mesh(d, t, device_type="cpu", pods=pods)
+        assert col.mesh_coords(mesh) == {"pod": 0, "data": 0, "model": 0}
+        assert col.data_group(mesh)[1:] == (32, 0)
+        check_sharded_supported(cfg, tc, mesh)
+        state = make_local_state(cfg, tc, mesh, device="meta",
+                                 whole_leaves=False)
+        _assert_specs_shards(cfg, tc, mesh, state)
+
+
+@pytest.mark.parametrize("rank", [0, 5])
+@pytest.mark.parametrize("arch", POD)
+def test_pod_step_runs_under_the_fake_group(arch, rank):
+    """Phase (p)'s path at smoke widths on (2, 2, 2) at the plan's ZeRO
+    stage, as rank 0 and rank 5 (pod 1, data 0, model 1): the rank's
+    shards drawn at their own shapes, one step under the fake group, a
+    finite loss, the shapes kept."""
+    cfg = smoke_config(arch)
+    zero = CHIP_SMOKE.pod_plan_config(arch)[1].zero
+    tc = TrainConfig(global_batch=4, seq_len=64, microbatch=1, zero=zero)
+    with memcheck.fake_world(8, rank):
+        mesh = make_plan_mesh(2, 2, device_type="cpu", pods=2)
+        assert col.data_group(mesh)[1:] == (4, 2 * (rank // 4)
+                                            + rank // 2 % 2)
+        state = make_local_state(cfg, tc, mesh, device="cpu",
+                                 whole_leaves=False)
+        _assert_specs_shards(cfg, tc, mesh, state)
+        before = [tuple(x.shape) for x in tree_leaves(state["params"])]
+        step, _ = build_train_step(cfg, tc, 4, 64, mesh=mesh)
+        batch_ = to_device(next(SyntheticTokens(cfg, 4, 64, seed=0)), "cpu")
+        state, metrics = step(state, batch_)
+        assert math.isfinite(float(metrics["loss"]))
+        assert [tuple(x.shape) for x in tree_leaves(state["params"])] == before

@@ -6,7 +6,8 @@ Configs: llama3.2-3b smoke (GQA, RoPE, SwiGLU, vocab 512: the embed is
 vocab-sharded on the model axis) and gpt2-350m smoke with an odd vocabulary
 of 509 (tied head, the embed sharded over d_model).  Meshes (data, model):
 (2, 1) and (1, 2) in one spawn of 2 processes, (2, 2) in one spawn of 4,
-each at ZeRO 0, 1 and 3.  Tolerances and their reasons:
+each at ZeRO 0, 1 and 3.  Tolerances and their reasons
+(tests/test_torch_multirank_harness.py, shared by the multi-rank files):
 
 * params cast to float32, step 1's accumulated gradients, gathered from
   the ranks' optimizer shards: max |d| <= 1e-5 max |g| per leaf, and the
@@ -20,69 +21,33 @@ each at ZeRO 0, 1 and 3.  Tolerances and their reasons:
   >= 1 its optimizer bytes are 1/d of the (1, t) run's, but for the leaves
   ``enforce_divisibility`` keeps whole (counted from the specs).
 """
-import json
 import os
-import socket
 
 import numpy as np
 import pytest
-import torch
-import torch.distributed as dist
-import torch.multiprocessing as mp
 
-from repro_torch.configs import TrainConfig, smoke_config
-from repro_torch.data import SyntheticTokens
+from repro_torch.configs import smoke_config
 from repro_torch.launch.mesh import make_plan_mesh
-from repro_torch.launch.train import to_device
 from repro_torch.models import param_shapes
 from repro_torch.parallel import collectives as col
-from repro_torch.train.optimizer import tree_leaves, tree_map
+from repro_torch.train.optimizer import tree_leaves
 from repro_torch.train.train_loop import (accumulate_grads, build_train_step,
                                           make_local_state, make_train_state,
                                           resolve_microbatches, state_specs)
+from test_torch_multirank_harness import (  # noqa: F401 (one_thread: autouse)
+    B, GNORM_RTOL, GRAD_TOL, LOSS_TOL, S, as_fp32, bad_shards, batches,
+    join_ranks, nbytes, one_thread, paths, spawn_ranks, train_config)
 
 ARCHS = ["llama3.2-3b", "gpt2-350m"]
 ZEROS = [0, 1, 3]
 MESHES = {2: [(2, 1), (1, 2)], 4: [(2, 2)]}
 CASES = [(world, arch, d, t, zero) for world, meshes in MESHES.items()
          for arch in ARCHS for d, t in meshes for zero in ZEROS]
-# microbatch 2: half the microbatches of 1, so half the collectives, which
-# set this file's time when the machine is loaded
-B, S, MB, STEPS = 8, 64, 2, 4
-GRAD_TOL, GNORM_RTOL, LOSS_TOL = 1e-5, 1e-5, 2e-2
 
 
 def config(arch):
     cfg = smoke_config(arch)
     return cfg.scaled(vocab_size=509) if arch == "gpt2-350m" else cfg
-
-
-def train_config(zero):
-    return TrainConfig(global_batch=B, seq_len=S, microbatch=MB, steps=STEPS,
-                       warmup_steps=1, zero=zero)
-
-
-def batches(cfg):
-    data = SyntheticTokens(cfg, B, S, seed=3)
-    return [to_device(next(data), "cpu") for _ in range(STEPS)]
-
-
-def as_fp32(state):
-    state["params"] = tree_map(lambda p: p.float(), state["params"])
-    return state
-
-
-def paths(tree, prefix=()):
-    for k in sorted(tree):
-        v = tree[k]
-        if isinstance(v, dict):
-            yield from paths(v, prefix + (k,))
-        else:
-            yield "/".join(prefix + (k,))
-
-
-def nbytes(tree):
-    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
 
 
 def _case(rank, arch, d, t, zero):
@@ -103,57 +68,25 @@ def _case(rank, arch, d, t, zero):
     gnorm = float(metrics["grad_norm"])
 
     state = make_local_state(cfg, tc, mesh, device="cpu")
-    bad = []
-    for part, tree in (("params", state["params"]),
-                       ("master", state["opt"]["master"])):
-        spec_tree = specs["params"] if part == "params" else \
-            specs["opt"]["master"]
-        for name, leaf, spec, shape in zip(
-                paths(tree), tree_leaves(tree), tree_leaves(spec_tree),
-                tree_leaves(param_shapes(cfg))):
-            if tuple(leaf.shape) != col.local_shape(shape, spec, mesh):
-                bad.append(f"{part}/{name} {tuple(leaf.shape)} {spec}")
+    bad = bad_shards(state, specs, param_shapes(cfg), mesh)
     opt_bytes = nbytes(state["opt"])
     losses = [float(step(state, batch)[1]["loss"]) for batch in data]
     return {"grads": grads, "gnorm": gnorm, "losses": losses, "bad": bad,
             "opt_bytes": opt_bytes}
 
 
-def _worker(rank, world, port, out_dir):
-    torch.set_num_threads(1)
-    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
-                            rank=rank, world_size=world)
-    try:
-        out = {}
-        for w, arch, d, t, zero in CASES:
-            if w != world:
-                continue
-            res = _case(rank, arch, d, t, zero)
-            key = f"{arch}-{d}x{t}-zero{zero}"
-            if rank == 0:
-                np.savez(os.path.join(out_dir, f"{key}.npz"), *res["grads"])
-            out[key] = {k: res[k] for k in ("gnorm", "losses", "bad",
-                                            "opt_bytes")}
-        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
-            json.dump(out, f)
-    finally:
-        dist.destroy_process_group()
-
-
-def _free_port():
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One intra-op thread here as in the ranks: small products, and the
-    other test processes share the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+def _work(rank, world, out_dir):
+    out = {}
+    for w, arch, d, t, zero in CASES:
+        if w != world:
+            continue
+        res = _case(rank, arch, d, t, zero)
+        key = f"{arch}-{d}x{t}-zero{zero}"
+        if rank == 0:
+            np.savez(os.path.join(out_dir, f"{key}.npz"), *res["grads"])
+        out[key] = {k: res[k] for k in ("gnorm", "losses", "bad",
+                                        "opt_bytes")}
+    return out
 
 
 @pytest.fixture(scope="module")
@@ -163,13 +96,7 @@ def ranks(tmp_path_factory):
     out = {}
     for world in MESHES:
         d = tmp_path_factory.mktemp(f"world{world}")
-        mp.spawn(_worker, args=(world, _free_port(), str(d)), nprocs=world,
-                 join=True)
-        res = []
-        for r in range(world):
-            with open(d / f"rank{r}.json") as f:
-                res.append(json.load(f))
-        out[world] = (d, res)
+        out[world] = (d, join_ranks(spawn_ranks(_work, world, d), world, d))
     return out
 
 

@@ -9,16 +9,18 @@ Configs: deepseek-v2 smoke (MLA, expert-parallel MoE at t=2 -- 4 experts
 jamba smoke cut to one 8-layer block (Mamba2 + GQA + MoE + dense SwiGLU)
 and mixtral smoke at 3 experts (ffn-sharded experts at t=2).  Meshes
 (data, model): (2, 1) and (1, 2) in one spawn of 2 processes, (2, 2) in
-one spawn of 4, each at ZeRO 0, 1 and 3, except mamba2 at ZeRO 3 with
-d = 2: its per-head and per-channel vectors split over data only on the
-stacked layer axis, which the step refuses (the case expects that
-``NotImplementedError``).
+one spawn of 4, each at ZeRO 0, 1 and 3.  mamba2 at ZeRO 3 with d = 2
+splits its per-head and per-channel vectors over data on the stacked
+layer axis only: the step gathers those leaves whole once, before the
+blocks.
 
 The single-process reference takes microbatches of MB * d rows: the JAX
 step's microbatch on d data shards is the global one (mb rows a shard),
 and the MoE's load-balance loss is a mean over it, so the sharded step
-averages its statistics over the data axis.  Tolerances and their
-reasons, as tests/test_torch_multirank.py's:
+averages its statistics over the data axis.  mamba2 at ZeRO 3 on (2, 2)
+also runs in the JAX package's sharded step on 4 host devices, from the
+same parameters and batches.  Tolerances and their reasons, as
+tests/test_torch_multirank_harness.py's:
 
 * params cast to float32, step 1's accumulated gradients, gathered from
   the ranks' optimizer shards: max |d| <= 1e-5 max |g| per leaf (4e-5 for
@@ -28,25 +30,21 @@ reasons, as tests/test_torch_multirank.py's:
   and columns, the gated norm's sum of squares).
 * bf16, four steps: losses within 2e-2, the JAX package's own
   multi-device tolerance (tests/test_multidevice.py:77), and the loss
-  falls.
+  falls; against the JAX package's sharded step, the losses and step 1's
+  bf16 grad norm within 2e-2.
 * every rank's shards have the shapes the ported specs give, and at ZeRO
   >= 1 its optimizer bytes are 1/d of the (1, t) run's, but for the leaves
   ``enforce_divisibility`` keeps whole (counted from the specs).
 """
-import json
 import os
-import socket
 
 import numpy as np
 import pytest
 import torch
 import torch.distributed as dist
-import torch.multiprocessing as mp
 
-from repro_torch.configs import TrainConfig, smoke_config
-from repro_torch.data import SyntheticTokens
+from repro_torch.configs import smoke_config
 from repro_torch.launch.mesh import make_plan_mesh
-from repro_torch.launch.train import to_device
 from repro_torch.models import forward, init_params, param_shapes
 from repro_torch.models.transformer import SSM_VECTORS
 from repro_torch.parallel import collectives as col
@@ -57,6 +55,10 @@ from repro_torch.train.train_loop import (AUX_WEIGHT, accumulate_grads,
                                           check_sharded_supported,
                                           make_local_state, make_train_state,
                                           resolve_microbatches, state_specs)
+from test_torch_multirank_harness import (  # noqa: F401 (one_thread: autouse)
+    B, GNORM_RTOL, GRAD_TOL, LOSS_TOL, MB, S, STEPS, as_fp32, bad_shards,
+    batches, jax_results, join_ranks, nbytes, one_thread, paths,
+    spawn_ranks, start_jax, train_config)
 
 ARCHS = ["deepseek-v2-236b", "mamba2-130m", "jamba-1.5-large-398b",
          "mixtral-8x22b"]
@@ -64,14 +66,15 @@ ZEROS = [0, 1, 3]
 MESHES = {2: [(2, 1), (1, 2)], 4: [(2, 2)]}
 CASES = [(world, arch, d, t, zero) for world, meshes in MESHES.items()
          for arch in ARCHS for d, t in meshes for zero in ZEROS]
-B, S, MB, STEPS = 8, 64, 2, 4
-GRAD_TOL, GNORM_RTOL, LOSS_TOL = 1e-5, 1e-5, 2e-2
 # Mamba2's per-head and per-channel vectors: each gradient sums over every
 # (row, position[, channel]) with cancellation, so it moves further under a
 # reordering: the single-process step's own jamba-smoke gradients move by
 # up to 4.95e-6 max |g| (A_log) between one and four intra-op threads, and
 # its model-axis split by 1.05e-5.  Every other leaf stays at GRAD_TOL.
 VECTOR_TOL = 4e-5
+# mamba2 at ZeRO 3 with d = 2 (its vectors gathered on the stacked layer
+# axis) also runs in the JAX package's sharded step
+JAX_JOB = {"arch": "mamba2-130m", "fields": {}, "mesh": (2, 2), "zero": 3}
 
 
 def config(arch):
@@ -83,49 +86,23 @@ def config(arch):
     return cfg
 
 
-def refused(arch, d, zero):
-    """The case the step refuses: ZeRO 3 over mamba2's stacked layer axis."""
-    return arch == "mamba2-130m" and d > 1 and zero >= 3
-
-
-def train_config(zero, microbatch=MB):
-    return TrainConfig(global_batch=B, seq_len=S, microbatch=microbatch,
-                       steps=STEPS, warmup_steps=1, zero=zero)
-
-
-def batches(cfg):
-    data = SyntheticTokens(cfg, B, S, seed=3)
-    return [to_device(next(data), "cpu") for _ in range(STEPS)]
-
-
-def as_fp32(state):
-    state["params"] = tree_map(lambda p: p.float(), state["params"])
-    return state
-
-
-def paths(tree, prefix=()):
-    for k in sorted(tree):
-        v = tree[k]
-        if isinstance(v, dict):
-            yield from paths(v, prefix + (k,))
-        else:
-            yield "/".join(prefix + (k,))
-
-
-def nbytes(tree):
-    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+def stacked_data_leaves(arch, d, t, zero):
+    """The block leaves whose only data-sharded dim is the stacked layer
+    axis under the plan's ZeRO-3 param specs."""
+    cfg = config(arch)
+    specs = state_specs(cfg, train_config(zero), {"data": d, "model": t},
+                        param_shapes(cfg))["params"]["blocks"]
+    return [p for p, s in zip(paths(specs), tree_leaves(specs))
+            if col.data_dim(s) == 0]
 
 
 def _case(arch, d, t, zero):
     """One (arch, mesh, zero) case on this rank: step 1's accumulated
-    gradients (fp32 params) gathered, its grad norm, four bf16 losses, the
-    shard shapes that differ from the specs' and the optimizer bytes."""
+    gradients (fp32 params) gathered, its grad norm, four bf16 losses and
+    step 1's bf16 grad norm, the shards that differ from the specs' shapes
+    and the optimizer bytes."""
     cfg, tc = config(arch), train_config(zero)
     mesh = make_plan_mesh(d, t, device_type="cpu")
-    if refused(arch, d, zero):
-        with pytest.raises(NotImplementedError, match="stacked layer axis"):
-            build_train_step(cfg, tc, B, S, mesh=mesh)
-        return None
     specs = state_specs(cfg, tc, mesh, param_shapes(cfg))
     data = batches(cfg)
     step, _ = build_train_step(cfg, tc, B, S, mesh=mesh)
@@ -139,20 +116,13 @@ def _case(arch, d, t, zero):
     gnorm = float(step.global_norm(acc))
 
     state = make_local_state(cfg, tc, mesh, device="cpu")
-    bad = []
-    for part, tree in (("params", state["params"]),
-                       ("master", state["opt"]["master"])):
-        spec_tree = specs["params"] if part == "params" else \
-            specs["opt"]["master"]
-        for name, leaf, spec, shape in zip(
-                paths(tree), tree_leaves(tree), tree_leaves(spec_tree),
-                tree_leaves(param_shapes(cfg))):
-            if tuple(leaf.shape) != col.local_shape(shape, spec, mesh):
-                bad.append(f"{part}/{name} {tuple(leaf.shape)} {spec}")
+    bad = bad_shards(state, specs, param_shapes(cfg), mesh)
     opt_bytes = nbytes(state["opt"])
-    losses = [float(step(state, batch)[1]["loss"]) for batch in data]
-    return {"grads": grads, "gnorm": gnorm, "losses": losses, "bad": bad,
-            "opt_bytes": opt_bytes}
+    metrics = [step(state, batch)[1] for batch in data]
+    return {"grads": grads, "gnorm": gnorm, "bad": bad,
+            "opt_bytes": opt_bytes,
+            "losses": [float(m["loss"]) for m in metrics],
+            "bf16_gnorm": float(metrics[0]["grad_norm"])}
 
 
 def _in_zx_round_trip(d, t):
@@ -172,6 +142,17 @@ def _in_zx_round_trip(d, t):
         ok.append(torch.equal(col.gather_leaf(shard, spec, mesh, "in_zx"),
                               full))
     return ok
+
+
+def _pod_round_trip():
+    """A leaf cut over ("pod", "data") on a (2, 2, 1) pod mesh and
+    gathered back (``gather_leaf``, as a checkpoint of a pod plan gathers
+    it): equal to the leaf, on this rank."""
+    mesh = make_plan_mesh(2, 1, device_type="cpu", pods=2)
+    full = torch.arange(8 * 3, dtype=torch.float32).view(8, 3)
+    spec = (("pod", "data"), None)
+    shard = col.shard_leaf(full, spec, mesh, col.mesh_coords(mesh))
+    return torch.equal(col.gather_leaf(shard, spec, mesh), full)
 
 
 def _aux_grads(rank, d):
@@ -199,50 +180,26 @@ def _aux_grads(rank, d):
     return out
 
 
-def _worker(rank, world, port, out_dir):
-    torch.set_num_threads(1)
-    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
-                            rank=rank, world_size=world)
-    try:
-        out = {}
-        for w, arch, d, t, zero in CASES:
-            if w != world:
-                continue
-            res = _case(arch, d, t, zero)
-            key = _key(arch, d, t, zero)
-            if res is None:
-                out[key] = "refused"
-                continue
-            if rank == 0:
-                np.savez(os.path.join(out_dir, f"{key}.npz"), *res["grads"])
-            out[key] = {k: res[k] for k in ("gnorm", "losses", "bad",
-                                            "opt_bytes")}
-        for d, t in MESHES[world]:
-            out[f"in_zx-{d}x{t}"] = _in_zx_round_trip(d, t)
-        if world == 2:
-            grads = _aux_grads(rank, 2)
-            if rank == 0:
-                np.savez(os.path.join(out_dir, "aux.npz"), *grads)
-        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
-            json.dump(out, f)
-    finally:
-        dist.destroy_process_group()
-
-
-def _free_port():
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """One intra-op thread here as in the ranks: small products, and the
-    other test processes share the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+def _work(rank, world, out_dir):
+    out = {}
+    for w, arch, d, t, zero in CASES:
+        if w != world:
+            continue
+        res = _case(arch, d, t, zero)
+        key = _key(arch, d, t, zero)
+        if rank == 0:
+            np.savez(os.path.join(out_dir, f"{key}.npz"), *res["grads"])
+        out[key] = {k: res[k] for k in ("gnorm", "losses", "bf16_gnorm",
+                                         "bad", "opt_bytes")}
+    for d, t in MESHES[world]:
+        out[f"in_zx-{d}x{t}"] = _in_zx_round_trip(d, t)
+    if world == 4:
+        out["pod-gather"] = _pod_round_trip()
+    if world == 2:
+        grads = _aux_grads(rank, 2)
+        if rank == 0:
+            np.savez(os.path.join(out_dir, "aux.npz"), *grads)
+    return out
 
 
 def _single():
@@ -269,25 +226,23 @@ def _single():
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    """(ranks, single): ranks {world: (out_dir, [each rank's results])}
-    from one spawn per world size, every case of that size inside it, and
-    the single-process results (``_single``), all three at once."""
+    """(ranks, single, the JAX run): ranks {world: (out_dir, [each rank's
+    results])} from one spawn per world size, every case of that size
+    inside it; the single-process results (``_single``) and the JAX
+    package's sharded step on ``JAX_JOB``, all at once."""
     dirs = {world: tmp_path_factory.mktemp(f"world{world}")
             for world in MESHES}
-    spawns = [mp.spawn(_worker, args=(world, _free_port(), str(dirs[world])),
-                       nprocs=world, join=False) for world in MESHES]
-    single = _single()
-    for ctx in spawns:
-        while not ctx.join():
-            pass
-    ranks = {}
-    for world, d in dirs.items():
-        res = []
-        for r in range(world):
-            with open(d / f"rank{r}.json") as f:
-                res.append(json.load(f))
-        ranks[world] = (d, res)
-    return ranks, single
+    jax_run = start_jax(dirs[4], [JAX_JOB])
+    try:
+        spawns = {world: spawn_ranks(_work, world, dirs[world])
+                  for world in MESHES}
+        single = _single()
+        ranks = {world: (dirs[world], join_ranks(ctx, world, dirs[world]))
+                 for world, ctx in spawns.items()}
+    except BaseException:
+        jax_run.kill()
+        raise
+    return ranks, single, jax_results(jax_run)[0]
 
 
 @pytest.fixture(scope="module")
@@ -304,8 +259,7 @@ def _key(arch, d, t, zero):
     return f"{arch}-{d}x{t}-zero{zero}"
 
 
-IDS = [_key(a, d, t, z) for _, a, d, t, z in CASES]
-RUN = [c for c in CASES if not refused(c[1], c[2], c[4])]
+RUN = CASES
 RUN_IDS = [_key(*c[1:]) for c in RUN]
 
 
@@ -377,12 +331,16 @@ def test_optimizer_bytes_shard_over_data(ranks, single, world, arch, d, t,
 @pytest.mark.parametrize("world,d,t", [(w, d, t) for w, m in MESHES.items()
                                        for d, t in m])
 def test_mamba2_zero3_over_data_is_refused(ranks, world, d, t):
-    """mamba2 smoke at ZeRO 3: refused with d = 2 (the rank raised the
-    guard's NotImplementedError), run at (1, 2)."""
+    """mamba2 smoke at ZeRO 3 is no longer refused: with d = 2 its specs
+    shard some block leaves over data on the stacked layer axis only, and
+    every rank ran the case (its gradients and losses are held by the
+    tests above) on shards of the specs' shapes."""
     _, res = ranks[world]
+    if d > 1:
+        assert stacked_data_leaves("mamba2-130m", d, t, 3)
     for r in res:
         got = r[_key("mamba2-130m", d, t, 3)]
-        assert (got == "refused") == (d > 1)
+        assert got["bad"] == [] and len(got["losses"]) == STEPS
 
 
 @pytest.mark.parametrize("world,d,t", [(w, d, t) for w, m in MESHES.items()
@@ -467,30 +425,56 @@ def test_the_families_are_accepted_on_the_model_axis(arch, t):
 @pytest.mark.parametrize("arch,mesh,zero,match", [
     ("deepseek-v2-236b", {"data": 1, "model": 16}, 1,
      "head_dim / seq fallback"),
-    ("llama3.2-3b", {"pod": 2, "data": 1, "model": 1}, 1, "not \\('pod'"),
+    ("deepseek-v2-236b", {"pod": 2, "data": 1, "model": 16}, 3,
+     "head_dim / seq fallback"),
 ], ids=["fallback", "pod"])
 def test_deferred_plans_still_raise(arch, mesh, zero, match):
     """deepseek-v2 smoke's 8 MLA heads at t=16 need the head_dim / seq
-    fallback, which GQA runs and MLA does not yet, and a mesh with the pod
-    axis is not a (data, model) one: both raise naming ROADMAP item 10 and
-    never run replicated."""
+    fallback, which GQA runs and MLA does not yet: refused on a (data,
+    model) mesh and on one with the pod axis (which the step now runs), at
+    any ZeRO stage, naming ROADMAP item 10, never run replicated."""
     with pytest.raises(NotImplementedError, match="item 10") as e:
         check_sharded_supported(smoke_config(arch), train_config(zero), mesh)
     assert e.match(match)
 
 
 def test_zero3_over_the_stacked_axis_still_raises():
-    with pytest.raises(NotImplementedError,
-                       match="stacked layer axis: ROADMAP.md queue 1 item 10"):
-        check_sharded_supported(config("mamba2-130m"), train_config(3),
-                                {"data": 2, "model": 2})
+    """ZeRO 3 over the stacked layer axis no longer raises: mamba2 smoke on
+    (2, 2) and whole mamba2-130m on (2, 4) and, with the pod axis, (2, 2,
+    4) are accepted, and their specs do shard block leaves over data on
+    that axis alone (the step gathers them whole before the blocks)."""
+    from repro_torch.configs import get_arch
+    assert stacked_data_leaves("mamba2-130m", 2, 2, 3)
+    check_sharded_supported(config("mamba2-130m"), train_config(3),
+                            {"data": 2, "model": 2})
+    for mesh in ({"data": 2, "model": 4}, {"pod": 2, "data": 2, "model": 4}):
+        cfg = get_arch("mamba2-130m")
+        specs = state_specs(cfg, train_config(3), mesh, param_shapes(cfg))
+        assert any(col.data_dim(s) == 0
+                   for s in tree_leaves(specs["params"]["blocks"]))
+        check_sharded_supported(cfg, train_config(3), mesh)
 
 
-def test_sharded_checkpoint_still_raises():
-    """A checkpoint of a state sharded over the pod axis still raises
-    naming ROADMAP item 10, before any collective: gathering a leaf
-    sharded over several data axes is not written (checkpoints of (data,
-    model) plans are, tests/test_torch_ckpt_sharded.py)."""
-    with pytest.raises(NotImplementedError, match="item 10"):
-        col.gather_leaf(torch.zeros(4, 2), (("pod", "data"), None),
-                        {"pod": 2, "data": 2, "model": 1})
+def test_sharded_checkpoint_still_raises(ranks):
+    """A leaf sharded over the pod axis, ("pod", "data"), gathers back to
+    the whole leaf on every rank of a (2, 2, 1) mesh: checkpoints of pod
+    plans are written (``gather_state``; whole states in
+    tests/test_torch_multirank_pod.py)."""
+    _, res = ranks[4]
+    assert [r["pod-gather"] for r in res] == [True] * 4
+
+
+def test_mamba2_zero3_losses_match_the_jax_sharded_step(runs):
+    """mamba2 smoke at ZeRO 3 on (2, 2), its per-head and per-channel
+    vectors gathered on the stacked layer axis: every rank's four bf16
+    losses and step 1's bf16 grad norm against the JAX package's sharded
+    step on 4 host devices, from the same parameters and batches."""
+    ranks, _, want = runs
+    d, t = JAX_JOB["mesh"]
+    for r in ranks[d * t][1]:
+        got = r[_key(JAX_JOB["arch"], d, t, JAX_JOB["zero"])]
+        assert len(got["losses"]) == len(want["losses"])
+        np.testing.assert_allclose(got["losses"], want["losses"],
+                                   rtol=LOSS_TOL, atol=LOSS_TOL)
+        assert abs(got["bf16_gnorm"] - want["grad_norm"]) \
+            <= LOSS_TOL * want["grad_norm"]
