@@ -193,6 +193,30 @@ Phases, each printing its lines before the last:
    the attention forward and backward, Adam or RMSNorm.  Phase 2 holds
    deepseek-v2's new local attention shape (8 heads of 192 over s =
    4,096) against its plain versions and times it.
+(v) sharded serving (``SERVE_PLANS``): rank 0 of the (16, 16) serving
+   plans of llama3.2-3b (decode_32k on the head_dim / seq fallback, whose
+   decode moves each layer's cache to 2,048 slots of every column and
+   merges the ranks' partial results by their log-sum-exp, and
+   prefill_32k), deepseek-v2-236b (decode_32k: MLA on 8 heads, MoE, the
+   latent cache replicated over the model axis, weights over data too)
+   and jamba-1.5-large-398b (long_500k: the one row's cache split over the
+   data axes, 32,768 slots a rank; also as rank 15), whole at published
+   widths and depth, through ``repro_torch.launch.memcheck.run_serve``:
+   one line a plan with the peak beside ``serve_peak_bytes`` and its
+   accuracy (reported, not required); it fails on an out-of-memory, on
+   logits not at the rank's shape or not finite, and on a plan that never
+   launched its decode kernel (``flash_decode_gqa`` or
+   ``flash_decode_mla``), on a prefill ``flash_attention``, or RMSNorm.
+   Phase 2 holds ``flash_decode_gqa(..., return_lse=True)`` at the decode
+   plans' local shapes (2,048 slots of head dim 128; 24/8 and 64/8
+   heads) against its plain versions (out and log-sum-exp, the output
+   without the flag the float32 one rounded once, a rank with no valid
+   slot giving 0 and -inf) and times it beside its bound and SDPA; and
+   the two other kernels at their phase (v) shapes (``SERVE_KERNELS``):
+   ``flash_decode_mla`` at deepseek-v2's rank (8 rows, 8 heads, 32,768
+   latent slots) and ``flash_attention`` at llama3.2-3b's prefill rank (2
+   rows, 2,048 query rows at offset 0 over 32,768 keys), each against its
+   plain version and timed beside its bound and SDPA.
 
 Every training cell (7, 8, 10, 11) is started through (s)'s front door
 as gpt2-350m's is, and its peak over step 1 must equal the one-device
@@ -512,6 +536,45 @@ SEQ_ATTENTION = {"stablelm_r0": (256, 4096, 32, 8, 160, 0, 0),
                  "musicgen_r15": (256, 4096, 24, 24, 64, 3840, 0),
                  "starcoder2_7b_r15": (256, 4096, 36, 4, 128, 3840, 0),
                  "starcoder2_7b_band": (512, 8192, 36, 4, 128, 7680, 4096)}
+
+
+# Phase (v): one rank of the sharded serving steps (the JAX package's dry
+# run, repro/launch/dryrun.py:77-116) on the (16, 16) production mesh,
+# under the fake process group, whole configs at published widths and
+# depth, weights drawn at their shards' shapes (over the data axes too
+# where ``launch.inputs.serve_weights_over_data`` says so), one prefill of
+# the rank's rows or one decode step at position cache_len - 1 (every slot
+# valid) through ``repro_torch.launch.memcheck.run_serve``:
+# - llama3.2-3b decode_32k: 8 rows a data rank, 24/8 heads on t = 16, the
+#   head_dim / seq fallback: 8 columns of 32,768 slots a rank, moved to
+#   2,048 slots of every column for the GQA decode, merged over the model
+#   axis by the log-sum-exp; and prefill_32k: 2 rows of 32,768, 2,048
+#   query rows a rank at offset 0;
+# - deepseek-v2-236b decode_32k: MLA on 8 of 128 heads, the latent cache
+#   of 8 rows x 32,768 slots replicated over the model axis (~18 GB a
+#   rank), 10 of 160 experts, weights over data too, gathered a layer at a
+#   time;
+# - jamba-1.5-large-398b long_500k: one row, its 524,288 slots split over
+#   the 16 data ranks (32,768 a rank, 2,048 after the all-to-all), the
+#   fallback attention merged over the model and the data axes, 16 of 256
+#   SSM heads, one of 16 experts, weights over data; as rank 0 and rank 15.
+# (arch, shape, ranks)
+SERVE_PLANS = [("llama3.2-3b", "decode_32k", (0,)),
+               ("llama3.2-3b", "prefill_32k", (0,)),
+               ("deepseek-v2-236b", "decode_32k", (0,)),
+               ("jamba-1.5-large-398b", "long_500k", (0, 15))]
+SERVE_MESH = (16, 16)
+# phase 2's ``flash_decode_gqa(..., return_lse=True)`` at those decode
+# plans' local shapes after the all-to-all (every slot valid)
+LSE_DECODE = {"llama_decode_32k_rank": dict(b=8, S=2048, H=24, K=8, D=128),
+              "jamba_long_500k_rank": dict(b=1, S=2048, H=64, K=8, D=128)}
+# and the other kernels phase (v) launches, at its local shapes (every slot
+# valid): deepseek-v2's MLA decode on its rank's 8 heads over the 32,768
+# latent slots, and llama3.2-3b's prefill_32k attention, 2 rows of 2,048
+# query rows at offset 0 (rank 0) against the 32,768 keys
+MLA_SERVE_DECODE = dict(b=8, S=32_768, H=8, r=512, dr=64)
+SERVE_ATTENTION = {"llama_prefill_32k_r0": dict(b=2, sq=2048, sk=32_768, H=24,
+                                                 K=8, D=128, q_offset=0)}
 
 
 def seq_plan_config(arch, batch=SEQ_BATCH, mesh=SEQ_MESH):
@@ -883,6 +946,84 @@ def phase_kernels(peaks, flush):
             bound_ms=bound_ms, bound_by=bound_by,
             library_ms=time_ms(lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, attn_mask=mask, enable_gqa=True), flush))
+    for name, c in LSE_DECODE.items():
+        b, S, H, K, D = (c[x] for x in "bSHKD")
+        q, k, v = randn(b, 1, H, D, dtype=bf16), randn(b, S, K, D, dtype=bf16), \
+            randn(b, S, K, D, dtype=bf16)
+        valid = torch.ones((b, S), dtype=torch.bool, device="cuda")
+        o, lse = flash_decode_gqa(q, k, v, valid, return_lse=True)
+        want_o, want_lse = gqa_decode_ref(q, k, v, valid, return_lse=True)
+        split_o, split_lse = gqa_decode_splitk(q, k, v, valid, block_s=block_s(k),
+                                               return_lse=True)
+        ok, err = close(o, want_o, BF16_TOL)
+        ok_split, _ = close(o, split_o, BF16_TOL)
+        err_lse = (lse - want_lse).abs().max().item()
+        plain_bits = torch.equal(flash_decode_gqa(q, k, v, valid), o.to(bf16))
+        # a rank holding no valid slot: 0 and -inf exactly
+        none_o, none_lse = flash_decode_gqa(q, k, v, torch.zeros_like(valid),
+                                            return_lse=True)
+        empty = bool((none_o == 0).all()) and bool((none_lse == -math.inf).all())
+        good = ok and ok_split and err_lse <= BF16_TOL and plain_bits and empty
+        print(f"kernel flash_decode_gqa return_lse {name} b={b} S={S} H={H} K={K}"
+              f" D={D} bf16: out max_abs_err={err:.3e} tol={BF16_TOL:g}, lse"
+              f" max_abs_err={err_lse:.3e}, without the flag the float32 output"
+              f" rounded once {plain_bits}, no valid slot gives 0 and -inf"
+              f" {empty} {'ok' if good else 'FAIL'}")
+        check(good, f"flash_decode_gqa return_lse {name} disagrees with its"
+                    f" plain version")
+        nbytes = (2 * q.numel() + 2 * 2 * K * D * b * S + 4 * (o.numel() + lse.numel())
+                  + valid.numel())
+        bound_ms, bound_by = bound(nbytes, 4 * D * H * b * S, peaks)
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        print(f"time flash_decode_gqa return_lse {name} (phase (v)): {nbytes}"
+              f" bytes, bound {bound_ms:.4f} ms ({bound_by}), kernel"
+              f" {time_ms(lambda: flash_decode_gqa(q, k, v, valid, return_lse=True), flush):.4f}"
+              f" ms (without the flag"
+              f" {time_ms(lambda: flash_decode_gqa(q, k, v, valid), flush):.4f} ms), plain {time_ms(lambda: gqa_decode_ref(q, k, v, valid, return_lse=True), flush):.4f}"
+              f" ms, library (SDPA) {time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True), flush):.4f} ms")
+    for name, c in SERVE_ATTENTION.items():
+        b, sq, sk, H, K, D = (c[x] for x in ("b", "sq", "sk", "H", "K", "D"))
+        kw = dict(causal=True, q_offset=c["q_offset"])
+        q, k, v = randn(b, sq, H, D, dtype=bf16), randn(b, sk, K, D, dtype=bf16), \
+            randn(b, sk, K, D, dtype=bf16)
+        got, lse = flash_attention_lse(q, k, v, **kw)
+        # the plain version a row at a time for the check: its float32
+        # scores over the whole batch take ~13 GB a copy
+        want = torch.cat([attention_ref(q[i:i + 1], k[i:i + 1], v[i:i + 1], **kw)
+                          for i in range(b)])
+        want_lse = torch.cat([attention_lse_ref(q[i:i + 1], k[i:i + 1], **kw)
+                              for i in range(b)])
+        ok, err = close(got, want, BF16_TOL)
+        ok_l, err_l = close(lse, want_lse, FP32_TOL)
+        del want, want_lse
+        print(f"kernel flash_attention {name} b={b} sq={sq} sk={sk} H={H} K={K}"
+              f" D={D} q_offset={kw['q_offset']} causal bf16 (phase (v)):"
+              f" max_abs_err={err:.3e} tol={BF16_TOL:g}, lse max_abs_err="
+              f"{err_l:.3e} tol={FP32_TOL:g} {'ok' if ok and ok_l else 'FAIL'}")
+        check(ok and ok_l,
+              f"flash_attention {name} disagrees with its plain version")
+        # q read and o written whole, K and V read at the keys some row
+        # reaches; two products over the live pairs
+        live = live_pairs(sq, sk, kw["q_offset"], True, 0)
+        reached = live.any(0)
+        pairs = int(live.sum())
+        nbytes = 2 * (2 * q.numel() + 2 * b * K * D * int(reached.sum()))
+        bound_ms, bound_by = bound(nbytes, 4 * D * b * H * pairs, peaks)
+        # SDPA on the reached keys [lo, hi]: a square block is is_causal,
+        # rows ending at the last key causal_lower_right
+        from torch.nn.attention.bias import causal_lower_right
+        lo, hi = (int(i) for i in reached.nonzero()[[0, -1], 0])
+        lib_kw = (dict(is_causal=True) if hi + 1 - lo == sq else
+                  dict(attn_mask=causal_lower_right(sq, hi + 1 - lo)))
+        qt, kt, vt = (t.transpose(1, 2).contiguous()
+                      for t in (q, k[:, lo:hi + 1], v[:, lo:hi + 1]))
+        print(f"time flash_attention {name} (phase (v), {pairs} live pairs,"
+              f" keys {lo}-{hi} reached, {nbytes} bytes): bound"
+              f" {bound_ms:.4f} ms ({bound_by}), kernel"
+              f" {time_ms(lambda: flash_attention(q, k, v, **kw), flush):.4f}"
+              f" ms, plain {time_ms(lambda: attention_ref(q, k, v, **kw), flush):.4f}"
+              f" ms, library (SDPA on the reached keys) {time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True, **lib_kw), flush):.4f} ms")
+        del q, k, v, qt, kt, vt, got, lse, live
     rows.update(phase_mla_kernels(peaks, flush, gen, randn))
     rows.update(phase_attention_bwd(peaks, flush, randn))
     rows.update(phase_adam(peaks, flush, gen))
@@ -977,10 +1118,14 @@ def phase_mla_kernels(peaks, flush, gen, randn):
             ("smoke_dims_fp32", 3, 300, 8, 32, 16, f32),
             ("masked_block_S700", 4, 700, 128, 512, 64, bf16),
             ("long_S9000", 2, 9000, 128, 512, 64, bf16),
-            ("invalid_row_H20", 4, 300, 20, 512, 16, f32)]:
+            ("invalid_row_H20", 4, 300, 20, 512, 16, f32),
+            ("deepseek_decode_32k_rank", *(MLA_SERVE_DECODE[k] for k in
+                                           ("b", "S", "H", "r", "dr")), bf16)]:
         q_lat, q_rope = randn(b, H, r, dtype=dt), randn(b, H, dr, dtype=dt)
         c_kv, k_rope = randn(b, S, r, dtype=dt), randn(b, S, dr, dtype=dt)
         valid = ring_valid(gen, b, S)            # ragged: a position per row
+        if name.endswith("_rank"):               # phase (v): every slot valid
+            valid[:] = True
         bs, grid, fused = launch_plan(q_lat, c_kv)  # the kernel's split and grid
         if name.startswith("masked_block"):      # two whole splits masked
             valid[:, bs:3 * bs] = False
@@ -1004,6 +1149,27 @@ def phase_mla_kernels(peaks, flush, gen, randn):
               f" {err_ref:.3e} (whole-cache plain) tol={tol:g}"
               f" {'ok' if ok else 'FAIL'}")
         check(ok, f"flash_decode_mla {name} disagrees with its plain versions")
+        # the function needs the queries, the valid rows of c_kv and k_rope
+        # and the mask, and writes o_lat; per valid row and head it does
+        # 2(r + dr) flops of scores and 2r of p.c_kv
+        n_valid = int(valid.sum())
+        nbytes = (2 * (q_lat.numel() + q_rope.numel() + got.numel())
+                  + 2 * (r + dr) * n_valid + valid.numel())
+        bound_ms, bound_by = bound(nbytes, H * n_valid * (4 * r + 2 * dr),
+                                   peaks)
+        # SDPA on the MQA form: one shared key [c_kv | k_rope], value c_kv
+        qm = torch.cat([q_lat, q_rope], dim=-1)[:, :, None]   # (b, H, 1, r+dr)
+        km = torch.cat([c_kv, k_rope], dim=-1)[:, None]       # (b, 1, S, r+dr)
+        vm = c_kv[:, None]
+        mask = valid[:, None, None, :]
+        if name.endswith("_rank"):
+            print(f"time flash_decode_mla {name} (phase (v), {n_valid} of"
+                  f" {b * S} rows valid, {bs}-row splits, grid {grid},"
+                  f" {nbytes} bytes): bound {bound_ms:.4f} ms ({bound_by}),"
+                  f" kernel {time_ms(lambda: flash_decode_mla(*args, denom=denom), flush):.4f}"
+                  f" ms, plain {time_ms(lambda: mla_decode_ref(*args, denom=denom), flush):.4f}"
+                  f" ms, library (SDPA on the MQA form)"
+                  f" {time_ms(lambda: F.scaled_dot_product_attention(qm, km, vm, attn_mask=mask, scale=1.0 / denom, enable_gqa=True), flush):.4f} ms")
         if name != "decode_ring":
             continue
         # the split does not depend on the batch: each row alone gives the
@@ -1014,14 +1180,6 @@ def phase_mla_kernels(peaks, flush, gen, randn):
               f" batch bit for bit: {torch.equal(alone, got)}")
         check(torch.equal(alone, got),
               "flash_decode_mla's output depends on the batch around a row")
-        # the function needs the queries, the valid rows of c_kv and k_rope
-        # and the mask, and writes o_lat; per valid row and head it does
-        # 2(r + dr) flops of scores and 2r of p.c_kv
-        n_valid = int(valid.sum())
-        nbytes = (2 * (q_lat.numel() + q_rope.numel() + got.numel())
-                  + 2 * (r + dr) * n_valid + valid.numel())
-        bound_ms, bound_by = bound(nbytes, H * n_valid * (4 * r + 2 * dr),
-                                   peaks)
         partial_bytes = 4 * b * grid[0] * H * (r + 2)
         merged = (f"merged in clusters of {grid[0]} splits, so"
                   f" {partial_bytes} bytes of float32 partials stay on chip"
@@ -1036,10 +1194,6 @@ def phase_mla_kernels(peaks, flush, gen, randn):
             lambda: flash_decode_mla(*args, denom=denom), 20)
         print("time flash_decode_mla kernels (ms per call, traced, L2 warm): "
               + "; ".join(f"{kn[:48]} {ms:.4f}" for kn, ms in split_ms))
-        qm = torch.cat([q_lat, q_rope], dim=-1)[:, :, None]   # (b, H, 1, r+dr)
-        km = torch.cat([c_kv, k_rope], dim=-1)[:, None]       # (b, 1, S, r+dr)
-        vm = c_kv[:, None]
-        mask = valid[:, None, None, :]
         rows["flash_decode_mla"] = dict(
             name="flash_decode_mla", route="cuda",
             source="src/repro_torch/kernels/csrc/flash_decode_mla.cu",
@@ -2752,6 +2906,49 @@ def phase_pod():
     return total
 
 
+def phase_serve():
+    """(v) each ``SERVE_PLANS`` plan as rank 0 (and 15) of (16, 16) under
+    the fake process group (``memcheck.run_serve``; an out-of-memory
+    raises): the peak beside ``serve_peak_bytes`` and its accuracy,
+    reported; the logits at the rank's shape and finite; the decode
+    kernel of its attention (``flash_decode_gqa`` or ``flash_decode_mla``),
+    on a prefill ``flash_attention`` (and jamba's ``ssd_scan``), and
+    RMSNorm must have run."""
+    from repro_torch.configs.registry import get_arch, get_shape
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.memcheck import card, describe_serve, run_serve
+    from repro_torch.models.transformer import _mixer_kind
+    smi = card()
+    total = Counter()
+    for arch, shape, ranks in SERVE_PLANS:
+        cfg = get_arch(arch)
+        kinds = {_mixer_kind(cfg, j) for j in range(cfg.block_period)}
+        want = ["rms_norm"]
+        if get_shape(shape).kind == "prefill":
+            want += ["flash_attention"] + (["ssd_scan"] if "ssm" in kinds else [])
+        else:
+            want += ["flash_decode_mla" if "mla" in kinds else "flash_decode_gqa"]
+        for rank in ranks:
+            reset_launches()
+            t0 = time.perf_counter()
+            row = run_serve(arch, shape, *SERVE_MESH, smi=smi, rank=rank)
+            launches = {k: n for k, n in LAUNCHES.items() if n}
+            total.update(launches)
+            print(f"(v) {describe_serve(row)}; observed <= serve_peak_bytes"
+                  f" {row['actual_bytes'] <= row['pred_serve']}; logits"
+                  f" {row['logits_shape']} finite {row['logits_finite']};"
+                  f" launches {launches}; {time.perf_counter() - t0:.1f} s")
+            t = SERVE_MESH[1]
+            v = cfg.vocab_size // t if cfg.vocab_size % t == 0 else cfg.vocab_size
+            check(row["logits_shape"][-1] == v and row["logits_finite"],
+                  f"phase (v) {arch} {shape} rank {rank}: logits"
+                  f" {row['logits_shape']}")
+            for k in want:
+                check(launches.get(k, 0) > 0,
+                      f"phase (v) {arch} {shape} rank {rank} never launched {k}")
+    return total
+
+
 def train_peak(arch):
     """--train-peak ARCH: the peak allocated (and reserved) device memory
     over step 1 of ARCH's training cell, under the PYTORCH_CUDA_ALLOC_CONF
@@ -2981,7 +3178,8 @@ def main():
                      timed_phase("(m) memcheck", phase_memcheck),
                      timed_phase("(f) family plans", phase_family),
                      timed_phase("(q) query offset", phase_seq),
-                     timed_phase("(p) pod axis", phase_pod)]
+                     timed_phase("(p) pod axis", phase_pod),
+                     timed_phase("(v) sharded serving", phase_serve)]
     for kname, row in rows.items():
         row["launches"] = sum(launches[kname] for launches in path_launches)
     print(f"total wall time {time.perf_counter() - t0:.1f}s")

@@ -54,7 +54,12 @@
 //  * Merge.  A second small kernel merges the partials of each (b, h) with
 //    exp(m_blk - m_glob), in a fixed order, and writes the output in v's
 //    dtype; a row with no valid entry comes out as 0, as the TPU kernel's
-//    merge gives (0 / max(0, 1e-30)).
+//    merge gives (0 / max(0, 1e-30)).  Asked for the log-sum-exp (one rank
+//    of a sharded decode, whose partial results are merged across ranks),
+//    it writes the output in float32, so that merge rounds once, and
+//    lse = m_glob + log(l_glob) per (b, h): -inf exactly on a row with no
+//    valid entry, whose output stays 0.  The partials kernel and the launch
+//    plan are the same either way.
 #include <stdint.h>
 
 #include "common.cuh"
@@ -289,11 +294,12 @@ decode_partials(const T* __restrict__ q, const T* __restrict__ kc,
 
 // Merge the ns partials of each (b, h): grid (H, b), D threads.  The partial
 // of block js for head h sits at (b*ns + js)*H + h, since h = kh*G + g.
+// With lse (b, H) given, thread 0 also writes each (b, h)'s log-sum-exp.
 template <typename T>
 __global__ void decode_combine(const float* __restrict__ acc,
                                const float* __restrict__ m,
                                const float* __restrict__ l, T* __restrict__ out,
-                               int ns, int H, int D) {
+                               float* __restrict__ lse, int ns, int H, int D) {
   const int h = blockIdx.x, b = blockIdx.y, d = threadIdx.x;
   float m_g = NEG_INF;
   for (int js = 0; js < ns; ++js) m_g = fmaxf(m_g, m[((size_t)b * ns + js) * H + h]);
@@ -305,6 +311,8 @@ __global__ void decode_combine(const float* __restrict__ acc,
     o += acc[idx * D + d] * alpha;
   }
   out[((size_t)b * H + h) * D + d] = from_f<T>(o / fmaxf(l_g, 1e-30f));
+  if (lse != nullptr && d == 0)
+    lse[(size_t)b * H + h] = l_g > 0.f ? m_g + logf(l_g) : __int_as_float(0xff800000);
 }
 
 int sm_count() {
@@ -327,8 +335,8 @@ int block_s(int b, int S, int K) {
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const uint8_t* valid, float* acc, float* m, float* l,
-                   void* out, int b, int S, int H, int K, int bs, float scale,
-                   cudaStream_t stream) {
+                   void* out, float* lse, int b, int S, int H, int K, int bs,
+                   float scale, cudaStream_t stream) {
   if (bs <= 0 || bs % TR || bs > TR * MAX_TILES) return cudaErrorInvalidValue;
   const int G = H / K;
   const int ns = (S + bs - 1) / bs;
@@ -347,21 +355,25 @@ cudaError_t launch(const void* q, const void* k, const void* v,
       static_cast<const T*>(v), valid, acc, m, l, S, H, K, bs, nst, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  decode_combine<T><<<dim3(H, b), D, 0, stream>>>(acc, m, l, static_cast<T*>(out),
-                                                  ns, H, D);
+  if (lse != nullptr)   // float32 output beside the log-sum-exp
+    decode_combine<float><<<dim3(H, b), D, 0, stream>>>(
+        acc, m, l, static_cast<float*>(out), lse, ns, H, D);
+  else
+    decode_combine<T><<<dim3(H, b), D, 0, stream>>>(
+        acc, m, l, static_cast<T*>(out), nullptr, ns, H, D);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch_d(int D, const void* q, const void* k, const void* v,
                      const uint8_t* valid, float* acc, float* m, float* l,
-                     void* out, int b, int S, int H, int K, int bs, float scale,
-                     cudaStream_t stream) {
+                     void* out, float* lse, int b, int S, int H, int K, int bs,
+                     float scale, cudaStream_t stream) {
   switch (D) {
-    case 32: return launch<T, 32>(q, k, v, valid, acc, m, l, out, b, S, H, K, bs, scale, stream);
-    case 64: return launch<T, 64>(q, k, v, valid, acc, m, l, out, b, S, H, K, bs, scale, stream);
-    case 128: return launch<T, 128>(q, k, v, valid, acc, m, l, out, b, S, H, K, bs, scale, stream);
-    case 160: return launch<T, 160>(q, k, v, valid, acc, m, l, out, b, S, H, K, bs, scale, stream);
+    case 32: return launch<T, 32>(q, k, v, valid, acc, m, l, out, lse, b, S, H, K, bs, scale, stream);
+    case 64: return launch<T, 64>(q, k, v, valid, acc, m, l, out, lse, b, S, H, K, bs, scale, stream);
+    case 128: return launch<T, 128>(q, k, v, valid, acc, m, l, out, lse, b, S, H, K, bs, scale, stream);
+    case 160: return launch<T, 160>(q, k, v, valid, acc, m, l, out, lse, b, S, H, K, bs, scale, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -371,22 +383,26 @@ cudaError_t launch_d(int D, const void* q, const void* k, const void* v,
 // q (b, 1, H, D); k/v caches (b, S, K, D); valid (b, S) of 0/1 bytes;
 // scratch acc (b, ns, K, G, D), m and l (b, ns, K, G) float32 with
 // ns = ceil(S / bs), bs = repro_flash_decode_block_s(b, S, K); out
-// (b, 1, H, D).  Returns the cudaError_t of the launches (0 on success).
+// (b, 1, H, D) in the caches' dtype, or float32 when lse (b, H) float32 is
+// not null.  Returns the cudaError_t of the launches (0 on success).
 extern "C" int repro_flash_decode_gqa(const void* q, const void* k,
                                       const void* v, const void* valid,
                                       void* acc, void* m, void* l, void* out,
-                                      int b, int S, int H, int K, int D, int bs,
-                                      int dtype, float scale, void* stream) {
+                                      void* lse, int b, int S, int H, int K,
+                                      int D, int bs, int dtype, float scale,
+                                      void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const uint8_t* vm = static_cast<const uint8_t*>(valid);
   float* a = static_cast<float*>(acc);
   float* mm = static_cast<float*>(m);
   float* ll = static_cast<float*>(l);
+  float* ls = static_cast<float*>(lse);
   if (dtype == 0)
-    return (int)launch_d<float>(D, q, k, v, vm, a, mm, ll, out, b, S, H, K, bs, scale, s);
+    return (int)launch_d<float>(D, q, k, v, vm, a, mm, ll, out, ls, b, S, H, K, bs, scale,
+                                s);
   if (dtype == 1)
-    return (int)launch_d<__nv_bfloat16>(D, q, k, v, vm, a, mm, ll, out, b, S, H, K, bs,
-                                        scale, s);
+    return (int)launch_d<__nv_bfloat16>(D, q, k, v, vm, a, mm, ll, out, ls, b, S, H, K,
+                                        bs, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 

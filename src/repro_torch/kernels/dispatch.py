@@ -88,15 +88,18 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
                  v_cache: torch.Tensor, valid: torch.Tensor, *,
-                 softmax_scale: Optional[float] = None) -> torch.Tensor:
+                 softmax_scale: Optional[float] = None,
+                 return_lse: bool = False):
     """Single-token GQA attention over a (ring) KV cache.
 
     q: (b, 1, H, D); k_cache, v_cache: (b, S, K, D); valid: (b, S) bool.
-    Returns (b, 1, H, D)."""
+    Returns (b, 1, H, D); with ``return_lse``, (out float32, its
+    log-sum-exp (b, H) float32) for a merge across ranks."""
     if METRICS.enabled:
         METRICS.inc("ops/flash_decode")
     fn = flash_decode_gqa if _use_kernel(q) else gqa_decode_ref
-    return fn(q, k_cache, v_cache, valid, softmax_scale=softmax_scale)
+    return fn(q, k_cache, v_cache, valid, softmax_scale=softmax_scale,
+              return_lse=return_lse)
 
 
 def mla_flash_decode(q_lat: torch.Tensor, q_rope: torch.Tensor,

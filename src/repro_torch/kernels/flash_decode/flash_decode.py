@@ -28,7 +28,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 def _lib() -> ctypes.CDLL:
     lib = _build.load("flash_decode")
     lib.repro_flash_decode_gqa.argtypes = [_P, _P, _P, _P, _P, _P, _P, _P,
-                                           _I, _I, _I, _I, _I, _I, _I,
+                                           _P, _I, _I, _I, _I, _I, _I, _I,
                                            ctypes.c_float, _P]
     lib.repro_flash_decode_gqa.restype = ctypes.c_int
     lib.repro_flash_decode_block_s.argtypes = [_I, _I, _I]
@@ -84,10 +84,15 @@ def _check_inputs(q: torch.Tensor, k_cache: torch.Tensor,
 
 def flash_decode_gqa(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, valid: torch.Tensor, *,
-                     softmax_scale: Optional[float] = None) -> torch.Tensor:
+                     softmax_scale: Optional[float] = None,
+                     return_lse: bool = False):
     """q: (b, 1, H, D); k_cache, v_cache: (b, S, K, D); valid: (b, S) bool
     or uint8.  Returns (b, 1, H, D) in v's dtype; a row with no valid
-    entry gives 0."""
+    entry gives 0.  With ``return_lse``: (out (b, 1, H, D) float32, lse
+    (b, H) float32, the log of each row's sum of exp(score)), for a merge
+    of partial results across ranks (``parallel.collectives.
+    merge_decode_partials``); a row with no valid entry gives out 0 and
+    lse -inf."""
     _check_inputs(q, k_cache, v_cache, valid)
     b, _, H, D = q.shape
     _, S, K, _ = k_cache.shape
@@ -99,13 +104,17 @@ def flash_decode_gqa(q: torch.Tensor, k_cache: torch.Tensor,
     acc = torch.empty((b, ns, K, G, D), dtype=torch.float32, device=dev)
     m = torch.empty((b, ns, K, G), dtype=torch.float32, device=dev)
     l = torch.empty((b, ns, K, G), dtype=torch.float32, device=dev)
-    out = torch.empty((b, 1, H, D), dtype=v_cache.dtype, device=dev)
+    out = torch.empty((b, 1, H, D), device=dev, dtype=torch.float32
+                      if return_lse else v_cache.dtype)
+    lse = (torch.empty((b, H), dtype=torch.float32, device=dev)
+           if return_lse else None)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _lib().repro_flash_decode_gqa(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), valid.data_ptr(),
         acc.data_ptr(), m.data_ptr(), l.data_ptr(), out.data_ptr(),
+        lse.data_ptr() if return_lse else None,
         b, S, H, K, D, bs, DTYPE_CODES[q.dtype], float(scale), stream)
     if err:
         raise RuntimeError(f"flash_decode_gqa launch failed: CUDA error {err}")
     LAUNCHES["flash_decode_gqa"] += 1
-    return out
+    return (out, lse) if return_lse else out

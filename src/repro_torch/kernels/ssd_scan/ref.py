@@ -97,7 +97,10 @@ def ssd_scan_ref(x: torch.Tensor, dt_raw: torch.Tensor, A_log: torch.Tensor,
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (b, s, h, p); dt_raw (pre-softplus): (b, s, h); A_log, D,
     dt_bias: (h,) float32; B, C: (b, s, n).  Returns (y (b, s, h, p) in x's
-    dtype, final state (b, h, p, n) float32)."""
+    dtype, final state (b, h, p, n) float32).  On the meta device (shapes
+    only) the scan takes one chunk whatever ``chunk`` says: one pass."""
+    if x.device.type == "meta":
+        chunk = max(x.shape[1], 1)
     dt = F.softplus(dt_raw.float() + dt_bias)
     A = -torch.exp(A_log)
     return ssd_chunked(x, dt, A, B, C, D, chunk=chunk)

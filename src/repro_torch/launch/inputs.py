@@ -68,17 +68,22 @@ def params_inputs(cfg: ModelConfig, mesh, *, zero_data: bool = False):
                                               zero_data=zero_data)
 
 
-def decode_inputs(cfg: ModelConfig, shape: ShapeConfig, mesh):
-    """(params, tokens, cache, pos) stand-ins + specs for a decode step.
-
-    2-D weight sharding: when bf16 weights exceed ~60% of a 16 GiB chip at
-    model-axis-only sharding, serving params also shard over the data axes
-    (the JAX package's rule, kept as it is)."""
+def serve_weights_over_data(cfg: ModelConfig, mesh) -> bool:
+    """2-D weight sharding for decode: when bf16 weights exceed ~60% of a
+    16 GiB chip at model-axis-only sharding, serving params also shard
+    over the data axes (the JAX package's rule, kept as it is)."""
     from repro_torch.core.memory_model import analytic_param_count
-    B = shape.global_batch
     tp = sh.axis_sizes(mesh).get("model", 1)
     w_bytes = 2.0 * analytic_param_count(cfg) / tp
-    zero_data = w_bytes > 0.6 * 16 * 1024 ** 3
+    return w_bytes > 0.6 * 16 * 1024 ** 3
+
+
+def decode_inputs(cfg: ModelConfig, shape: ShapeConfig, mesh):
+    """(params, tokens, cache, pos) stand-ins + specs for a decode step,
+    the params over the data axes too where ``serve_weights_over_data``
+    says so."""
+    B = shape.global_batch
+    zero_data = serve_weights_over_data(cfg, mesh)
     params, p_spec = params_inputs(cfg, mesh, zero_data=zero_data)
     cache = init_cache(cfg, B, shape.cache_len, device="meta")
     c_spec = sh.cache_specs(cfg, shape, mesh)

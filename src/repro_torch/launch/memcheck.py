@@ -6,6 +6,8 @@ rank of the plan, measured.
         --batch 16 --seq 4096 --d 16 --t 16 --zero 1 --rank 15
     PYTHONPATH=src python -m repro_torch.launch.memcheck --arch llama3.2-3b \
         --batch 32 --seq 4096 --pods 2 --d 16 --t 16 --zero 1
+    PYTHONPATH=src python -m repro_torch.launch.memcheck --arch llama3.2-3b \
+        --shape decode_32k --d 16 --t 16 --rank 0
 
 For GPT2-350M / GPT2-7B (the paper's models) under the JAX package's
 (d, t) plans and batch sizes (``COMBOS``), each row runs rank 0 of the
@@ -28,6 +30,17 @@ card's name and power limit, and records the sample to ``core.memtrace``
 mean nothing (losses may be NaN): only the allocator's peak is read.
 NCCL's own buffers lie outside the caching allocator, so the actual
 counts none, as a real run's would not either.
+
+With ``--shape prefill_32k|decode_32k|long_500k`` (and ``--arch``) it
+runs rank ``--rank`` of that serving plan instead (``run_serve``): the
+rank's serving weights drawn at their shards' shapes (over the data axes
+too where ``launch.inputs.serve_weights_over_data`` says so), then one
+prefill of its rows with the caches left at ``prefill_cache_specs``'
+shards, or one decode step at position cache_len - 1 (every slot valid:
+the decode kernel reads the whole cache) on a cache at ``cache_specs``'
+shards, and prints the peak over it beside ``serve_peak_bytes(cfg, B,
+cache_len, d, t)`` (ZeRO 3's weight term where the weights split over
+data), with the card's name and power limit.
 
 With ``--arch`` it runs that one plan, as rank ``--rank`` (default 0), and
 prints its row (a plan on the head_dim / seq fallback runs each rank's
@@ -187,6 +200,91 @@ def run_one(arch: str, batch: int, seq: int, d: int, t: int, zero: int = 0, *,
             **smi}
 
 
+def run_serve(arch: str, shape_name: str, d: int, t: int, *,
+              cfg: Optional[ModelConfig] = None, device="cuda",
+              smi: Optional[Dict[str, str]] = None, rank: int = 0,
+              pods: int = 1, seed: int = 0) -> Dict[str, Any]:
+    """Rank ``rank`` of the serving plan of ``shape_name`` (prefill_32k,
+    decode_32k or long_500k) on the (d, t) mesh, or (pods, d, t) with a
+    "pod" axis, under the fake process group on the card: one prefill or
+    one decode step (see the module docstring), its peak beside
+    ``serve_peak_bytes``.  Raises off CUDA, as ``run_one`` does."""
+    from repro_torch.configs.registry import get_shape
+    from repro_torch.launch.inputs import serve_weights_over_data
+    from repro_torch.models import init_cache
+    from repro_torch.serve import (local_serve_params, prefill,
+                                   serve_parallel, serve_step)
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"memcheck measures the CUDA caching allocator's "
+                         f"peak; {device} has none")
+    cfg = cfg or get_arch(arch)
+    shape = get_shape(shape_name)
+    B = shape.global_batch
+    cache_len = shape.cache_len or shape.seq_len
+    nd = pods * d
+    b = B // nd if B % nd == 0 else B
+    gc.collect()
+    with fake_world(pods * d * t, rank):
+        mesh = make_plan_mesh(d, t, device_type="cuda", pods=pods)
+        zero_data = shape.kind == "decode" and serve_weights_over_data(
+            cfg, mesh)
+        par = serve_parallel(cfg, mesh, B, cache_len, zero_data=zero_data)
+        torch.cuda.synchronize(device)
+        base = torch.cuda.memory_allocated(device)
+        params = local_serve_params(cfg, seed, mesh, zero_data=zero_data,
+                                    device=device)
+        weights = torch.cuda.memory_allocated(device) - base
+        gen = torch.Generator(device=device).manual_seed(seed)
+        torch.cuda.synchronize(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        if shape.kind == "prefill":
+            tokens = torch.randint(0, cfg.vocab_size, (
+                b, shape.seq_len - cfg.num_modal_tokens), generator=gen,
+                device=device)
+            batch = {"tokens": tokens}
+            if cfg.num_modal_tokens:
+                batch["modal_embeds"] = torch.zeros(
+                    (b, cfg.num_modal_tokens, cfg.d_model),
+                    dtype=torch.bfloat16, device=device)
+            logits, cache = prefill(cfg, params, batch, cache_len, par)
+        else:
+            cache = init_cache(cfg, B, cache_len, device=device, par=par)
+            tokens = torch.randint(0, cfg.vocab_size, (b, 1), generator=gen,
+                                   device=device)
+            logits, cache = serve_step(cfg, params, tokens, cache,
+                                       cache_len - 1, par)
+        torch.cuda.synchronize(device)
+        actual = torch.cuda.max_memory_allocated(device)
+        cache_bytes = sum(x.numel() * x.element_size()
+                          for sub in cache.values() for x in sub.values())
+        logits_shape = tuple(logits.shape)
+        finite = bool(torch.isfinite(logits).all())
+        del params, cache, logits
+    pred = mm.serve_peak_bytes(cfg, B, cache_len, nd, t,
+                               zero=3 if zero_data else 0)
+    smi = smi or card()
+    return {"arch": arch, "shape": shape_name, "batch": B,
+            "cache_len": cache_len, "pods": pods, "d": nd, "t": t,
+            "rank": rank, "weights_over_data": zero_data,
+            "actual_bytes": int(actual), "weight_bytes": int(weights),
+            "cache_bytes": int(cache_bytes), "base_bytes": int(base),
+            "pred_serve": pred, "logits_shape": logits_shape,
+            "logits_finite": finite,
+            "acc_serve": round(1 - abs(pred - actual) / actual, 4), **smi}
+
+
+def describe_serve(r: Dict[str, Any]) -> str:
+    pods = f" ({r['pods']} pods)" if r.get("pods", 1) > 1 else ""
+    over = ", weights over data" if r["weights_over_data"] else ""
+    return (f"{r['arch']} {r['shape']} B={r['batch']} cache={r['cache_len']}"
+            f" d={r['d']}{pods} t={r['t']} rank {r['rank']}{over}:"
+            f" actual {r['actual_bytes']} B ({r['actual_bytes'] / 2**30:.2f}"
+            f" GiB; weights {r['weight_bytes']} B, cache {r['cache_bytes']}"
+            f" B), serve_peak_bytes {r['pred_serve']:.0f} B"
+            f" ({r['acc_serve']:.4f}); {r['device']}, {r['power_limit']}")
+
+
 def describe(r: Dict[str, Any]) -> str:
     pods = f" ({r['pods']} pods)" if r.get("pods", 1) > 1 else ""
     return (f"{r['arch']} b={r['batch']} d={r['d']}{pods} t={r['t']}"
@@ -209,9 +307,20 @@ def main(argv=None):
     ap.add_argument("--t", type=int, default=1)
     ap.add_argument("--rank", type=int, default=0)
     ap.add_argument("--pods", type=int, default=1)
+    ap.add_argument("--shape", choices=("prefill_32k", "decode_32k",
+                                        "long_500k"),
+                    help="run rank --rank of this serving plan of --arch "
+                    "on (--pods,) --d, --t")
     args = ap.parse_args(argv)
     from repro_torch.launch import configure_allocator
     configure_allocator()
+    if args.shape:
+        if not args.arch:
+            ap.error("--shape needs --arch")
+        r = run_serve(args.arch, args.shape, args.d, args.t, rank=args.rank,
+                      pods=args.pods)
+        print(f"rank {args.rank}: {describe_serve(r)}", flush=True)
+        return
     if args.arch:
         r = run_one(args.arch, args.batch, args.seq, args.d, args.t,
                     args.zero, rank=args.rank, pods=args.pods)

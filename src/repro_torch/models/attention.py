@@ -22,7 +22,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import dispatch
 from repro_torch.models.common import rms_norm
 from repro_torch.parallel.act import constrain
-from repro_torch.parallel.collectives import ModelParallel
+from repro_torch.parallel.collectives import (ModelParallel,
+                                              merge_decode_partials)
 
 Pos = Union[int, torch.Tensor]
 
@@ -111,7 +112,10 @@ def _gqa_attend_seq(cfg: ModelConfig, p: dict, x: torch.Tensor,
     column, and only then takes RoPE (the split-half rotation pairs column
     i with i + hd/2, so a head_dim shard cannot be rotated); the attention
     runs those rows against every key at query offset r s/t, and its output
-    moves back to the rank's columns for ``wo``."""
+    moves back to the rank's columns for ``wo``.  The cache entries are
+    the rank's hd/t columns of the rotated k and v (the spec's shard), in
+    storage of their own, so the gathered k and v do not outlive the
+    layer."""
     b, s, _ = x.shape
     if s % par.t:
         raise ValueError(f"{cfg.name}: sequence {s} does not split over the "
@@ -130,7 +134,10 @@ def _gqa_attend_seq(cfg: ModelConfig, p: dict, x: torch.Tensor,
               "heads", "head_dim")
     o = dispatch.attention(q, k, v, causal=True, window=cfg.sliding_window,
                            q_offset=lo)
-    return _out_project(par.seq_to_head_dim(o), p["wo"]), {"k": k, "v": v}
+    w = p["wk"].shape[-1]
+    cols = slice(par.model_idx * w, (par.model_idx + 1) * w)
+    return (_out_project(par.seq_to_head_dim(o), p["wo"]),
+            {"k": k[..., cols].contiguous(), "v": v[..., cols].contiguous()})
 
 
 def ring_index(pos: Pos, S: int, b: int, device):
@@ -157,8 +164,37 @@ def ring_index(pos: Pos, S: int, b: int, device):
             valid.expand(b, S).contiguous())
 
 
+def shard_ring(ring: tuple, lo: int, n: int) -> tuple:
+    """``ring_index``'s ring for a rank holding slots [lo, lo + n) of the
+    S: (positions, the write slot in the rank's cache -- an int, None when
+    another rank holds it, or per row a (b,) tensor that is -1 on the rows
+    another rank holds --, valid (b, n))."""
+    positions, slot, valid = ring
+    if isinstance(slot, torch.Tensor):
+        local = slot - lo
+        local = torch.where((local >= 0) & (local < n), local, -1)
+    else:
+        local = slot - lo if lo <= slot < lo + n else None
+    return positions, local, valid[:, lo:lo + n].contiguous()
+
+
+def _write_slot(t: torch.Tensor, slot, new: torch.Tensor) -> None:
+    """t[row, slot] = new[row] for each row of a cache layer t (b, S, ...)
+    at ``shard_ring``'s local slot (None: nothing; a -1 row: kept)."""
+    if slot is None:
+        return
+    if not isinstance(slot, torch.Tensor):
+        t[:, slot] = new
+        return
+    rows = torch.arange(t.shape[0], device=t.device)
+    at = slot.clamp(min=0)
+    keep = (slot < 0).view(-1, *([1] * (new.ndim - 1)))
+    t[rows, at] = torch.where(keep, t[rows, at], new)
+
+
 def gqa_attend_decode(cfg: ModelConfig, p: dict, x: torch.Tensor,
-                      cache: Dict[str, torch.Tensor], ring: tuple
+                      cache: Dict[str, torch.Tensor], ring: tuple,
+                      par: Optional[ModelParallel] = None
                       ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """x: (b, 1, d); cache: {'k', 'v'} of (b, S, K, hd); ring:
     ``ring_index(pos, S, b, device)`` for the incoming token's absolute
@@ -166,17 +202,68 @@ def gqa_attend_decode(cfg: ModelConfig, p: dict, x: torch.Tensor,
     layer of a step shares it, so the port derives it once per step).
 
     The new k/v are written into ``cache`` in place; the returned cache is
-    the same tensors."""
-    b = x.shape[0]
-    k_cache, v_cache = cache["k"], cache["v"]
+    the same tensors.
+
+    With ``par`` (one rank of a sharded decode): ``cache`` holds the
+    rank's shard under ``sharding.cache_specs`` and ``ring`` is
+    ``shard_ring``'s for its slots.  Head-sharded, the rank's H/t query
+    heads decode against its K/t cache heads; on the head_dim / seq
+    fallback see ``_gqa_decode_seq``.  When the data axes split the slots
+    (``par.seq_split``) each rank decodes its own and the partial results
+    merge over the data axes by their log-sum-exp.  ``out`` is the rank's
+    partial output through its rows of ``wo``, which the caller sums over
+    the model axis."""
+    if par is not None and not par.attn_head_sharded:
+        return _gqa_decode_seq(cfg, p, x, cache, ring, par)
     positions, slot, valid = ring
     q, k, v = gqa_project_qkv(cfg, p, x, positions)
-    rows = torch.arange(b, device=x.device) if isinstance(slot, torch.Tensor) \
-        else slice(None)
-    k_cache[rows, slot] = k[:, 0]
-    v_cache[rows, slot] = v[:, 0]
-    o = dispatch.flash_decode(q, k_cache, v_cache, valid)
+    _write_slot(cache["k"], slot, k[:, 0])
+    _write_slot(cache["v"], slot, v[:, 0])
+    if par is None or not par.seq_split:
+        o = dispatch.flash_decode(q, cache["k"], cache["v"], valid)
+    else:
+        o, lse = dispatch.flash_decode(q, cache["k"], cache["v"], valid,
+                                       return_lse=True)
+        o = merge_decode_partials(o, lse, par.data_group)[0].to(x.dtype)
     return _out_project(o, p["wo"]), cache
+
+
+def _gqa_decode_seq(cfg: ModelConfig, p: dict, x: torch.Tensor,
+                    cache: Dict[str, torch.Tensor], ring: tuple,
+                    par: ModelParallel
+                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One decode step of a rank on the head_dim / seq fallback: the
+    weights hold its hd/t columns (``wo`` its rows) and the cache layer
+    (b, S, K, hd/t) its columns of every slot.  The new token's q, k and
+    v (one position) are gathered whole over head_dim in one all-gather
+    and rotated; the rank's columns of k and v go to the ring slot.  The
+    layer's cache then moves to S/t slots with every column
+    (``par.head_dim_to_seq``; nothing requires grad, so no graph is
+    recorded), ``flash_decode_gqa`` runs all H heads over
+    them with their log-sum-exp, the t partial results merge over the
+    model axis (and over the data axes when they split the slots), and
+    the rank keeps its hd/t columns of the output for ``wo``.  Every rank
+    decodes different slots: the kernel is on the path."""
+    positions, slot, valid = ring
+    H, K = p["wq"].shape[1], p["wk"].shape[1]
+    w = p["wq"].shape[-1]
+    cols = slice(par.model_idx * w, (par.model_idx + 1) * w)
+    qkv = torch.cat([_project(x, p[n]) for n in ("wq", "wk", "wv")], dim=2)
+    q, k, v = par.gather_model(qkv, -1).split([H, K, K], dim=2)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    _write_slot(cache["k"], slot, k[:, 0, :, cols])
+    _write_slot(cache["v"], slot, v[:, 0, :, cols])
+    k_seq = par.head_dim_to_seq(cache["k"])
+    v_seq = par.head_dim_to_seq(cache["v"])
+    n = k_seq.shape[1]
+    mine = valid[:, par.model_idx * n:(par.model_idx + 1) * n].contiguous()
+    o, lse = dispatch.flash_decode(q, k_seq, v_seq, mine, return_lse=True)
+    del k_seq, v_seq
+    o, lse = merge_decode_partials(o, lse, par.model_group)
+    if par.seq_split:
+        o, lse = merge_decode_partials(o, lse, par.data_group)
+    return _out_project(o[..., cols].to(x.dtype), p["wo"]), cache
 
 
 # ----------------------------------------------------------------- MLA ------
@@ -261,23 +348,34 @@ def mla_attend_train(cfg: ModelConfig, p: dict, x: torch.Tensor,
 
 
 def mla_attend_decode(cfg: ModelConfig, p: dict, x: torch.Tensor,
-                      cache: Dict[str, torch.Tensor], ring: tuple
+                      cache: Dict[str, torch.Tensor], ring: tuple,
+                      par: Optional[ModelParallel] = None
                       ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Matrix-absorbed MLA decode: scores and values in latent space.
 
     x: (b, 1, d); cache: {'c_kv' (b, S, r), 'k_rope' (b, S, dr)}; ring:
     ``ring_index(pos, S, b, device)`` as for ``gqa_attend_decode``.  The
     new latent and RoPE key are written into ``cache`` in place; the
-    returned cache is the same tensors."""
-    b = x.shape[0]
+    returned cache is the same tensors.
+
+    With ``par`` (one rank of a sharded decode; x the replicated input):
+    the latent cache is replicated over the model axis
+    (``sharding.cache_specs``), every rank writes the new latent, and the
+    rank's H/t heads go through its ``wq_b``, ``wk_b``, ``wv_b``, the
+    kernel and its rows of ``wo``; the caller sums ``out`` over the model
+    axis.  A cache whose slots the data axes split, and the head_dim /
+    seq fallback, raise."""
+    if par is not None and (par.seq_split or not par.attn_head_sharded):
+        raise NotImplementedError(
+            f"{cfg.name}: MLA decode on "
+            f"{'a cache split over the sequence' if par.seq_split else 'the head_dim / seq fallback'}"
+            f": ROADMAP.md queue 1 item 10")
     dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
     positions, slot, valid = ring
-    q_nope, q_rope = _mla_q(cfg, p, x, positions)
+    q_nope, q_rope = _mla_q(cfg, p, x, positions, par)
     c_new, kr_new = _mla_latent(cfg, p, x, positions)
-    rows = torch.arange(b, device=x.device) if isinstance(slot, torch.Tensor) \
-        else slice(None)
-    cache["c_kv"][rows, slot] = c_new[:, 0]
-    cache["k_rope"][rows, slot] = kr_new[:, 0]
+    _write_slot(cache["c_kv"], slot, c_new[:, 0])
+    _write_slot(cache["k_rope"], slot, kr_new[:, 0])
     q_lat = torch.einsum("bhd,rhd->bhr", q_nope[:, 0], p["wk_b"])
     o_lat = dispatch.mla_flash_decode(
         q_lat.contiguous(), q_rope[:, 0].contiguous(), cache["c_kv"],

@@ -13,7 +13,11 @@ h/t heads: its columns of ``in_zx`` ([z | x] of its heads,
 ``parallel.collectives.PACKED``), ``in_dt``, ``conv_x`` and ``norm``, its
 entries of ``A_log``, ``D`` and ``dt_bias`` and its rows of ``out_proj``;
 ``in_bc`` and ``conv_bc`` are replicated and read the pre-``to_model``
-input.
+input.  Its decode caches follow ``sharding.cache_specs``: the SSD state
+of its heads (b, h/t, p, n) and the rank's contiguous ch/t channels of
+the pre-conv window [x | B | C] (``conv_window_shard``), which splits
+heads and B|C where it falls; ``mamba2_decode(..., par)`` gathers the
+window's three rows whole.
 """
 from __future__ import annotations
 
@@ -128,6 +132,30 @@ def _forward_rank(cfg: ModelConfig, p: Params, x: torch.Tensor,
     return y @ p["out_proj"], {"conv": conv_state, "ssd": state.float()}
 
 
+def _conv_sharded(cfg: ModelConfig, conv: torch.Tensor) -> bool:
+    """Whether a conv window (b, w - 1, ch or ch/t) holds a ch/t slice
+    (``sharding.enforce_divisibility`` keeps it whole when t does not
+    divide ch)."""
+    return conv.shape[-1] != cfg.d_inner + 2 * cfg.ssm_state
+
+
+def conv_window_shard(cfg: ModelConfig, raw: torch.Tensor,
+                      par: ModelParallel) -> torch.Tensor:
+    """The spec's shard of the prefill's conv window from the rank's own
+    pre-conv rows ``raw`` (b, w - 1, di/t + 2n) = [x of its heads | B | C]
+    (``_forward_rank``): x gathered over the model axis, then the rank's
+    contiguous ch/t channels of [x | B | C] (all of them when t does not
+    divide ch), in storage of their own."""
+    ch = cfg.d_inner + 2 * cfg.ssm_state
+    dil = raw.shape[-1] - 2 * cfg.ssm_state
+    whole = torch.cat([par.gather_model(raw[..., :dil], -1),
+                       raw[..., dil:]], dim=-1)
+    if ch % par.t:
+        return whole
+    w = ch // par.t
+    return whole[..., par.model_idx * w:(par.model_idx + 1) * w].contiguous()
+
+
 def c_dot_state(C: torch.Tensor, state: torch.Tensor) -> torch.Tensor:
     """y_ssd = C . state over the state width N, float32.  C: (b, n); state:
     (b, h, p, n) float32.  Returns (b, h, p).
@@ -141,11 +169,15 @@ def c_dot_state(C: torch.Tensor, state: torch.Tensor) -> torch.Tensor:
 
 
 def mamba2_decode(cfg: ModelConfig, p: Params, x: torch.Tensor,
-                  cache: Dict[str, torch.Tensor]
+                  cache: Dict[str, torch.Tensor],
+                  par: Optional[ModelParallel] = None
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Single-token step.  x: (b, 1, d); cache: conv (b, w - 1, ch), ssd
     (b, h, p, n) float32.  Returns (out (b, 1, d), the new cache in fresh
-    tensors)."""
+    tensors).  With ``par`` (one rank's heads and cache shards, x the
+    replicated input) see ``_decode_rank``."""
+    if par is not None:
+        return _decode_rank(cfg, p, x, cache, par)
     b = x.shape[0]
     di, n, h, hp = cfg.d_inner, cfg.ssm_state, cfg.n_ssm_heads, cfg.ssm_head_dim
     z, xBC_new, dt_raw = _project(cfg, p, x)                   # (b, 1, *)
@@ -164,3 +196,57 @@ def mamba2_decode(cfg: ModelConfig, p: Params, x: torch.Tensor,
     y = gated_rms_norm(y.reshape(b, 1, di).to(x.dtype), z, p["norm"],
                        cfg.norm_eps)
     return y @ p["out_proj"], {"conv": window[:, 1:], "ssd": state}
+
+
+def _decode_rank(cfg: ModelConfig, p: Params, x: torch.Tensor,
+                 cache: Dict[str, torch.Tensor], par: ModelParallel
+                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """``mamba2_decode`` on this rank's h/t heads: one all-gather over the
+    model axis brings the cached window's ch/t slices (w - 1 rows) and
+    the new row's x channels of every head; the conv runs on the rank's x
+    channels and the replicated B|C of the whole window, the state update
+    on its heads, the gated norm over every rank's channels
+    (``gated_rms_norm_sharded``), and ``out`` is its rows of
+    ``out_proj``'s share, which the caller sums over the model axis.  The
+    new window keeps the rank's ch/t slice."""
+    b = x.shape[0]
+    n, hp, di = cfg.ssm_state, cfg.ssm_head_dim, cfg.d_inner
+    h = p["A_log"].shape[0]
+    dil = h * hp
+    zx = x @ p["in_zx"]
+    z, x_new = zx[..., :dil], zx[..., dil:]                    # (b, 1, di/t)
+    dt_raw = x @ p["in_dt"]
+    bc_new = x @ p["in_bc"]                                    # (b, 1, 2n)
+    conv = cache["conv"]
+    rows, sharded = conv.shape[1], _conv_sharded(cfg, conv)
+    if sharded:
+        sent = torch.cat([conv.reshape(b, -1), x_new.reshape(b, -1)], dim=1)
+        got = par.gather_model(sent, 1).view(b, par.t, -1)
+        cw = conv.shape[-1]
+        old = got[..., :rows * cw].reshape(b, par.t, rows, cw)
+        old = old.transpose(1, 2).reshape(b, rows, par.t * cw)
+        x_all = got[..., rows * cw:].reshape(b, 1, di)
+    else:
+        old, x_all = conv, par.gather_model(x_new, -1)
+    window = torch.cat([old, torch.cat([x_all, bc_new], dim=-1)], dim=1)
+    lo = par.model_idx * dil
+    mine = torch.cat([window[..., lo:lo + dil], window[..., di:]], dim=-1)
+    conv_w = torch.cat([p["conv_x_w"], p["conv_bc_w"]], dim=1)
+    conv_b = torch.cat([p["conv_x_b"], p["conv_bc_b"]], dim=0)
+    conv_out = torch.sum(mine * conv_w[None], dim=1, keepdim=True)
+    xBC = F.silu((conv_out + conv_b).float()).to(x.dtype)
+    xs = xBC[..., :dil].reshape(b, h, hp)
+    B = xBC[:, 0, dil:dil + n]
+    C = xBC[:, 0, dil + n:]
+    dt = F.softplus(dt_raw[:, 0].float() + p["dt_bias"])
+    dA = torch.exp(dt * -torch.exp(p["A_log"]))
+    state = cache["ssd"] * dA[:, :, None, None] + torch.einsum(
+        "bh,bn,bhp->bhpn", dt, B.float(), xs.float())
+    y = c_dot_state(C, state) + p["D"][None, :, None] * xs.float()
+    y = gated_rms_norm_sharded(y.reshape(b, 1, dil).to(x.dtype), z,
+                               p["norm"], cfg.norm_eps, di, par)
+    new = window[:, 1:]
+    if sharded:
+        cw = conv.shape[-1]
+        new = new[..., par.model_idx * cw:(par.model_idx + 1) * cw]
+    return y @ p["out_proj"], {"conv": new, "ssd": state}

@@ -27,11 +27,13 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba2
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.common import dense_init, embed_init, mlp, rms_norm
+from repro_torch.parallel import collectives as col
+from repro_torch.parallel import sharding as sh
 from repro_torch.parallel.collectives import ModelParallel
 
 Params = Dict[str, Any]
@@ -350,7 +352,13 @@ def forward(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
     experts or f/t columns of each, Mamba2 on its h/t SSD heads, the
     embedding and head under the embed's vocab-or-d_model sharding, and at
     ZeRO 3 each leaf gathered over the data axis before use.  Without it
-    (one device) none of that code runs.
+    (one device) none of that code runs.  With ``want_cache`` and ``par``
+    (one rank of a sharded prefill) each cache entry is the rank's shard
+    under ``sharding.prefill_cache_specs``: its rows of the batch (the
+    caller passes the rank's rows), and its K/t heads of k and v, or its
+    hd/t columns of them on the head_dim / seq fallback; MLA's latent
+    replicated over the model axis; Mamba2's SSD state of its heads and
+    its ch/t channels of the conv window.
     """
     _check_supported(cfg)
     if par is not None:
@@ -369,6 +377,8 @@ def forward(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
         if want_cache:
             for sub, cache in caches.items():
                 for name, t in cache.items():
+                    if name == "conv" and par is not None:
+                        t = mamba2.conv_window_shard(cfg, t, par)
                     entries.setdefault(sub, {}).setdefault(name, []).append(t)
     if last_only:
         x = x[:, -1:]
@@ -402,13 +412,9 @@ def cache_slots(cfg: ModelConfig, cache_len: int) -> int:
     return min(cache_len, cfg.sliding_window) if cfg.sliding_window else cache_len
 
 
-def init_cache(cfg: ModelConfig, batch_size: int, cache_len: int,
-               dtype: torch.dtype = torch.bfloat16, device="cuda") -> Cache:
-    """Zero-initialised decode cache, one "sub{j}" per sub-layer of the
-    block, stacked over the nb blocks: ring buffers k/v (nb, b, S, K, hd)
-    for GQA, c_kv (nb, b, S, r) and k_rope (nb, b, S, dr) for MLA; for
-    Mamba2 the conv window (nb, b, w - 1, di + 2n) in ``dtype`` and the SSD
-    state (nb, b, h, p, n) always in float32, whatever ``cache_len``."""
+def cache_shapes(cfg: ModelConfig, batch_size: int, cache_len: int
+                 ) -> Dict[str, Dict[str, Tuple[int, ...]]]:
+    """{"sub{j}": {name: shape}} of the decode cache (``init_cache``)."""
     _check_supported(cfg)
     nb, b = cfg.num_layers // cfg.block_period, batch_size
     out = {}
@@ -416,27 +422,63 @@ def init_cache(cfg: ModelConfig, batch_size: int, cache_len: int,
         kind = _mixer_kind(cfg, j)
         if kind == "ssm":
             ch = cfg.d_inner + 2 * cfg.ssm_state
-            out[sub] = {
-                "conv": torch.zeros((nb, b, cfg.ssm_conv - 1, ch), dtype=dtype,
-                                    device=device),
-                "ssd": torch.zeros((nb, b, cfg.n_ssm_heads, cfg.ssm_head_dim,
-                                    cfg.ssm_state), dtype=torch.float32,
-                                   device=device)}
-            continue
-        if kind == "mla":
-            shapes = {"c_kv": (nb, b, cache_len, cfg.kv_lora_rank),
-                      "k_rope": (nb, b, cache_len, cfg.qk_rope_head_dim)}
+            out[sub] = {"conv": (nb, b, cfg.ssm_conv - 1, ch),
+                        "ssd": (nb, b, cfg.n_ssm_heads, cfg.ssm_head_dim,
+                                cfg.ssm_state)}
+        elif kind == "mla":
+            out[sub] = {"c_kv": (nb, b, cache_len, cfg.kv_lora_rank),
+                        "k_rope": (nb, b, cache_len, cfg.qk_rope_head_dim)}
         else:
             shape = (nb, b, cache_slots(cfg, cache_len), cfg.num_kv_heads,
                      cfg.head_dim)
-            shapes = {"k": shape, "v": shape}
-        out[sub] = {name: torch.zeros(shape, dtype=dtype, device=device)
-                    for name, shape in shapes.items()}
+            out[sub] = {"k": shape, "v": shape}
+    return out
+
+
+def local_cache_specs(cfg: ModelConfig, batch_size: int, cache_len: int,
+                      mesh) -> Dict[str, Dict[str, tuple]]:
+    """{"sub{j}": {name: spec}} of the decode cache of global batch
+    ``batch_size`` on ``mesh`` (a DeviceMesh or {axis: size}):
+    ``sharding.cache_specs``, with the axes a dim does not divide dropped
+    (``enforce_divisibility``)."""
+    shape = ShapeConfig("serve", cache_len, batch_size, "decode",
+                        cache_len=cache_len)
+    specs = sh.cache_specs(cfg, shape, mesh)
+    return {sub: {name: sh.enforce_divisibility(specs[sub][name], full,
+                                                mesh)
+                  for name, full in leaves.items()}
+            for sub, leaves in cache_shapes(cfg, batch_size,
+                                            cache_len).items()}
+
+
+def init_cache(cfg: ModelConfig, batch_size: int, cache_len: int,
+               dtype: torch.dtype = torch.bfloat16, device="cuda",
+               par: Optional[ModelParallel] = None) -> Cache:
+    """Zero-initialised decode cache, one "sub{j}" per sub-layer of the
+    block, stacked over the nb blocks: ring buffers k/v (nb, b, S, K, hd)
+    for GQA, c_kv (nb, b, S, r) and k_rope (nb, b, S, dr) for MLA; for
+    Mamba2 the conv window (nb, b, w - 1, di + 2n) in ``dtype`` and the SSD
+    state (nb, b, h, p, n) always in float32, whatever ``cache_len``.
+    With ``par`` the rank's shard of the cache of global batch
+    ``batch_size`` (``local_cache_specs``)."""
+    shapes = cache_shapes(cfg, batch_size, cache_len)
+    specs = (local_cache_specs(cfg, batch_size, cache_len, par.sizes)
+             if par is not None else None)
+    out = {}
+    for sub, leaves in shapes.items():
+        out[sub] = {}
+        for name, shape in leaves.items():
+            if specs is not None:
+                shape = col.local_shape(shape, specs[sub][name], par.sizes)
+            out[sub][name] = torch.zeros(
+                shape, dtype=torch.float32 if name == "ssd" else dtype,
+                device=device)
     return out
 
 
 def cache_from_prefill(cfg: ModelConfig, prefill_caches: Cache,
-                       cache_len: int) -> Cache:
+                       cache_len: int,
+                       par: Optional[ModelParallel] = None) -> Cache:
     """Ring caches from the stacked prefill entries (nb, b, s, ...), in
     fresh storage that never aliases the prefill output (decode writes it
     in place).  The sliding window bounds the GQA k/v rings only, as in
@@ -448,6 +490,11 @@ def cache_from_prefill(cfg: ModelConfig, prefill_caches: Cache,
     ring (s > S), the last S positions are kept, each at its own slot; the
     JAX package keeps them at slots 0..S-1 instead, which agrees only when
     s % S == 0.
+
+    With ``par`` the entries are one rank's prefill shards
+    (``forward(..., par=...)``) and so are the rings, but that when the
+    data axes split the slots (``par.seq_split``) each ring keeps the
+    rank's S/d slots of the whole ring.
     """
     out = {}
     for j_name, sub in prefill_caches.items():
@@ -464,27 +511,53 @@ def cache_from_prefill(cfg: ModelConfig, prefill_caches: Cache,
                 ring = arr.new_zeros(arr.shape[:2] + (S,) + arr.shape[3:])
                 ring[:, :, :s] = arr
                 conv[name] = ring
+            if par is not None and par.seq_split:
+                n = S // par.nd
+                conv[name] = conv[name][:, :, par.data_idx * n:
+                                        (par.data_idx + 1) * n].clone()
         out[j_name] = conv
     return out
 
 
 def decode_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
-                cache: Cache, pos) -> Tuple[torch.Tensor, Cache]:
+                cache: Cache, pos, par: Optional[ModelParallel] = None
+                ) -> Tuple[torch.Tensor, Cache]:
     """One-token decode.  tokens: (b, 1) integer; pos: int (absolute
     position of the incoming token) or (b,) tensor of per-row positions.
     Returns (logits (b, 1, V), cache); the cache is updated in place and
     the same tensors are returned.  A Mamba2 layer does not read ``pos``:
-    its state holds the whole past."""
-    x = params["embed"][tokens]                        # (b, 1, d)
+    its state holds the whole past.
+
+    With ``par`` (one rank of a sharded decode): ``params`` are the rank's
+    shards (over the data axes too when the serving weights split there:
+    gathered before use, ``par.gather_top`` and ``par.gather_block``),
+    ``tokens`` its rows, ``cache`` its shard (``init_cache(..., par=)``,
+    ``cache_from_prefill(..., par=)``); the ring is placed on the global
+    slot count (the rank's times the data axes' when they split the
+    slots), each mixer runs its share and is summed over the model axis,
+    and the logits are the rank's rows, its V/t columns when the head
+    shards the vocabulary (``ModelParallel.head``)."""
+    if par is not None:
+        params = par.gather_top(params)
+    x = (params["embed"][tokens] if par is None
+         else par.embed(params["embed"], tokens))      # (b, 1, d)
     kinds = [_mixer_kind(cfg, j) for j in range(cfg.block_period)]
     ring = None
     for j, kind in enumerate(kinds):                   # every ring has S slots
         if kind != "ssm":
             sub = cache[f"sub{j}"]
             S = sub["c_kv" if kind == "mla" else "k"].shape[2]
-            ring = attn.ring_index(pos, S, x.shape[0], x.device)
+            if par is None:
+                ring = attn.ring_index(pos, S, x.shape[0], x.device)
+                break
+            n = par.nd if par.seq_split else 1
+            ring = attn.shard_ring(
+                attn.ring_index(pos, S * n, x.shape[0], x.device),
+                (par.data_idx if n > 1 else 0) * S, S)
             break
     for i, bp in enumerate(_block_params(params["blocks"])):
+        if par is not None:
+            bp = par.gather_block(bp)
         for j, kind in enumerate(kinds):
             name = f"sub{j}"
             p = bp[name]
@@ -492,14 +565,16 @@ def decode_step(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
             layer_cache = {k: t[i] for k, t in cache[name].items()}
             if kind == "ssm":
                 out, new = mamba2.mamba2_decode(cfg, p["mixer"], h,
-                                                layer_cache)
+                                                layer_cache, par)
                 for k, t in new.items():
                     layer_cache[k].copy_(t)
             elif kind == "mla":
                 out, _ = attn.mla_attend_decode(cfg, p["mixer"], h,
-                                                layer_cache, ring)
+                                                layer_cache, ring, par)
             else:
                 out, _ = attn.gqa_attend_decode(cfg, p["mixer"], h,
-                                                layer_cache, ring)
-            x, _ = _ffn_residual(cfg, j, p, x + out)
-    return _head(cfg, params, x), cache
+                                                layer_cache, ring, par)
+            if par is not None:
+                out = par.from_model(out)
+            x, _ = _ffn_residual(cfg, j, p, x + out, par)
+    return _head(cfg, params, x, par), cache

@@ -62,6 +62,13 @@ package leaves this to GSPMD):
   stacked layer axis (Mamba2's per-head and per-channel vectors) is
   gathered whole once, before the blocks, by ``gather_top``.
 
+* serving (``serve.engine`` with ``par``): a decode whose cache the ranks
+  split (slots over the data axes, or S/t slots after the fallback's
+  ``head_dim_to_seq``) merges the ranks' partial results by their
+  log-sum-exp (``merge_decode_partials``), and greedy tokens come from
+  logits sharded over the vocabulary without gathering them
+  (``vocab_parallel_argmax``).
+
 ``shard_leaf`` / ``gather_leaf`` cut a rank's shard out of a full leaf and
 rebuild the full leaf from the shards.  A leaf that packs parts along its
 model-sharded dim (``PACKED``: Mamba2's ``in_zx`` = [z | x]) keeps its
@@ -77,6 +84,7 @@ allocated and moves no peak.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
 
 import torch
@@ -290,6 +298,50 @@ def vocab_parallel_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     return _VocabParallelCE.apply(logits, labels, group, idx)
 
 
+def merge_decode_partials(o: torch.Tensor, lse: torch.Tensor, group
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Merge one-token attention results that the ranks of ``group``
+    computed over disjoint parts of a cache: o (b, 1, H, D) float32 and
+    its log-sum-exp lse (b, H) float32 on each rank (``flash_decode(...,
+    return_lse=True)``) -> (sum_r exp(lse_r - m) o_r / sum_r exp(lse_r -
+    m), m + log sum_r exp(lse_r - m)), m the max over the ranks, in
+    float32 on every rank.  A rank with no valid slot (lse -inf) adds
+    nothing; a row no rank holds a valid slot of gives 0 and -inf.  One
+    MAX all-reduce and one sum all-reduce of o and the weights together.
+    ``group`` None: one rank, returned as it is."""
+    if group is None:
+        return o, lse
+    m = lse.clone()
+    dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
+    m = torch.where(torch.isfinite(m), m, 0.0)   # no rank has a slot: w = 0
+    w = torch.exp(lse - m)                           # (b, H)
+    b, _, H, D = o.shape
+    buf = torch.cat([(o * w.view(b, 1, H, 1)).flatten(), w.flatten()])
+    dist.all_reduce(buf, group=group)
+    num, den = buf[:o.numel()].view(o.shape), buf[o.numel():].view(b, H)
+    out = num / torch.clamp(den, min=1e-30).view(b, 1, H, 1)
+    return out, torch.where(den > 0, m + torch.log(den), -math.inf)
+
+
+def vocab_parallel_argmax(logits: torch.Tensor, group, idx: int
+                          ) -> torch.Tensor:
+    """Greedy tokens from logits sharded over the vocabulary: ``logits``
+    (..., V/t) this rank's columns (rank ``idx`` of the model axis's
+    ``group``) -> (...) global vocabulary ids, the same on every rank:
+    the index of the row's maximum, the lowest global index among equal
+    maxima, as ``torch.argmax`` of the whole row gives.  One MAX and one
+    MIN all-reduce."""
+    vl = logits.shape[-1]
+    arg = torch.argmax(logits, dim=-1)
+    best = torch.gather(logits, -1, arg[..., None])[..., 0].float()
+    top = best.clone()
+    dist.all_reduce(top, op=dist.ReduceOp.MAX, group=group)
+    cand = torch.where(best == top, arg + idx * vl,
+                       torch.iinfo(torch.long).max)
+    dist.all_reduce(cand, op=dist.ReduceOp.MIN, group=group)
+    return cand
+
+
 def mesh_coords(mesh) -> Dict[str, int]:
     """{axis: this rank's index along it} of a DeviceMesh."""
     return dict(zip(mesh.mesh_dim_names, mesh.get_coordinate()))
@@ -473,20 +525,30 @@ class ModelParallel:
     columns), the data axes' group (``data_group``: the MoE's load-balance
     statistics) and at ZeRO 3 each parameter leaf's data-sharded dim
     (``gather_dims``: the params' spec tree mapped through ``data_dim``).
+    For serving (``serve.engine.serve_parallel``) it also says whether
+    the decode caches split their slots over the data axes
+    (``cache_seq_split``: a global batch the data axes do not divide, as
+    ``sharding.cache_specs`` rules), this rank's index along them
+    (``data_idx``, pod-major) and the axis sizes (``sizes``, for the
+    caches' local shapes).
 
-    The model calls it only when the train step passes one
-    (``forward(..., par=...)``): the one-device path never does.
+    The model calls it only when the train step or the serving engine
+    passes one (``forward(..., par=...)``, ``decode_step(..., par=...)``):
+    the one-device path never does.
     """
 
     def __init__(self, mesh, embed_spec, head_spec=None,
                  gather_dims: Optional[Dict[str, Any]] = None,
-                 attn_head_sharded: bool = True):
+                 attn_head_sharded: bool = True,
+                 cache_seq_split: bool = False):
         sizes = sh.axis_sizes(mesh)
         coords = mesh_coords(mesh)
+        self.sizes = sizes
         self.t = sizes.get("model", 1)
         self.model_idx = coords.get("model", 0)
         self.model_group = mesh.get_group("model") if self.t > 1 else None
-        self.data_group, self.nd, _ = data_group(mesh)
+        self.data_group, self.nd, self.data_idx = data_group(mesh)
+        self.seq_split = cache_seq_split and self.nd > 1
         self.embed_spec, self.head_spec = embed_spec, head_spec
         # the head's (d, V) spec: lm_head's, or the tied embed's transposed
         spec = head_spec if head_spec is not None else embed_spec[::-1]
@@ -528,6 +590,15 @@ class ModelParallel:
         if self.t == 1:
             return x
         return _SeqToHeadDim.apply(x, self.model_group, self.t)
+
+    def argmax(self, logits: torch.Tensor) -> torch.Tensor:
+        """Greedy tokens (...) from ``head``'s logits (..., V or V/t):
+        ``vocab_parallel_argmax`` over the model axis when they are this
+        rank's V/t columns, else ``torch.argmax`` of the row."""
+        if self.vocab_sharded:
+            return vocab_parallel_argmax(logits, self.model_group,
+                                         self.model_idx)
+        return torch.argmax(logits, dim=-1)
 
     def sum_model(self, x: torch.Tensor) -> torch.Tensor:
         """The sum of ``x`` over the model axis, for the rank's own part to

@@ -268,3 +268,54 @@ def prefill_cache_specs(cfg: ModelConfig, shape: ShapeConfig, mesh) -> Dict:
     """Sharding for the cache tree *as returned by prefill* (full-sequence
     k/v of shape (nb, b, s, K, hd), before ring conversion)."""
     return cache_specs(cfg, shape, mesh)
+
+
+# --------------------------------------------------------- plan support ----
+# The port's own: which plans its sharded train and serving steps run.
+
+# where the sharded-step paths the port does not run yet are listed
+DEFERRED = "ROADMAP.md queue 1 item 10"
+
+# the number of data shards (the pod and data axes together)
+n_data_shards = _n_data
+
+
+def check_sharded_supported(cfg: ModelConfig, tc, mesh) -> None:
+    """Raise NotImplementedError for a (cfg, mesh) the sharded train and
+    serving steps do not run; never fall back to a replicated run.  ``tc``
+    (the train config, None for serving) decides nothing: every ZeRO level
+    runs."""
+    sizes = axis_sizes(mesh)
+    t = sizes.get("model", 1)
+    if set(sizes) - {"pod", "data", "model"}:
+        raise NotImplementedError(f"the sharded step runs a ([pod,] data, "
+                                  f"model) mesh, not {tuple(sizes)}: "
+                                  f"{DEFERRED}")
+    if t > 1:
+        kinds = {cfg.layer_kind(j) for j in range(cfg.block_period)}
+        # GQA whose head counts t does not divide runs the head_dim / seq
+        # fallback; MLA does not yet
+        if "attn" in kinds and cfg.attention == "mla" \
+                and not attn_head_sharded(cfg, t):
+            raise NotImplementedError(
+                f"{cfg.name}: MLA's {cfg.num_heads} heads on a model axis of "
+                f"{t} (the head_dim / seq fallback): {DEFERRED}")
+        # every width the model axis splits (a width it does not divide
+        # would be kept whole by enforce_divisibility)
+        widths = {"d_model": cfg.d_model, "d_ff": cfg.d_ff}
+        if cfg.attention == "mla":
+            widths["q_lora_rank"] = cfg.q_lora_rank
+        if cfg.num_experts and not expert_sharded(cfg, t):
+            widths["moe_d_ff"] = cfg.moe_d_ff
+        if cfg.num_shared_experts:
+            widths["shared experts' width"] = (cfg.num_shared_experts
+                                               * cfg.moe_d_ff)
+        if "ssm" in kinds:
+            widths["n_ssm_heads"] = cfg.n_ssm_heads
+        if "attn" in kinds and not attn_head_sharded(cfg, t):
+            widths["head_dim"] = cfg.head_dim
+        for what, n in widths.items():
+            if n % t:
+                raise NotImplementedError(
+                    f"{cfg.name}: {what} {n} not divisible by the model "
+                    f"axis {t}: {DEFERRED}")

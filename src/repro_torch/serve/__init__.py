@@ -1,6 +1,9 @@
 from repro_torch.serve.engine import (ContinuousBatcher, DisaggregatedBatcher,
-                                      ServeRequest, greedy_decode, prefill,
-                                      prompt_batch, serve_step)
+                                      ServeRequest, check_serve_supported,
+                                      greedy_decode, local_serve_params,
+                                      prefill, prompt_batch, serve_parallel,
+                                      serve_step)
 
 __all__ = ["ContinuousBatcher", "DisaggregatedBatcher", "ServeRequest",
-           "greedy_decode", "prefill", "prompt_batch", "serve_step"]
+           "check_serve_supported", "greedy_decode", "local_serve_params",
+           "prefill", "prompt_batch", "serve_parallel", "serve_step"]

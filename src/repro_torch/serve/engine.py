@@ -18,6 +18,16 @@ serves, without promising it.
 Everything here runs under ``torch.inference_mode()`` on the device of the
 parameters.  Decode steps write the caches in place.
 
+``prefill``, ``serve_step`` and ``greedy_decode`` also run as one rank of
+a ([pod,] data, model) plan (``par``: ``serve_parallel``), the JAX
+package's sharded serving steps (``repro/launch/dryrun.py:77-116``): the
+rank passes its shards -- the weights under ``sharding.param_specs``, its
+rows of the batch (all of them when the data axes do not divide it), its
+cache under ``sharding.cache_specs`` -- and gets its rows of the logits
+(its V/t columns when the head shards the vocabulary) and its cache
+shard.  ``check_serve_supported`` raises for a plan this slice does not
+run.  The batchers stay one-device, as in the JAX package.
+
 A VLM config (``num_modal_tokens`` > 0) serves its prompts after a prefix
 of zero modal embeddings (``prompt_batch``), as the JAX engine does, so
 its first decode position is the prompt length plus the prefix.
@@ -33,7 +43,89 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import (cache_from_prefill, decode_step, forward,
-                                init_cache)
+                                init_cache, init_params, param_shapes)
+from repro_torch.models.transformer import _mixer_kind, cache_slots
+from repro_torch.parallel import collectives as col
+from repro_torch.parallel import sharding as sh
+from repro_torch.parallel.collectives import ModelParallel
+from repro_torch.parallel.sharding import (DEFERRED, check_sharded_supported,
+                                           n_data_shards)
+from repro_torch.train.optimizer import tree_map
+
+
+def check_serve_supported(cfg: ModelConfig, mesh, global_batch: int,
+                          cache_len: int) -> None:
+    """Raise NotImplementedError, naming ROADMAP queue 1 item 10, for a
+    serving plan this slice does not run sharded; never fall back to a
+    replicated run: a plan the train step refuses (``check_sharded_
+    supported``: a width the model axis does not divide, MLA on the
+    head_dim / seq fallback), MLA with its cache split over the sequence
+    (a global batch the data axes do not divide), a ring whose slots the
+    data axes do not divide when they split them, and on the fallback a
+    rank's slots the model axis does not divide."""
+    check_sharded_supported(cfg, None, mesh)
+    t = sh.axis_sizes(mesh).get("model", 1)
+    nd = n_data_shards(mesh)
+    split = nd if global_batch % nd else 1
+    kinds = {_mixer_kind(cfg, j) for j in range(cfg.block_period)}
+    if "mla" in kinds and split > 1:
+        raise NotImplementedError(
+            f"{cfg.name}: MLA with its cache split over the sequence (global"
+            f" batch {global_batch} on {nd} data shards): {DEFERRED}")
+    if "gqa" not in kinds:
+        return
+    S = cache_slots(cfg, cache_len)
+    if S % split:
+        raise NotImplementedError(
+            f"{cfg.name}: {S} cache slots do not split over {split} data "
+            f"shards: {DEFERRED}")
+    if not sh.attn_head_sharded(cfg, t) and (S // split) % t:
+        raise NotImplementedError(
+            f"{cfg.name}: a rank's {S // split} cache slots do not split over"
+            f" the model axis of {t} (the head_dim / seq fallback): "
+            f"{DEFERRED}")
+
+
+def local_serve_params(cfg: ModelConfig, seed: int, mesh, *,
+                       zero_data: bool = False, device="cuda"
+                       ) -> Dict[str, Any]:
+    """One rank's serving weights, each leaf drawn at its shard's own shape
+    under ``sharding.param_specs(..., zero_data=zero_data)``
+    (``init_params(local=)``: no whole leaf is held; the values are not the
+    one-device model's), on ``device``."""
+    specs = sh.param_specs(cfg, param_shapes(cfg), mesh, zero_data=zero_data)
+
+    def local(path, shape):
+        spec = specs
+        for k in path:
+            spec = spec[k]
+        return col.local_shape(shape, spec, mesh)
+
+    return init_params(cfg, seed, device=device, local=local)
+
+
+def serve_parallel(cfg: ModelConfig, mesh, global_batch: int,
+                   cache_len: int, *, zero_data: bool = False
+                   ) -> ModelParallel:
+    """What one rank of the serving plan ``mesh`` needs
+    (``ModelParallel``) for a global batch of ``global_batch`` rows and
+    ``cache_len`` cache positions, its weights under
+    ``sharding.param_specs(..., zero_data=zero_data)``: over the model
+    axis, and with ``zero_data`` over the data axes too
+    (``launch.inputs.serve_weights_over_data``'s rule).  Raises for a plan
+    this slice does not run (``check_serve_supported``)."""
+    check_serve_supported(cfg, mesh, global_batch, cache_len)
+    shapes = param_shapes(cfg)
+    model = sh.param_specs(cfg, shapes, mesh)
+    nd = n_data_shards(mesh)
+    gather = (tree_map(col.data_dim, sh.param_specs(cfg, shapes, mesh,
+                                                    zero_data=True))
+              if zero_data and nd > 1 else None)
+    return ModelParallel(
+        mesh, model["embed"], model.get("lm_head"), gather_dims=gather,
+        attn_head_sharded=sh.attn_head_sharded(
+            cfg, sh.axis_sizes(mesh).get("model", 1)),
+        cache_seq_split=global_batch % nd != 0)
 
 
 def prompt_batch(cfg: ModelConfig, params: Any, prompt: torch.Tensor
@@ -53,39 +145,49 @@ def prompt_batch(cfg: ModelConfig, params: Any, prompt: torch.Tensor
 
 @torch.inference_mode()
 def prefill(cfg: ModelConfig, params: Any, batch: Dict[str, torch.Tensor],
-            cache_len: int) -> Tuple[torch.Tensor, Any]:
+            cache_len: int, par: Optional[ModelParallel] = None
+            ) -> Tuple[torch.Tensor, Any]:
     """Run the full prompt; return (last-token logits (b, 1, V),
-    decode-ready cache)."""
+    decode-ready cache).  With ``par``, one rank's (see the module
+    docstring)."""
     logits, caches = forward(cfg, params, batch, want_cache=True,
-                             last_only=True)
-    return logits, cache_from_prefill(cfg, caches, cache_len)
+                             last_only=True, par=par)
+    return logits, cache_from_prefill(cfg, caches, cache_len, par)
 
 
 @torch.inference_mode()
 def serve_step(cfg: ModelConfig, params: Any, tokens: torch.Tensor,
-               cache: Any, pos) -> Tuple[torch.Tensor, Any]:
-    """One decode step: tokens (b, 1) -> (logits (b, 1, V), cache)."""
-    return decode_step(cfg, params, tokens, cache, pos)
+               cache: Any, pos, par: Optional[ModelParallel] = None
+               ) -> Tuple[torch.Tensor, Any]:
+    """One decode step: tokens (b, 1) -> (logits (b, 1, V), cache).  With
+    ``par``, one rank's (see the module docstring)."""
+    return decode_step(cfg, params, tokens, cache, pos, par)
 
 
-def _argmax(logits: torch.Tensor) -> torch.Tensor:
-    """(b, 1, V) -> (b, 1) greedy tokens (first maximum on ties)."""
+def _argmax(logits: torch.Tensor, par: Optional[ModelParallel] = None
+            ) -> torch.Tensor:
+    """(b, 1, V) -> (b, 1) greedy tokens (first maximum on ties); with
+    ``par`` from one rank's logits (``ModelParallel.argmax``)."""
+    if par is not None:
+        return par.argmax(logits[:, -1, :])[:, None]
     return torch.argmax(logits[:, -1, :], dim=-1, keepdim=True)
 
 
 @torch.inference_mode()
 def greedy_decode(cfg: ModelConfig, params: Any, prompt: torch.Tensor,
-                  n_steps: int, cache_len: int) -> torch.Tensor:
+                  n_steps: int, cache_len: int,
+                  par: Optional[ModelParallel] = None) -> torch.Tensor:
     """Batch-at-once autoregressive loop: prompt (b, s) -> tokens
-    (b, n_steps)."""
+    (b, n_steps).  With ``par``, one rank's: its rows of the prompt and
+    of the tokens, the same tokens on every model rank."""
     logits, cache = prefill(cfg, params, prompt_batch(cfg, params, prompt),
-                            cache_len)
-    tok = _argmax(logits)
+                            cache_len, par)
+    tok = _argmax(logits, par)
     toks = [tok]
     pos = prompt.shape[1] + cfg.num_modal_tokens
     for i in range(n_steps - 1):
-        logits, cache = serve_step(cfg, params, tok, cache, pos + i)
-        tok = _argmax(logits)
+        logits, cache = serve_step(cfg, params, tok, cache, pos + i, par)
+        tok = _argmax(logits, par)
         toks.append(tok)
     return torch.cat(toks, dim=1)
 

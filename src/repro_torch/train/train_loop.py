@@ -33,24 +33,14 @@ from repro_torch.models import cross_entropy, forward, init_params, param_shapes
 from repro_torch.parallel import act
 from repro_torch.parallel import collectives as col
 from repro_torch.parallel import sharding as sh
+from repro_torch.parallel.sharding import (check_sharded_supported,
+                                           n_data_shards)
 from repro_torch.train.optimizer import (adam_update, init_opt_state, lr_at,
                                          tree_leaves, tree_map, tree_unflatten)
 
 AUX_WEIGHT = 0.01
 
 Batch = Dict[str, torch.Tensor]
-
-# where the sharded-step paths this slice does not run are listed
-DEFERRED = "ROADMAP.md queue 1 item 10"
-
-
-def n_data_shards(mesh) -> int:
-    sizes = sh.axis_sizes(mesh)
-    n = 1
-    for a in sh.data_axes(mesh):
-        n *= sizes[a]
-    return n
-
 
 def resolve_microbatches(tc: TrainConfig, global_batch: int, mesh=None) -> int:
     """Number of grad-accumulation steps (one data shard without a mesh)."""
@@ -193,45 +183,6 @@ def build_train_step(cfg: ModelConfig, tc: TrainConfig, global_batch: int,
 
 
 # ------------------------------------------------------- the sharded step --
-
-def check_sharded_supported(cfg: ModelConfig, tc: TrainConfig, mesh) -> None:
-    """Raise NotImplementedError for a (cfg, mesh, zero) this slice does not
-    run sharded; never fall back to a replicated run."""
-    sizes = sh.axis_sizes(mesh)
-    t = sizes.get("model", 1)
-    if set(sizes) - {"pod", "data", "model"}:
-        raise NotImplementedError(f"the sharded step runs a ([pod,] data, "
-                                  f"model) mesh, not {tuple(sizes)}: "
-                                  f"{DEFERRED}")
-    if t > 1:
-        kinds = {cfg.layer_kind(j) for j in range(cfg.block_period)}
-        # GQA whose head counts t does not divide runs the head_dim / seq
-        # fallback; MLA does not yet
-        if "attn" in kinds and cfg.attention == "mla" \
-                and not sh.attn_head_sharded(cfg, t):
-            raise NotImplementedError(
-                f"{cfg.name}: MLA's {cfg.num_heads} heads on a model axis of "
-                f"{t} (the head_dim / seq fallback): {DEFERRED}")
-        # every width the model axis splits (a width it does not divide
-        # would be kept whole by enforce_divisibility)
-        widths = {"d_model": cfg.d_model, "d_ff": cfg.d_ff}
-        if cfg.attention == "mla":
-            widths["q_lora_rank"] = cfg.q_lora_rank
-        if cfg.num_experts and not sh.expert_sharded(cfg, t):
-            widths["moe_d_ff"] = cfg.moe_d_ff
-        if cfg.num_shared_experts:
-            widths["shared experts' width"] = (cfg.num_shared_experts
-                                               * cfg.moe_d_ff)
-        if "ssm" in kinds:
-            widths["n_ssm_heads"] = cfg.n_ssm_heads
-        if "attn" in kinds and not sh.attn_head_sharded(cfg, t):
-            widths["head_dim"] = cfg.head_dim
-        for what, n in widths.items():
-            if n % t:
-                raise NotImplementedError(
-                    f"{cfg.name}: {what} {n} not divisible by the model "
-                    f"axis {t}: {DEFERRED}")
-
 
 def build_sharded_step(cfg: ModelConfig, tc: TrainConfig, global_batch: int,
                        seq_len: int, mesh) -> Tuple[Callable, int]:

@@ -520,6 +520,41 @@ class TestKernelsOnCard:
             got.float(), gqa_decode_ref(q, k, v, valid).float(), atol=tol,
             rtol=tol)
 
+    @pytest.mark.parametrize("dtype", list(DTYPES))
+    @pytest.mark.parametrize("shape", [(8, 2048, 24, 8, 128),
+                                       (1, 2048, 64, 8, 128),
+                                       (3, 300, 8, 2, 32)])
+    def test_flash_decode_returns_lse(self, cuda, shape, dtype):
+        """``return_lse``: the float32 output and the log-sum-exp against
+        the plain version (out 2e-2 / 2e-5, lse 2e-2 / 1e-5 absolute; one
+        rank's shapes of a sharded decode at 2,048 slots, llama3.2-3b's
+        and jamba's), an all-invalid row giving 0 and -inf exactly, one
+        launch; without the flag, v's dtype, the flagged output rounded
+        once, and the same bits call after call."""
+        (q, k, v), valid = _decode_inputs(*shape, dtype, seed=5)
+        q, k, v = q.to(cuda), k.to(cuda), v.to(cuda)
+        valid = torch.from_numpy(valid).to(cuda)
+        bad = shape[0] - 1
+        valid[bad] = False
+        n = LAUNCHES["flash_decode_gqa"]
+        o, lse = flash_decode_gqa(q, k, v, valid, return_lse=True)
+        assert LAUNCHES["flash_decode_gqa"] == n + 1
+        assert o.dtype == lse.dtype == torch.float32
+        assert lse.shape == (shape[0], shape[2])
+        want_o, want_lse = gqa_decode_ref(q, k, v, valid, return_lse=True)
+        tol = DTYPES[dtype][1]
+        lse_tol = 1e-5 if dtype == "float32" else 2e-2
+        live = valid.any(dim=1)
+        torch.testing.assert_close(o[live], want_o[live], atol=tol, rtol=tol)
+        torch.testing.assert_close(lse[live], want_lse[live], atol=lse_tol,
+                                   rtol=0)
+        assert torch.all(o[bad] == 0)
+        assert torch.all(lse[bad] == float("-inf"))
+        plain = flash_decode_gqa(q, k, v, valid)
+        assert plain.dtype == DTYPES[dtype][0]
+        assert torch.equal(plain, o.to(plain.dtype))
+        assert torch.equal(flash_decode_gqa(q, k, v, valid), plain)
+
     def test_flash_decode_never_reads_masked_slots(self, cuda):
         """Non-finite K and V in masked slots leave the output unchanged:
         the kernel reads neither for a masked row."""
