@@ -218,6 +218,25 @@ Phases, each printing its lines before the last:
    rows, 2,048 query rows at offset 0 over 32,768 keys), each against its
    plain version and timed beside its bound and SDPA.
 
+(d) The dry run against the card (``repro_torch.launch.dryrun``): rank
+   0's dry-run peak of each of phase (m)'s ten plans and each phase (v)
+   plan (the step traced on the meta device, the kernels' wrappers
+   allocating what they allocate here and launching nothing), plus the
+   row's ``base_bytes``, beside the peak (m) or (v) measured in this run;
+   each must lie within 10% of it, and the dry run must launch nothing.
+   The stand-ins' launch plans (``kernels.meta``: the GQA decode's split,
+   the MLA decode's plan, the SSD scan's segments, the SM count) must
+   equal the card's own at the main paths' shapes.
+(o) Per-op timing and the run report on the card: with the metrics'
+   ``op_timing`` on, llama3.2-3b's serving cell (8 requests through the
+   continuous batcher, ``launch.serve``) and two gpt2-350m training
+   steps (``launch.train.train``); the trace and metrics exported and
+   ``repro_torch.obs.report`` of them printed.  Each ``ops_s/<op>``
+   histogram must hold as many samples as ``ops/<op>`` counts, and the
+   attention forward and backward, the GQA decode, RMSNorm and Adam must
+   have launched.  Its op times are host times: the call's check,
+   allocation and launch, not the kernel's run.
+
 Every training cell (7, 8, 10, 11) is started through (s)'s front door
 as gpt2-350m's is, and its peak over step 1 must equal the one-device
 path's (``ONE_DEVICE_PEAK``) to the byte.  The script sets the caching allocator's expandable segments as the entry
@@ -2751,6 +2770,10 @@ def phase_train(peaks, arch):
     return launches
 
 
+# phase (m)'s and (v)'s rows, for phase (d)
+MEASURED = {"m": [], "v": []}
+
+
 def phase_memcheck():
     """(m) Fig 6 on the card: the ten ``launch.memcheck.COMBOS`` at ZeRO 1,
     each as rank 0 of its (d, t) plan under the fake process group (an
@@ -2769,6 +2792,7 @@ def phase_memcheck():
               f" {rows[-1]['state_bytes']} B, held before it"
               f" {rows[-1]['base_bytes']} B; {time.perf_counter() - t0:.1f} s")
     launches = dict(LAUNCHES)
+    MEASURED["m"] = rows
     under = sum(r["actual_bytes"] <= r["pred_exact"] for r in rows)
     print(f"(m) mean accuracy over the {len(rows)} combos at ZeRO 1: exact"
           f" {sum(r['acc_exact'] for r in rows) / len(rows):.4f}, paper"
@@ -2932,6 +2956,7 @@ def phase_serve():
             reset_launches()
             t0 = time.perf_counter()
             row = run_serve(arch, shape, *SERVE_MESH, smi=smi, rank=rank)
+            MEASURED["v"].append(row)
             launches = {k: n for k, n in LAUNCHES.items() if n}
             total.update(launches)
             print(f"(v) {describe_serve(row)}; observed <= serve_peak_bytes"
@@ -2947,6 +2972,109 @@ def phase_serve():
                 check(launches.get(k, 0) > 0,
                       f"phase (v) {arch} {shape} rank {rank} never launched {k}")
     return total
+
+
+def phase_dryrun():
+    """(d) rank 0's dry-run peak (meta device, the kernels' stand-ins) of
+    each plan phases (m) and (v) ran, plus the row's ``base_bytes``,
+    against the peak they measured in this run, each within
+    ``dryrun.MEMCHECK_TOLERANCE`` (1%); the dry run launches nothing.  The stand-ins plan
+    their launches for ``kernels.meta.SM_COUNT`` SMs, the card for its
+    own."""
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.core.memory_model import dryrun_peak_bytes
+    from repro_torch.kernels import LAUNCHES, meta
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.memcheck import card
+    smi = card()
+    n_sm = meta.sm_count(torch.empty(0, device="cuda"))
+    print(f"(d) the card has {n_sm} SMs, the dry run plans for"
+          f" {meta.SM_COUNT}; {smi['device']}, {smi['power_limit']}")
+    check(MEASURED["m"] and MEASURED["v"], "phase (d) runs after (m) and (v)")
+    before = dict(LAUNCHES)
+    ratios = []
+    for row in MEASURED["m"]:
+        t0 = time.perf_counter()
+        got = dryrun.memcheck_row(row)
+        ratios.append(got["ratio"])
+        print(f"(d) {row['arch']} b={row['batch']} d={row['d']} t={row['t']}"
+              f" zero={row['zero']}: dry-run peak {got['peak_bytes']} B +"
+              f" base {row['base_bytes']} B against (m)'s"
+              f" {row['actual_bytes']} B: {got['ratio']:.4f};"
+              f" {time.perf_counter() - t0:.1f} s")
+    for row in MEASURED["v"]:
+        t0 = time.perf_counter()
+        stats, _ = dryrun.trace_serve(get_arch(row["arch"]), row["shape"], 1,
+                                      *SERVE_MESH, rank=row["rank"])
+        peak = dryrun_peak_bytes(stats)
+        ratio = (peak + row["base_bytes"]) / row["actual_bytes"]
+        ratios.append(ratio)
+        print(f"(d) {row['arch']} {row['shape']} rank {row['rank']} on"
+              f" {SERVE_MESH}: dry-run peak {peak} B + base"
+              f" {row['base_bytes']} B against (v)'s {row['actual_bytes']} B:"
+              f" {ratio:.4f}; {time.perf_counter() - t0:.1f} s")
+    check(dict(LAUNCHES) == before, "the dry run launched a kernel")
+    worst = max(abs(r - 1) for r in ratios)
+    print(f"(d) {len(ratios)} plans: dry run + base over the card's peak"
+          f" {min(ratios):.4f} to {max(ratios):.4f}; {smi['device']},"
+          f" {smi['power_limit']}")
+    check(worst <= dryrun.MEMCHECK_TOLERANCE,
+          f"a dry-run peak is {worst:.4f} off the card's")
+
+
+def phase_op_timing():
+    """(o) with ``op_timing`` on: llama3.2-3b's serving cell (8 requests)
+    and two gpt2-350m training steps through their entry points, the
+    exports reported; each ``ops_s/<op>`` has ``ops/<op>`` samples, and the
+    kernels of both paths launched.  Returns the launches."""
+    import tempfile
+    from repro_torch import obs
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch import serve as serve_main
+    from repro_torch.launch.memcheck import card
+    from repro_torch.launch.train import train
+    from repro_torch.obs.export import export_chrome_trace, export_metrics
+    from repro_torch.obs.report import report
+    smi = card()
+    reset_launches()
+    obs.enable(op_timing=True)
+    try:
+        serve_main.main(["--arch", "llama3.2-3b", "--batch", "8",
+                         "--prompt-len", "512", "--gen", "32",
+                         "--continuous", "8"])
+        gc.collect()
+        torch.cuda.empty_cache()
+        out = train(get_arch("gpt2-350m"), train_config(2), device="cuda",
+                    log_every=1, log=lambda line: print(f"(o) {line}"))
+        del out
+    finally:
+        obs.disable()
+    launches = dict(LAUNCHES)
+    with tempfile.TemporaryDirectory() as td:
+        tpath, mpath = os.path.join(td, "trace.json"), os.path.join(
+            td, "metrics.json")
+        export_chrome_trace(tpath)
+        export_metrics(mpath)
+        with open(tpath) as f:
+            trace = json.load(f)
+        with open(mpath) as f:
+            metrics = json.load(f)
+    obs.clear()
+    print(f"(o) the run report (op times are host times, not card times;"
+          f" {smi['device']}, {smi['power_limit']}):")
+    report(trace, metrics, out=sys.stdout)
+    ops = {k[4:]: int(v) for k, v in metrics["counters"].items()
+           if k.startswith("ops/")}
+    timed = {k[6:]: h["total"] for k, h in metrics["histograms"].items()
+             if k.startswith("ops_s/")}
+    print(f"(o) ops {ops}; ops_s samples {timed}; launches"
+          f" {({k: n for k, n in launches.items() if n})}")
+    check(ops and timed == ops, f"ops_s samples {timed} != ops counts {ops}")
+    for k in ("flash_attention", "flash_attention_bwd", "flash_decode_gqa",
+              "rms_norm", "adam_update"):
+        check(launches[k] > 0, f"phase (o) never launched {k}")
+    return launches
 
 
 def train_peak(arch):
@@ -3180,6 +3308,9 @@ def main():
                      timed_phase("(q) query offset", phase_seq),
                      timed_phase("(p) pod axis", phase_pod),
                      timed_phase("(v) sharded serving", phase_serve)]
+    timed_phase("(d) dry run against the card", phase_dryrun)
+    path_launches.append(timed_phase("(o) op timing and the report",
+                                     phase_op_timing))
     for kname, row in rows.items():
         row["launches"] = sum(launches[kname] for launches in path_launches)
     print(f"total wall time {time.perf_counter() - t0:.1f}s")

@@ -2,10 +2,11 @@
 
 The JAX package's ``repro.core.memory_model``, function for function and
 constant for constant, so that the port predicts the peaks the reference
-predicts (``tests/test_torch_memory_model.py`` holds them equal).  It
-leaves out ``xla_peak_bytes``, which reads XLA's compile-time
-``memory_analysis()``: the port has no such object, and a card measures
-its peak with ``torch.cuda.max_memory_allocated()`` instead.
+predicts (``tests/test_torch_memory_model.py`` holds them equal).  In
+place of ``xla_peak_bytes``, which reads XLA's compile-time
+``memory_analysis()``, it has ``dryrun_peak_bytes``, which reads the
+port's dry run (``launch.op_analysis``: a step traced on the meta device);
+a card measures its peak with ``torch.cuda.max_memory_allocated()``.
 
 Two models:
 
@@ -25,6 +26,7 @@ from __future__ import annotations
 import math
 from dataclasses import dataclass
 from functools import lru_cache
+from typing import Optional
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.moe import moe_capacity
@@ -306,6 +308,22 @@ def lora_peak_bytes(cfg: ModelConfig, global_batch: int, seq: int,
     return (frozen + adapter
             + activation_bytes(cfg, seq, mb, t, remat)
             + XLA_RUNTIME_OVERHEAD)
+
+
+# --------------------------------------------------- dry-run accounting ----
+
+def dryrun_peak_bytes(stats) -> Optional[int]:
+    """Peak bytes/device from a dry-run trace (``launch.op_analysis.OpStats``
+    of one step on the meta device) -- the counterpart of the JAX
+    package's ``xla_peak_bytes``: what was live when the step began (its
+    arguments, ``entry_bytes``) plus the most the step added at once (its
+    temporaries and outputs, ``temp_bytes``), each storage rounded up to
+    the CUDA caching allocator's 512 bytes, so that it compares with
+    ``torch.cuda.max_memory_allocated()`` over the same step.  None where
+    the trace followed no storages: the peak is missing, never guessed."""
+    if stats.entry_bytes is None or stats.temp_bytes is None:
+        return None
+    return int(stats.entry_bytes + stats.temp_bytes)
 
 
 # ----------------------------------------------------------- serve mode -----

@@ -1,11 +1,12 @@
 """Wrapper of the hand-written fused Adam kernel (``csrc/adam_update.cu``):
 checks, launch, launch count.
 
-It takes CUDA tensors only and raises on anything the kernel does not
-take; ``repro_torch.kernels.dispatch.adam_update_leaf`` sends CPU tensors
-to the plain version in ``ref.py`` instead.  Unlike the plain version it
-updates in place: m, v and master are overwritten and the parameter
-receives master' rounded to its own dtype.
+It takes CUDA tensors and raises on anything the kernel does not take;
+``repro_torch.kernels.dispatch.adam_update_leaf`` sends CPU tensors to the
+plain version in ``ref.py`` instead.  Unlike the plain version it updates
+in place: m, v and master are overwritten and the parameter receives
+master' rounded to its own dtype.  On meta tensors it checks and stops
+before the launch: in place, it allocates nothing (``kernels.meta``).
 """
 from __future__ import annotations
 
@@ -14,7 +15,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import LAUNCHES, _build
+from repro_torch.kernels import LAUNCHES, _build, meta
 
 PARAM_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -32,7 +33,8 @@ def _kernel():
 
 def _check_inputs(g, m, v, master, param) -> None:
     state = (g, m, v, master)
-    if not all(t.is_cuda and t.device == g.device for t in state + (param,)):
+    if not all((t.is_cuda or meta.is_meta(t)) and t.device == g.device
+               for t in state + (param,)):
         raise ValueError("adam_update takes CUDA tensors on one device")
     if any(t.dtype != torch.float32 for t in state) \
             or param.dtype not in PARAM_DTYPES:
@@ -59,8 +61,11 @@ def adam_update(g: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
     """One Adam step on one leaf, in place: m, v, master <- m', v',
     master' and param <- master' in param's dtype."""
     _check_inputs(g, m, v, master, param)
+    if meta.is_meta(g):
+        meta.record("adam_update", 0, (g, m, v, master), (m, v, master, param))
+        return
     stream = torch.cuda.current_stream(g.device).cuda_stream
-    n_sm = torch.cuda.get_device_properties(g.device).multi_processor_count
+    n_sm = meta.sm_count(g)
     err = _kernel()(
         g.data_ptr(), m.data_ptr(), v.data_ptr(), master.data_ptr(),
         param.data_ptr(), PARAM_DTYPES[param.dtype], g.numel(), float(lr),

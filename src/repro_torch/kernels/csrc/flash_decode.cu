@@ -15,11 +15,12 @@
 //
 // Design:
 //  * Splits.  The grid is (split, KV head, batch); a split is `bs` cache rows,
-//    a multiple of TR = 64 rows chosen on the host (repro_flash_decode_block_s)
-//    from (b, S, K) and the SM count so that the grid has at least ~4 blocks
-//    per SM where the cache allows it: 64-row splits at llama's decode shape
-//    (9 x 8 x 8 = 576 blocks on 132 SMs), longer ones (up to 512 rows) for a
-//    long cache, so the partials stay a few percent of the cache's bytes.
+//    a multiple of TR = 64 rows chosen on the host (kernels/meta.py's
+//    gqa_block_s) from (b, S, K) and the SM count so that the grid has at
+//    least ~4 blocks per SM where the cache allows it: 64-row splits at
+//    llama's decode shape (9 x 8 x 8 = 576 blocks on 132 SMs), longer ones
+//    (up to 512 rows) for a long cache, so the partials stay a few percent
+//    of the cache's bytes.
 //  * Loads.  A split's K tiles, then its V tiles, stream through a ring of up
 //    to four 64-row tiles in shared memory by 16-byte cp.async, each thread
 //    keeping 8 (bf16, D=128) of them in flight per tile, and the V tiles are
@@ -315,23 +316,6 @@ __global__ void decode_combine(const float* __restrict__ acc,
     lse[(size_t)b * H + h] = l_g > 0.f ? m_g + logf(l_g) : __int_as_float(0xff800000);
 }
 
-int sm_count() {
-  int dev = 0, n = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
-    return 0;
-  return n;
-}
-
-// cache rows per split: TR times the tiles that still leave ~4 blocks per SM
-int block_s(int b, int S, int K) {
-  const long long tiles = (S + TR - 1) / TR;
-  const long long want = 4LL * (sm_count() > 0 ? sm_count() : 1);
-  long long per = tiles * b * K / want;
-  per = per < 1 ? 1 : (per > MAX_TILES ? MAX_TILES : per);
-  return TR * (int)per;
-}
-
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const uint8_t* valid, float* acc, float* m, float* l,
@@ -382,7 +366,8 @@ cudaError_t launch_d(int D, const void* q, const void* k, const void* v,
 
 // q (b, 1, H, D); k/v caches (b, S, K, D); valid (b, S) of 0/1 bytes;
 // scratch acc (b, ns, K, G, D), m and l (b, ns, K, G) float32 with
-// ns = ceil(S / bs), bs = repro_flash_decode_block_s(b, S, K); out
+// ns = ceil(S / bs), bs a multiple of 64 up to 512 (the wrapper's plan,
+// kernels/meta.py's gqa_block_s); out
 // (b, 1, H, D) in the caches' dtype, or float32 when lse (b, H) float32 is
 // not null.  Returns the cudaError_t of the launches (0 on success).
 extern "C" int repro_flash_decode_gqa(const void* q, const void* k,
@@ -405,6 +390,3 @@ extern "C" int repro_flash_decode_gqa(const void* q, const void* k,
                                         bs, scale, s);
   return (int)cudaErrorInvalidValue;
 }
-
-// cache rows per split for a (b, S, K) cache on the current device
-extern "C" int repro_flash_decode_block_s(int b, int S, int K) { return block_s(b, S, K); }

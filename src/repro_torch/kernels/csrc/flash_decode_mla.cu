@@ -54,8 +54,8 @@
 //    the same in both products.  l sums the unrounded p, per lane, and is
 //    reduced once at the end.  Four barriers a 64-row tile, where the first
 //    version had five a 32-row tile.
-//  * Splits from the cache length alone (split_rows, read by the wrapper
-//    through repro_flash_decode_mla_plan), so a row's output does not
+//  * Splits from the cache length alone (chosen by the wrapper,
+//    kernels/meta.py's mla_plan, and passed in), so a row's output does not
 //    depend on the batch around it: at most 6 splits of at least one tile
 //    (64 rows) and at most 1024 rows, a multiple of 16.  Six is the most
 //    splits whose clusters the H100 holds in one wave at deepseek-v2's
@@ -134,20 +134,6 @@ struct MmaSmem {
 };
 
 constexpr int MAX_CLUSTER = 8;  // splits merged in a cluster (portable size)
-
-// Cache rows a split for an S-row cache (header: splits from the cache
-// length alone).
-constexpr int SPLITS = 6, SPLIT_MIN = TR, SPLIT_MAX = 1024;
-int split_rows(int S) {
-  auto r16 = [](int n) { return (n + 15) / 16 * 16; };
-  int rows = r16((S + SPLITS - 1) / SPLITS);
-  rows = rows < SPLIT_MIN ? SPLIT_MIN : rows > SPLIT_MAX ? SPLIT_MAX : rows;
-  return rows < r16(S) ? rows : r16(S);
-}
-
-// whether the ns splits of a (head tile, batch) merge in a cluster: the
-// bf16 body (dtype 1) at up to MAX_CLUSTER splits
-bool fused(int dtype, int ns) { return dtype == 1 && ns <= MAX_CLUSTER; }
 
 // The merge in a cluster: a split's float32 partial, HT rows of R + 8 floats
 // (padded against bank conflicts), goes to its ring and p tile; the splits'
@@ -696,8 +682,9 @@ __global__ void mla_combine(const float* __restrict__ acc,
 template <int R, int DR>
 cudaError_t launch_merge(const float* q_lat, const float* q_rope, const float* c_kv,
                          const float* k_rope, const uint8_t* valid, float* acc, float* m,
-                         float* l, float* out, int b, int S, int H, int bs, float denom,
-                         cudaStream_t stream) {
+                         float* l, float* out, int b, int S, int H, int bs, bool fused,
+                         float denom, cudaStream_t stream) {
+  if (fused) return cudaErrorInvalidValue;  // the float32 body merges in a second kernel
   const int ns = (S + bs - 1) / bs;
   constexpr int smem = f32_smem_bytes<R, DR>();
   cudaError_t err = cudaFuncSetAttribute(mla_partials_f32<R, DR>,
@@ -714,12 +701,13 @@ cudaError_t launch_merge(const float* q_lat, const float* q_rope, const float* c
 template <int R, int DR>
 cudaError_t launch_merge(const bf16* q_lat, const bf16* q_rope, const bf16* c_kv,
                          const bf16* k_rope, const uint8_t* valid, float* acc, float* m,
-                         float* l, bf16* out, int b, int S, int H, int bs, float denom,
-                         cudaStream_t stream) {
+                         float* l, bf16* out, int b, int S, int H, int bs, bool fused,
+                         float denom, cudaStream_t stream) {
   const int ns = (S + bs - 1) / bs;
   constexpr int smem = MmaSmem<R, DR>::BYTES;
   const dim3 grid(ns, (H + HT - 1) / HT, b);
-  if (fused(1, ns)) {            // one cluster of splits a (head tile, batch)
+  if (fused && ns > MAX_CLUSTER) return cudaErrorInvalidValue;
+  if (fused) {                   // one cluster of splits a (head tile, batch)
     auto kern = mla_partials_mma<R, DR, true>;
     cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            smem);
@@ -755,28 +743,28 @@ template <typename T, int R, int DR>
 cudaError_t launch(const void* q_lat, const void* q_rope, const void* c_kv,
                    const void* k_rope, const uint8_t* valid, float* acc,
                    float* m, float* l, void* out, int b, int S, int H, int bs,
-                   float denom, cudaStream_t stream) {
+                   bool fused, float denom, cudaStream_t stream) {
   if (bs <= 0 || bs % 16) return cudaErrorInvalidValue;
   return launch_merge<R, DR>(static_cast<const T*>(q_lat), static_cast<const T*>(q_rope),
                              static_cast<const T*>(c_kv), static_cast<const T*>(k_rope),
-                             valid, acc, m, l, static_cast<T*>(out), b, S, H, bs, denom,
-                             stream);
+                             valid, acc, m, l, static_cast<T*>(out), b, S, H, bs, fused,
+                             denom, stream);
 }
 
 template <typename T>
 cudaError_t launch_rd(int R, int DR, const void* q_lat, const void* q_rope,
                       const void* c_kv, const void* k_rope,
                       const uint8_t* valid, float* acc, float* m, float* l,
-                      void* out, int b, int S, int H, int bs, float denom,
-                      cudaStream_t stream) {
+                      void* out, int b, int S, int H, int bs, bool fused,
+                      float denom, cudaStream_t stream) {
   if (R == 32 && DR == 16)
-    return launch<T, 32, 16>(q_lat, q_rope, c_kv, k_rope, valid, acc, m, l, out, b, S, H, bs, denom, stream);
+    return launch<T, 32, 16>(q_lat, q_rope, c_kv, k_rope, valid, acc, m, l, out, b, S, H, bs, fused, denom, stream);
   if (R == 32 && DR == 64)
-    return launch<T, 32, 64>(q_lat, q_rope, c_kv, k_rope, valid, acc, m, l, out, b, S, H, bs, denom, stream);
+    return launch<T, 32, 64>(q_lat, q_rope, c_kv, k_rope, valid, acc, m, l, out, b, S, H, bs, fused, denom, stream);
   if (R == 512 && DR == 16)
-    return launch<T, 512, 16>(q_lat, q_rope, c_kv, k_rope, valid, acc, m, l, out, b, S, H, bs, denom, stream);
+    return launch<T, 512, 16>(q_lat, q_rope, c_kv, k_rope, valid, acc, m, l, out, b, S, H, bs, fused, denom, stream);
   if (R == 512 && DR == 64)
-    return launch<T, 512, 64>(q_lat, q_rope, c_kv, k_rope, valid, acc, m, l, out, b, S, H, bs, denom, stream);
+    return launch<T, 512, 64>(q_lat, q_rope, c_kv, k_rope, valid, acc, m, l, out, b, S, H, bs, fused, denom, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -806,40 +794,27 @@ int max_clusters(int ns) {
 
 // q_lat (b, H, R), q_rope (b, H, DR), c_kv (b, S, R), k_rope (b, S, DR),
 // valid (b, S) of 0/1 bytes, all contiguous; bs cache rows a split (a
-// multiple of 16; repro_flash_decode_mla_plan's); scratch acc (b, ns, H,
-// R), m and l (b, ns, H) float32 with ns = ceil(S / bs), unused (may be
-// null) where the plan says the splits merge in a cluster; out (b, H, R).
+// multiple of 16) and fused (the ns = ceil(S / bs) splits of a (head tile,
+// batch) merge in one cluster: bf16 only, ns <= 8), both from the wrapper's
+// plan (kernels/meta.py's mla_plan); scratch acc (b, ns, H, R), m and l
+// (b, ns, H) float32, unused (may be null) where fused; out (b, H, R).
 // Returns the cudaError_t of the launches (0 on success).
 extern "C" int repro_flash_decode_mla(const void* q_lat, const void* q_rope,
                                       const void* c_kv, const void* k_rope,
                                       const void* valid, void* acc, void* m,
                                       void* l, void* out, int b, int S, int H,
-                                      int R, int DR, int bs, int dtype,
-                                      float denom, void* stream) {
+                                      int R, int DR, int bs, int fused,
+                                      int dtype, float denom, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const uint8_t* vm = static_cast<const uint8_t*>(valid);
   float* a = static_cast<float*>(acc);
   float* mm = static_cast<float*>(m);
   float* ll = static_cast<float*>(l);
   if (dtype == 0)
-    return (int)launch_rd<float>(R, DR, q_lat, q_rope, c_kv, k_rope, vm, a, mm, ll, out, b, S, H, bs, denom, s);
+    return (int)launch_rd<float>(R, DR, q_lat, q_rope, c_kv, k_rope, vm, a, mm, ll, out, b, S, H, bs, fused, denom, s);
   if (dtype == 1)
-    return (int)launch_rd<bf16>(R, DR, q_lat, q_rope, c_kv, k_rope, vm, a, mm, ll, out, b, S, H, bs, denom, s);
+    return (int)launch_rd<bf16>(R, DR, q_lat, q_rope, c_kv, k_rope, vm, a, mm, ll, out, b, S, H, bs, fused, denom, s);
   return (int)cudaErrorInvalidValue;
-}
-
-// The launch for b rows of an S-row cache, H heads, dtype 0 (float32) or
-// 1 (bf16), at bs rows a split (bs <= 0: split_rows(S)): plan = {split
-// rows, grid (splits, head tiles, b), 1 if the splits merge in a cluster}.
-extern "C" void repro_flash_decode_mla_plan(int b, int S, int H, int dtype,
-                                            int bs, int* plan) {
-  if (bs <= 0) bs = split_rows(S);
-  const int ns = (S + bs - 1) / bs, heads = dtype == 1 ? HT : HG;
-  plan[0] = bs;
-  plan[1] = ns;
-  plan[2] = (H + heads - 1) / heads;
-  plan[3] = b;
-  plan[4] = fused(dtype, ns);
 }
 
 // clusters of ns blocks of the bf16 body at widths (R, DR) that the current

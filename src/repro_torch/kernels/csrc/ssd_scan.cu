@@ -17,7 +17,7 @@
 // split in parallel phases.
 //
 // bfloat16 design (chunk L = 64 rows, segments of `cps` chunks chosen on the
-// host from (b, s, h) and the SM count, repro_ssd_scan_segment_chunks):
+// host from (b, s, h) and the SM count, kernels/meta.py's ssd_segment_chunks):
 //   0. ssd_cb, grid (chunk, batch): C.B^T of each chunk (L x L float32, from
 //      mma.sync on the bf16 B and C, exact products with float32 sums), once
 //      per (batch, chunk) and shared by all heads -- B and C are one group;
@@ -640,33 +640,13 @@ ssd_chunk_scan(const bf16* __restrict__ x, const bf16* __restrict__ dt_raw,
   }
 }
 
-int sm_count() {
-  int dev = 0, n = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
-    return 0;
-  return n;
-}
-
-// chunks per segment: as many segments as give ~2 blocks of ssd_chunk_scan
-// per SM (two fit an SM), no more than the chunks
-int segment_chunks(int b, int S, int H) {
-  const int nc = (S + L - 1) / L;
-  const long long bh = (long long)b * H;
-  const long long want = 2LL * (sm_count() > 0 ? sm_count() : 1);
-  long long nseg = (want + bh - 1) / bh;
-  if (nseg > nc) nseg = nc;
-  if (nseg < 1) nseg = 1;
-  return (int)((nc + nseg - 1) / nseg);
-}
-
 template <int P, int N>
 cudaError_t launch_bf16(const bf16* x, const bf16* dt_raw, const float* A_log, const bf16* B,
                         const bf16* C, const float* D, const float* dt_bias, bf16* y,
                         float* state, float* cb, float* states, float* segld, int b, int S,
-                        int H, cudaStream_t stream) {
+                        int H, int cps, cudaStream_t stream) {
+  if (cps < 1) return cudaErrorInvalidValue;
   const int nc = (S + L - 1) / L;
-  const int cps = segment_chunks(b, S, H);
   const int nseg = (nc + cps - 1) / cps;
   ssd_cb<N><<<dim3(nc, b), 128, 0, stream>>>(B, C, cb, S);
   cudaError_t err = cudaGetLastError();
@@ -721,15 +701,16 @@ cudaError_t launch_walk(int P, int N, const void* x, const void* dt_raw, const f
 // y (b, S, H, P) in that dtype and state (b, H, P, N) float32.  Scratch,
 // bfloat16 only (float32 calls may pass null): cb (b, nc, 64, 64) float32
 // with nc = ceil(S / 64), states (b, nseg - 1, H, P, N) and segld
-// (b, nseg - 1, H) float32 with nseg = ceil(nc / cps), cps =
-// repro_ssd_scan_segment_chunks(b, S, H).  The (P, N) pairs built:
+// (b, nseg - 1, H) float32 with nseg = ceil(nc / cps), cps chunks a segment
+// (the wrapper's plan, kernels/meta.py's ssd_segment_chunks; unused in
+// float32).  The (P, N) pairs built:
 // mamba2-130m's (64, 128) and its smoke config's (32, 16).  Returns the
 // cudaError_t of the launches (0 on success).
 extern "C" int repro_ssd_scan(const void* x, const void* dt_raw, const void* A_log,
                               const void* B, const void* C, const void* D,
                               const void* dt_bias, void* y, void* state, void* cb,
                               void* states, void* segld, int b, int S, int H, int P, int N,
-                              int dtype, void* stream) {
+                              int cps, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* al = static_cast<const float*>(A_log);
   const float* dv = static_cast<const float*>(D);
@@ -747,17 +728,13 @@ extern "C" int repro_ssd_scan(const void* x, const void* dt_raw, const void* A_l
   float* sts = static_cast<float*>(states);
   float* sl = static_cast<float*>(segld);
   if (P == 32 && N == 16)
-    return (int)launch_bf16<32, 16>(xb, dr, al, bm, cm, dv, db, yb, st, cbf, sts, sl, b, S, H, s);
+    return (int)launch_bf16<32, 16>(xb, dr, al, bm, cm, dv, db, yb, st, cbf, sts, sl, b, S, H,
+                                    cps, s);
   if (P == 64 && N == 128)
     return (int)launch_bf16<64, 128>(xb, dr, al, bm, cm, dv, db, yb, st, cbf, sts, sl, b, S, H,
-                                     s);
+                                     cps, s);
   return (int)cudaErrorInvalidValue;
 }
 
 // rows per chunk
 extern "C" int repro_ssd_scan_chunk() { return L; }
-
-// chunks per segment of the bfloat16 scan for (b, S, H) on the current device
-extern "C" int repro_ssd_scan_segment_chunks(int b, int S, int H) {
-  return segment_chunks(b, S, H);
-}

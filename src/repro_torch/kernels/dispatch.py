@@ -7,7 +7,11 @@ input tensors.
   one whose forward is the kernel and whose backward is PyTorch, as the
   JAX package has no kernel for it);
 * a CPU tensor goes to the plain PyTorch version in the kernel's ``ref.py``
-  (whose gradient, where one is taken, is PyTorch's autograd).
+  (whose gradient, where one is taken, is PyTorch's autograd);
+* a meta tensor goes to the kernel's wrapper and autograd op, as a CUDA
+  tensor does: the wrapper allocates what it allocates on the card and
+  skips the launch (``kernels.meta``), so the dry run
+  (``launch.dryrun``) holds the card's tensors, not the plain versions'.
 
 There is no environment variable, no fallback on error and no capability
 check: a card the kernel was not built for fails loudly.  ``force("ref")``
@@ -18,17 +22,22 @@ With the observability plane's metrics enabled (``repro_torch.obs``), each
 op counts its calls as ``ops/<op>`` under the JAX package's op names
 (``attention``, ``flash_decode``, ``mla_flash_decode``, ``ssd_scan``,
 ``adam_update``; RMSNorm, which the JAX package does not dispatch, as
-``rms_norm``); disabled, that costs one attribute read a call.  The JAX
-package's per-op wall times (``ops_s/<op>``, ``op_timing=True``) are not
-taken: a kernel launch returns before the card has run it.
+``rms_norm``); disabled, that costs two attribute reads a call.  With
+``op_timing=True`` too, each call's host time goes to the histogram
+``ops_s/<op>``, as the JAX package's dispatch records it: the call is not
+synchronized, so on the card it is the time to check, allocate and
+launch, not the kernel's run.  A call on meta tensors is not timed, as the
+JAX package does not time a call under a trace.
 """
 from __future__ import annotations
 
+import time
 from contextlib import contextmanager
-from typing import Iterator, Optional, Tuple
+from typing import Callable, Iterator, Optional, Tuple
 
 import torch
 
+from repro_torch.kernels import meta
 from repro_torch.kernels.adam_update import adam_ref, adam_update
 from repro_torch.kernels.flash_attention import (attention_ref,
                                                  flash_attention,
@@ -62,9 +71,20 @@ def force(impl: Optional[str]) -> Iterator[None]:
 def _use_kernel(x: torch.Tensor) -> bool:
     if _forced_ref or x.device.type == "cpu":
         return False
-    if x.device.type == "cuda":
+    if x.device.type in ("cuda", "meta"):
         return True
     raise ValueError(f"no kernel or plain version for device {x.device}")
+
+
+def _call(op: str, x: torch.Tensor, fn: Callable, *args, **kw):
+    """``fn(*args, **kw)``, its host time recorded as ``ops_s/<op>`` when
+    the metrics time ops and ``x`` is not a meta tensor."""
+    if METRICS.op_timing and not meta.is_meta(x):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        METRICS.observe("ops_s/" + op, time.perf_counter() - t0)
+        return out
+    return fn(*args, **kw)
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -82,8 +102,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         fn = flash_attention_trainable
     else:
         fn = flash_attention
-    return fn(q, k, v, causal=causal, window=window,
-              softmax_scale=softmax_scale, q_offset=q_offset)
+    return _call("attention", q, fn, q, k, v, causal=causal, window=window,
+                 softmax_scale=softmax_scale, q_offset=q_offset)
 
 
 def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
@@ -98,8 +118,8 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
     if METRICS.enabled:
         METRICS.inc("ops/flash_decode")
     fn = flash_decode_gqa if _use_kernel(q) else gqa_decode_ref
-    return fn(q, k_cache, v_cache, valid, softmax_scale=softmax_scale,
-              return_lse=return_lse)
+    return _call("flash_decode", q, fn, q, k_cache, v_cache, valid,
+                 softmax_scale=softmax_scale, return_lse=return_lse)
 
 
 def mla_flash_decode(q_lat: torch.Tensor, q_rope: torch.Tensor,
@@ -113,7 +133,8 @@ def mla_flash_decode(q_lat: torch.Tensor, q_rope: torch.Tensor,
     if METRICS.enabled:
         METRICS.inc("ops/mla_flash_decode")
     fn = flash_decode_mla if _use_kernel(q_lat) else mla_decode_ref
-    return fn(q_lat, q_rope, c_kv, k_rope, valid, denom=denom)
+    return _call("mla_flash_decode", q_lat, fn, q_lat, q_rope, c_kv, k_rope,
+                 valid, denom=denom)
 
 
 def ssd(x: torch.Tensor, dt_raw: torch.Tensor, A_log: torch.Tensor,
@@ -127,12 +148,12 @@ def ssd(x: torch.Tensor, dt_raw: torch.Tensor, A_log: torch.Tensor,
     the kernel walks chunks of its own length (chunking is exact in math)."""
     if METRICS.enabled:
         METRICS.inc("ops/ssd_scan")
+    args = (x, dt_raw, A_log, B, C, D, dt_bias)
     if _use_kernel(x):
-        args = (x, dt_raw, A_log, B, C, D, dt_bias)
         if torch.is_grad_enabled() and any(t.requires_grad for t in args):
-            return ssd_scan_trainable(*args)
-        return ssd_scan(*args)
-    return ssd_scan_ref(x, dt_raw, A_log, B, C, D, dt_bias, chunk=chunk)
+            return _call("ssd_scan", x, ssd_scan_trainable, *args)
+        return _call("ssd_scan", x, ssd_scan, *args)
+    return _call("ssd_scan", x, ssd_scan_ref, *args, chunk=chunk)
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5
@@ -145,9 +166,9 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5
     if _use_kernel(x):
         x = x.contiguous()
         if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad):
-            return rms_norm_trainable(x, scale, eps)
-        return rms_norm_kernel(x, scale, eps)[0]
-    return rms_norm_ref(x, scale, eps)
+            return _call("rms_norm", x, rms_norm_trainable, x, scale, eps)
+        return _call("rms_norm", x, rms_norm_kernel, x, scale, eps)[0]
+    return _call("rms_norm", x, rms_norm_ref, x, scale, eps)
 
 
 @torch.no_grad()
@@ -162,8 +183,12 @@ def adam_update_leaf(g: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
         METRICS.inc("ops/adam_update")
     kw = dict(lr=lr, beta1=beta1, beta2=beta2, eps=eps, wd=wd, c1=c1, c2=c2)
     if _use_kernel(g):
-        adam_update(g, m, v, master, param, **kw)
+        _call("adam_update", g, adam_update, g, m, v, master, param, **kw)
         return
+    _call("adam_update", g, _adam_plain, g, m, v, master, param, **kw)
+
+
+def _adam_plain(g, m, v, master, param, **kw) -> None:
     m2, v2, master2, _ = adam_ref(g, m, v, master, **kw)
     m.copy_(m2)
     v.copy_(v2)

@@ -2,9 +2,10 @@
 (``csrc/flash_attention.cu``, forward, and ``csrc/flash_attention_bwd.cu``,
 backward): checks, allocation, launch, launch count.
 
-It takes CUDA tensors only and raises on anything the kernel does not
-take; ``repro_torch.kernels.dispatch.attention`` sends CPU tensors to the
-plain version in ``ref.py`` instead.
+It takes CUDA tensors and raises on anything the kernel does not take;
+``repro_torch.kernels.dispatch.attention`` sends CPU tensors to the plain
+version in ``ref.py`` instead.  On meta tensors it checks and allocates
+as on the card and stops before the launch (``kernels.meta``).
 """
 from __future__ import annotations
 
@@ -14,7 +15,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import LAUNCHES, _build
+from repro_torch.kernels import LAUNCHES, _build, meta
 
 # head dims each kernel was instantiated for (the switch in its .cu file)
 FWD_HEAD_DIMS = (32, 48, 64, 128, 160, 192)
@@ -69,12 +70,13 @@ def _check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"{name}: query rows [{q_offset}, {q_offset + sq}) "
                          f"lie outside the {sk} key positions")
     # the kernels copy rows with 16-byte cp.async: a view at a storage
-    # offset may start off that grid
+    # offset may start off that grid (a meta tensor's data_ptr is 0)
     for arg, t in dict(q=q, k=k, v=v, **more).items():
         if t.data_ptr() % 16:
             raise ValueError(f"{name} takes 16-byte aligned tensors, got {arg} "
                              f"at data_ptr {t.data_ptr():#x}")
-    if not (q.is_cuda and k.device == q.device and v.device == q.device):
+    if not ((q.is_cuda or meta.is_meta(q)) and k.device == q.device
+            and v.device == q.device):
         raise ValueError(f"{name} takes CUDA tensors on one device")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError(f"{name} takes contiguous q, k, v")
@@ -91,6 +93,10 @@ def _forward(q, k, v, causal, window, softmax_scale, want_lse, q_offset):
     o = torch.empty_like(q)
     lse = (torch.empty((b, H, sq), dtype=torch.float32, device=q.device)
            if want_lse else None)
+    if meta.is_meta(q):
+        meta.record("flash_attention", meta.attention_flops(b, sq, sk, H, D),
+                    (q, k, v), (o, lse))
+        return o, lse
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _kernel()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
@@ -157,6 +163,11 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("flash_attention_bwd takes contiguous o, do, lse")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     di = torch.empty((b, H, sq), dtype=torch.float32, device=q.device)
+    if meta.is_meta(q):
+        meta.record("flash_attention_bwd",
+                    meta.attention_bwd_flops(b, sq, sk, H, D),
+                    (q, k, v, o, lse, do), (dq, dk, dv))
+        return dq, dk, dv
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = _bwd_kernel()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),

@@ -3,9 +3,11 @@
 output and of the float32 partials, launch of the partial and merge
 kernels, launch count.
 
-It takes CUDA tensors only and raises on anything the kernel does not
-take; ``repro_torch.kernels.dispatch.flash_decode`` sends CPU tensors to
-the plain version in ``ref.py`` instead.
+It takes CUDA tensors and raises on anything the kernel does not take;
+``repro_torch.kernels.dispatch.flash_decode`` sends CPU tensors to the
+plain version in ``ref.py`` instead.  On meta tensors it checks and
+allocates as on the card and stops before the launch.  The split is
+``kernels.meta.gqa_block_s``'s, on either device.
 """
 from __future__ import annotations
 
@@ -16,7 +18,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import LAUNCHES, _build, refuse_grad
+from repro_torch.kernels import LAUNCHES, _build, meta, refuse_grad
 from repro_torch.kernels.flash_attention.flash_attention import DTYPE_CODES
 
 HEAD_DIMS = (32, 64, 128, 160)   # the head dims flash_decode.cu instantiates
@@ -31,25 +33,17 @@ def _lib() -> ctypes.CDLL:
                                            _P, _I, _I, _I, _I, _I, _I, _I,
                                            ctypes.c_float, _P]
     lib.repro_flash_decode_gqa.restype = ctypes.c_int
-    lib.repro_flash_decode_block_s.argtypes = [_I, _I, _I]
-    lib.repro_flash_decode_block_s.restype = ctypes.c_int
     return lib
 
 
-@functools.cache
-def _block_s(b: int, S: int, K: int, device_index: int) -> int:
-    with torch.cuda.device(device_index):
-        return _lib().repro_flash_decode_block_s(b, S, K)
-
-
 def block_s(k_cache: torch.Tensor) -> int:
-    """Cache rows per split the kernel uses for a (b, S, K, D) CUDA cache:
-    a multiple of 64 chosen from (b, S, K) and the card's SM count (at
+    """Cache rows per split the kernel uses for a (b, S, K, D) cache: a
+    multiple of 64 chosen from (b, S, K) and the card's SM count (at
     llama3.2-3b's decode shape, 64).  The split-KV oracle
     ``gqa_decode_splitk(..., block_s=block_s(k_cache))`` rounds as the
     kernel does."""
     b, S, K, _ = k_cache.shape
-    return _block_s(b, S, K, k_cache.device.index or 0)
+    return meta.gqa_block_s(b, S, K, meta.sm_count(k_cache))
 
 
 def _check_inputs(q: torch.Tensor, k_cache: torch.Tensor,
@@ -76,7 +70,8 @@ def _check_inputs(q: torch.Tensor, k_cache: torch.Tensor,
                          f"and valid {tuple(valid.shape)} do not agree")
     if D not in HEAD_DIMS:
         raise ValueError(f"flash_decode_gqa: head dim {D} not in {HEAD_DIMS}")
-    if not (q.is_cuda and all(t.device == q.device for t in tensors)):
+    if not ((q.is_cuda or meta.is_meta(q))
+            and all(t.device == q.device for t in tensors)):
         raise ValueError("flash_decode_gqa takes CUDA tensors on one device")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("flash_decode_gqa takes contiguous tensors")
@@ -108,6 +103,10 @@ def flash_decode_gqa(q: torch.Tensor, k_cache: torch.Tensor,
                       if return_lse else v_cache.dtype)
     lse = (torch.empty((b, H), dtype=torch.float32, device=dev)
            if return_lse else None)
+    if meta.is_meta(q):
+        meta.record("flash_decode_gqa", meta.gqa_decode_flops(b, S, H, D),
+                    (q, k_cache, v_cache, valid), (out, lse))
+        return (out, lse) if return_lse else out
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _lib().repro_flash_decode_gqa(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), valid.data_ptr(),

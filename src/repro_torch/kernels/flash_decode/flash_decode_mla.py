@@ -4,9 +4,11 @@ grid, where the splits merge), allocation of the output and, where the
 splits merge in a second kernel, of the float32 partials, the launch,
 launch count.
 
-It takes CUDA tensors only and raises on anything the kernel does not
-take; ``repro_torch.kernels.dispatch.mla_flash_decode`` sends CPU tensors
-to the plain version in ``ref.py`` instead.
+It takes CUDA tensors and raises on anything the kernel does not take;
+``repro_torch.kernels.dispatch.mla_flash_decode`` sends CPU tensors to the
+plain version in ``ref.py`` instead.  On meta tensors it checks and
+allocates as on the card and stops before the launch.  The plan is
+``kernels.meta.mla_plan``'s, on either device.
 """
 from __future__ import annotations
 
@@ -16,7 +18,7 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.kernels import LAUNCHES, _build, refuse_grad
+from repro_torch.kernels import LAUNCHES, _build, meta, refuse_grad
 from repro_torch.kernels.flash_attention.flash_attention import DTYPE_CODES
 
 # the latent and rope widths flash_decode_mla.cu instantiates: deepseek-v2's
@@ -30,34 +32,24 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load("flash_decode_mla")
-    lib.repro_flash_decode_mla.argtypes = [_P] * 9 + [_I] * 7 + [
+    lib.repro_flash_decode_mla.argtypes = [_P] * 9 + [_I] * 8 + [
         ctypes.c_float, _P]
     lib.repro_flash_decode_mla.restype = ctypes.c_int
-    lib.repro_flash_decode_mla_plan.argtypes = [_I] * 5 + [_P]
-    lib.repro_flash_decode_mla_plan.restype = None
     lib.repro_flash_decode_mla_clusters.argtypes = [_I, _I, _I]
     lib.repro_flash_decode_mla_clusters.restype = ctypes.c_int
     return lib
 
 
-@functools.cache
-def _plan(b: int, S: int, H: int, dtype: torch.dtype,
-          bs: int = 0) -> Tuple[int, Tuple[int, int, int], bool]:
-    plan = (ctypes.c_int * 5)()
-    _lib().repro_flash_decode_mla_plan(b, S, H, DTYPE_CODES[dtype], bs, plan)
-    return plan[0], (plan[1], plan[2], plan[3]), bool(plan[4])
-
-
 def launch_plan(q_lat: torch.Tensor,
                 c_kv: torch.Tensor) -> Tuple[int, Tuple[int, int, int], bool]:
-    """The kernel's launch for queries (b, H, r) and a cache (b, S, r), as
-    ``csrc/flash_decode_mla.cu`` decides it: (cache rows a split, grid
+    """The kernel's launch for queries (b, H, r) and a cache (b, S, r)
+    (``kernels.meta.mla_plan``): (cache rows a split, grid
     (splits, head tiles, b), whether the splits merge inside one
     thread-block cluster rather than through float32 partials and a second
     kernel).  The split depends on S alone: 96 rows at deepseek-v2's
     decode shape (S=544), grid (6, 2, 8) in bf16."""
     b, H, _ = q_lat.shape
-    return _plan(b, c_kv.shape[1], H, q_lat.dtype)
+    return meta.mla_plan(b, c_kv.shape[1], H, q_lat.dtype == torch.bfloat16)
 
 
 def block_s(q_lat: torch.Tensor, c_kv: torch.Tensor) -> int:
@@ -100,7 +92,8 @@ def _check_inputs(q_lat: torch.Tensor, q_rope: torch.Tensor,
     if r not in LATENT_DIMS or dr not in ROPE_DIMS:
         raise ValueError(f"flash_decode_mla: latent dim {r} not in "
                          f"{LATENT_DIMS} or rope dim {dr} not in {ROPE_DIMS}")
-    if not (q_lat.is_cuda and all(t.device == q_lat.device for t in tensors)):
+    if not ((q_lat.is_cuda or meta.is_meta(q_lat))
+            and all(t.device == q_lat.device for t in tensors)):
         raise ValueError("flash_decode_mla takes CUDA tensors on one device")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("flash_decode_mla takes contiguous tensors")
@@ -128,18 +121,23 @@ def _launch(q_lat: torch.Tensor, q_rope: torch.Tensor, c_kv: torch.Tensor,
     inputs; ``chip_smoke.py --mla-splits`` times other splits through it."""
     b, H, r = q_lat.shape
     _, S, dr = k_rope.shape
-    (ns, _, _), fused = _plan(b, S, H, q_lat.dtype, bs)[1:]
+    (ns, _, _), fused = meta.mla_plan(b, S, H, q_lat.dtype == torch.bfloat16,
+                                      bs)[1:]
     dev = q_lat.device
     n_part = 0 if fused else b * ns * H
     acc = torch.empty((n_part * r,), dtype=torch.float32, device=dev)
     m = torch.empty((n_part,), dtype=torch.float32, device=dev)
     l = torch.empty((n_part,), dtype=torch.float32, device=dev)
     out = torch.empty((b, H, r), dtype=c_kv.dtype, device=dev)
+    if meta.is_meta(q_lat):
+        meta.record("flash_decode_mla", meta.mla_decode_flops(b, S, H, r, dr),
+                    (q_lat, q_rope, c_kv, k_rope, valid), (out,))
+        return out
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _lib().repro_flash_decode_mla(
         q_lat.data_ptr(), q_rope.data_ptr(), c_kv.data_ptr(),
         k_rope.data_ptr(), valid.data_ptr(), acc.data_ptr(), m.data_ptr(),
-        l.data_ptr(), out.data_ptr(), b, S, H, r, dr, bs,
+        l.data_ptr(), out.data_ptr(), b, S, H, r, dr, bs, int(fused),
         DTYPE_CODES[q_lat.dtype], float(denom), stream)
     if err:
         raise RuntimeError(f"flash_decode_mla launch failed: CUDA error {err}")

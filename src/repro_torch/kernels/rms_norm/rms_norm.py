@@ -1,9 +1,10 @@
 """Wrapper of the hand-written RMSNorm kernel (``csrc/rms_norm.cu``):
 checks, allocation, launch, launch count.
 
-It takes CUDA tensors only and raises on anything the kernel does not
-take; ``repro_torch.kernels.dispatch.rms_norm`` sends CPU tensors to the
-plain version in ``ref.py`` instead.
+It takes CUDA tensors and raises on anything the kernel does not take;
+``repro_torch.kernels.dispatch.rms_norm`` sends CPU tensors to the plain
+version in ``ref.py`` instead.  On meta tensors it checks and allocates as
+on the card and stops before the launch (``kernels.meta``).
 """
 from __future__ import annotations
 
@@ -13,7 +14,7 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.kernels import LAUNCHES, _build, refuse_grad
+from repro_torch.kernels import LAUNCHES, _build, meta, refuse_grad
 from repro_torch.kernels.flash_attention.flash_attention import DTYPE_CODES
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -46,7 +47,7 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5
     if d % vec:
         raise ValueError(f"rms_norm: width {d} is not a multiple of {vec}"
                          f" (16-byte chunks)")
-    if not (x.is_cuda and scale.device == x.device):
+    if not ((x.is_cuda or meta.is_meta(x)) and scale.device == x.device):
         raise ValueError("rms_norm takes CUDA tensors on one device")
     if not (x.is_contiguous() and scale.is_contiguous()):
         raise ValueError("rms_norm takes contiguous x and scale")
@@ -55,6 +56,9 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5
                          f"{x.data_ptr():#x}")
     y = torch.empty_like(x)
     rstd = torch.empty(x.shape[:-1], dtype=torch.float32, device=x.device)
+    if meta.is_meta(x):
+        meta.record("rms_norm", 0, (x, scale), (y, rstd))
+        return y, rstd
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = _kernel()(x.data_ptr(), scale.data_ptr(), y.data_ptr(),
                     rstd.data_ptr(), x.numel() // d, d, DTYPE_CODES[x.dtype],

@@ -5,10 +5,13 @@ bfloat16 path: each chunk's C.B^T, the segment states and their
 log-decays; the gradient: see ``bwd_scratch``), the launch, launch count
 -- one per call, however many CUDA kernels the call runs.
 
-They take CUDA tensors only and raise on anything the kernels do not
-take; ``repro_torch.kernels.dispatch.ssd`` sends CPU tensors to the plain
+They take CUDA tensors and raise on anything the kernels do not take;
+``repro_torch.kernels.dispatch.ssd`` sends CPU tensors to the plain
 version in ``ref.py`` instead, and CUDA tensors that need a gradient to
-the autograd op in ``ops.py``, whose backward is ``ssd_scan_bwd``.
+the autograd op in ``ops.py``, whose backward is ``ssd_scan_bwd``.  On
+meta tensors they check and allocate as on the card and stop before the
+launch.  The segments are ``kernels.meta.ssd_segment_chunks``'s, on either
+device.
 """
 from __future__ import annotations
 
@@ -18,7 +21,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import LAUNCHES, _build, refuse_grad
+from repro_torch.kernels import LAUNCHES, _build, meta, refuse_grad
 from repro_torch.kernels.flash_attention.flash_attention import DTYPE_CODES
 
 # the (head dim P, state N) pairs ssd_scan.cu instantiates: mamba2-130m's
@@ -31,12 +34,11 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load("ssd_scan")
-    lib.repro_ssd_scan.argtypes = [_P] * 12 + [_I] * 6 + [_P]
+    lib.repro_ssd_scan.argtypes = [_P] * 12 + [_I] * 7 + [_P]
     lib.repro_ssd_scan.restype = ctypes.c_int
     lib.repro_ssd_scan_chunk.argtypes = []
     lib.repro_ssd_scan_chunk.restype = ctypes.c_int
-    lib.repro_ssd_scan_segment_chunks.argtypes = [_I, _I, _I]
-    lib.repro_ssd_scan_segment_chunks.restype = ctypes.c_int
+    _same_chunk("ssd_scan", lib.repro_ssd_scan_chunk(), meta.SSD_CHUNK)
     return lib
 
 
@@ -49,7 +51,17 @@ def _bwd_lib() -> ctypes.CDLL:
     lib.repro_ssd_scan_bwd_chunk.restype = ctypes.c_int
     lib.repro_ssd_scan_bwd_heads_per_group.argtypes = [_I] * 5
     lib.repro_ssd_scan_bwd_heads_per_group.restype = ctypes.c_int
+    _same_chunk("ssd_scan_bwd", lib.repro_ssd_scan_bwd_chunk(),
+                meta.SSD_BWD_CHUNK)
     return lib
+
+
+def _same_chunk(kernel: str, built: int, planned: int) -> None:
+    """The wrappers size the scratch by ``kernels.meta``'s chunk: the
+    kernel must walk that chunk."""
+    if built != planned:
+        raise RuntimeError(f"{kernel} walks chunks of {built} rows, its "
+                           f"wrapper plans for {planned}")
 
 
 @functools.cache
@@ -58,19 +70,13 @@ def chunk() -> int:
     return _lib().repro_ssd_scan_chunk()
 
 
-@functools.cache
-def _segment_chunks(b: int, s: int, h: int, device_index: int) -> int:
-    with torch.cuda.device(device_index):
-        return _lib().repro_ssd_scan_segment_chunks(b, s, h)
-
-
 def segment_chunks(x: torch.Tensor) -> int:
-    """Chunks per segment of the bfloat16 scan for a (b, s, h, p) CUDA x:
+    """Chunks per segment of the bfloat16 scan for a (b, s, h, p) x:
     chosen from (b, s, h) and the card's SM count so that the grid of
     (segment, head, batch) blocks fills the card (at mamba2-130m's b=8
     prefill, 4 chunks; at one 32,768-token prompt, 47)."""
     b, s, h, _ = x.shape
-    return _segment_chunks(b, s, h, x.device.index or 0)
+    return meta.ssd_segment_chunks(b, s, h, meta.sm_count(x))
 
 
 def _check_inputs(x: torch.Tensor, dt_raw: torch.Tensor, A_log: torch.Tensor,
@@ -116,7 +122,8 @@ def _check_inputs(x: torch.Tensor, dt_raw: torch.Tensor, A_log: torch.Tensor,
     if (p, n) not in SHAPES:
         raise ValueError(f"{kernel}: (head dim, state) {(p, n)} not in "
                          f"{SHAPES}")
-    if not (x.is_cuda and all(t.device == x.device for t in tensors)):
+    if not ((x.is_cuda or meta.is_meta(x))
+            and all(t.device == x.device for t in tensors)):
         raise ValueError(f"{kernel} takes CUDA tensors on one device")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{kernel} takes contiguous tensors")
@@ -134,21 +141,26 @@ def ssd_scan(x: torch.Tensor, dt_raw: torch.Tensor, A_log: torch.Tensor,
     dev = x.device
     y = torch.empty_like(x)
     state = torch.empty((b, h, p, n), dtype=torch.float32, device=dev)
-    scratch = [0, 0, 0]
+    scratch, cps = [0, 0, 0], 0
     if x.dtype == torch.bfloat16:
-        L = chunk()
+        L = meta.SSD_CHUNK
         nc = -(-s // L)
-        nseg = -(-nc // segment_chunks(x))
+        cps = segment_chunks(x)
+        nseg = -(-nc // cps)
         cb = torch.empty((b, nc, L, L), dtype=torch.float32, device=dev)
         states = torch.empty((b, nseg - 1, h, p, n), dtype=torch.float32,
                              device=dev)
         segld = torch.empty((b, nseg - 1, h), dtype=torch.float32, device=dev)
         scratch = [cb.data_ptr(), states.data_ptr(), segld.data_ptr()]
+    if meta.is_meta(x):
+        meta.record("ssd_scan", meta.ssd_flops(b, s, h, p, n),
+                    (x, dt_raw, A_log, B, C, D, dt_bias), (y, state))
+        return y, state
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _lib().repro_ssd_scan(
         x.data_ptr(), dt_raw.data_ptr(), A_log.data_ptr(), B.data_ptr(),
         C.data_ptr(), D.data_ptr(), dt_bias.data_ptr(), y.data_ptr(),
-        state.data_ptr(), *scratch, b, s, h, p, n, DTYPE_CODES[x.dtype],
+        state.data_ptr(), *scratch, b, s, h, p, n, cps, DTYPE_CODES[x.dtype],
         stream)
     if err:
         raise RuntimeError(f"ssd_scan launch failed: CUDA error {err}")
@@ -214,7 +226,12 @@ def ssd_scan_bwd(x: torch.Tensor, dt_raw: torch.Tensor, A_log: torch.Tensor,
                             for _ in range(3))
     scratch = {name: torch.empty(shape, dtype=torch.float32, device=dev)
                for name, shape in bwd_scratch(b, s, h, p, n, x.dtype,
-                                               bwd_chunk()).items()}
+                                               meta.SSD_BWD_CHUNK).items()}
+    if meta.is_meta(x):
+        meta.record("ssd_scan_bwd", meta.ssd_bwd_flops(b, s, h, p, n),
+                    (x, dt_raw, A_log, B, C, D, dt_bias, dy, d_state),
+                    (dx, ddt_raw, dA_log, dB, dC, dD, ddt_bias))
+        return dx, ddt_raw, dA_log, dB, dC, dD, ddt_bias
     ptr = {name: t.data_ptr() for name, t in scratch.items()}
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _bwd_lib().repro_ssd_scan_bwd(

@@ -9,8 +9,7 @@ the metrics registry (``obs.metrics``); the lifecycle engine, cluster
 pool, and kernel dispatch then feed them — spans, instants, counters,
 downsampled time series — at bounded memory.  ``obs.export`` renders a
 Chrome-trace JSON (Perfetto / ``chrome://tracing``) and a metrics dump;
-the JAX package's ``python -m repro.obs.report`` summarizes the exported
-files (the port has no copy of it yet).
+``python -m repro_torch.obs.report`` summarizes the exported files.
 
 Contract (ROADMAP "Observability plane"): telemetry is free — no decision
 ever reads obs state, and every placement/timestamp is bit-identical with

@@ -81,11 +81,22 @@ Under the fake process group (``launch.memcheck``), which writes nothing,
 what a rank receives is zeroed, so nothing derived from it (the MoE's
 routing) reads uninitialised memory; that writes into buffers already
 allocated and moves no peak.
+
+Every collective the port makes goes through this module's four calls
+(``all_reduce``, ``_gather_single``, ``_reduce_scatter_single``,
+``_all_to_all``).  With a tally open (``TALLY``, set by
+``launch.op_analysis``) each reports its kind under the JAX opcode name
+(``all-reduce``, ``all-gather``, ``reduce-scatter``, ``all-to-all``) and
+its bytes by the JAX package's ``hlo_analysis`` rule: the operand's, the
+output's for an all-gather.  Closed, that costs one attribute read a call.
+On meta tensors (the dry run) there is nothing to move: each reports and
+skips the process group's call, as the kernels' stand-ins skip their
+launch.
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, Mapping, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -93,17 +104,39 @@ import torch.distributed as dist
 from repro_torch.parallel import sharding as sh
 
 
+#: the open tally, called (kind, bytes) at each collective; None: closed
+TALLY: Optional[Callable[[str, int], None]] = None
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def all_reduce(t: torch.Tensor, group, op=dist.ReduceOp.SUM) -> None:
+    """``dist.all_reduce`` of t in place over ``group``."""
+    if TALLY is not None:
+        TALLY("all-reduce", _nbytes(t))
+    if not t.is_meta:
+        dist.all_reduce(t, op=op, group=group)
+
+
 def _gather_single(out: torch.Tensor, inp: torch.Tensor, group) -> None:
+    if TALLY is not None:
+        TALLY("all-gather", max(_nbytes(inp), _nbytes(out)))
     # all_gather_into_tensor was renamed all_gather_single (same arguments)
     fn = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
-    fn(out, inp, group=group)
+    if not inp.is_meta:
+        fn(out, inp, group=group)
 
 
 def _reduce_scatter_single(out: torch.Tensor, inp: torch.Tensor,
                            group) -> None:
+    if TALLY is not None:
+        TALLY("reduce-scatter", _nbytes(inp))
     fn = getattr(dist, "reduce_scatter_single", None) \
         or dist.reduce_scatter_tensor
-    fn(out, inp, group=group)
+    if not inp.is_meta:
+        fn(out, inp, group=group)
 
 
 def _received(out: torch.Tensor, group) -> None:
@@ -141,7 +174,10 @@ def _all_to_all(x: torch.Tensor, group) -> torch.Tensor:
     result came from rank j."""
     x = x.contiguous()
     out = torch.empty_like(x)
-    dist.all_to_all_single(out, x, group=group)
+    if TALLY is not None:
+        TALLY("all-to-all", _nbytes(x))
+    if not x.is_meta:
+        dist.all_to_all_single(out, x, group=group)
     _received(out, group)
     return out
 
@@ -194,7 +230,7 @@ class _CopyToModel(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         g = g.clone()
-        dist.all_reduce(g, group=ctx.group)
+        all_reduce(g, ctx.group)
         return g, None
 
 
@@ -202,7 +238,7 @@ class _ReduceFromModel(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
         out = x.clone()
-        dist.all_reduce(out, group=group)
+        all_reduce(out, group)
         return out
 
     @staticmethod
@@ -227,13 +263,13 @@ class _MeanOverData(torch.autograd.Function):
     def forward(ctx, x, group, n):
         ctx.group, ctx.n = group, n
         out = x.clone()
-        dist.all_reduce(out, group=group)
+        all_reduce(out, group)
         return out / n
 
     @staticmethod
     def backward(ctx, g):
         g = g.clone()
-        dist.all_reduce(g, group=ctx.group)
+        all_reduce(g, ctx.group)
         return g / ctx.n, None, None
 
 
@@ -258,16 +294,16 @@ class _VocabParallelCE(torch.autograd.Function):
         vl = logits.shape[-1]
         lf = logits.to(torch.float32, copy=True)
         m = lf.amax(-1)
-        dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
+        all_reduce(m, group, op=dist.ReduceOp.MAX)
         se = lf.sub_(m[..., None]).exp_().sum(-1)
         del lf
-        dist.all_reduce(se, group=group)
+        all_reduce(se, group)
         local = labels.long() - idx * vl
         inside = (local >= 0) & (local < vl)
         local = torch.where(inside, local, 0)
         gold = torch.gather(logits, -1, local[..., None])[..., 0].float()
         gold = torch.where(inside, gold, 0.0)
-        dist.all_reduce(gold, group=group)
+        all_reduce(gold, group)
         nll = torch.log(se) + m - gold
         # the bf16 logits and two floats a row; the float32 softmax is
         # built in the backward
@@ -312,12 +348,12 @@ def merge_decode_partials(o: torch.Tensor, lse: torch.Tensor, group
     if group is None:
         return o, lse
     m = lse.clone()
-    dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
+    all_reduce(m, group, op=dist.ReduceOp.MAX)
     m = torch.where(torch.isfinite(m), m, 0.0)   # no rank has a slot: w = 0
     w = torch.exp(lse - m)                           # (b, H)
     b, _, H, D = o.shape
     buf = torch.cat([(o * w.view(b, 1, H, 1)).flatten(), w.flatten()])
-    dist.all_reduce(buf, group=group)
+    all_reduce(buf, group)
     num, den = buf[:o.numel()].view(o.shape), buf[o.numel():].view(b, H)
     out = num / torch.clamp(den, min=1e-30).view(b, 1, H, 1)
     return out, torch.where(den > 0, m + torch.log(den), -math.inf)
@@ -335,10 +371,10 @@ def vocab_parallel_argmax(logits: torch.Tensor, group, idx: int
     arg = torch.argmax(logits, dim=-1)
     best = torch.gather(logits, -1, arg[..., None])[..., 0].float()
     top = best.clone()
-    dist.all_reduce(top, op=dist.ReduceOp.MAX, group=group)
+    all_reduce(top, group, op=dist.ReduceOp.MAX)
     cand = torch.where(best == top, arg + idx * vl,
                        torch.iinfo(torch.long).max)
-    dist.all_reduce(cand, op=dist.ReduceOp.MIN, group=group)
+    all_reduce(cand, group, op=dist.ReduceOp.MIN)
     return cand
 
 

@@ -21,11 +21,10 @@ cross-entropy.
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, Dict, List, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
-import torch.distributed as dist
 
 from repro_torch.configs.base import ModelConfig, TrainConfig
 from repro_torch.kernels import dispatch
@@ -39,6 +38,10 @@ from repro_torch.train.optimizer import (adam_update, init_opt_state, lr_at,
                                          tree_leaves, tree_map, tree_unflatten)
 
 AUX_WEIGHT = 0.01
+#: called with the microbatch's index after each microbatch of a step's
+#: gradient accumulation (``launch.dryrun.trace_train`` reads its counts
+#: there); None: nothing is called
+MICRO_DONE: Optional[Callable[[int], None]] = None
 
 Batch = Dict[str, torch.Tensor]
 
@@ -143,6 +146,8 @@ def accumulate_grads(cfg: ModelConfig, tc: TrainConfig, params: Dict[str, Any],
             a.add_(p.grad)
             p.grad = None
         loss_sum = loss_sum + ce.detach()
+        if MICRO_DONE is not None:
+            MICRO_DONE(i)
     for a in acc:
         a.div_(n_micro)
     return tree_unflatten(params, acc), loss_sum / n_micro
@@ -268,15 +273,17 @@ def build_sharded_step(cfg: ModelConfig, tc: TrainConfig, global_batch: int,
                 if how == "scatter":
                     g = col.reduce_scatter(g, dim, data_group, nd)
                 elif how == "all_reduce":
-                    dist.all_reduce(g, group=data_group)
+                    col.all_reduce(g, data_group)
                 a.add_(g)
                 del g
             loss_sum = loss_sum + ce.detach()
+            if MICRO_DONE is not None:
+                MICRO_DONE(i)
         for a in acc:
             a.div_(n_micro * nd)
         loss = loss_sum / n_micro
         if nd > 1:
-            dist.all_reduce(loss, group=data_group)
+            col.all_reduce(loss, data_group)
             loss = loss / nd
         return acc, loss
 
@@ -286,7 +293,7 @@ def build_sharded_step(cfg: ModelConfig, tc: TrainConfig, global_batch: int,
             sq = sq + torch.sum(torch.square(g)) / n
         for group in (data_group, model_group):
             if group is not None:
-                dist.all_reduce(sq, group=group)
+                col.all_reduce(sq, group)
         return torch.sqrt(sq)
 
     @torch.no_grad()

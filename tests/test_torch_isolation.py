@@ -51,7 +51,11 @@ def test_importing_the_port_loads_no_jax():
                  "obs.metrics", "obs", "obs.export", "core.lifecycle",
                  "core.orchestrator", "core.serverless", "cluster.simulator",
                  "cluster.schedulers", "cluster.traces", "cluster",
-                 "launch.submit"):
+                 "launch.submit",
+                 # the dry run, its op analysis, the kernels' stand-ins,
+                 # the run report
+                 "launch.dryrun", "launch.op_analysis", "kernels.meta",
+                 "obs.report", "obs.churn"):
         assert f"repro_torch.{name}" in result["imported"]
     assert result["bad"] == []
 

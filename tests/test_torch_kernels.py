@@ -317,8 +317,16 @@ def test_kernels_refuse_what_they_do_not_take():
     with pytest.raises(ValueError):
         with dispatch.force("kernel"):
             pass
+    # a meta tensor goes to the kernel's wrapper (the dry run's stand-in),
+    # which refuses there what the kernel does not take
+    mq, mk, mv = q.to("meta"), k.to("meta"), v.to("meta")
+    assert dispatch.attention(mq, mk, mv).device.type == "meta"
+    with pytest.raises(ValueError, match="head dim"):
+        dispatch.attention(mq[..., :40], mk[..., :40], mv[..., :40])
+    # and a device with neither a kernel nor a plain version raises
+    other = SimpleNamespace(device=torch.device("xla"))
     with pytest.raises(ValueError, match="device"):
-        dispatch.attention(q.to("meta"), k.to("meta"), v.to("meta"))
+        dispatch._use_kernel(other)
 
 
 def _no_backward_calls():
