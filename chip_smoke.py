@@ -147,7 +147,9 @@ Phases, each printing its lines before the last:
    8-layer block of jamba-1.5-large-398b on (4,8) at ZeRO 1 and 3 -- 2
    experts, 8/1 attention heads, 32 SSM heads a rank -- and mamba2-130m
    whole on (2,4) at ZeRO 1 and 3 -- its per-head and per-channel vectors
-   gathered over data on the stacked layer axis -- and on (1,8)): one
+   gathered over data on the stacked layer axis -- and on (1,8), and its
+   train_4k plan on (16,16) at s = 4,096, where t does not divide its 24
+   SSM heads: 3 heads of 32 of their 64 channels a rank): one
    line a plan with the peak, both predictions and accuracies and
    whether the peak stays under the exact one (reported, not required).
    It fails on an out-of-memory, on a rank-0 state that is not its
@@ -156,7 +158,8 @@ Phases, each printing its lines before the last:
    each of these plans' new local shapes against its plain version and
    times it (the attention forward and backward at 8 and 16 heads of 192
    and at 8 query heads on 1 KV head of 128, the SSD scan and gradient at
-   32, 6 and 3 heads).  The logits of a head sharded over the vocabulary
+   32, 6 and 3 heads, and at 3 heads of P = 32 over s = 4,096).  The
+   logits of a head sharded over the vocabulary
    (t divides V) stay each model rank's V/t columns, reduced to the loss by
    the vocabulary-parallel cross-entropy, in this phase and (m), (q), (p).
 (q) the head_dim / seq fallback (``SEQ_PLANS``): rank 0 of the (16, 16)
@@ -177,7 +180,8 @@ Phases, each printing its lines before the last:
    256 query rows against 4,096 keys at offsets 0 and 3,840, stablelm's
    D=160 and G=4, jamba's G=8, musicgen's D=64 and G=1, starcoder2-7b's
    G=9; starcoder2-7b's last rank at s=8,192 under its 4,096-key window;
-   float32 at D=64 and 160) against the plain versions, forward and
+   MLA's fallback at D=192 with 8 heads at offset 3,840; float32 at D=64
+   and 160) against the plain versions, forward and
    backward, the backward run twice for bit-identical gradients and with
    dK and dV exactly zero on every key no local query reaches, and times
    each bf16 shape beside its bound, its plain version and SDPA.
@@ -200,8 +204,13 @@ Phases, each printing its lines before the last:
    prefill_32k), deepseek-v2-236b (decode_32k: MLA on 8 heads, MoE, the
    latent cache replicated over the model axis, weights over data too)
    and jamba-1.5-large-398b (long_500k: the one row's cache split over the
-   data axes, 32,768 slots a rank; also as rank 15), whole at published
-   widths and depth, through ``repro_torch.launch.memcheck.run_serve``:
+   data axes, 32,768 slots a rank; also as rank 15), mamba2-130m
+   (decode_32k and long_500k: 3 SSM heads of 32 channels a rank, the SSD
+   state whole on every rank) and deepseek-v2-236b's decode_32k again at
+   a global batch of 8 (``SERVE_CUTS``: the 16 data ranks split the
+   latent cache's slots, 2,048 a rank, merged by the log-sum-exp), whole
+   at published widths and depth, through
+   ``repro_torch.launch.memcheck.run_serve``:
    one line a plan with the peak beside ``serve_peak_bytes`` and its
    accuracy (reported, not required); it fails on an out-of-memory, on
    logits not at the rank's shape or not finite, and on a plan that never
@@ -216,14 +225,28 @@ Phases, each printing its lines before the last:
    ``flash_decode_mla`` at deepseek-v2's rank (8 rows, 8 heads, 32,768
    latent slots) and ``flash_attention`` at llama3.2-3b's prefill rank (2
    rows, 2,048 query rows at offset 0 over 32,768 keys), each against its
-   plain version and timed beside its bound and SDPA.
+   plain version and timed beside its bound and SDPA; and
+   ``flash_decode_mla(..., return_lse=True)`` on both launch paths (the
+   splits merged in a cluster at the bench shape and at the batch-8
+   plan's 2,048 slots, by a merge kernel at the 32,768-slot rank), its
+   output and log-sum-exp against the plain version's, the flagless
+   output the flagged one rounded, bit for bit, a row with no valid slot
+   giving 0 and -inf, timed beside its bound, its plain version and SDPA.
+   Every log-sum-exp is held in nats (``LSE_TOL``) against the plain
+   version's on the same values in float32.  Two processes on the card
+   then merge two halves of a cache through ``merge_decode_partials``
+   over a gloo group (``LSE_MERGE``: MLA's sequence-split cache, MLA's
+   fallback mask over the 32,768-slot rank, GQA's split cache), each
+   held against the whole-cache decode.
 
 (d) The dry run against the card (``repro_torch.launch.dryrun``): rank
-   0's dry-run peak of each of phase (m)'s ten plans and each phase (v)
-   plan (the step traced on the meta device, the kernels' wrappers
-   allocating what they allocate here and launching nothing), plus the
-   row's ``base_bytes``, beside the peak (m) or (v) measured in this run;
-   each must lie within 10% of it, and the dry run must launch nothing.
+   0's dry-run peak of each of phase (m)'s ten plans, of (f)'s plans
+   whose t does not divide the SSM heads and of each phase (v) plan (the
+   step traced on the meta device, the kernels' wrappers allocating what
+   they allocate here and launching nothing), plus the row's
+   ``base_bytes``, beside the peak (m), (f) or (v) measured in this run
+   and the plan's prediction; each must lie within 1% of it, and the dry
+   run must launch nothing.
    The stand-ins' launch plans (``kernels.meta``: the GQA decode's split,
    the MLA decode's plan, the SSD scan's segments, the SM count) must
    equal the card's own at the main paths' shapes.
@@ -295,6 +318,14 @@ PEAKS = {"H100 80GB HBM3": (3.35e12, 989e12, 67e12),     # SXM5
          "H100 PCIe": (2.0e12, 756e12, 51e12),
          "H100 NVL": (3.9e12, 835e12, 60e12)}
 BF16_TOL, FP32_TOL = 2e-2, 2e-5
+# A decode's log-sum-exp (``return_lse``), absolute in nats, against the
+# plain version's on the same values in float32 (exact scores; on bf16
+# inputs the plain version rounds its scores to bf16 first, which alone
+# moves its lse by up to 1.2e-2).  A sharded decode weighs each rank's
+# result by exp(lse): 1e-4 nats is 0.01% of that weight, where a merge
+# that dropped one split of 32 would move the lse by 3e-2.  Read on the
+# H100: at most 3.8e-6 (bf16 inputs, every case of phase 2).
+LSE_TOL = {torch.bfloat16: 1e-4, torch.float32: 1e-5}
 # The attention backward against its plain versions: max|d| <= tol *
 # max|ref| per gradient, tol as the forward's -- bf16: both round their
 # float32 sums to bf16 once (2^-8 relative steps), and the kernel's D_i is
@@ -464,10 +495,14 @@ RANK_ATTENTION = {"mla_t16": dict(b=1, s=1024, H=8, K=8, D=192),
                   "mla_t8": dict(b=1, s=1024, H=16, K=16, D=192),
                   "jamba_t8": dict(b=1, s=1024, H=8, K=1, D=128),
                   "mla_t16_s4096": dict(b=1, s=4096, H=8, K=8, D=192)}
-# one rank's SSD scan and gradient in phase (f), b=1, s=1024, P=64, N=128:
-# jamba at t=8 (32 of its 256 heads), mamba2-130m at t=4 and t=8 (6 and 3
-# of its 24)
-SSD_RANKS = {"jamba_t8_h32": 32, "mamba2_t4_h6": 6, "mamba2_t8_h3": 3}
+# one rank's SSD scan and gradient in phase (f), b=1, N=128, {name: (s,
+# heads, P)}: at s=1024 jamba at t=8 (32 of its 256 heads), mamba2-130m at
+# t=4 and t=8 (6 and 3 of its 24); at train_4k's s=4,096 mamba2-130m at
+# t=16, which does not divide its 24 heads: 3 heads of 32 of their 64
+# channels a rank (``sharding.ssm_split``)
+SSD_RANKS = {"jamba_t8_h32": (1024, 32, 64), "mamba2_t4_h6": (1024, 6, 64),
+             "mamba2_t8_h3": (1024, 3, 64),
+             "mamba2_t16_h3_p32": (4096, 3, 32)}
 
 # Phase (f): rank 0 of multi-device plans of the MLA, MoE and Mamba2
 # families, as phase (m) runs the Fig 6 combos (fake process group, s=1024,
@@ -492,12 +527,21 @@ SSD_RANKS = {"jamba_t8_h32": 32, "mamba2_t4_h6": 6, "mamba2_t8_h3": 3}
 #   on the stacked layer axis only and are gathered whole before the
 #   blocks (1,510,496,771 B predicted at ZeRO 1, 1,468,597,139 at ZeRO 3;
 #   the six gathered leaves hold 112,320 B on rank 0).
-# Every head count divides its t; each plan is accepted by
-# ``check_sharded_supported``.
+# - mamba2-130m, whole, its train_4k plan on the production (16,16) mesh:
+#   t = 16 does not divide its 24 SSM heads, so a rank holds 3 heads of 32
+#   of their 64 channels (``sharding.ssm_split``), in_dt, A_log, D and
+#   dt_bias whole; s = 4,096, global batch 16 (one row a data rank,
+#   microbatch 1, as phase (q)); its peak is also held to the dry run's in
+#   phase (d).
+# Each plan is accepted by ``check_sharded_supported``.
+# (arch, cut, global batch, d, t, ZeRO stages)
 FAMILY_PLANS = [("deepseek-v2-236b", {}, 16, 16, 16, (3,)),
                 ("jamba-1.5-large-398b", dict(num_layers=8), 4, 4, 8, (1, 3)),
                 ("mamba2-130m", {}, 8, 2, 4, (1, 3)),
-                ("mamba2-130m", {}, 8, 1, 8, (1,))]
+                ("mamba2-130m", {}, 8, 1, 8, (1,)),
+                ("mamba2-130m", {}, 16, 16, 16, (1,))]
+# a plan's sequence length where it is not 1024: {(arch, d, t): s}
+FAMILY_SEQ = {("mamba2-130m", 16, 16): 4096}
 
 
 # Phase (q): rank 0 (and rank t - 1 = 15 where a second rank is listed) of
@@ -554,7 +598,13 @@ SEQ_ATTENTION = {"stablelm_r0": (256, 4096, 32, 8, 160, 0, 0),
                  "jamba_r15": (256, 4096, 64, 8, 128, 3840, 0),
                  "musicgen_r15": (256, 4096, 24, 24, 64, 3840, 0),
                  "starcoder2_7b_r15": (256, 4096, 36, 4, 128, 3840, 0),
-                 "starcoder2_7b_band": (512, 8192, 36, 4, 128, 7680, 4096)}
+                 "starcoder2_7b_band": (512, 8192, 36, 4, 128, 7680, 4096),
+                 # MLA on the head_dim / seq fallback (``_mla_attend_seq``)
+                 # at deepseek-v2's widths (q|k of dn + dr = 192, v padded
+                 # to it) with 8 heads, rank 15 of t = 16: no assigned plan
+                 # reaches that path, so this is its only run on the card
+                 "deepseek_v2_mla_fallback_r15": (256, 4096, 8, 8, 192,
+                                                  3840, 0)}
 
 
 # Phase (v): one rank of the sharded serving steps (the JAX package's dry
@@ -577,11 +627,26 @@ SEQ_ATTENTION = {"stablelm_r0": (256, 4096, 32, 8, 160, 0, 0),
 #   the 16 data ranks (32,768 a rank, 2,048 after the all-to-all), the
 #   fallback attention merged over the model and the data axes, 16 of 256
 #   SSM heads, one of 16 experts, weights over data; as rank 0 and rank 15.
-# (arch, shape, ranks)
-SERVE_PLANS = [("llama3.2-3b", "decode_32k", (0,)),
-               ("llama3.2-3b", "prefill_32k", (0,)),
-               ("deepseek-v2-236b", "decode_32k", (0,)),
-               ("jamba-1.5-large-398b", "long_500k", (0, 15))]
+# - mamba2-130m decode_32k (8 rows a data rank) and long_500k (one row):
+#   3 of its 24 SSM heads, 32 of each one's 64 channels, a rank, the SSD
+#   state whole on every rank (the spec keeps it whole, as in the JAX
+#   package), the rank's slice updated and gathered back each step;
+# - deepseek-v2-236b decode_32k at a global batch of 8 (``SERVE_CUTS``):
+#   the 16 data ranks do not divide it, so each holds all 8 rows and 2,048
+#   of the 32,768 latent slots, decodes them with their log-sum-exp and
+#   merges over the data axis.
+# (arch, shape, ranks, global batch: None for the shape's)
+SERVE_PLANS = [("llama3.2-3b", "decode_32k", (0,), None),
+               ("llama3.2-3b", "prefill_32k", (0,), None),
+               ("deepseek-v2-236b", "decode_32k", (0,), None),
+               ("jamba-1.5-large-398b", "long_500k", (0, 15), None),
+               ("mamba2-130m", "decode_32k", (0,), None),
+               ("mamba2-130m", "long_500k", (0,), None),
+               ("deepseek-v2-236b", "decode_32k", (0,), 8)]
+# a plan's global batch cut from its shape's, with the reason
+SERVE_CUTS = {("deepseek-v2-236b", "decode_32k", 8):
+              "global batch 8 of decode_32k's 128: the 16 data ranks do not"
+              " divide it, so the MLA cache splits its slots over them"}
 SERVE_MESH = (16, 16)
 # phase 2's ``flash_decode_gqa(..., return_lse=True)`` at those decode
 # plans' local shapes after the all-to-all (every slot valid)
@@ -592,6 +657,22 @@ LSE_DECODE = {"llama_decode_32k_rank": dict(b=8, S=2048, H=24, K=8, D=128),
 # latent slots, and llama3.2-3b's prefill_32k attention, 2 rows of 2,048
 # query rows at offset 0 (rank 0) against the 32,768 keys
 MLA_SERVE_DECODE = dict(b=8, S=32_768, H=8, r=512, dr=64)
+# and deepseek-v2's decode_32k at a global batch of 8: 8 heads over the
+# rank's 2,048 of the 32,768 slots, with the log-sum-exp
+MLA_SEQ_DECODE = dict(b=8, S=2048, H=8, r=512, dr=64)
+# Phase 2's merge of two ranks' decodes (``merge_decode_partials``, two
+# processes on the one card): each rank decodes half the slots with their
+# log-sum-exp, the halves merge over a gloo group (its all-reduce takes
+# CUDA tensors), and the result is held against the whole-cache decode.
+# "own": each rank holds its half as a cache of its own (a cache split over
+# the data axes, or GQA's fallback after ``head_dim_to_seq``); "mask": both
+# hold the whole cache and each decodes its half through the valid mask
+# (MLA's fallback, ``_mla_decode_seq``).  (kernel, layout, shape)
+LSE_MERGE = {"mla_decode_32k_b8_seq_pair": ("mla", "own",
+                                            dict(MLA_SEQ_DECODE, S=4096)),
+             "mla_decode_32k_fallback_pair": ("mla", "mask", MLA_SERVE_DECODE),
+             "gqa_llama_decode_32k_pair": ("gqa", "own", dict(
+                 LSE_DECODE["llama_decode_32k_rank"], S=4096))}
 SERVE_ATTENTION = {"llama_prefill_32k_r0": dict(b=2, sq=2048, sk=32_768, H=24,
                                                  K=8, D=128, q_offset=0)}
 
@@ -808,6 +889,124 @@ def ring_valid(gen, b, S):
     return age <= torch.clamp(pos[:, None], max=S - 1)
 
 
+def _merge_inputs(kind, c):
+    """A ``LSE_MERGE`` case's whole-cache decode inputs (bf16, from one
+    seed, the same in every process): (q args, cache args, valid).  Row 1
+    has no valid slot, row 0 valid slots in the second half alone (the
+    first rank's half gives 0 and -inf), the rest ring-valid."""
+    gen = torch.Generator(device="cuda").manual_seed(29)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").bfloat16()
+    b, S = c["b"], c["S"]
+    if kind == "mla":
+        qs = (randn(b, c["H"], c["r"]), randn(b, c["H"], c["dr"]))
+        caches = (randn(b, S, c["r"]), randn(b, S, c["dr"]))
+    else:
+        qs = (randn(b, 1, c["H"], c["D"]),)
+        caches = (randn(b, S, c["K"], c["D"]), randn(b, S, c["K"], c["D"]))
+    valid = ring_valid(gen, b, S)
+    valid[0, : S // 2] = False
+    valid[0, S // 2:] = True
+    valid[1] = False
+    return qs, caches, valid
+
+
+def _merge_decode(kind, c, qs, caches, valid):
+    """(o float32 (b, 1, H, D), lse (b, H)) of the decode kernel."""
+    from repro_torch.kernels.flash_decode import flash_decode_gqa, flash_decode_mla
+    if kind == "mla":
+        o, lse = flash_decode_mla(*qs, *caches, valid,
+                                  denom=math.sqrt(128 + c["dr"]),
+                                  return_lse=True)
+        return o[:, None], lse
+    return flash_decode_gqa(*qs, *caches, valid, return_lse=True)
+
+
+def lse_merge(rank, port):
+    """--lse-merge RANK PORT: one of the two processes of phase 2's merge
+    check (``LSE_MERGE``); rank 0 prints each case's errors on one JSON
+    line."""
+    import torch.distributed as dist
+    from repro_torch.kernels.flash_decode import gqa_decode_ref, mla_decode_ref
+    from repro_torch.parallel.collectives import merge_decode_partials
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=2)
+    out = {}
+    try:
+        for name, (kind, layout, c) in LSE_MERGE.items():
+            qs, caches, valid = _merge_inputs(kind, c)
+            half = c["S"] // 2
+            mine = slice(rank * half, (rank + 1) * half)
+            if layout == "own":
+                part = _merge_decode(kind, c, qs, tuple(
+                    x[:, mine].contiguous() for x in caches),
+                    valid[:, mine].contiguous())
+            else:
+                cut = torch.zeros_like(valid)
+                cut[:, mine] = valid[:, mine]
+                part = _merge_decode(kind, c, qs, caches, cut)
+            o, lse = merge_decode_partials(*part, dist.group.WORLD)
+            whole_o, whole_lse = _merge_decode(kind, c, qs, caches, valid)
+            ref = mla_decode_ref if kind == "mla" else gqa_decode_ref
+            kw = dict(denom=math.sqrt(128 + c["dr"])) if kind == "mla" else {}
+            plain_lse = ref(*(x.float() for x in qs + caches), valid,
+                            return_lse=True, **kw)[1]
+            live = valid.any(dim=1)
+            out[name] = dict(
+                out_err=rel_max_err(o[live], whole_o[live]),
+                lse_err=(lse[live] - whole_lse[live]).abs().max().item(),
+                plain_lse_err=(lse[live] - plain_lse[live]).abs().max().item(),
+                empty=bool((o[~live] == 0).all()
+                           and (lse[~live] == -math.inf).all()),
+                one_sided=bool((part[1][0] == -math.inf).all()) == (rank == 0))
+    finally:
+        dist.destroy_process_group()
+    if rank == 0:
+        print(json.dumps(out))
+    return 0
+
+
+def phase_lse_merge():
+    """Phase 2's merge check: ``LSE_MERGE`` in two processes on the card
+    (``--lse-merge``), each case's merged output within the bf16
+    tolerance and its log-sum-exp within ``LSE_TOL`` of the whole-cache
+    decode's and of the plain version's in float32; the row no rank holds
+    a slot of 0 and -inf; row 0's first half gave the first rank -inf."""
+    import socket
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                               "--lse-merge", str(r), str(port)],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=300) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, (_, err)) in enumerate(zip(procs, outs)):
+        check(p.returncode == 0, f"lse merge rank {r} failed:\n{err[-4000:]}")
+    res = json.loads(outs[0][0].strip().splitlines()[-1])
+    tol = LSE_TOL[torch.bfloat16]
+    for name, (kind, layout, c) in LSE_MERGE.items():
+        e = res[name]
+        ok = (e["out_err"] <= BF16_TOL and e["lse_err"] <= tol
+              and e["plain_lse_err"] <= tol and e["empty"] and e["one_sided"])
+        print(f"kernel {'flash_decode_' + kind} merge {name} ({layout} halves"
+              f" of {c['S']} slots, 2 processes, merge_decode_partials over"
+              f" gloo) bf16: output max|d|/max|whole| {e['out_err']:.3e}"
+              f" tol={BF16_TOL:g}, lse max|d| {e['lse_err']:.3e} nats against"
+              f" the whole-cache kernel, {e['plain_lse_err']:.3e} against the"
+              f" plain version in float32, tol={tol:g}; the row with no slot"
+              f" 0 and -inf {e['empty']}, a rank with no slot of a row adds"
+              f" nothing {e['one_sided']} {'ok' if ok else 'FAIL'}")
+        check(ok, f"{name}: the merged halves disagree with the whole cache")
+
+
 def phase_kernels(peaks, flush):
     from repro_torch.kernels.flash_attention import (attention_lse_ref,
                                                      attention_ref,
@@ -971,7 +1170,9 @@ def phase_kernels(peaks, flush):
             randn(b, S, K, D, dtype=bf16)
         valid = torch.ones((b, S), dtype=torch.bool, device="cuda")
         o, lse = flash_decode_gqa(q, k, v, valid, return_lse=True)
-        want_o, want_lse = gqa_decode_ref(q, k, v, valid, return_lse=True)
+        want_o = gqa_decode_ref(q, k, v, valid, return_lse=True)[0]
+        want_lse = gqa_decode_ref(q.float(), k.float(), v.float(), valid,
+                                  return_lse=True)[1]
         split_o, split_lse = gqa_decode_splitk(q, k, v, valid, block_s=block_s(k),
                                                return_lse=True)
         ok, err = close(o, want_o, BF16_TOL)
@@ -982,10 +1183,12 @@ def phase_kernels(peaks, flush):
         none_o, none_lse = flash_decode_gqa(q, k, v, torch.zeros_like(valid),
                                             return_lse=True)
         empty = bool((none_o == 0).all()) and bool((none_lse == -math.inf).all())
-        good = ok and ok_split and err_lse <= BF16_TOL and plain_bits and empty
+        good = (ok and ok_split and err_lse <= LSE_TOL[bf16] and plain_bits
+                and empty)
         print(f"kernel flash_decode_gqa return_lse {name} b={b} S={S} H={H} K={K}"
               f" D={D} bf16: out max_abs_err={err:.3e} tol={BF16_TOL:g}, lse"
-              f" max_abs_err={err_lse:.3e}, without the flag the float32 output"
+              f" max_abs_err={err_lse:.3e} nats (plain version in float32)"
+              f" tol={LSE_TOL[bf16]:g}, without the flag the float32 output"
               f" rounded once {plain_bits}, no valid slot gives 0 and -inf"
               f" {empty} {'ok' if good else 'FAIL'}")
         check(good, f"flash_decode_gqa return_lse {name} disagrees with its"
@@ -1044,6 +1247,7 @@ def phase_kernels(peaks, flush):
               f" ms, library (SDPA on the reached keys) {time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True, **lib_kw), flush):.4f} ms")
         del q, k, v, qt, kt, vt, got, lse, live
     rows.update(phase_mla_kernels(peaks, flush, gen, randn))
+    phase_lse_merge()
     rows.update(phase_attention_bwd(peaks, flush, randn))
     rows.update(phase_adam(peaks, flush, gen))
     rows.update(phase_ssd_kernel(peaks, flush, gen))
@@ -1224,6 +1428,69 @@ def phase_mla_kernels(peaks, flush, gen, randn):
             library_ms=time_ms(lambda: F.scaled_dot_product_attention(
                 qm, km, vm, attn_mask=mask, scale=1.0 / denom,
                 enable_gqa=True), flush))
+
+    # the log-sum-exp output (``return_lse``, for a sharded decode's merge
+    # across ranks) on both launch paths: the bench shape and deepseek-v2's
+    # decode_32k rank at a global batch of 8 (2,048 slots) merge their
+    # splits in a cluster, phase (v)'s whole-cache rank (32 splits) through
+    # partials and the merge kernel; one row with no valid slot.  Held
+    # against the plain version's output and log-sum-exp at the kernel's
+    # tolerance; the flagless output must be the flagged one rounded, bit
+    # for bit.
+    for name, d in [("decode_ring", MLA_DECODE),
+                    ("deepseek_decode_32k_b8_seq_rank", MLA_SEQ_DECODE),
+                    ("deepseek_decode_32k_rank", MLA_SERVE_DECODE)]:
+        b, S, H, r, dr = (d[k] for k in ("b", "S", "H", "r", "dr"))
+        q_lat, q_rope = randn(b, H, r, dtype=bf16), randn(b, H, dr, dtype=bf16)
+        c_kv, k_rope = randn(b, S, r, dtype=bf16), randn(b, S, dr, dtype=bf16)
+        valid = ring_valid(gen, b, S)
+        if name.endswith("_rank"):
+            valid[:] = True
+        valid[1] = False
+        bs, grid, fused = launch_plan(q_lat, c_kv)
+        denom = math.sqrt(128 + dr)
+        args = (q_lat, q_rope, c_kv, k_rope, valid)
+        o, lse = flash_decode_mla(*args, denom=denom, return_lse=True)
+        plain = flash_decode_mla(*args, denom=denom)
+        want_o, bf16_lse = mla_decode_ref(*args, denom=denom, return_lse=True)
+        want_lse = mla_decode_ref(*(a.float() for a in args[:4]), valid,
+                                  denom=denom, return_lse=True)[1]
+        live = valid.any(dim=1)
+        err_o = rel_max_err(o[live], want_o[live])
+        err_l = (lse[live] - want_lse[live]).abs().max().item()
+        err_bf16 = (bf16_lse[live] - want_lse[live]).abs().max().item()
+        rounded = torch.equal(o.to(plain.dtype), plain)
+        empty = bool((o[~live] == 0).all() and (lse[~live] == -math.inf).all())
+        ok = (err_o <= BF16_TOL and err_l <= LSE_TOL[bf16] and rounded
+              and empty and o.dtype == lse.dtype == f32)
+        merge = "in a cluster" if fused else "by a second kernel"
+        print(f"kernel flash_decode_mla return_lse {name} b={b} S={S} H={H}"
+              f" r={r} dr={dr} bf16, {bs}-row splits merged {merge}: output"
+              f" max|d|/max|ref| {err_o:.3e} tol={BF16_TOL:g} (whole-cache"
+              f" plain, return_lse), lse max|d| {err_l:.3e} nats"
+              f" tol={LSE_TOL[bf16]:g} (plain in float32; the plain"
+              f" version's own on bf16 inputs is {err_bf16:.3e} off it);"
+              f" flagless output the flagged one rounded {rounded}; the row"
+              f" with no valid slot 0 and -inf {empty}"
+              f" {'ok' if ok else 'FAIL'}")
+        check(ok, f"flash_decode_mla return_lse {name} disagrees with its"
+                  f" plain version")
+        n_valid = int(valid.sum())
+        nbytes = (2 * (q_lat.numel() + q_rope.numel()) + 4 * (o.numel()
+                  + lse.numel()) + 2 * (r + dr) * n_valid + valid.numel())
+        bound_ms, bound_by = bound(nbytes, H * n_valid * (4 * r + 2 * dr),
+                                   peaks)
+        qm = torch.cat([q_lat, q_rope], dim=-1)[:, :, None]
+        km = torch.cat([c_kv, k_rope], dim=-1)[:, None]
+        vm, mask = c_kv[:, None], valid[:, None, None, :]
+        print(f"time flash_decode_mla return_lse {name} ({n_valid} of"
+              f" {b * S} rows valid, {bs}-row splits, grid {grid}, {nbytes}"
+              f" bytes): bound {bound_ms:.4f} ms ({bound_by}), kernel"
+              f" {time_ms(lambda: flash_decode_mla(*args, denom=denom, return_lse=True), flush):.4f}"
+              f" ms (flagless {time_ms(lambda: flash_decode_mla(*args, denom=denom), flush):.4f}),"
+              f" plain {time_ms(lambda: mla_decode_ref(*args, denom=denom, return_lse=True), flush):.4f}"
+              f" ms, library (SDPA on the MQA form, no lse)"
+              f" {time_ms(lambda: F.scaled_dot_product_attention(qm, km, vm, attn_mask=mask, scale=1.0 / denom, enable_gqa=True), flush):.4f} ms")
 
     p = MLA_PREFILL
     for name, b, s, H, D, dt in [("mla_prefill", p["b"], p["s"], p["H"], p["D"], bf16),
@@ -1559,8 +1826,8 @@ def phase_ssd_kernel(peaks, flush, gen):
             ("fp32_ragged", 2, 1000, 24, 64, 128, f32),
             ("smoke_dims", 2, 200, 16, 32, 16, bf16),
             ("smoke_dims_fp32", 3, 77, 16, 32, 16, f32),
-            *((name, 1, 1024, h, 64, 128, bf16)
-              for name, h in SSD_RANKS.items())]:
+            *((name, 1, s, h, P, 128, bf16)
+              for name, (s, h, P) in SSD_RANKS.items())]:
         args = ssd_inputs(gen, b, s, h, P, N, dt)
         x, dt_raw, A_log, B, C, D, dt_bias = args
         got = ssd_scan(*args)
@@ -1644,8 +1911,8 @@ def phase_ssd_bwd(peaks, flush, gen):
             ("b4", (4, 512, 24, 64, 128), bf16, False),
             ("smoke_dims", (2, 200, 16, 32, 16), bf16, True),
             ("smoke_dims_fp32", (3, 77, 16, 32, 16), f32, False),
-            *((name, (1, 1024, h, 64, 128), bf16, False)
-              for name, h in SSD_RANKS.items())]:
+            *((name, (1, s, h, P, 128), bf16, False)
+              for name, (s, h, P) in SSD_RANKS.items())]:
         args = ssd_inputs(gen, b, s, h, P, N, dt)
         dy = torch.randn(b, s, h, P, generator=gen, device="cuda").to(dt)
         ds = (torch.randn(b, h, P, N, generator=gen, device="cuda")
@@ -2770,8 +3037,8 @@ def phase_train(peaks, arch):
     return launches
 
 
-# phase (m)'s and (v)'s rows, for phase (d)
-MEASURED = {"m": [], "v": []}
+# phase (m)'s and (v)'s rows and phase (f)'s of the SSD split, for phase (d)
+MEASURED = {"m": [], "f": [], "v": []}
 
 
 def phase_memcheck():
@@ -2825,6 +3092,7 @@ def phase_family():
     total = Counter()
     for arch, cut, b, d, t, zeros in FAMILY_PLANS:
         cfg = get_arch(arch).scaled(**cut) if cut else get_arch(arch)
+        s = FAMILY_SEQ.get((arch, d, t), 1024)
         kinds = {_mixer_kind(cfg, j) for j in range(cfg.block_period)}
         want = ["adam_update", "rms_norm"]
         if kinds - {"ssm"}:
@@ -2834,9 +3102,11 @@ def phase_family():
         for zero in zeros:
             reset_launches()
             t0 = time.perf_counter()
-            row = run_one(arch, b, 1024, d, t, zero=zero, cfg=cfg, smi=smi)
+            row = run_one(arch, b, s, d, t, zero=zero, cfg=cfg, smi=smi)
             launches = {k: n for k, n in LAUNCHES.items() if n}
             total.update(launches)
+            if "ssm" in kinds and cfg.n_ssm_heads % t:   # for phase (d)
+                MEASURED["f"].append(row)
             print(f"(f) {describe(row)}{' cut ' + str(cut) if cut else ''};"
                   f" observed <= exact prediction"
                   f" {row['actual_bytes'] <= row['pred_exact']}; rank 0's"
@@ -2944,22 +3214,25 @@ def phase_serve():
     from repro_torch.models.transformer import _mixer_kind
     smi = card()
     total = Counter()
-    for arch, shape, ranks in SERVE_PLANS:
+    for arch, shape, ranks, batch in SERVE_PLANS:
         cfg = get_arch(arch)
         kinds = {_mixer_kind(cfg, j) for j in range(cfg.block_period)}
         want = ["rms_norm"]
         if get_shape(shape).kind == "prefill":
             want += ["flash_attention"] + (["ssd_scan"] if "ssm" in kinds else [])
-        else:
+        elif kinds - {"ssm"}:      # a Mamba2 decode step is plain PyTorch
             want += ["flash_decode_mla" if "mla" in kinds else "flash_decode_gqa"]
+        cut = SERVE_CUTS.get((arch, shape, batch))
         for rank in ranks:
             reset_launches()
             t0 = time.perf_counter()
-            row = run_serve(arch, shape, *SERVE_MESH, smi=smi, rank=rank)
+            row = run_serve(arch, shape, *SERVE_MESH, smi=smi, rank=rank,
+                            batch=batch)
             MEASURED["v"].append(row)
             launches = {k: n for k, n in LAUNCHES.items() if n}
             total.update(launches)
-            print(f"(v) {describe_serve(row)}; observed <= serve_peak_bytes"
+            print(f"(v) {describe_serve(row)}{'; cut: ' + cut if cut else ''}"
+                  f"; observed <= serve_peak_bytes"
                   f" {row['actual_bytes'] <= row['pred_serve']}; logits"
                   f" {row['logits_shape']} finite {row['logits_finite']};"
                   f" launches {launches}; {time.perf_counter() - t0:.1f} s")
@@ -2990,28 +3263,33 @@ def phase_dryrun():
     n_sm = meta.sm_count(torch.empty(0, device="cuda"))
     print(f"(d) the card has {n_sm} SMs, the dry run plans for"
           f" {meta.SM_COUNT}; {smi['device']}, {smi['power_limit']}")
-    check(MEASURED["m"] and MEASURED["v"], "phase (d) runs after (m) and (v)")
+    check(MEASURED["m"] and MEASURED["v"] and MEASURED["f"],
+          "phase (d) runs after (m), (f) and (v)")
     before = dict(LAUNCHES)
     ratios = []
-    for row in MEASURED["m"]:
-        t0 = time.perf_counter()
-        got = dryrun.memcheck_row(row)
-        ratios.append(got["ratio"])
-        print(f"(d) {row['arch']} b={row['batch']} d={row['d']} t={row['t']}"
-              f" zero={row['zero']}: dry-run peak {got['peak_bytes']} B +"
-              f" base {row['base_bytes']} B against (m)'s"
-              f" {row['actual_bytes']} B: {got['ratio']:.4f};"
-              f" {time.perf_counter() - t0:.1f} s")
+    for tag in ("m", "f"):
+        for row in MEASURED[tag]:
+            t0 = time.perf_counter()
+            got = dryrun.memcheck_row(row)
+            ratios.append(got["ratio"])
+            print(f"(d) {row['arch']} b={row['batch']} s={row['seq']}"
+                  f" d={row['d']} t={row['t']} zero={row['zero']}: dry-run"
+                  f" peak {got['peak_bytes']} B + base {row['base_bytes']} B"
+                  f" against ({tag})'s {row['actual_bytes']} B (predicted"
+                  f" {row['pred_exact']} B): {got['ratio']:.4f};"
+                  f" {time.perf_counter() - t0:.1f} s")
     for row in MEASURED["v"]:
         t0 = time.perf_counter()
         stats, _ = dryrun.trace_serve(get_arch(row["arch"]), row["shape"], 1,
-                                      *SERVE_MESH, rank=row["rank"])
+                                      *SERVE_MESH, rank=row["rank"],
+                                      batch=row["batch"])
         peak = dryrun_peak_bytes(stats)
         ratio = (peak + row["base_bytes"]) / row["actual_bytes"]
         ratios.append(ratio)
-        print(f"(d) {row['arch']} {row['shape']} rank {row['rank']} on"
-              f" {SERVE_MESH}: dry-run peak {peak} B + base"
-              f" {row['base_bytes']} B against (v)'s {row['actual_bytes']} B:"
+        print(f"(d) {row['arch']} {row['shape']} b={row['batch']} rank"
+              f" {row['rank']} on {SERVE_MESH}: dry-run peak {peak} B + base"
+              f" {row['base_bytes']} B against (v)'s {row['actual_bytes']} B"
+              f" (serve_peak_bytes {row['pred_serve']} B):"
               f" {ratio:.4f}; {time.perf_counter() - t0:.1f} s")
     check(dict(LAUNCHES) == before, "the dry run launched a kernel")
     worst = max(abs(r - 1) for r in ratios)
@@ -3256,6 +3534,9 @@ def main():
         return ab(sys.argv[sys.argv.index("--ab") + 1])
     if "--mla-splits" in sys.argv:
         return mla_splits()
+    if "--lse-merge" in sys.argv:
+        i = sys.argv.index("--lse-merge")
+        return lse_merge(int(sys.argv[i + 1]), int(sys.argv[i + 2]))
     if "--train-peak" in sys.argv:
         return train_peak(sys.argv[sys.argv.index("--train-peak") + 1])
     if "--alloc-peaks" in sys.argv:

@@ -73,7 +73,10 @@
 //    a cluster barrier, split k reads every split's partial through
 //    distributed shared memory for its k-th share of the 64 x 512 outputs,
 //    merges them in split order with exp(m_blk - m_glob), scales by the
-//    merged 1 / l and writes o_lat in bf16.  So a call at the decode shape is
+//    merged 1 / l and writes o_lat in bf16 -- or, given an lse buffer (a
+//    sharded decode's merge across ranks), in float32, split 0 writing each
+//    head's m + log(l) (-inf on a row with no valid slot), as the merge
+//    kernel does on the other path.  So a call at the decode shape is
 //    one kernel that writes no partials to device memory.  With the
 //    partials in device memory and a merge kernel (9 64-row splits at the
 //    decode shape), the merge kernel takes about a third of the pair
@@ -149,15 +152,18 @@ struct MergeFits {
 
 // q_lat (b, H, R), q_rope (b, H, DR), c_kv (b, S, R), k_rope (b, S, DR),
 // out (b, H, R); a split is bs rows.  FUSED: the splits of one (head tile,
-// batch) are one cluster and merge there into out; otherwise each writes
-// its float32 partial, indexed (b, ns, H[, R]), for mla_combine.
+// batch) are one cluster and merge there into out -- or, with lse (b, H)
+// given, into the float32 out_f beside each head's log-sum-exp --;
+// otherwise each writes its float32 partial, indexed (b, ns, H[, R]), for
+// mla_combine.
 template <int R, int DR, bool FUSED>
 __global__ void __launch_bounds__(MT, 1)
 mla_partials_mma(const bf16* __restrict__ q_lat, const bf16* __restrict__ q_rope,
                  const bf16* __restrict__ c_kv, const bf16* __restrict__ k_rope,
                  const uint8_t* __restrict__ valid, float* __restrict__ acc_out,
                  float* __restrict__ m_out, float* __restrict__ l_out,
-                 bf16* __restrict__ out, int S, int H, int bs, float denom) {
+                 bf16* __restrict__ out, float* __restrict__ out_f, float* __restrict__ lse,
+                 int S, int H, int bs, float denom) {
   using L = MmaSmem<R, DR>;
   constexpr int CR = R / 8, CW = (R + DR) / 8;   // 16-byte chunks of a c_kv, a whole row
   constexpr int NP = R / 16;                     // 8-column n tiles of a warp's R/2 columns
@@ -400,6 +406,8 @@ mla_partials_mma(const bf16* __restrict__ q_lat, const bf16* __restrict__ q_rope
         l_g += lk[k] * a;
       }
       inv_l[tid] = 1.f / fmaxf(l_g, 1e-30f);
+      if (lse != nullptr && rank == 0 && h0 + tid < H)
+        lse[(size_t)b * H + h0 + tid] = l_g > 0.f ? m_g + logf(l_g) : __int_as_float(0xff800000);
     }
     __syncthreads();
     // ... and split k of the cluster writes the k-th share of o_lat, 4
@@ -424,8 +432,12 @@ mla_partials_mma(const bf16* __restrict__ q_lat, const bf16* __restrict__ q_rope
         o.w += v[k].w * a;
       }
       const float il = inv_l[h];
-      if (h0 + h < H)
-        *reinterpret_cast<uint2*>(out + ((size_t)b * H + h0 + h) * R + c) =
+      if (h0 + h >= H) continue;
+      const size_t at = ((size_t)b * H + h0 + h) * R + c;
+      if (lse != nullptr)
+        *reinterpret_cast<float4*>(out_f + at) = make_float4(o.x * il, o.y * il, o.z * il, o.w * il);
+      else
+        *reinterpret_cast<uint2*>(out + at) =
             make_uint2(pack_bf16(o.x * il, o.y * il), pack_bf16(o.z * il, o.w * il));
     }
     cl.sync();                   // the other splits may still read this block
@@ -661,11 +673,12 @@ mla_partials_f32(const float* __restrict__ q_lat, const float* __restrict__ q_ro
 // ------------------------------------------------------------------ merge --
 
 // Merge the ns partials of each (b, h) in order: grid (H, b), R threads.
+// With lse (b, H) given, thread 0 also writes each (b, h)'s log-sum-exp.
 template <typename T>
 __global__ void mla_combine(const float* __restrict__ acc,
                             const float* __restrict__ m,
                             const float* __restrict__ l, T* __restrict__ out,
-                            int ns, int H, int R) {
+                            float* __restrict__ lse, int ns, int H, int R) {
   const int h = blockIdx.x, b = blockIdx.y, d = threadIdx.x;
   float m_g = NEG_INF;
   for (int js = 0; js < ns; ++js) m_g = fmaxf(m_g, m[((size_t)b * ns + js) * H + h]);
@@ -677,13 +690,15 @@ __global__ void mla_combine(const float* __restrict__ acc,
     o += acc[idx * R + d] * alpha;
   }
   out[((size_t)b * H + h) * R + d] = from_f<T>(o / fmaxf(l_g, 1e-30f));
+  if (lse != nullptr && d == 0)
+    lse[(size_t)b * H + h] = l_g > 0.f ? m_g + logf(l_g) : __int_as_float(0xff800000);
 }
 
 template <int R, int DR>
 cudaError_t launch_merge(const float* q_lat, const float* q_rope, const float* c_kv,
                          const float* k_rope, const uint8_t* valid, float* acc, float* m,
-                         float* l, float* out, int b, int S, int H, int bs, bool fused,
-                         float denom, cudaStream_t stream) {
+                         float* l, void* out, float* lse, int b, int S, int H, int bs,
+                         bool fused, float denom, cudaStream_t stream) {
   if (fused) return cudaErrorInvalidValue;  // the float32 body merges in a second kernel
   const int ns = (S + bs - 1) / bs;
   constexpr int smem = f32_smem_bytes<R, DR>();
@@ -694,15 +709,19 @@ cudaError_t launch_merge(const float* q_lat, const float* q_rope, const float* c
       q_lat, q_rope, c_kv, k_rope, valid, acc, m, l, S, H, bs, denom);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  mla_combine<float><<<dim3(H, b), R, 0, stream>>>(acc, m, l, out, ns, H, R);
+  mla_combine<float><<<dim3(H, b), R, 0, stream>>>(acc, m, l, static_cast<float*>(out), lse,
+                                                   ns, H, R);
   return cudaGetLastError();
 }
 
+// out: bf16, or float32 beside the log-sum-exp when lse is given
 template <int R, int DR>
 cudaError_t launch_merge(const bf16* q_lat, const bf16* q_rope, const bf16* c_kv,
                          const bf16* k_rope, const uint8_t* valid, float* acc, float* m,
-                         float* l, bf16* out, int b, int S, int H, int bs, bool fused,
-                         float denom, cudaStream_t stream) {
+                         float* l, void* out, float* lse, int b, int S, int H, int bs,
+                         bool fused, float denom, cudaStream_t stream) {
+  bf16* out_b = lse == nullptr ? static_cast<bf16*>(out) : nullptr;
+  float* out_f = lse == nullptr ? nullptr : static_cast<float*>(out);
   const int ns = (S + bs - 1) / bs;
   constexpr int smem = MmaSmem<R, DR>::BYTES;
   const dim3 grid(ns, (H + HT - 1) / HT, b);
@@ -725,46 +744,48 @@ cudaError_t launch_merge(const bf16* q_lat, const bf16* q_rope, const bf16* c_kv
     cfg.attrs = attr;
     cfg.numAttrs = 1;
     return cudaLaunchKernelEx(&cfg, kern, q_lat, q_rope, c_kv, k_rope, valid, acc, m, l,
-                              out, S, H, bs, denom);
+                              out_b, out_f, lse, S, H, bs, denom);
   }
   auto kern = mla_partials_mma<R, DR, false>;
   cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          smem);
   if (err != cudaSuccess) return err;
-  kern<<<grid, MT, smem, stream>>>(q_lat, q_rope, c_kv, k_rope, valid, acc, m, l, out, S, H,
-                                   bs, denom);
+  kern<<<grid, MT, smem, stream>>>(q_lat, q_rope, c_kv, k_rope, valid, acc, m, l, out_b,
+                                   out_f, lse, S, H, bs, denom);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  mla_combine<bf16><<<dim3(H, b), R, 0, stream>>>(acc, m, l, out, ns, H, R);
+  if (lse != nullptr)   // float32 output beside the log-sum-exp
+    mla_combine<float><<<dim3(H, b), R, 0, stream>>>(acc, m, l, out_f, lse, ns, H, R);
+  else
+    mla_combine<bf16><<<dim3(H, b), R, 0, stream>>>(acc, m, l, out_b, nullptr, ns, H, R);
   return cudaGetLastError();
 }
 
 template <typename T, int R, int DR>
 cudaError_t launch(const void* q_lat, const void* q_rope, const void* c_kv,
                    const void* k_rope, const uint8_t* valid, float* acc,
-                   float* m, float* l, void* out, int b, int S, int H, int bs,
+                   float* m, float* l, void* out, float* lse, int b, int S, int H, int bs,
                    bool fused, float denom, cudaStream_t stream) {
   if (bs <= 0 || bs % 16) return cudaErrorInvalidValue;
   return launch_merge<R, DR>(static_cast<const T*>(q_lat), static_cast<const T*>(q_rope),
                              static_cast<const T*>(c_kv), static_cast<const T*>(k_rope),
-                             valid, acc, m, l, static_cast<T*>(out), b, S, H, bs, fused,
-                             denom, stream);
+                             valid, acc, m, l, out, lse, b, S, H, bs, fused, denom, stream);
 }
 
 template <typename T>
 cudaError_t launch_rd(int R, int DR, const void* q_lat, const void* q_rope,
                       const void* c_kv, const void* k_rope,
                       const uint8_t* valid, float* acc, float* m, float* l,
-                      void* out, int b, int S, int H, int bs, bool fused,
+                      void* out, float* lse, int b, int S, int H, int bs, bool fused,
                       float denom, cudaStream_t stream) {
   if (R == 32 && DR == 16)
-    return launch<T, 32, 16>(q_lat, q_rope, c_kv, k_rope, valid, acc, m, l, out, b, S, H, bs, fused, denom, stream);
+    return launch<T, 32, 16>(q_lat, q_rope, c_kv, k_rope, valid, acc, m, l, out, lse, b, S, H, bs, fused, denom, stream);
   if (R == 32 && DR == 64)
-    return launch<T, 32, 64>(q_lat, q_rope, c_kv, k_rope, valid, acc, m, l, out, b, S, H, bs, fused, denom, stream);
+    return launch<T, 32, 64>(q_lat, q_rope, c_kv, k_rope, valid, acc, m, l, out, lse, b, S, H, bs, fused, denom, stream);
   if (R == 512 && DR == 16)
-    return launch<T, 512, 16>(q_lat, q_rope, c_kv, k_rope, valid, acc, m, l, out, b, S, H, bs, fused, denom, stream);
+    return launch<T, 512, 16>(q_lat, q_rope, c_kv, k_rope, valid, acc, m, l, out, lse, b, S, H, bs, fused, denom, stream);
   if (R == 512 && DR == 64)
-    return launch<T, 512, 64>(q_lat, q_rope, c_kv, k_rope, valid, acc, m, l, out, b, S, H, bs, fused, denom, stream);
+    return launch<T, 512, 64>(q_lat, q_rope, c_kv, k_rope, valid, acc, m, l, out, lse, b, S, H, bs, fused, denom, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -797,23 +818,26 @@ int max_clusters(int ns) {
 // multiple of 16) and fused (the ns = ceil(S / bs) splits of a (head tile,
 // batch) merge in one cluster: bf16 only, ns <= 8), both from the wrapper's
 // plan (kernels/meta.py's mla_plan); scratch acc (b, ns, H, R), m and l
-// (b, ns, H) float32, unused (may be null) where fused; out (b, H, R).
+// (b, ns, H) float32, unused (may be null) where fused; out (b, H, R) in
+// the caches' dtype, or float32 when lse (b, H) float32 is not null: each
+// (b, h)'s log-sum-exp of its scores, -inf on a row with no valid entry.
 // Returns the cudaError_t of the launches (0 on success).
 extern "C" int repro_flash_decode_mla(const void* q_lat, const void* q_rope,
                                       const void* c_kv, const void* k_rope,
                                       const void* valid, void* acc, void* m,
-                                      void* l, void* out, int b, int S, int H,
-                                      int R, int DR, int bs, int fused,
+                                      void* l, void* out, void* lse, int b, int S,
+                                      int H, int R, int DR, int bs, int fused,
                                       int dtype, float denom, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const uint8_t* vm = static_cast<const uint8_t*>(valid);
   float* a = static_cast<float*>(acc);
   float* mm = static_cast<float*>(m);
   float* ll = static_cast<float*>(l);
+  float* ls = static_cast<float*>(lse);
   if (dtype == 0)
-    return (int)launch_rd<float>(R, DR, q_lat, q_rope, c_kv, k_rope, vm, a, mm, ll, out, b, S, H, bs, fused, denom, s);
+    return (int)launch_rd<float>(R, DR, q_lat, q_rope, c_kv, k_rope, vm, a, mm, ll, out, ls, b, S, H, bs, fused, denom, s);
   if (dtype == 1)
-    return (int)launch_rd<bf16>(R, DR, q_lat, q_rope, c_kv, k_rope, vm, a, mm, ll, out, b, S, H, bs, fused, denom, s);
+    return (int)launch_rd<bf16>(R, DR, q_lat, q_rope, c_kv, k_rope, vm, a, mm, ll, out, ls, b, S, H, bs, fused, denom, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -689,6 +689,8 @@ cudaError_t launch_walk(int P, int N, const void* x, const void* dt_raw, const f
   };
   if (P == 32 && N == 16)
     return go(ssd_chunk_walk<float, 32, 16>, smem_floats<32, 16>() * (int)sizeof(float));
+  if (P == 32 && N == 128)
+    return go(ssd_chunk_walk<float, 32, 128>, smem_floats<32, 128>() * (int)sizeof(float));
   if (P == 64 && N == 128)
     return go(ssd_chunk_walk<float, 64, 128>, smem_floats<64, 128>() * (int)sizeof(float));
   return cudaErrorInvalidValue;
@@ -704,7 +706,8 @@ cudaError_t launch_walk(int P, int N, const void* x, const void* dt_raw, const f
 // (b, nseg - 1, H) float32 with nseg = ceil(nc / cps), cps chunks a segment
 // (the wrapper's plan, kernels/meta.py's ssd_segment_chunks; unused in
 // float32).  The (P, N) pairs built:
-// mamba2-130m's (64, 128) and its smoke config's (32, 16).  Returns the
+// mamba2-130m's (64, 128), one of its model ranks' at t = 16 (32, 128: 32 of
+// each head's 64 channels) and its smoke config's (32, 16).  Returns the
 // cudaError_t of the launches (0 on success).
 extern "C" int repro_ssd_scan(const void* x, const void* dt_raw, const void* A_log,
                               const void* B, const void* C, const void* D,
@@ -730,6 +733,9 @@ extern "C" int repro_ssd_scan(const void* x, const void* dt_raw, const void* A_l
   if (P == 32 && N == 16)
     return (int)launch_bf16<32, 16>(xb, dr, al, bm, cm, dv, db, yb, st, cbf, sts, sl, b, S, H,
                                     cps, s);
+  if (P == 32 && N == 128)
+    return (int)launch_bf16<32, 128>(xb, dr, al, bm, cm, dv, db, yb, st, cbf, sts, sl, b, S, H,
+                                     cps, s);
   if (P == 64 && N == 128)
     return (int)launch_bf16<64, 128>(xb, dr, al, bm, cm, dv, db, yb, st, cbf, sts, sl, b, S, H,
                                      cps, s);

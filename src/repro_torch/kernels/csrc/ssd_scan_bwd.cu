@@ -1360,6 +1360,8 @@ cudaError_t launch_bf16(const Args& a, cudaStream_t stream) {
 template <bool BF16>
 cudaError_t launch_pn(int P, int N, const Args& a, cudaStream_t stream) {
   if (P == 32 && N == 16) return BF16 ? launch_bf16<32, 16>(a, stream) : launch_fp32<32, 16>(a, stream);
+  if (P == 32 && N == 128)
+    return BF16 ? launch_bf16<32, 128>(a, stream) : launch_fp32<32, 128>(a, stream);
   if (P == 64 && N == 128)
     return BF16 ? launch_bf16<64, 128>(a, stream) : launch_fp32<64, 128>(a, stream);
   return cudaErrorInvalidValue;
@@ -1375,8 +1377,8 @@ cudaError_t launch_pn(int P, int N, const Args& a, cudaStream_t stream) {
 // Scratch, float32, nc = ceil(S / 64): states and grads (b, nc, H, P, N),
 // cum_l (b, nc, H), vec (3, b, nc, H); bfloat16 only: cb (b, nc, 64, 64);
 // float32 only: dbp and dcp (b, S, H, N) (the other dtype's may be null).
-// The (P, N) pairs built: mamba2-130m's (64, 128) and its smoke config's
-// (32, 16).  Returns the cudaError_t of the launches (0 on success).
+// The (P, N) pairs built: mamba2-130m's (64, 128), one of its model ranks'
+// at t = 16 (32, 128) and its smoke config's (32, 16).  Returns the cudaError_t of the launches (0 on success).
 extern "C" int repro_ssd_scan_bwd(const void* x, const void* dt_raw, const void* A_log,
                                   const void* B, const void* C, const void* D,
                                   const void* dt_bias, const void* dy, const void* d_state,
@@ -1425,6 +1427,7 @@ extern "C" int repro_ssd_scan_bwd_chunk() { return L; }
 extern "C" int repro_ssd_scan_bwd_heads_per_group(int b, int S, int H, int P, int N) {
   const int nc = (S + L - 1) / L;
   if (P == 32 && N == 16) return heads_per_group<32, 16>(b, nc, H);
+  if (P == 32 && N == 128) return heads_per_group<32, 128>(b, nc, H);
   if (P == 64 && N == 128) return heads_per_group<64, 128>(b, nc, H);
   return -1;
 }

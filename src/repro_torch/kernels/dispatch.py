@@ -124,17 +124,19 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
 
 def mla_flash_decode(q_lat: torch.Tensor, q_rope: torch.Tensor,
                      c_kv: torch.Tensor, k_rope: torch.Tensor,
-                     valid: torch.Tensor, *, denom: float) -> torch.Tensor:
+                     valid: torch.Tensor, *, denom: float,
+                     return_lse: bool = False):
     """Matrix-absorbed MLA decode attention in latent space.
 
     q_lat: (b, H, r); q_rope: (b, H, dr); c_kv: (b, S, r); k_rope:
     (b, S, dr); valid: (b, S) bool; denom = sqrt(dn + dr).  Returns o_lat
-    (b, H, r)."""
+    (b, H, r); with ``return_lse``, (o_lat float32, its log-sum-exp (b, H)
+    float32) for a merge across ranks."""
     if METRICS.enabled:
         METRICS.inc("ops/mla_flash_decode")
     fn = flash_decode_mla if _use_kernel(q_lat) else mla_decode_ref
     return _call("mla_flash_decode", q_lat, fn, q_lat, q_rope, c_kv, k_rope,
-                 valid, denom=denom)
+                 valid, denom=denom, return_lse=return_lse)
 
 
 def ssd(x: torch.Tensor, dt_raw: torch.Tensor, A_log: torch.Tensor,

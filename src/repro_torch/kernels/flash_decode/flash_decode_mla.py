@@ -32,7 +32,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load("flash_decode_mla")
-    lib.repro_flash_decode_mla.argtypes = [_P] * 9 + [_I] * 8 + [
+    lib.repro_flash_decode_mla.argtypes = [_P] * 10 + [_I] * 8 + [
         ctypes.c_float, _P]
     lib.repro_flash_decode_mla.restype = ctypes.c_int
     lib.repro_flash_decode_mla_clusters.argtypes = [_I, _I, _I]
@@ -104,19 +104,25 @@ def _check_inputs(q_lat: torch.Tensor, q_rope: torch.Tensor,
 
 def flash_decode_mla(q_lat: torch.Tensor, q_rope: torch.Tensor,
                      c_kv: torch.Tensor, k_rope: torch.Tensor,
-                     valid: torch.Tensor, *, denom: float) -> torch.Tensor:
+                     valid: torch.Tensor, *, denom: float,
+                     return_lse: bool = False):
     """q_lat: (b, H, r); q_rope: (b, H, dr); c_kv: (b, S, r); k_rope:
     (b, S, dr); valid: (b, S) bool or uint8; denom = sqrt(dn + dr).
     Returns o_lat (b, H, r) in c_kv's dtype; a row with no valid entry
-    gives 0."""
+    gives 0.  With ``return_lse``: (o_lat (b, H, r) float32, lse (b, H)
+    float32, the log of each row's sum of exp(score)), for a merge of
+    partial results across ranks (``parallel.collectives.
+    merge_decode_partials``); a row with no valid entry gives 0 and
+    -inf.  Both launch paths (the splits merged in a cluster, or through
+    partials and a merge kernel) write it."""
     _check_inputs(q_lat, q_rope, c_kv, k_rope, valid)
     return _launch(q_lat, q_rope, c_kv, k_rope, valid, denom,
-                   block_s(q_lat, c_kv))
+                   block_s(q_lat, c_kv), return_lse)
 
 
 def _launch(q_lat: torch.Tensor, q_rope: torch.Tensor, c_kv: torch.Tensor,
             k_rope: torch.Tensor, valid: torch.Tensor, denom: float,
-            bs: int) -> torch.Tensor:
+            bs: int, return_lse: bool = False):
     """One launch at bs cache rows a split (a multiple of 16) on checked
     inputs; ``chip_smoke.py --mla-splits`` times other splits through it."""
     b, H, r = q_lat.shape
@@ -128,18 +134,22 @@ def _launch(q_lat: torch.Tensor, q_rope: torch.Tensor, c_kv: torch.Tensor,
     acc = torch.empty((n_part * r,), dtype=torch.float32, device=dev)
     m = torch.empty((n_part,), dtype=torch.float32, device=dev)
     l = torch.empty((n_part,), dtype=torch.float32, device=dev)
-    out = torch.empty((b, H, r), dtype=c_kv.dtype, device=dev)
+    out = torch.empty((b, H, r), device=dev, dtype=torch.float32
+                      if return_lse else c_kv.dtype)
+    lse = (torch.empty((b, H), dtype=torch.float32, device=dev)
+           if return_lse else None)
     if meta.is_meta(q_lat):
         meta.record("flash_decode_mla", meta.mla_decode_flops(b, S, H, r, dr),
-                    (q_lat, q_rope, c_kv, k_rope, valid), (out,))
-        return out
+                    (q_lat, q_rope, c_kv, k_rope, valid), (out, lse))
+        return (out, lse) if return_lse else out
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = _lib().repro_flash_decode_mla(
         q_lat.data_ptr(), q_rope.data_ptr(), c_kv.data_ptr(),
         k_rope.data_ptr(), valid.data_ptr(), acc.data_ptr(), m.data_ptr(),
-        l.data_ptr(), out.data_ptr(), b, S, H, r, dr, bs, int(fused),
+        l.data_ptr(), out.data_ptr(), lse.data_ptr() if return_lse else None,
+        b, S, H, r, dr, bs, int(fused),
         DTYPE_CODES[q_lat.dtype], float(denom), stream)
     if err:
         raise RuntimeError(f"flash_decode_mla launch failed: CUDA error {err}")
     LAUNCHES["flash_decode_mla"] += 1
-    return out
+    return (out, lse) if return_lse else out

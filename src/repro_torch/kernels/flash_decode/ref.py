@@ -13,10 +13,10 @@ with no valid entry: the whole-cache softmax returns the mean of V (of
 c_kv for MLA) there, the split-KV merge returns 0 (l = 0 gives 0 / 1e-30).
 The kernels follow the split-KV semantics.
 
-``return_lse=True`` (the GQA functions) gives the output in float32 beside
-each (b, h)'s log-sum-exp of the scores, for a merge of partial results
-across ranks; a row with no valid entry then gives 0 and -inf, as the
-kernel does, in both.
+``return_lse=True`` gives the output in float32 beside each (b, h)'s
+log-sum-exp of the scores, for a merge of partial results across ranks; a
+row with no valid entry then gives 0 and -inf, as the kernels do, in all
+four.
 """
 from __future__ import annotations
 
@@ -116,16 +116,23 @@ def gqa_decode_splitk(q: torch.Tensor, k_cache: torch.Tensor,
 
 def mla_decode_ref(q_lat: torch.Tensor, q_rope: torch.Tensor,
                    c_kv: torch.Tensor, k_rope: torch.Tensor,
-                   valid: torch.Tensor, *, denom: float) -> torch.Tensor:
+                   valid: torch.Tensor, *, denom: float,
+                   return_lse: bool = False):
     """Matrix-absorbed MLA decode attention in latent space.
 
     q_lat: (b, H, r); q_rope: (b, H, dr); c_kv: (b, S, r); k_rope:
     (b, S, dr); valid: (b, S) bool; denom = sqrt(dn + dr).  Returns o_lat
-    (b, H, r) in c_kv's dtype."""
+    (b, H, r) in c_kv's dtype; with ``return_lse``, (o_lat float32, lse
+    (b, H) float32), p rounded to c_kv's dtype before p.c_kv as the kernel
+    does."""
     s_nope = torch.einsum("bhr,bsr->bhs", q_lat, c_kv)
     s_rope = torch.einsum("bhd,bsd->bhs", q_rope, k_rope)
     scores = (s_nope + s_rope).float() / denom
     scores = torch.where(valid[:, None, :], scores, NEG_INF)
+    if return_lse:
+        b, H, r = q_lat.shape
+        return _with_lse(scores, valid[:, None, :], c_kv, "bhs,bsr->bhr",
+                         (b, H, r), (b, H))
     pr = torch.softmax(scores, dim=-1)
     return torch.einsum("bhs,bsr->bhr", pr.to(c_kv.dtype), c_kv)
 
@@ -133,10 +140,10 @@ def mla_decode_ref(q_lat: torch.Tensor, q_rope: torch.Tensor,
 def mla_decode_splitk(q_lat: torch.Tensor, q_rope: torch.Tensor,
                       c_kv: torch.Tensor, k_rope: torch.Tensor,
                       valid: torch.Tensor, *, denom: float,
-                      block_s: int) -> torch.Tensor:
+                      block_s: int, return_lse: bool = False):
     """Split-KV MLA latent decode: one (acc, m, l) partial per cache block
     of ``block_s`` rows, then the two-pass merge.  A row with no valid
-    entry gives 0."""
+    entry gives 0; ``return_lse`` as for ``mla_decode_ref``."""
     accs, ms, ls = [], [], []
     for s0 in range(0, c_kv.shape[1], block_s):
         cb = c_kv[:, s0:s0 + block_s]
@@ -151,5 +158,5 @@ def mla_decode_splitk(q_lat: torch.Tensor, q_rope: torch.Tensor,
         accs.append(torch.einsum("bhs,bsr->bhr", p.to(cb.dtype), cb).float())
         ms.append(m)
     out = _combine_partials(torch.stack(accs, 1), torch.stack(ms, 1),
-                            torch.stack(ls, 1))
-    return out.to(c_kv.dtype)
+                            torch.stack(ls, 1), return_lse)
+    return out if return_lse else out.to(c_kv.dtype)

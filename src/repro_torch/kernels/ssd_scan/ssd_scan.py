@@ -24,9 +24,11 @@ import torch
 from repro_torch.kernels import LAUNCHES, _build, meta, refuse_grad
 from repro_torch.kernels.flash_attention.flash_attention import DTYPE_CODES
 
-# the (head dim P, state N) pairs ssd_scan.cu instantiates: mamba2-130m's
-# (64, 128) and its smoke config's (32, 16)
-SHAPES = ((32, 16), (64, 128))
+# the (head dim P, state N) pairs ssd_scan.cu and ssd_scan_bwd.cu
+# instantiate: mamba2-130m's (64, 128), a model rank's of it at t = 16 (32
+# of each head's 64 channels: ``sharding.ssm_split``) and its smoke config's
+# (32, 16)
+SHAPES = ((32, 16), (32, 128), (64, 128))
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 

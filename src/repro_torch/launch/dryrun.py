@@ -26,7 +26,7 @@ shape and extrapolated linearly from the counts after each (every
 microbatch after the first runs the same ops;
 ``trace_train(every_micro=True)`` traces all n).  A
 combo the port's sharded step does not run raises NotImplementedError
-naming ``parallel.sharding.DEFERRED`` (ROADMAP queue 1 item 10): its row
+naming ``parallel.sharding.DEFERRED`` (ROADMAP queue 1 item 14): its row
 is ``refused``, not failed.  Any other exception is a failure, and
 ``main`` exits 1 when there is one.
 
@@ -136,15 +136,17 @@ def _alloc(batch: Dict[str, torch.Tensor]) -> int:
 
 
 def trace_serve(cfg: ModelConfig, shape_name: str, pods: int, d: int,
-                t: int, rank: int = 0) -> Tuple[OpStats, Dict[str, Any]]:
+                t: int, rank: int = 0, batch: Optional[int] = None
+                ) -> Tuple[OpStats, Dict[str, Any]]:
     """Rank ``rank``'s prefill or decode step of the serving plan of
-    ``shape_name`` on meta tensors, as ``launch.memcheck.run_serve`` runs
-    it on the card."""
+    ``shape_name`` (at a global batch of ``batch`` in place of the
+    shape's) on meta tensors, as ``launch.memcheck.run_serve`` runs it on
+    the card."""
     from repro_torch.models import init_cache
     from repro_torch.serve import (local_serve_params, prefill,
                                    serve_parallel, serve_step)
     shape = get_shape(shape_name)
-    B = shape.global_batch
+    B = batch or shape.global_batch
     cache_len = shape.cache_len or shape.seq_len
     nd = pods * d
     b = B // nd if B % nd == 0 else B

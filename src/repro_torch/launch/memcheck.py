@@ -203,12 +203,14 @@ def run_one(arch: str, batch: int, seq: int, d: int, t: int, zero: int = 0, *,
 def run_serve(arch: str, shape_name: str, d: int, t: int, *,
               cfg: Optional[ModelConfig] = None, device="cuda",
               smi: Optional[Dict[str, str]] = None, rank: int = 0,
-              pods: int = 1, seed: int = 0) -> Dict[str, Any]:
+              pods: int = 1, seed: int = 0,
+              batch: Optional[int] = None) -> Dict[str, Any]:
     """Rank ``rank`` of the serving plan of ``shape_name`` (prefill_32k,
     decode_32k or long_500k) on the (d, t) mesh, or (pods, d, t) with a
     "pod" axis, under the fake process group on the card: one prefill or
     one decode step (see the module docstring), its peak beside
-    ``serve_peak_bytes``.  Raises off CUDA, as ``run_one`` does."""
+    ``serve_peak_bytes``.  ``batch``: a global batch in place of the
+    shape's.  Raises off CUDA, as ``run_one`` does."""
     from repro_torch.configs.registry import get_shape
     from repro_torch.launch.inputs import serve_weights_over_data
     from repro_torch.models import init_cache
@@ -220,7 +222,7 @@ def run_serve(arch: str, shape_name: str, d: int, t: int, *,
                          f"peak; {device} has none")
     cfg = cfg or get_arch(arch)
     shape = get_shape(shape_name)
-    B = shape.global_batch
+    B = batch or shape.global_batch
     cache_len = shape.cache_len or shape.seq_len
     nd = pods * d
     b = B // nd if B % nd == 0 else B

@@ -159,8 +159,8 @@ def save_checkpoint(ckpt_dir: str, step: int, cfg: ModelConfig,
     if mesh is not None:
         specs = state_specs(cfg, tc, mesh, param_shapes(cfg))
         with torch.no_grad():
-            params = col.gather_state(state, specs, mesh,
-                                      parts=("params",))["params"]
+            params = col.gather_state(state, specs, mesh, parts=("params",),
+                                      ssm_heads=cfg.n_ssm_heads)["params"]
         if dist.get_rank() != 0:
             return False
     ckpt.save(ckpt_dir, step, params)

@@ -281,21 +281,26 @@ def mla_param_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
             "wv_b": (r_kv, H, dv), "wo": (H, dv, d)}
 
 
+def _mla_cq(cfg: ModelConfig, p: dict, x: torch.Tensor,
+            par: Optional[ModelParallel] = None) -> torch.Tensor:
+    """The normed query latent (b, s, r_q).  With ``par``: ``wq_a`` holds
+    r_q/t columns, whose latent is gathered and normed whole on every rank
+    and goes through ``to_model`` before ``wq_b``'s local shard (the
+    gradient rule of ``parallel.collectives``)."""
+    if par is None:
+        return rms_norm(x @ p["wq_a"], p["q_ln"], cfg.norm_eps)
+    return par.to_model(rms_norm(par.gather_model(par.to_model(x)
+                                                  @ p["wq_a"], -1),
+                                 p["q_ln"], cfg.norm_eps))
+
+
 def _mla_q(cfg: ModelConfig, p: dict, x: torch.Tensor,
            positions: torch.Tensor, par: Optional[ModelParallel] = None
            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(q_nope (b, s, H, dn), q_rope (b, s, H, dr)); RoPE on the dr slice.
-    With ``par``: ``wq_a`` holds r_q/t columns, whose latent is gathered
-    and normed whole on every rank before ``wq_b``'s local heads (the
-    gradient rule of ``parallel.collectives``)."""
+    """(q_nope (b, s, H, dn), q_rope (b, s, H, dr)); RoPE on the dr slice;
+    with ``par`` of ``wq_b``'s local heads."""
     dn = cfg.qk_nope_head_dim
-    if par is None:
-        cq = rms_norm(x @ p["wq_a"], p["q_ln"], cfg.norm_eps)
-    else:
-        cq = par.to_model(rms_norm(par.gather_model(par.to_model(x)
-                                                    @ p["wq_a"], -1),
-                                   p["q_ln"], cfg.norm_eps))
-    q = _project(cq, p["wq_b"])
+    q = _project(_mla_cq(cfg, p, x, par), p["wq_b"])
     return q[..., :dn], apply_rope(q[..., dn:], positions, cfg.rope_theta)
 
 
@@ -323,11 +328,10 @@ def mla_attend_train(cfg: ModelConfig, p: dict, x: torch.Tensor,
     pre-``to_model`` input): the latent and the RoPE key are computed on
     every rank from x and go through ``to_model`` to ``wk_b``/``wv_b``'s
     local heads; ``out`` is the rank's heads' share through its rows of
-    ``wo``, which the caller sums over the model axis."""
+    ``wo``, which the caller sums over the model axis; on the head_dim /
+    seq fallback see ``_mla_attend_seq``."""
     if par is not None and not par.attn_head_sharded:
-        raise NotImplementedError(
-            f"{cfg.name}: MLA on the head_dim / seq fallback: ROADMAP.md "
-            f"queue 1 item 10")
+        return _mla_attend_seq(cfg, p, x, positions, par)
     b, s, _ = x.shape
     H = p["wq_b"].shape[1]                             # this rank's heads
     dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
@@ -347,6 +351,49 @@ def mla_attend_train(cfg: ModelConfig, p: dict, x: torch.Tensor,
             {"c_kv": c_kv, "k_rope": k_rope})
 
 
+def _mla_attend_seq(cfg: ModelConfig, p: dict, x: torch.Tensor,
+                    positions: torch.Tensor, par: ModelParallel
+                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One rank of MLA on the head_dim / seq fallback (the JAX package's
+    ``"seq"`` activation sharding, as ``_gqa_attend_seq``): ``wq_b``,
+    ``wk_b`` and ``wv_b`` hold the rank's (dn + dr)/t, dn/t and dv/t
+    columns of every head and ``wo`` its dv/t rows.  q moves to the rank's
+    s/t sequence rows with every column (``par.head_dim_to_seq``) and only
+    then takes RoPE on its dr columns (a column shard cannot be rotated);
+    k's dn and v's dv columns, projected from the latent every rank
+    computes (through ``to_model``), are gathered whole
+    (``gather_model_sum``), the shared RoPE key joins k on every rank, and
+    the attention runs the rank's rows against every key at query offset
+    r s/t; its output moves back to the rank's dv/t columns for ``wo``.
+    The cache entries are the whole latent and RoPE key, replicated over
+    the model axis as ``sharding.cache_specs`` has them."""
+    b, s, _ = x.shape
+    if s % par.t:
+        raise ValueError(f"{cfg.name}: sequence {s} does not split over the "
+                         f"model axis of {par.t} (the head_dim / seq "
+                         f"fallback shards the sequence)")
+    H = p["wq_b"].shape[1]
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    rows = s // par.t
+    lo = par.model_idx * rows
+    q = par.head_dim_to_seq(_project(_mla_cq(cfg, p, x, par), p["wq_b"]))
+    q = torch.cat([q[..., :dn], apply_rope(q[..., dn:],
+                                           positions[..., lo:lo + rows],
+                                           cfg.rope_theta)], dim=-1)
+    c_kv, k_rope = _mla_latent(cfg, p, x, positions)
+    kv_c, kv_r = par.to_model(c_kv), par.to_model(k_rope)
+    k_nope = par.gather_model_sum(_project(kv_c, p["wk_b"]), -1)
+    v = par.gather_model_sum(_project(kv_c, p["wv_b"]), -1)
+    k = torch.cat([k_nope, kv_r[:, :, None, :].expand(b, s, H, dr)], dim=-1)
+    v = F.pad(v, (0, dn + dr - dv))
+    constrain(q, (b, s, H, dn + dr), None, "seq", "heads", "head_dim")
+    o = dispatch.attention(q, k, v, causal=True, q_offset=lo,
+                           softmax_scale=1.0 / math.sqrt(dn + dr))
+    return (_out_project(par.seq_to_head_dim(o[..., :dv].contiguous()),
+                         p["wo"]),
+            {"c_kv": c_kv, "k_rope": k_rope})
+
+
 def mla_attend_decode(cfg: ModelConfig, p: dict, x: torch.Tensor,
                       cache: Dict[str, torch.Tensor], ring: tuple,
                       par: Optional[ModelParallel] = None
@@ -363,13 +410,13 @@ def mla_attend_decode(cfg: ModelConfig, p: dict, x: torch.Tensor,
     (``sharding.cache_specs``), every rank writes the new latent, and the
     rank's H/t heads go through its ``wq_b``, ``wk_b``, ``wv_b``, the
     kernel and its rows of ``wo``; the caller sums ``out`` over the model
-    axis.  A cache whose slots the data axes split, and the head_dim /
-    seq fallback, raise."""
-    if par is not None and (par.seq_split or not par.attn_head_sharded):
-        raise NotImplementedError(
-            f"{cfg.name}: MLA decode on "
-            f"{'a cache split over the sequence' if par.seq_split else 'the head_dim / seq fallback'}"
-            f": ROADMAP.md queue 1 item 10")
+    axis.  When the data axes split the slots (``par.seq_split``: ``ring``
+    is ``shard_ring``'s, and only the slot's owner writes it) each rank
+    decodes its own with their log-sum-exp and the partial results merge
+    over the data axes; on the head_dim / seq fallback see
+    ``_mla_decode_seq``."""
+    if par is not None and not par.attn_head_sharded:
+        return _mla_decode_seq(cfg, p, x, cache, ring, par)
     dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
     positions, slot, valid = ring
     q_nope, q_rope = _mla_q(cfg, p, x, positions, par)
@@ -377,8 +424,56 @@ def mla_attend_decode(cfg: ModelConfig, p: dict, x: torch.Tensor,
     _write_slot(cache["c_kv"], slot, c_new[:, 0])
     _write_slot(cache["k_rope"], slot, kr_new[:, 0])
     q_lat = torch.einsum("bhd,rhd->bhr", q_nope[:, 0], p["wk_b"])
-    o_lat = dispatch.mla_flash_decode(
-        q_lat.contiguous(), q_rope[:, 0].contiguous(), cache["c_kv"],
-        cache["k_rope"], valid, denom=math.sqrt(dn + dr))
+    args = (q_lat.contiguous(), q_rope[:, 0].contiguous(), cache["c_kv"],
+            cache["k_rope"], valid)
+    if par is None or not par.seq_split:
+        o_lat = dispatch.mla_flash_decode(*args, denom=math.sqrt(dn + dr))
+    else:
+        o_lat, lse = dispatch.mla_flash_decode(
+            *args, denom=math.sqrt(dn + dr), return_lse=True)
+        o_lat = merge_decode_partials(o_lat[:, None], lse,
+                                      par.data_group)[0][:, 0].to(x.dtype)
     o = torch.einsum("bhr,rhd->bhd", o_lat, p["wv_b"])
+    return _out_project(o[:, None], p["wo"]), cache
+
+
+def _mla_decode_seq(cfg: ModelConfig, p: dict, x: torch.Tensor,
+                    cache: Dict[str, torch.Tensor], ring: tuple,
+                    par: ModelParallel
+                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One decode step of a rank on MLA's head_dim / seq fallback: the
+    weights hold its columns of every head (``_mla_attend_seq``) and the
+    cache the whole latent, replicated over the model axis.  The new
+    token's q is gathered whole over its columns (one position) and its
+    RoPE columns rotated; the rank's dn/t columns of q_nope through its
+    ``wk_b`` give a partial q_lat, summed over the model axis.  The rank
+    then decodes its own S/t of the cache's slots (the valid mask cut to
+    them: the kernel reads no other row, and nothing is copied) with their
+    log-sum-exp, and the t partial results merge over the model axis (and
+    over the data axes when they split the slots), so every rank reads
+    S/t of the cache, where a rank with the whole q_lat and the whole
+    cache would read it all; its ``wv_b`` and ``wo`` rows give its share of
+    the output, which the caller sums over the model axis."""
+    dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    positions, slot, valid = ring
+    q = par.gather_model(_project(_mla_cq(cfg, p, x, par), p["wq_b"]), -1)
+    q_rope = apply_rope(q[..., dn:], positions, cfg.rope_theta)[:, 0]
+    c_new, kr_new = _mla_latent(cfg, p, x, positions)
+    _write_slot(cache["c_kv"], slot, c_new[:, 0])
+    _write_slot(cache["k_rope"], slot, kr_new[:, 0])
+    w = p["wk_b"].shape[-1]
+    cols = slice(par.model_idx * w, (par.model_idx + 1) * w)
+    q_lat = par.from_model(torch.einsum("bhd,rhd->bhr", q[:, 0, :, cols],
+                                        p["wk_b"]))
+    n = -(-valid.shape[1] // par.t)
+    mine = torch.zeros_like(valid)
+    lo = par.model_idx * n
+    mine[:, lo:lo + n] = valid[:, lo:lo + n]
+    o_lat, lse = dispatch.mla_flash_decode(
+        q_lat.contiguous(), q_rope.contiguous(), cache["c_kv"],
+        cache["k_rope"], mine, denom=math.sqrt(dn + dr), return_lse=True)
+    o_lat, lse = merge_decode_partials(o_lat[:, None], lse, par.model_group)
+    if par.seq_split:
+        o_lat, lse = merge_decode_partials(o_lat, lse, par.data_group)
+    o = torch.einsum("bhr,rhd->bhd", o_lat[:, 0].to(x.dtype), p["wv_b"])
     return _out_project(o[:, None], p["wo"]), cache

@@ -349,7 +349,8 @@ def forward(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
     wq/wk/wv its heads; MLA's wq_b/wk_b/wv_b, from the latent every rank
     computes; wo their rows, one all-reduce after), the dense FFN on d_ff/t
     columns (w1/w3 columns, w2 rows, one all-reduce), the MoE on its E/t
-    experts or f/t columns of each, Mamba2 on its h/t SSD heads, the
+    experts or f/t columns of each, Mamba2 on its SSD heads' channels
+    (``sharding.ssm_split``), the
     embedding and head under the embed's vocab-or-d_model sharding, and at
     ZeRO 3 each leaf gathered over the data axis before use.  Without it
     (one device) none of that code runs.  With ``want_cache`` and ``par``
@@ -357,8 +358,9 @@ def forward(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
     under ``sharding.prefill_cache_specs``: its rows of the batch (the
     caller passes the rank's rows), and its K/t heads of k and v, or its
     hd/t columns of them on the head_dim / seq fallback; MLA's latent
-    replicated over the model axis; Mamba2's SSD state of its heads and
-    its ch/t channels of the conv window.
+    replicated over the model axis; Mamba2's SSD state of its heads (the
+    whole state when the model axis does not divide them) and its ch/t
+    channels of the conv window.
     """
     _check_supported(cfg)
     if par is not None:
@@ -379,6 +381,8 @@ def forward(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
                 for name, t in cache.items():
                     if name == "conv" and par is not None:
                         t = mamba2.conv_window_shard(cfg, t, par)
+                    elif name == "ssd" and par is not None:
+                        t = mamba2.ssd_state_shard(cfg, t, par)
                     entries.setdefault(sub, {}).setdefault(name, []).append(t)
     if last_only:
         x = x[:, -1:]

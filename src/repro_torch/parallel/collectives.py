@@ -8,7 +8,9 @@ package leaves this to GSPMD):
 * the model axis (Megatron's tensor parallelism): the dense family's
   attention by head and FFN by column, MLA by head, the MoE's experts
   (expert-parallel, or ffn-sharded inside every expert) and Mamba2 by
-  head.  ``ModelParallel.to_model`` goes before a column-sharded product
+  head, or by heads and channels when t does not divide its heads
+  (``sharding.ssm_split``).  ``ModelParallel.to_model`` goes before a
+  column-sharded product
   (identity forward, gradient all-reduced), ``from_model`` after a
   row-sharded one (all-reduce forward, identity backward),
   ``gather_model`` gathers an activation sharded along a dim (all-gather
@@ -34,14 +36,17 @@ package leaves this to GSPMD):
   or its gradient comes out t times too large), MLA's ``wkv_a``/``kv_ln``
   latent and shared RoPE key (``c_kv`` and ``k_rope`` through
   ``to_model`` before the rank's heads) and Mamba2's ``in_bc``/``conv_bc``
-  (B and C through ``to_model`` after the conv).  ``gather_model``'s
+  (B and C through ``to_model`` after the conv) -- and, when t does not
+  divide its heads, ``in_dt``'s product and the whole ``A_log``, ``D``
+  and ``dt_bias`` (through ``to_model`` before the rank's heads' slice:
+  each rank's gradient of them sums its channels only).  ``gather_model``'s
   own-slice backward is right only for a complete upstream gradient:
   MLA's q latent is gathered, normed by ``q_ln`` on every rank, and only
   then goes through ``to_model`` to the rank's heads.
 
   When a head count does not divide t (``sharding.attn_head_sharded``
-  false), GQA's weights shard their head_dim and its attention the
-  sequence (the JAX package's head_dim / ``seq`` fallback, which GSPMD
+  false), GQA's and MLA's weights shard their head_dim and the attention
+  the sequence (the JAX package's head_dim / ``seq`` fallback, which GSPMD
   lowers there): the rank projects q, k and v onto its head_dim columns;
   ``gather_model_sum`` gathers k and v whole (all-gather forward,
   reduce-scatter backward: every rank's queries add to dK and dV);
@@ -70,13 +75,17 @@ package leaves this to GSPMD):
   (``vocab_parallel_argmax``).
 
 ``shard_leaf`` / ``gather_leaf`` cut a rank's shard out of a full leaf and
-rebuild the full leaf from the shards.  A leaf that packs parts along its
-model-sharded dim (``PACKED``: Mamba2's ``in_zx`` = [z | x]) keeps its
-spec's shard shape, but rank r's shard holds its own heads' chunk of each
-part side by side ([z_r | x_r]), not the r-th contiguous columns of the
-packed leaf (at t=2 those would be all of z on rank 0): the model reads
-it as it reads the whole leaf.  Only the model axis regroups; a data
-split (another dim under the model axis, or this one at t=1) is plain.
+rebuild the full leaf from the shards.  Mamba2's leaves over d_inner
+(``SSM_LEAVES``; ``in_zx`` packs two parts, [z | x]) keep their spec's
+shard shape, but rank r's shard holds its ``sharding.ssm_channels`` of
+each part side by side ([z_r | x_r]), not the r-th contiguous columns of
+the leaf (at t=2 those would be all of z on rank 0; when t does not
+divide the SSD heads the rank's channels are not contiguous either): the
+model reads it as it reads the whole leaf.  Placing them needs the
+config's SSD head count (``ssm_heads``), which these calls require for
+such a leaf on a model axis of more than one rank.  Only the model axis
+regroups; a data split (another dim under the model axis, or this one at
+t=1) is plain.
 Under the fake process group (``launch.memcheck``), which writes nothing,
 what a rank receives is zeroed, so nothing derived from it (the MoE's
 routing) reads uninitialised memory; that writes into buffers already
@@ -436,36 +445,38 @@ def local_shape(shape: Sequence[int], spec, mesh) -> Tuple[int, ...]:
     return tuple(d // sh._axis_size(mesh, ax) for d, ax in zip(shape, spec))
 
 
-# leaves whose model-sharded dim packs parts that the model axis splits
-# each on its own (see the module docstring): {leaf name: parts}
-PACKED = {"in_zx": 2}
+# Mamba2's leaves whose model-sharded dim holds d_inner channels, in parts
+# of d_inner each ([z | x] for ``in_zx``): shard r holds
+# ``sharding.ssm_channels``' channels of each part, side by side
+SSM_LEAVES = {"in_zx": 2, "conv_x_w": 1, "conv_x_b": 1, "norm": 1,
+              "out_proj": 1}
 
 
-def _packed_index(size: int, parts: int, i: int, n: int, device
-                  ) -> torch.Tensor:
-    """Positions along a packed dim of ``size`` held by shard i of n: its
-    chunk of each of the ``parts`` equal parts, side by side."""
+def _ssm_index(size: int, name: str, i: int, n: int, device,
+               ssm_heads: Optional[int]) -> torch.Tensor:
+    """Positions along the model-sharded dim (of ``size``) of Mamba2 leaf
+    ``name`` that shard i of n holds: its ``sharding.ssm_channels`` of
+    each of the leaf's parts, side by side."""
+    if ssm_heads is None:
+        raise ValueError(f"Mamba2's {name} over {n} model ranks: its shard "
+                         f"depends on the SSD head count (ssm_heads)")
+    parts = SSM_LEAVES[name]
     part = size // parts
-    w = part // n
-    return torch.cat([torch.arange(p * part + i * w, p * part + (i + 1) * w,
-                                   device=device) for p in range(parts)])
-
-
-def _unpack(t: torch.Tensor, dim: int, parts: int, n: int) -> torch.Tensor:
-    """The packed leaf's own order from the n shards gathered along
-    ``dim`` (each [part 0 chunk | part 1 chunk | ...])."""
-    blocks = t.chunk(n * parts, dim)
-    return torch.cat([blocks[r * parts + p] for p in range(parts)
-                      for r in range(n)], dim=dim)
+    mine = torch.tensor(sh.ssm_channels(ssm_heads, part // ssm_heads, n, i),
+                        device=device)
+    return torch.cat([p * part + mine for p in range(parts)])
 
 
 def shard_leaf(t: torch.Tensor, spec, mesh, coords: Mapping[str, int],
                dtype: Optional[torch.dtype] = None,
-               name: Optional[str] = None) -> torch.Tensor:
+               name: Optional[str] = None,
+               ssm_heads: Optional[int] = None) -> torch.Tensor:
     """This rank's shard of the full leaf ``t`` (in ``dtype``, default its
     own) in fresh storage of its own, never a view that would keep the
     full leaf alive.  ``name``: the leaf's name, which says whether it is
-    ``PACKED``."""
+    one of ``SSM_LEAVES``; ``ssm_heads``: the config's SSD heads, which
+    place those leaves' channels (required for them on a model axis of
+    more than one rank)."""
     sizes = sh.axis_sizes(mesh)
     index, packed = [], None
     for dim, (size, ax) in enumerate(zip(t.shape, spec)):
@@ -473,9 +484,9 @@ def shard_leaf(t: torch.Tensor, spec, mesh, coords: Mapping[str, int],
             index.append(slice(None))
             continue
         i, n = _axis_index(ax, sizes, coords)
-        if ax == "model" and name in PACKED:
+        if ax == "model" and name in SSM_LEAVES and n > 1:
             index.append(slice(None))
-            packed = (dim, _packed_index(size, PACKED[name], i, n, t.device))
+            packed = (dim, _ssm_index(size, name, i, n, t.device, ssm_heads))
             continue
         index.append(slice(i * size // n, (i + 1) * size // n))
     out = t[tuple(index)]
@@ -485,10 +496,11 @@ def shard_leaf(t: torch.Tensor, spec, mesh, coords: Mapping[str, int],
                   memory_format=torch.contiguous_format)
 
 
-def gather_leaf(t: torch.Tensor, spec, mesh, name: Optional[str] = None
-                ) -> torch.Tensor:
+def gather_leaf(t: torch.Tensor, spec, mesh, name: Optional[str] = None,
+                ssm_heads: Optional[int] = None) -> torch.Tensor:
     """The full leaf from every rank's shard ``t`` (a collective over the
-    mesh: every rank calls it); ``name`` as for ``shard_leaf``."""
+    mesh: every rank calls it); ``name`` and ``ssm_heads`` as for
+    ``shard_leaf``."""
     sizes = sh.axis_sizes(mesh)
     for dim, ax in enumerate(spec):
         if ax is None:
@@ -500,9 +512,13 @@ def gather_leaf(t: torch.Tensor, spec, mesh, name: Optional[str] = None
             group, n, _ = data_group(mesh)
             t = all_gather(t, dim, group, n)
             continue
-        t = all_gather(t, dim, mesh.get_group(ax), sizes[ax])
-        if ax == "model" and name in PACKED and sizes[ax] > 1:
-            t = _unpack(t, dim, PACKED[name], sizes[ax])
+        n = sizes[ax]
+        t = all_gather(t, dim, mesh.get_group(ax), n)
+        if ax == "model" and name in SSM_LEAVES and n > 1:
+            # the shards' positions in rank order, back to the leaf's own
+            held = torch.cat([_ssm_index(t.shape[dim], name, r, n, t.device,
+                                         ssm_heads) for r in range(n)])
+            t = t.index_select(dim, torch.argsort(held))
     return t
 
 
@@ -513,23 +529,14 @@ def map_specs(fn, tree: Mapping[str, Any], specs: Mapping[str, Any]
             else fn(v, specs[k], k) for k, v in tree.items()}
 
 
-def shard_state(state: Mapping[str, Any], specs: Mapping[str, Any], mesh
-                ) -> Dict[str, Any]:
-    """This rank's train state from the full one: each leaf of "params"
-    and "opt" cut to its spec (``train_loop.state_specs``)."""
-    coords = mesh_coords(mesh)
-    out = {k: map_specs(lambda t, s, name: shard_leaf(t, s, mesh, coords,
-                                                      name=name),
-                        state[k], specs[k]) for k in ("params", "opt")}
-    out["step"] = state["step"]
-    return out
-
-
 def gather_state(state: Mapping[str, Any], specs: Mapping[str, Any], mesh,
-                 parts: Sequence[str] = ("params", "opt")) -> Dict[str, Any]:
+                 ssm_heads: int, parts: Sequence[str] = ("params", "opt")
+                 ) -> Dict[str, Any]:
     """The full train state from every rank's shards (a collective: every
-    rank calls it); ``parts``: which of "params" and "opt" to gather."""
-    out = {k: map_specs(lambda t, s, name: gather_leaf(t, s, mesh, name),
+    rank calls it); ``ssm_heads``: the config's SSD heads, as for
+    ``shard_leaf``; ``parts``: which of "params" and "opt" to gather."""
+    out = {k: map_specs(lambda t, s, name: gather_leaf(t, s, mesh, name,
+                                                       ssm_heads),
                         state[k], specs[k]) for k in parts}
     out["step"] = state["step"]
     return out

@@ -20,7 +20,11 @@ ZeRO levels (TrainConfig.zero):
 """
 from __future__ import annotations
 
+import functools
+import math
 from typing import Any, Dict, Mapping, Optional, Tuple
+
+import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 
@@ -51,6 +55,58 @@ def attn_head_sharded(cfg: ModelConfig, tp: int) -> bool:
     if cfg.attention == "mla":
         return cfg.num_heads % tp == 0
     return cfg.num_heads % tp == 0 and cfg.num_kv_heads % tp == 0
+
+
+def ssm_groups(heads: int, head_dim: int, tp: int
+               ) -> Tuple[int, int, int, int]:
+    """How Mamba2's SSD heads split over a model axis of tp: (g, q, h_l,
+    p_l).  With g = gcd(heads, tp) the ranks form g groups of q = tp / g;
+    rank grp q + part holds the group's h_l = heads / g whole heads
+    (grp h_l ..) and of each the part-th p_l = head_dim / q of its
+    channels (SSD is independent along the head dim: a rank computes
+    exactly its channels of y and of the state).  When tp divides the
+    heads, q = 1: heads / tp whole heads a rank.
+    ``check_sharded_supported`` refuses a head_dim that q does not
+    divide."""
+    g = math.gcd(heads, tp)
+    return g, tp // g, heads // g, head_dim * g // tp
+
+
+def ssm_split(cfg: ModelConfig, tp: int) -> Tuple[int, int, int, int]:
+    """``ssm_groups`` of the config's SSD heads on tp model ranks: (g, q,
+    the heads a rank holds, the channels of each)."""
+    return ssm_groups(cfg.n_ssm_heads, cfg.ssm_head_dim, tp)
+
+
+def ssm_rank_channels(x: torch.Tensor, heads: int, head_dim: int, tp: int,
+                      rank: int) -> torch.Tensor:
+    """Model rank ``rank``'s channels of x (..., heads * head_dim) under
+    ``ssm_groups``: (..., h_l p_l), head-major -- its group's heads in
+    order, of each its p_l channels -- by reshapes, never an index."""
+    g, q, hl, pl = ssm_groups(heads, head_dim, tp)
+    grp, part = divmod(rank, q)
+    lead = x.shape[:-1]
+    return x.reshape(*lead, g, hl, q, pl)[..., grp, :, part, :].reshape(
+        *lead, hl * pl)
+
+
+def ssm_natural_order(x: torch.Tensor, heads: int, head_dim: int, tp: int
+                      ) -> torch.Tensor:
+    """The inverse: the tp ranks' ``ssm_rank_channels`` side by side in
+    rank order (..., heads * head_dim), back in d_inner's order."""
+    g, q, hl, pl = ssm_groups(heads, head_dim, tp)
+    lead = x.shape[:-1]
+    return x.reshape(*lead, g, q, hl, pl).transpose(-3, -2).reshape(
+        *lead, -1)
+
+
+@functools.lru_cache(maxsize=None)
+def ssm_channels(heads: int, head_dim: int, tp: int, rank: int
+                 ) -> Tuple[int, ...]:
+    """The d_inner channels (head * head_dim + channel) that model rank
+    ``rank`` of ``tp`` holds: ``ssm_rank_channels`` of their numbers."""
+    return tuple(ssm_rank_channels(torch.arange(heads * head_dim), heads,
+                                   head_dim, tp, rank).tolist())
 
 
 def expert_sharded(cfg: ModelConfig, tp: int) -> bool:
@@ -273,8 +329,8 @@ def prefill_cache_specs(cfg: ModelConfig, shape: ShapeConfig, mesh) -> Dict:
 # --------------------------------------------------------- plan support ----
 # The port's own: which plans its sharded train and serving steps run.
 
-# where the sharded-step paths the port does not run yet are listed
-DEFERRED = "ROADMAP.md queue 1 item 10"
+# where the plans the sharded step does not run are listed
+DEFERRED = "ROADMAP.md queue 1 item 14"
 
 # the number of data shards (the pod and data axes together)
 n_data_shards = _n_data
@@ -293,13 +349,6 @@ def check_sharded_supported(cfg: ModelConfig, tc, mesh) -> None:
                                   f"{DEFERRED}")
     if t > 1:
         kinds = {cfg.layer_kind(j) for j in range(cfg.block_period)}
-        # GQA whose head counts t does not divide runs the head_dim / seq
-        # fallback; MLA does not yet
-        if "attn" in kinds and cfg.attention == "mla" \
-                and not attn_head_sharded(cfg, t):
-            raise NotImplementedError(
-                f"{cfg.name}: MLA's {cfg.num_heads} heads on a model axis of "
-                f"{t} (the head_dim / seq fallback): {DEFERRED}")
         # every width the model axis splits (a width it does not divide
         # would be kept whole by enforce_divisibility)
         widths = {"d_model": cfg.d_model, "d_ff": cfg.d_ff}
@@ -310,10 +359,22 @@ def check_sharded_supported(cfg: ModelConfig, tc, mesh) -> None:
         if cfg.num_shared_experts:
             widths["shared experts' width"] = (cfg.num_shared_experts
                                                * cfg.moe_d_ff)
-        if "ssm" in kinds:
-            widths["n_ssm_heads"] = cfg.n_ssm_heads
+        q = ssm_groups(cfg.n_ssm_heads, cfg.ssm_head_dim, t)[1]
+        if "ssm" in kinds and cfg.ssm_head_dim % q:
+            # the SSD heads split by heads and channels (ssm_split)
+            raise NotImplementedError(
+                f"{cfg.name}: {cfg.n_ssm_heads} SSD heads on a model axis "
+                f"of {t} split each head's {cfg.ssm_head_dim} channels over "
+                f"{q} ranks, which do not divide them: {DEFERRED}")
         if "attn" in kinds and not attn_head_sharded(cfg, t):
-            widths["head_dim"] = cfg.head_dim
+            # the head_dim / seq fallback splits each head's columns
+            if cfg.attention == "mla":
+                widths["MLA's qk head dim"] = (cfg.qk_nope_head_dim
+                                               + cfg.qk_rope_head_dim)
+                widths["MLA's nope head dim"] = cfg.qk_nope_head_dim
+                widths["MLA's v head dim"] = cfg.v_head_dim
+            else:
+                widths["head_dim"] = cfg.head_dim
         for what, n in widths.items():
             if n % t:
                 raise NotImplementedError(

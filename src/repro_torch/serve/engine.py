@@ -55,23 +55,23 @@ from repro_torch.train.optimizer import tree_map
 
 def check_serve_supported(cfg: ModelConfig, mesh, global_batch: int,
                           cache_len: int) -> None:
-    """Raise NotImplementedError, naming ROADMAP queue 1 item 10, for a
-    serving plan this slice does not run sharded; never fall back to a
+    """Raise NotImplementedError, naming ``sharding.DEFERRED``, for a
+    serving plan the port does not run sharded; never fall back to a
     replicated run: a plan the train step refuses (``check_sharded_
-    supported``: a width the model axis does not divide, MLA on the
-    head_dim / seq fallback), MLA with its cache split over the sequence
-    (a global batch the data axes do not divide), a ring whose slots the
-    data axes do not divide when they split them, and on the fallback a
-    rank's slots the model axis does not divide."""
+    supported``: a width the model axis does not divide), a ring whose
+    slots the data axes do not divide when they split them (a global batch
+    the data axes do not divide), and on GQA's head_dim / seq fallback a
+    rank's slots the model axis does not divide.  MLA's fallback decode
+    cuts its slots by mask and needs neither."""
     check_sharded_supported(cfg, None, mesh)
     t = sh.axis_sizes(mesh).get("model", 1)
     nd = n_data_shards(mesh)
     split = nd if global_batch % nd else 1
     kinds = {_mixer_kind(cfg, j) for j in range(cfg.block_period)}
-    if "mla" in kinds and split > 1:
+    if "mla" in kinds and split > 1 and cache_len % split:
         raise NotImplementedError(
-            f"{cfg.name}: MLA with its cache split over the sequence (global"
-            f" batch {global_batch} on {nd} data shards): {DEFERRED}")
+            f"{cfg.name}: {cache_len} cache slots do not split over {split} "
+            f"data shards: {DEFERRED}")
     if "gqa" not in kinds:
         return
     S = cache_slots(cfg, cache_len)

@@ -99,8 +99,10 @@ def make_local_state(cfg: ModelConfig, tc: TrainConfig, mesh, device="cuda",
         name = path[-1]
         if whole_leaves:
             node[name] = col.shard_leaf(leaf, o_spec, mesh, coords,
-                                        dtype=torch.float32, name=name)
-            return col.shard_leaf(leaf, p_spec, mesh, coords, name=name)
+                                        dtype=torch.float32, name=name,
+                                        ssm_heads=cfg.n_ssm_heads)
+            return col.shard_leaf(leaf, p_spec, mesh, coords, name=name,
+                                  ssm_heads=cfg.n_ssm_heads)
         # the optimizer shard of the params shard: its data split only
         rel = tuple(o if o != p else None for p, o in zip(p_spec, o_spec))
         node[name] = col.shard_leaf(leaf, rel, mesh, coords,
@@ -163,8 +165,8 @@ def build_train_step(cfg: ModelConfig, tc: TrainConfig, global_batch: int,
     (global_batch, num_modal_tokens, d) come before them.
 
     With a mesh of more than one device, every rank passes the whole global
-    batch and its own shards of the state (``make_local_state``,
-    ``parallel.collectives.shard_state``); see ``build_sharded_step``."""
+    batch and its own shards of the state (``make_local_state``); see
+    ``build_sharded_step``."""
     if mesh is not None and math.prod(sh.axis_sizes(mesh).values()) > 1:
         return build_sharded_step(cfg, tc, global_batch, seq_len, mesh)
     n_micro = resolve_microbatches(tc, global_batch)

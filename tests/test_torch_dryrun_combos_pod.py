@@ -1,7 +1,7 @@
 """Every combo of the dry run on the two-pod (2, 16, 16) mesh, as rank 0 on
-the meta device: ``ok``, or ``refused`` naming ROADMAP queue 1 item 10
-(mamba2-130m's four only); the checks of
-``tests/test_torch_dryrun_combos.py``, which walks the (16, 16) mesh."""
+the meta device: every row ``ok``, mamba2-130m's four too (none
+``refused``); the checks of ``tests/test_torch_dryrun_combos.py``, which
+walks the (16, 16) mesh."""
 import pytest
 
 from test_torch_dryrun_combos import (COMBOS, check_combo,  # noqa: F401

@@ -38,6 +38,11 @@ from repro_torch.kernels.flash_decode.flash_decode_mla import (_launch,
 from repro_torch.kernels.ssd_scan import ssd_scan
 
 DTYPES = {"float32": (torch.float32, 2e-5), "bfloat16": (torch.bfloat16, 2e-2)}
+# A decode's log-sum-exp against the plain version's on the same values in
+# float32, absolute in nats: a sharded decode weighs each rank's result by
+# exp(lse), and one split of 32 dropped would move the lse by 3e-2 (as
+# chip_smoke.py's LSE_TOL)
+LSE_TOL = {"float32": 1e-5, "bfloat16": 1e-4}
 
 # the shapes of tests/test_kernels.py::test_flash_attention_sweep, then
 # lengths, windows and GQA groups across the bf16 kernels' 64-row q tiles
@@ -533,10 +538,11 @@ class TestKernelsOnCard:
                                        (1, 2048, 64, 8, 128),
                                        (3, 300, 8, 2, 32)])
     def test_flash_decode_returns_lse(self, cuda, shape, dtype):
-        """``return_lse``: the float32 output and the log-sum-exp against
-        the plain version (out 2e-2 / 2e-5, lse 2e-2 / 1e-5 absolute; one
-        rank's shapes of a sharded decode at 2,048 slots, llama3.2-3b's
-        and jamba's), an all-invalid row giving 0 and -inf exactly, one
+        """``return_lse``: the float32 output against the plain version
+        (2e-2 / 2e-5) and the log-sum-exp against the plain version's on
+        the same values in float32 (``LSE_TOL`` nats, absolute; one rank's
+        shapes of a sharded decode at 2,048 slots, llama3.2-3b's and
+        jamba's), an all-invalid row giving 0 and -inf exactly, one
         launch; without the flag, v's dtype, the flagged output rounded
         once, and the same bits call after call."""
         (q, k, v), valid = _decode_inputs(*shape, dtype, seed=5)
@@ -549,13 +555,14 @@ class TestKernelsOnCard:
         assert LAUNCHES["flash_decode_gqa"] == n + 1
         assert o.dtype == lse.dtype == torch.float32
         assert lse.shape == (shape[0], shape[2])
-        want_o, want_lse = gqa_decode_ref(q, k, v, valid, return_lse=True)
+        want_o = gqa_decode_ref(q, k, v, valid, return_lse=True)[0]
+        want_lse = gqa_decode_ref(q.float(), k.float(), v.float(), valid,
+                                  return_lse=True)[1]
         tol = DTYPES[dtype][1]
-        lse_tol = 1e-5 if dtype == "float32" else 2e-2
         live = valid.any(dim=1)
         torch.testing.assert_close(o[live], want_o[live], atol=tol, rtol=tol)
-        torch.testing.assert_close(lse[live], want_lse[live], atol=lse_tol,
-                                   rtol=0)
+        torch.testing.assert_close(lse[live], want_lse[live],
+                                   atol=LSE_TOL[dtype], rtol=0)
         assert torch.all(o[bad] == 0)
         assert torch.all(lse[bad] == float("-inf"))
         plain = flash_decode_gqa(q, k, v, valid)
@@ -744,6 +751,43 @@ class TestKernelsOnCard:
                      mla_decode_ref(*args, valid, denom=14.0)):
             assert (got.float() - want.float()).abs().max() <= \
                 tol * want.float().abs().max()
+
+    @pytest.mark.parametrize("dtype", list(DTYPES))
+    @pytest.mark.parametrize("b,S", [(8, 544), (8, 32768), (1, 300)])
+    def test_flash_decode_mla_lse_on_both_paths(self, cuda, b, S, dtype):
+        """``return_lse``: the float32 output and each (b, h)'s log-sum-exp
+        of the plain version, on the splits merged in a cluster (S = 544,
+        300 in bf16), through partials and the merge kernel (S = 32,768, a
+        sharded decode rank's, and float32) -- a row with no valid slot
+        gives 0 and -inf; without the flag the output is what it was, bit
+        for bit.  The lse is held in nats (``LSE_TOL``) against the plain
+        version's on the same values in float32."""
+        rng = np.random.default_rng(18)
+        args = [_randn(rng, s, dtype).to(cuda) for s in
+                ((b, 128, 512), (b, 128, 64), (b, S, 512), (b, S, 64))]
+        _, valid = _decode_inputs(b, S, 1, 1, 32, "float32", seed=19)
+        valid = torch.from_numpy(valid).to(cuda)
+        if b > 1:                     # half a row masked, one row empty
+            valid[-1, : S // 2] = False
+            valid[1] = False
+        plain = flash_decode_mla(*args, valid, denom=14.0)
+        n = LAUNCHES["flash_decode_mla"]
+        o, lse = flash_decode_mla(*args, valid, denom=14.0, return_lse=True)
+        assert LAUNCHES["flash_decode_mla"] == n + 1
+        assert o.dtype == lse.dtype == torch.float32
+        assert torch.equal(flash_decode_mla(*args, valid, denom=14.0), plain)
+        assert torch.equal(o.to(plain.dtype), plain)
+        want_o = mla_decode_ref(*args, valid, denom=14.0, return_lse=True)[0]
+        want_lse = mla_decode_ref(*(a.float() for a in args), valid,
+                                  denom=14.0, return_lse=True)[1]
+        live = valid.any(dim=1)
+        tol = DTYPES[dtype][1]
+        assert (o[live] - want_o[live]).abs().max() <= \
+            tol * want_o[live].abs().max()
+        assert (lse[live] - want_lse[live]).abs().max() <= LSE_TOL[dtype]
+        assert torch.all(o[~live] == 0)
+        assert torch.all(lse[~live] == float("-inf"))
+        assert bool(live.all()) == (b == 1)
 
     @pytest.mark.parametrize("split", [16, 80, 544])
     def test_flash_decode_mla_at_a_given_split(self, cuda, split):

@@ -111,7 +111,7 @@ def _case(arch, d, t, zero):
     acc, _ = step.accumulate(state["params"], data[0])
     o_specs = tree_leaves(specs["opt"]["master"])
     names = [p.split("/")[-1] for p in paths(param_shapes(cfg))]
-    grads = [col.gather_leaf(g, s, mesh, name).numpy()
+    grads = [col.gather_leaf(g, s, mesh, name, cfg.n_ssm_heads).numpy()
              for g, s, name in zip(acc, o_specs, names)]
     gnorm = float(step.global_norm(acc))
 
@@ -138,9 +138,10 @@ def _in_zx_round_trip(d, t):
         spec = sh.param_specs(cfg, param_shapes(cfg), mesh,
                               zero_data=zero >= 3)["blocks"]["sub0"][
                                   "mixer"]["in_zx"]
-        shard = col.shard_leaf(full, spec, mesh, coords, name="in_zx")
-        ok.append(torch.equal(col.gather_leaf(shard, spec, mesh, "in_zx"),
-                              full))
+        shard = col.shard_leaf(full, spec, mesh, coords, name="in_zx",
+                               ssm_heads=cfg.n_ssm_heads)
+        ok.append(torch.equal(col.gather_leaf(shard, spec, mesh, "in_zx",
+                                              cfg.n_ssm_heads), full))
     return ok
 
 
@@ -368,7 +369,7 @@ def test_in_zx_shard_holds_its_heads_z_and_x(t):
     assert spec == (None, "model")
     for r in range(t):
         shard = col.shard_leaf(full, spec, mesh, {"data": 0, "model": r},
-                               name="in_zx")
+                               name="in_zx", ssm_heads=cfg.n_ssm_heads)
         assert tuple(shard.shape) == col.local_shape(full.shape, spec, mesh)
         cols = slice(r * h_local * hp, (r + 1) * h_local * hp)
         half = shard.shape[1] // 2
@@ -377,6 +378,24 @@ def test_in_zx_shard_holds_its_heads_z_and_x(t):
     # a leaf of another name is cut into plain contiguous columns
     plain = col.shard_leaf(full, spec, mesh, {"data": 0, "model": 0})
     assert torch.equal(plain, full[:, :2 * di // t])
+
+
+@pytest.mark.parametrize("name", ["in_zx", "conv_x_b", "out_proj"])
+def test_ssm_leaf_shard_needs_the_head_count(name):
+    """A Mamba2 leaf over d_inner on a model axis of 2 has one layout,
+    placed by the SSD head count: cut or gathered without it, it raises
+    rather than fall back to contiguous columns."""
+    cfg = config("mamba2-130m")
+    mesh = {"data": 1, "model": 2}
+    full = init_params(cfg, 0, device="cpu")["blocks"]["sub0"]["mixer"][name]
+    spec = sh.param_specs(cfg, param_shapes(cfg), mesh)["blocks"]["sub0"][
+        "mixer"][name]
+    assert "model" in spec
+    with pytest.raises(ValueError, match="SSD head count"):
+        col.shard_leaf(full, spec, mesh, {"data": 0, "model": 0}, name=name)
+    with pytest.raises(ValueError, match="SSD head count"):
+        col._ssm_index(full.shape[spec.index("model")], name, 0, 2, "cpu",
+                       None)
 
 
 def test_aux_loss_grads_over_data_match_single_process(ranks):
@@ -423,18 +442,23 @@ def test_the_families_are_accepted_on_the_model_axis(arch, t):
 
 
 @pytest.mark.parametrize("arch,mesh,zero,match", [
-    ("deepseek-v2-236b", {"data": 1, "model": 16}, 1,
-     "head_dim / seq fallback"),
+    ("deepseek-v2-236b", {"data": 1, "model": 16}, 1, "qk head dim"),
     ("deepseek-v2-236b", {"pod": 2, "data": 1, "model": 16}, 3,
-     "head_dim / seq fallback"),
+     "qk head dim"),
 ], ids=["fallback", "pod"])
 def test_deferred_plans_still_raise(arch, mesh, zero, match):
-    """deepseek-v2 smoke's 8 MLA heads at t=16 need the head_dim / seq
-    fallback, which GQA runs and MLA does not yet: refused on a (data,
-    model) mesh and on one with the pod axis (which the step now runs), at
-    any ZeRO stage, naming ROADMAP item 10, never run replicated."""
-    with pytest.raises(NotImplementedError, match="item 10") as e:
-        check_sharded_supported(smoke_config(arch), train_config(zero), mesh)
+    """deepseek-v2 smoke's 8 MLA heads at t=16 take the head_dim / seq
+    fallback, which MLA now runs: accepted on a (data, model) mesh and on
+    one with the pod axis (tests/test_torch_mla_seq.py runs the
+    fallback).  What the fallback still refuses -- an MLA head width the
+    model axis does not divide (dn + dr = 40 at t = 16) -- raises naming
+    ``sharding.DEFERRED``, never run replicated."""
+    cfg = smoke_config(arch)
+    assert not sh.attn_head_sharded(cfg, mesh["model"])
+    check_sharded_supported(cfg, train_config(zero), mesh)
+    with pytest.raises(NotImplementedError, match=sh.DEFERRED) as e:
+        check_sharded_supported(cfg.scaled(qk_rope_head_dim=8),
+                                train_config(zero), mesh)
     assert e.match(match)
 
 

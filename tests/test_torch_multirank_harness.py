@@ -1,7 +1,9 @@
 """What the multi-rank test files share: the sizes, batches and tolerances of
 the sharded step against the single-process one, the ``gloo`` spawn and its
-results on disk, the shard-shape check, and the JAX package's own sharded
-step run in a subprocess on 4 host devices.  It holds no test itself.
+results on disk, the shard-shape check, the JAX package's own sharded
+step run in a subprocess on 4 host devices, and a float32 serving run
+with the JAX package's sharded prefill and decode step beside it.  It
+holds no test itself.
 
 Tolerances and their reasons:
 
@@ -32,6 +34,8 @@ from repro_torch.configs import TrainConfig, smoke_config
 from repro_torch.data import SyntheticTokens
 from repro_torch.launch.train import to_device
 from repro_torch.parallel import collectives as col
+from repro_torch.serve import prefill, prompt_batch, serve_step
+from repro_torch.serve.engine import _argmax
 from repro_torch.train.optimizer import tree_leaves, tree_map
 from repro_torch.train.train_loop import make_train_state
 
@@ -224,3 +228,161 @@ def jax_results(proc, timeout=600):
             proc.communicate()
     assert proc.returncode == 0, err[-3000:]
     return json.loads(out.strip().splitlines()[-1])
+
+
+def serve_run(cfg, params, prompt, cache_len, decodes, par=None, feed=None):
+    """The serving path: prefill, then ``decodes`` decode steps on the
+    greedy tokens, or on ``feed``'s (b, decodes) if given; with ``par``
+    one rank's on its rows of the prompt.  {"logits{i}", the
+    "prefill/..", "step1/.." and "decode/.." (after the last step) cache
+    leaves, "tokens" (the greedy ones)} as numpy arrays."""
+    def np_(t):
+        return t.float().numpy().copy()
+
+    out = {}
+    logits, cache = prefill(cfg, params, prompt_batch(cfg, params, prompt),
+                            cache_len, par)
+    out["logits0"] = np_(logits)
+    tok = _argmax(logits, par)
+    toks = [tok]
+    tags = {0: "prefill", 1: "step1", decodes: "decode"}
+    for i in range(decodes + 1):
+        if i in tags:
+            out.update({f"{tags[i]}/{sub}/{name}": np_(t)
+                        for sub, leaves in cache.items()
+                        for name, t in leaves.items()})
+        if i == decodes:
+            break
+        logits, cache = serve_step(cfg, params,
+                                   tok if feed is None else feed[:, i:i + 1],
+                                   cache,
+                                   prompt.shape[1] + cfg.num_modal_tokens + i,
+                                   par)
+        out[f"logits{i + 1}"] = np_(logits)
+        tok = _argmax(logits, par)
+        toks.append(tok)
+    out["tokens"] = torch.cat(toks, dim=1).numpy()
+    return out
+
+
+def close(got, want, tol):
+    """(ok, the largest error relative to max |want|)."""
+    assert got.shape == want.shape
+    err = np.abs(got - want) / max(np.abs(want).max(), 1e-30)
+    return err.max() <= tol, err.max()
+
+
+# The JAX package's prefill, with its caches on prefill_cache_specs, and
+# one serve_step on cache_specs, on 4 host devices, for each job of a
+# JSON list (the arch's smoke config with the job's fields replaced, its
+# mesh, batch, prompt and cache lengths), from the port's float32
+# parameters and the same prompt and first token: each device's
+# addressable shard of every cache leaf and of the logits, keyed by its
+# mesh coordinates.
+JAX_SERVE_SCRIPT = r"""
+import dataclasses, json, os, sys
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+import numpy as np
+import jax, jax.numpy as jnp
+from jax.sharding import NamedSharding, PartitionSpec as P
+from repro.configs.base import ShapeConfig
+from repro.configs.registry import smoke_config
+from repro.models import init_params
+from repro.parallel import sharding as sh
+from repro.parallel.act import activation_sharding
+from repro.serve.engine import prefill, serve_step
+
+jobs = json.loads(sys.argv[1])
+AXES = {2: ("data", "model"), 3: ("pod", "data", "model")}
+auto = getattr(jax.sharding, "AxisType", None)
+for job in jobs:
+    cfg = dataclasses.replace(smoke_config(job["arch"]), **job["fields"])
+    shape = tuple(job["mesh"])
+    kw = {} if auto is None else {"axis_types": (auto.Auto,) * len(shape)}
+    mesh = jax.make_mesh(shape, AXES[len(shape)],
+                         devices=jax.devices()[:int(np.prod(shape))], **kw)
+    arrays = np.load(job["params"])
+    struct = jax.eval_shape(lambda: init_params(cfg, jax.random.PRNGKey(0)))
+    leaves, treedef = jax.tree_util.tree_flatten(struct)
+    params = treedef.unflatten([jnp.asarray(arrays[f"arr_{i}"])
+                                for i in range(len(leaves))])
+    # the weights on the plan's param specs, over the data axes too for
+    # the serving weights split over data (decode_inputs' rule)
+    p_spec = sh.param_specs(cfg, struct, mesh, zero_data=job["zero_data"])
+    params = jax.device_put(params, jax.tree_util.tree_map(
+        lambda s: NamedSharding(mesh, s), p_spec,
+        is_leaf=lambda x: isinstance(x, P)))
+    B, L = job["batch"], job["cache_len"]
+    sc = ShapeConfig("serve", L, B, "decode", cache_len=L)
+    batch = {"tokens": jnp.asarray(np.load(job["prompt"]), jnp.int32)}
+
+    def shard(tree, specs):
+        return {j: {k: NamedSharding(mesh, sh.enforce_divisibility(
+            specs[j][k], tuple(leaf.shape), mesh)) for k, leaf in sub.items()}
+            for j, sub in tree.items()}
+
+    def prefill_fn(params, batch):
+        with activation_sharding(mesh, cfg):
+            return prefill(cfg, params, batch, L)
+
+    out_sds = jax.eval_shape(prefill_fn, params, batch)
+    c_sh = shard(out_sds[1], sh.prefill_cache_specs(cfg, sc, mesh))
+    logits, cache = jax.jit(prefill_fn, out_shardings=(
+        NamedSharding(mesh, P()), c_sh))(params, batch)
+    tok = jnp.argmax(logits[:, -1, :], axis=-1)[:, None].astype(jnp.int32)
+
+    def decode_fn(params, tokens, cache, pos):
+        with activation_sharding(mesh, cfg):
+            return serve_step(cfg, params, tokens, cache, pos)
+
+    d_sh = shard(cache, sh.cache_specs(cfg, sc, mesh))
+    logits2, cache2 = jax.jit(decode_fn, in_shardings=(None, None, d_sh, None),
+                              out_shardings=(NamedSharding(mesh, P()), d_sh))(
+        params, tok, cache, jnp.int32(batch["tokens"].shape[1]))
+    res = {"logits0": np.asarray(logits, np.float32),
+           "logits1": np.asarray(logits2, np.float32),
+           "tokens": np.asarray(tok)}
+    for tag, tree in (("prefill", cache), ("step1", cache2)):
+        for j, sub in tree.items():
+            for k, arr in sub.items():
+                for s in arr.addressable_shards:
+                    at = tuple(int(c) for c in
+                               np.argwhere(mesh.devices == s.device)[0])
+                    res[f"{tag}/{j}/{k}@{at}"] = np.asarray(s.data, np.float32)
+    np.savez(job["out"], **res)
+print("done")
+"""
+
+
+def start_jax_serve(tmp, jobs):
+    """Start the JAX package's sharded prefill and one decode step on 4
+    host devices (``JAX_SERVE_SCRIPT``) for ``jobs``: dicts of ``name``,
+    ``arch``, ``fields`` (replaced in its smoke config), ``mesh``,
+    ``batch``, ``cache_len``, ``params`` (the port's float32 tree),
+    ``prompt`` and optionally ``zero_data`` (the serving weights split
+    over data too; default False); job ``name``'s results go to
+    ``jax-{name}.npz`` in ``tmp``.  Wait for it with
+    ``proc.communicate()``."""
+    pytest.importorskip("jax")
+    sent = []
+    for job in jobs:
+        base = os.path.join(str(tmp), f"jax-{job['name']}")
+        np.savez(base + "-params.npz",
+                 *(p.numpy() for p in tree_leaves(job["params"])))
+        np.save(base + "-prompt.npy", job["prompt"].numpy())
+        sent.append({"arch": job["arch"], "fields": job["fields"],
+                     "mesh": list(job["mesh"]), "batch": job["batch"],
+                     "cache_len": job["cache_len"],
+                     "zero_data": job.get("zero_data", False),
+                     "params": base + "-params.npz",
+                     "prompt": base + "-prompt.npy", "out": base + ".npz"})
+    script = os.path.join(str(tmp), "jax_serve.py")
+    with open(script, "w") as f:
+        f.write(JAX_SERVE_SCRIPT)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.path.join(os.path.dirname(__file__), "..", "src")
+    env["JAX_PLATFORMS"] = "cpu"
+    env.pop("XLA_FLAGS", None)
+    return subprocess.Popen([sys.executable, script, json.dumps(sent)],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, env=env)

@@ -79,7 +79,7 @@ def _case(arch, mesh_shape, zero):
 
     state = make_local_state(cfg, tc, mesh, device="cpu")
     bad = bad_shards(state, specs, param_shapes(cfg), mesh)
-    whole = col.gather_state(state, specs, mesh)
+    whole = col.gather_state(state, specs, mesh, cfg.n_ssm_heads)
     whole = [t.float().numpy().copy() for t in tree_leaves(whole["params"])
              + tree_leaves(whole["opt"]["master"])]
     metrics = [step(state, batch)[1] for batch in data]

@@ -48,11 +48,8 @@ return_lse=True)`` against the whole-cache softmax.
 """
 import contextlib
 import dataclasses
-import json
 import math
 import os
-import subprocess
-import sys
 
 import numpy as np
 import pytest
@@ -67,12 +64,10 @@ from repro_torch.models.transformer import cache_shapes, local_cache_specs
 from repro_torch.parallel import collectives as col
 from repro_torch.models import param_shapes
 from repro_torch.parallel import sharding as sh
-from repro_torch.serve import (greedy_decode, prefill, prompt_batch,
-                               serve_parallel, serve_step)
-from repro_torch.serve.engine import _argmax
-from repro_torch.train.optimizer import tree_leaves, tree_map
+from repro_torch.serve import greedy_decode, serve_parallel
+from repro_torch.train.optimizer import tree_map
 from test_torch_multirank_harness import (  # noqa: F401 (one_thread: autouse)
-    join_ranks, one_thread, spawn_ranks)
+    close, join_ranks, one_thread, serve_run, spawn_ranks, start_jax_serve)
 
 WORLD = 4
 SEED = 5
@@ -139,15 +134,6 @@ def forced(cfg, b):
         0, cfg.vocab_size, (b, STEPS - 1)))
 
 
-def _np(t):
-    return t.float().numpy().copy()
-
-
-def _caches(tree, tag):
-    return {f"{tag}/{sub}/{name}": _np(t) for sub, leaves in tree.items()
-            for name, t in leaves.items()}
-
-
 class _ForcedTopk:
     """``torch`` for ``models.moe`` with its ``topk`` replaced by the given
     experts (b, s, k) and their probabilities."""
@@ -206,30 +192,10 @@ def run(cfg, params, prompt, cache_len, dtype, par=None, rows=slice(None),
     "gap{c}" and "forced{c}"} as numpy arrays."""
     out = {}
     with routing(out, force):
-        _run(cfg, params, prompt, cache_len, dtype, par, rows, out)
+        out.update(serve_run(cfg, params, prompt[rows], cache_len,
+                             STEPS - 1, par, feed=None if dtype == "fp32"
+                             else forced(cfg, prompt.shape[0])[rows]))
     return out
-
-
-def _run(cfg, params, prompt, cache_len, dtype, par, rows, out):
-    teacher = forced(cfg, prompt.shape[0])[rows]
-    prompt = prompt[rows]
-    logits, cache = prefill(cfg, params, prompt_batch(cfg, params, prompt),
-                            cache_len, par)
-    out["logits0"] = _np(logits)
-    out.update(_caches(cache, "prefill"))
-    tok = _argmax(logits, par)
-    toks = [tok]
-    pos = prompt.shape[1] + cfg.num_modal_tokens
-    for i in range(STEPS - 1):
-        feed = tok if dtype == "fp32" else teacher[:, i:i + 1]
-        logits, cache = serve_step(cfg, params, feed, cache, pos + i, par)
-        out[f"logits{i + 1}"] = _np(logits)
-        if i == 0:
-            out.update(_caches(cache, "step1"))
-        tok = _argmax(logits, par)
-        toks.append(tok)
-    out.update(_caches(cache, "decode"))
-    out["tokens"] = torch.cat(toks, dim=1).numpy()
 
 
 def rows_of(key, coords, sizes):
@@ -267,7 +233,8 @@ def _plan(key, rank_out):
     for dtype in DTYPES[key]:
         params = params_of(cfg, dtype)
         local = col.map_specs(lambda t, s, name: col.shard_leaf(
-            t, s, mesh, coords, name=name), params, specs)
+            t, s, mesh, coords, name=name, ssm_heads=cfg.n_ssm_heads),
+            params, specs)
         res = run(cfg, local, prompts(cfg, B, P), L, dtype, par, rows)
         if dtype == "fp32":
             full = res
@@ -356,122 +323,19 @@ def sharded_routes(out_dir, res, key, dtype):
     return routes or None
 
 
-# The JAX package's prefill, with its caches on prefill_cache_specs, and
-# one serve_step on cache_specs, on 4 host devices, for each job of a
-# JSON list (the arch's smoke config with the job's fields replaced, its
-# mesh, batch, prompt and cache lengths), from the port's float32
-# parameters and the same prompt and first token: each device's
-# addressable shard of every cache leaf and of the logits, keyed by its
-# mesh coordinates.
-JAX_SCRIPT = r"""
-import dataclasses, json, os, sys
-os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
-import numpy as np
-import jax, jax.numpy as jnp
-from jax.sharding import NamedSharding, PartitionSpec as P
-from repro.configs.base import ShapeConfig
-from repro.configs.registry import smoke_config
-from repro.models import init_params
-from repro.parallel import sharding as sh
-from repro.parallel.act import activation_sharding
-from repro.serve.engine import prefill, serve_step
-
-jobs = json.loads(sys.argv[1])
-AXES = {2: ("data", "model"), 3: ("pod", "data", "model")}
-auto = getattr(jax.sharding, "AxisType", None)
-for job in jobs:
-    cfg = dataclasses.replace(smoke_config(job["arch"]), **job["fields"])
-    shape = tuple(job["mesh"])
-    kw = {} if auto is None else {"axis_types": (auto.Auto,) * len(shape)}
-    mesh = jax.make_mesh(shape, AXES[len(shape)],
-                         devices=jax.devices()[:int(np.prod(shape))], **kw)
-    arrays = np.load(job["params"])
-    struct = jax.eval_shape(lambda: init_params(cfg, jax.random.PRNGKey(0)))
-    leaves, treedef = jax.tree_util.tree_flatten(struct)
-    params = treedef.unflatten([jnp.asarray(arrays[f"arr_{i}"])
-                                for i in range(len(leaves))])
-    # the weights on the plan's param specs, over the data axes too for
-    # the serving weights split over data (decode_inputs' rule)
-    p_spec = sh.param_specs(cfg, struct, mesh, zero_data=job["zero_data"])
-    params = jax.device_put(params, jax.tree_util.tree_map(
-        lambda s: NamedSharding(mesh, s), p_spec,
-        is_leaf=lambda x: isinstance(x, P)))
-    B, L = job["batch"], job["cache_len"]
-    sc = ShapeConfig("serve", L, B, "decode", cache_len=L)
-    batch = {"tokens": jnp.asarray(np.load(job["prompt"]), jnp.int32)}
-
-    def shard(tree, specs):
-        return {j: {k: NamedSharding(mesh, sh.enforce_divisibility(
-            specs[j][k], tuple(leaf.shape), mesh)) for k, leaf in sub.items()}
-            for j, sub in tree.items()}
-
-    def prefill_fn(params, batch):
-        with activation_sharding(mesh, cfg):
-            return prefill(cfg, params, batch, L)
-
-    out_sds = jax.eval_shape(prefill_fn, params, batch)
-    c_sh = shard(out_sds[1], sh.prefill_cache_specs(cfg, sc, mesh))
-    logits, cache = jax.jit(prefill_fn, out_shardings=(
-        NamedSharding(mesh, P()), c_sh))(params, batch)
-    tok = jnp.argmax(logits[:, -1, :], axis=-1)[:, None].astype(jnp.int32)
-
-    def decode_fn(params, tokens, cache, pos):
-        with activation_sharding(mesh, cfg):
-            return serve_step(cfg, params, tokens, cache, pos)
-
-    d_sh = shard(cache, sh.cache_specs(cfg, sc, mesh))
-    logits2, cache2 = jax.jit(decode_fn, in_shardings=(None, None, d_sh, None),
-                              out_shardings=(NamedSharding(mesh, P()), d_sh))(
-        params, tok, cache, jnp.int32(batch["tokens"].shape[1]))
-    res = {"logits0": np.asarray(logits, np.float32),
-           "logits1": np.asarray(logits2, np.float32),
-           "tokens": np.asarray(tok)}
-    for tag, tree in (("prefill", cache), ("step1", cache2)):
-        for j, sub in tree.items():
-            for k, arr in sub.items():
-                for s in arr.addressable_shards:
-                    at = tuple(int(c) for c in
-                               np.argwhere(mesh.devices == s.device)[0])
-                    res[f"{tag}/{j}/{k}@{at}"] = np.asarray(s.data, np.float32)
-    np.savez(job["out"], **res)
-print("done")
-"""
-
-
-def start_jax(tmp):
-    pytest.importorskip("jax")
-    jobs = []
-    for key in JAX_CASES:
-        arch, fields, shape, B, P, L, zero_data = CASES[key]
-        cfg = config(key)
-        params = params_of(cfg, "fp32")
-        base = os.path.join(str(tmp), f"jax-{key}")
-        np.savez(base + "-params.npz", *(p.numpy() for p in
-                                         tree_leaves(params)))
-        np.save(base + "-prompt.npy", prompts(cfg, B, P).numpy())
-        jobs.append({"arch": arch, "fields": fields, "mesh": list(shape),
-                     "batch": B, "cache_len": L, "zero_data": zero_data,
-                     "params": base + "-params.npz",
-                     "prompt": base + "-prompt.npy", "out": base + ".npz"})
-    script = os.path.join(str(tmp), "jax_serve.py")
-    with open(script, "w") as f:
-        f.write(JAX_SCRIPT)
-    env = dict(os.environ)
-    env["PYTHONPATH"] = os.path.join(os.path.dirname(__file__), "..", "src")
-    env["JAX_PLATFORMS"] = "cpu"
-    env.pop("XLA_FLAGS", None)
-    return subprocess.Popen([sys.executable, script, json.dumps(jobs)],
-                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                            text=True, env=env)
-
-
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """(out_dir, [each rank's results], single, the JAX process's output
     or None): one spawn of 4 ranks for every plan, the JAX subprocess and
     the single-process runs beside it."""
     out_dir = tmp_path_factory.mktemp("serve")
-    jax_run = start_jax(out_dir)
+    jax_run = start_jax_serve(out_dir, [
+        {"name": key, "arch": CASES[key][0], "fields": CASES[key][1],
+         "mesh": CASES[key][2], "batch": CASES[key][3],
+         "cache_len": CASES[key][5], "zero_data": CASES[key][6],
+         "params": params_of(config(key), "fp32"),
+         "prompt": prompts(config(key), CASES[key][3], CASES[key][4])}
+        for key in JAX_CASES])
     try:
         ctx = spawn_ranks(_work, WORLD, out_dir)
         single = _single("fp32")
@@ -533,13 +397,6 @@ def _routes_agree(key, got, want, coords, dtype):
             coords, n, want[f"gap{c}"][flip])
 
 
-def _close(got, want, tol):
-    """(ok, the largest error relative to max |want|)."""
-    assert got.shape == want.shape
-    err = np.abs(got - want) / max(np.abs(want).max(), 1e-30)
-    return err.max() <= tol, err.max()
-
-
 IDS = list(CASES)
 RUNS = [pytest.param(key, dtype, id=f"{key}-{dtype}") for key in CASES
         for dtype in DTYPES[key]]
@@ -554,7 +411,7 @@ def test_logits_match_single_process(runs, key, dtype):
     for coords, got in _each_rank(out_dir, res, key, dtype):
         _routes_agree(key, got, want, coords, dtype)
         for i in range(STEPS):
-            ok, err = _close(got[f"logits{i}"], _local(
+            ok, err = close(got[f"logits{i}"], _local(
                 key, want[f"logits{i}"], "logits", coords), TOL[dtype])
             assert ok, (coords, i, err)
 
@@ -570,7 +427,7 @@ def test_caches_match_single_process(runs, key, dtype):
         assert sorted(n for n in got.files if "/" in n) == sorted(names)
         _routes_agree(key, got, want, coords, dtype)
         for n in names:
-            ok, err = _close(got[n], _local(key, want[n], n, coords),
+            ok, err = close(got[n], _local(key, want[n], n, coords),
                              TOL[dtype])
             assert ok, (coords, n, err)
 
@@ -608,7 +465,7 @@ def test_caches_match_the_jax_sharded_serving(runs, key):
     want = single[key, "fp32"]
     assert np.array_equal(jax_out["tokens"], want["tokens"][:, :1])
     for tag, i in (("prefill", 0), ("decode", 1)):
-        ok, err = _close(want[f"logits{i}"], jax_out[f"logits{i}"],
+        ok, err = close(want[f"logits{i}"], jax_out[f"logits{i}"],
                          TOL["fp32"])
         assert ok, (tag, err)
     seen = 0
@@ -617,7 +474,7 @@ def test_caches_match_the_jax_sharded_serving(runs, key):
         for n in jax_out.files:
             if not n.endswith("@" + at):
                 continue
-            ok, err = _close(got[n.split("@")[0]], jax_out[n], TOL["fp32"])
+            ok, err = close(got[n.split("@")[0]], jax_out[n], TOL["fp32"])
             assert ok, (n, err)
             seen += 1
     assert seen and seen == sum(1 for n in jax_out.files if "@" in n)

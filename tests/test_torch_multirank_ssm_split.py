@@ -1,0 +1,401 @@
+"""Mamba2 on a model axis that does not divide its SSD heads, on the CPU: the
+sharded train step and sharded serving of mamba2-130m smoke variants, one
+spawn of 4 ``gloo`` processes, held against the single-process port and
+the JAX package's sharded step and serving on 4 host devices.
+
+A rank holds h/g whole heads and P g/t channels of each (g = gcd(h, t),
+``sharding.ssm_split``): SSD is independent along P.  ``in_dt``,
+``A_log``, ``D`` and ``dt_bias`` stay whole, as the JAX package's
+``enforce_divisibility`` keeps them, and so does the SSD cache state
+(whole-mamba2-130m's 24 heads of 64 at t = 16 are 3 heads of 32 a rank).
+
+Configs (``dataclasses.replace`` of the mamba2-130m smoke config, SSD
+heads of 32 channels, state 16): ``h6``, d_model 96 (6 heads) on (1, 4),
+g = 2: 3 heads of 16 channels a rank, its conv window's 56-channel slices
+cutting heads; ``h3``, d_model 48 (3 heads) on (2, 2), g = 1: all 3 heads,
+16 channels of each.  Train at ZeRO 1 and 3; serve a prompt, then four
+decode steps.
+
+Tolerances (tests/test_torch_multirank_harness.py's and
+tests/test_torch_multirank_serve.py's): step 1's float32 gradients,
+gathered from the optimizer shards, within 1e-5 of max |g| a leaf (4e-5
+for the per-head and per-channel vectors, ``VECTOR_TOL``: their
+gradients now sum over the ranks that share a head), the grad norm within
+1e-5 relative, four bf16 losses within 2e-2 of the single process's and
+of the JAX sharded step's (with step 1's bf16 grad norm); the float32
+logits and caches within 2e-5 of max |value| of the single process's and
+of each JAX device's cache shard; the float32 greedy tokens equal.
+"""
+import dataclasses
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import smoke_config
+from repro_torch.launch.mesh import make_plan_mesh
+from repro_torch.models import init_params, param_shapes
+from repro_torch.models.transformer import (SSM_VECTORS, cache_shapes,
+                                            local_cache_specs)
+from repro_torch.parallel import collectives as col
+from repro_torch.parallel import sharding as sh
+from repro_torch.serve import greedy_decode, serve_parallel
+from repro_torch.train.optimizer import global_norm, tree_leaves, tree_map
+from repro_torch.train.train_loop import (accumulate_grads, build_train_step,
+                                          check_sharded_supported,
+                                          make_local_state, make_train_state,
+                                          resolve_microbatches, state_specs)
+from test_torch_multirank_harness import (  # noqa: F401 (one_thread: autouse)
+    B, GNORM_RTOL, GRAD_TOL, LOSS_TOL, MB, S, as_fp32, bad_shards, batches,
+    close, jax_results, join_ranks, one_thread, paths, serve_run, spawn_ranks,
+    start_jax, start_jax_serve, train_config)
+
+ARCH = "mamba2-130m"
+WORLD = 4
+# key: (replaced config fields, mesh (data, model))
+CONFIGS = {"h6": ({"d_model": 96}, (1, 4)), "h3": ({"d_model": 48}, (2, 2))}
+TRAIN = [(key, zero) for key in CONFIGS for zero in (1, 3)]
+JAX_TRAIN = [("h6", 1), ("h3", 3)]
+# serving: (global batch, prompt length, cache length)
+SERVE = {"h6": (2, 8, 16), "h3": (4, 8, 16)}
+DECODES = 4
+SEED = 5
+VECTOR_TOL = 4e-5
+FP32_TOL = 2e-5
+
+
+def config(key):
+    return dataclasses.replace(smoke_config(ARCH), **CONFIGS[key][0])
+
+
+def _tkey(key, zero):
+    return f"{key}-zero{zero}"
+
+
+def _mesh(key):
+    d, t = CONFIGS[key][1]
+    return make_plan_mesh(d, t, device_type="cpu")
+
+
+def _train_case(key, zero):
+    """Step 1's gathered fp32 gradients, their norm, four bf16 losses and
+    step 1's bf16 grad norm, the shards off their specs' shapes."""
+    cfg, tc = config(key), train_config(zero)
+    mesh = _mesh(key)
+    specs = state_specs(cfg, tc, mesh, param_shapes(cfg))
+    data = batches(cfg)
+    step, _ = build_train_step(cfg, tc, B, S, mesh=mesh)
+    state = as_fp32(make_local_state(cfg, tc, mesh, device="cpu"))
+    acc, _ = step.accumulate(state["params"], data[0])
+    names = [p.split("/")[-1] for p in paths(param_shapes(cfg))]
+    grads = [col.gather_leaf(g, s, mesh, name, ssm_heads=cfg.n_ssm_heads)
+             .numpy() for g, s, name in
+             zip(acc, tree_leaves(specs["opt"]["master"]), names)]
+    gnorm = float(step.global_norm(acc))
+    state = make_local_state(cfg, tc, mesh, device="cpu")
+    bad = bad_shards(state, specs, param_shapes(cfg), mesh)
+    metrics = [step(state, batch)[1] for batch in data]
+    return grads, {"gnorm": gnorm, "bad": bad,
+                   "losses": [float(m["loss"]) for m in metrics],
+                   "bf16_gnorm": float(metrics[0]["grad_norm"])}
+
+
+def prompts(cfg, b, s):
+    return torch.from_numpy(np.random.default_rng(11).integers(
+        0, cfg.vocab_size, (b, s)))
+
+
+def fp32_params(cfg):
+    return tree_map(lambda p: p.float(), init_params(cfg, SEED, device="cpu"))
+
+
+def rows_of(key, coords):
+    b = SERVE[key][0]
+    d = CONFIGS[key][1][0]
+    return slice(coords["data"] * b // d, (coords["data"] + 1) * b // d)
+
+
+def _serve_case(key, out_dir, rank):
+    """One serving plan on this rank: its float32 run and greedy tokens
+    (saved), the cache leaves off their specs' shapes."""
+    cfg = config(key)
+    b, p, L = SERVE[key]
+    mesh = _mesh(key)
+    coords = col.mesh_coords(mesh)
+    par = serve_parallel(cfg, mesh, b, L)
+    specs = sh.param_specs(cfg, param_shapes(cfg), mesh)
+    local = col.map_specs(lambda t, s, name: col.shard_leaf(
+        t, s, mesh, coords, name=name, ssm_heads=cfg.n_ssm_heads),
+        fp32_params(cfg), specs)
+    rows = rows_of(key, coords)
+    res = serve_run(cfg, local, prompts(cfg, b, p)[rows], L, DECODES, par)
+    res["greedy"] = greedy_decode(cfg, local, prompts(cfg, b, p)[rows],
+                                  DECODES + 1, L, par).numpy()
+    np.savez(os.path.join(out_dir, f"serve-{key}-r{rank}.npz"), **res)
+    sizes = sh.axis_sizes(mesh)
+    cspecs = local_cache_specs(cfg, b, L, sizes)
+    bad = []
+    for sub, leaves in cache_shapes(cfg, b, L).items():
+        for name, whole in leaves.items():
+            want = col.local_shape(whole, cspecs[sub][name], sizes)
+            for tag in ("prefill", "decode"):
+                if res[f"{tag}/{sub}/{name}"].shape != want:
+                    bad.append(f"{tag}/{sub}/{name}")
+    return {"coords": coords, "bad": bad}
+
+
+def _work(rank, world, out_dir):
+    out = {}
+    for key, zero in TRAIN:
+        grads, res = _train_case(key, zero)
+        if rank == 0:
+            np.savez(os.path.join(out_dir, f"{_tkey(key, zero)}.npz"),
+                     *grads)
+        out[_tkey(key, zero)] = res
+    for key in SERVE:
+        out[f"serve-{key}"] = _serve_case(key, out_dir, rank)
+    return out
+
+
+def _single():
+    """The single-process results: {(key, d): (fp32 step-1 grads, grad
+    norm, bf16 losses)} at microbatches of MB d rows, {key: serving
+    run}."""
+    train, serve = {}, {}
+    for key in CONFIGS:
+        cfg = config(key)
+        data = batches(cfg)
+        d = CONFIGS[key][1][0]
+        tc = train_config(1, microbatch=MB * d)
+        state = as_fp32(make_train_state(cfg, tc, device="cpu"))
+        grads, _ = accumulate_grads(cfg, tc, state["params"], data[0],
+                                    resolve_microbatches(tc, B))
+        gnorm = float(global_norm(grads))
+        step, _ = build_train_step(cfg, tc, B, S)
+        state = make_train_state(cfg, tc, device="cpu")
+        losses = [float(step(state, batch)[1]["loss"]) for batch in data]
+        train[key] = ([g.numpy() for g in tree_leaves(grads)], gnorm, losses)
+        b, p, L = SERVE[key]
+        serve[key] = serve_run(cfg, fp32_params(cfg), prompts(cfg, b, p), L,
+                               DECODES)
+    return train, serve
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """(out_dir, [each rank's results], single train, single serve, JAX
+    train results): one spawn of 4 ranks for every case, the JAX
+    subprocesses and the single-process runs beside it."""
+    out_dir = tmp_path_factory.mktemp("ssm_split")
+    jax_train = start_jax(out_dir, [
+        {"arch": ARCH, "fields": CONFIGS[key][0], "mesh": CONFIGS[key][1],
+         "zero": zero} for key, zero in JAX_TRAIN])
+    jax_serve = start_jax_serve(out_dir, [
+        {"name": f"serve-{key}", "arch": ARCH, "fields": CONFIGS[key][0],
+         "mesh": CONFIGS[key][1], "batch": b, "cache_len": L,
+         "params": fp32_params(config(key)),
+         "prompt": prompts(config(key), b, p)}
+        for key, (b, p, L) in SERVE.items()])
+    try:
+        ctx = spawn_ranks(_work, WORLD, out_dir)
+        train, serve = _single()
+        res = join_ranks(ctx, WORLD, out_dir)
+        _, err = jax_serve.communicate(timeout=600)
+        assert jax_serve.returncode == 0, err[-3000:]
+        want_jax = jax_results(jax_train)
+    finally:
+        for proc in (jax_train, jax_serve):
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    return out_dir, res, train, serve, want_jax
+
+
+def _close(got, want):
+    return close(got, want, FP32_TOL)
+
+
+@pytest.mark.parametrize("key,t,split", [("h6", 4, (3, 16)),
+                                         ("h3", 2, (3, 16))])
+def test_the_model_axis_splits_heads_and_channels(key, t, split):
+    """The plans split the SSD heads by heads and channels: the model
+    axis does not divide the heads, a rank holds (heads, channels) =
+    ``split``, and the ranks' channels cover d_inner once."""
+    cfg = config(key)
+    assert cfg.n_ssm_heads % t and sh.ssm_split(cfg, t)[2:] == split
+    held = sorted(c for r in range(t) for c in sh.ssm_channels(
+        cfg.n_ssm_heads, cfg.ssm_head_dim, t, r))
+    assert held == list(range(cfg.d_inner))
+
+
+@pytest.mark.parametrize("key,zero", TRAIN, ids=[_tkey(*c) for c in TRAIN])
+def test_step1_grads_match_single_process(runs, key, zero):
+    out_dir, res, train, _, _ = runs
+    got = np.load(out_dir / f"{_tkey(key, zero)}.npz")
+    want, want_norm, _ = train[key]
+    names = list(paths(param_shapes(config(key))))
+    assert len(got.files) == len(want) == len(names)
+    for i, (name, w) in enumerate(zip(names, want)):
+        g = got[f"arr_{i}"]
+        assert g.shape == w.shape, name
+        tol = VECTOR_TOL if name.split("/")[-1] in SSM_VECTORS else GRAD_TOL
+        err = np.abs(g - w).max()
+        assert err <= tol * np.abs(w).max(), (name, err, np.abs(w).max())
+    for r in res:
+        got_norm = r[_tkey(key, zero)]["gnorm"]
+        assert abs(got_norm - want_norm) <= GNORM_RTOL * want_norm
+
+
+@pytest.mark.parametrize("key,zero", TRAIN, ids=[_tkey(*c) for c in TRAIN])
+def test_bf16_losses_match_single_process(runs, key, zero):
+    _, res, train, _, _ = runs
+    want = train[key][2]
+    for r in res:
+        got = r[_tkey(key, zero)]["losses"]
+        np.testing.assert_allclose(got, want, rtol=LOSS_TOL, atol=LOSS_TOL)
+        # h3 (d_model 48) does not learn in four steps, on one process
+        # either: the sharded step falls where the single process does
+        assert (got[-1] < got[0]) == (want[-1] < want[0])
+
+
+@pytest.mark.parametrize("key,zero", TRAIN, ids=[_tkey(*c) for c in TRAIN])
+def test_shards_have_the_specs_shapes(runs, key, zero):
+    _, res, _, _, _ = runs
+    for r in res:
+        assert r[_tkey(key, zero)]["bad"] == []
+
+
+@pytest.mark.parametrize("i,key,zero", [(i, *c) for i, c in
+                                        enumerate(JAX_TRAIN)],
+                         ids=[_tkey(*c) for c in JAX_TRAIN])
+def test_losses_match_the_jax_sharded_step(runs, i, key, zero):
+    """Every rank's four bf16 losses and step 1's bf16 grad norm against
+    the JAX package's sharded step on the same mesh, from the same
+    parameters and batches."""
+    _, res, _, _, want_jax = runs
+    want = want_jax[i]
+    for r in res:
+        got = r[_tkey(key, zero)]
+        np.testing.assert_allclose(got["losses"], want["losses"],
+                                   rtol=LOSS_TOL, atol=LOSS_TOL)
+        assert abs(got["bf16_gnorm"] - want["grad_norm"]) \
+            <= LOSS_TOL * want["grad_norm"]
+
+
+def _local(key, arr, what, coords):
+    """The shard of a single-process array the rank at ``coords`` holds."""
+    cfg = config(key)
+    b, _, L = SERVE[key]
+    d, t = CONFIGS[key][1]
+    if what in ("logits", "tokens"):
+        out = arr[rows_of(key, coords)]
+        if what == "logits" and cfg.vocab_size % t == 0:
+            w = cfg.vocab_size // t
+            out = out[..., coords["model"] * w:(coords["model"] + 1) * w]
+        return out
+    _, sub, name = what.split("/")
+    sizes = {"data": d, "model": t}
+    spec = local_cache_specs(cfg, b, L, sizes)[sub][name]
+    return col.shard_leaf(torch.from_numpy(arr), spec, sizes, coords).numpy()
+
+
+def _each_rank(out_dir, res, key):
+    for r, rank in enumerate(res):
+        yield (rank[f"serve-{key}"]["coords"],
+               np.load(out_dir / f"serve-{key}-r{r}.npz"))
+
+
+@pytest.mark.parametrize("key", list(SERVE))
+def test_serving_matches_single_process(runs, key):
+    """Every rank's float32 logits of the prefill and four decode steps
+    (its rows, its V/t columns) and its caches after the prefill, the
+    first and the last decode step (its spec's shard: the whole SSD state,
+    the conv window's ch/t channels) within 2e-5 of the single process's;
+    its greedy tokens, from the steps and from ``greedy_decode``, equal
+    them."""
+    out_dir, res, _, serve, _ = runs
+    want = serve[key]
+    for coords, got in _each_rank(out_dir, res, key):
+        for i in range(DECODES + 1):
+            ok, err = _close(got[f"logits{i}"],
+                             _local(key, want[f"logits{i}"], "logits",
+                                    coords))
+            assert ok, (coords, i, err)
+        names = [n for n in want if "/" in n]
+        assert sorted(n for n in got.files if "/" in n) == sorted(names)
+        for n in names:
+            ok, err = _close(got[n], _local(key, want[n], n, coords))
+            assert ok, (coords, n, err)
+        mine = _local(key, want["tokens"], "tokens", coords)
+        assert np.array_equal(got["tokens"], mine), coords
+        assert np.array_equal(got["greedy"], mine), coords
+
+
+@pytest.mark.parametrize("key", list(SERVE))
+def test_serving_caches_have_the_specs_shapes(runs, key):
+    _, res, _, _, _ = runs
+    for r in res:
+        assert r[f"serve-{key}"]["bad"] == []
+
+
+@pytest.mark.parametrize("key", list(SERVE))
+def test_caches_match_the_jax_sharded_serving(runs, key):
+    """Each JAX device's shard of the prefill caches and of one decode
+    step's, from the same float32 parameters, prompt and first token: the
+    port's rank at the same mesh coordinates holds it within 2e-5; the
+    JAX logits match the single process's."""
+    out_dir, res, _, serve, _ = runs
+    jax_out = np.load(out_dir / f"jax-serve-{key}.npz")
+    want = serve[key]
+    assert np.array_equal(jax_out["tokens"], want["tokens"][:, :1])
+    for i in (0, 1):
+        ok, err = _close(want[f"logits{i}"], jax_out[f"logits{i}"])
+        assert ok, (i, err)
+    seen = 0
+    for coords, got in _each_rank(out_dir, res, key):
+        at = str((coords["data"], coords["model"]))
+        for n in jax_out.files:
+            if n.endswith("@" + at):
+                ok, err = _close(got[n.split("@")[0]], jax_out[n])
+                assert ok, (n, err)
+                seen += 1
+    assert seen and seen == sum(1 for n in jax_out.files if "@" in n)
+
+
+def test_ssm_leaves_hold_their_ranks_channels():
+    """A rank's shard of each of ``collectives.SSM_LEAVES`` holds the
+    d_inner channels ``sharding.ssm_channels`` names for it, in that order
+    (of z and of x for ``in_zx``); gathered back, the shards give the
+    leaf (held on the ranks through the gathered gradients above)."""
+    for key in CONFIGS:
+        cfg = config(key)
+        d, t = CONFIGS[key][1]
+        sizes = {"data": d, "model": t}
+        full = init_params(cfg, 0, device="cpu")["blocks"]["sub0"]["mixer"]
+        specs = sh.param_specs(cfg, param_shapes(cfg), sizes)["blocks"][
+            "sub0"]["mixer"]
+        for r in range(t):
+            chans = torch.tensor(sh.ssm_channels(
+                cfg.n_ssm_heads, cfg.ssm_head_dim, t, r))
+            coords = {"data": 0, "model": r}
+            for name, dim in (("norm", 1), ("conv_x_b", 1), ("conv_x_w", 2),
+                              ("out_proj", 1)):
+                got = col.shard_leaf(full[name], specs[name], sizes, coords,
+                                     name=name, ssm_heads=cfg.n_ssm_heads)
+                assert torch.equal(got, full[name].index_select(dim, chans))
+            zx = col.shard_leaf(full["in_zx"], specs["in_zx"], sizes, coords,
+                                name="in_zx", ssm_heads=cfg.n_ssm_heads)
+            di = cfg.d_inner
+            assert torch.equal(zx, full["in_zx"].index_select(
+                2, torch.cat([chans, di + chans])))
+
+
+def test_a_split_that_does_not_divide_the_channels_is_refused():
+    """The one plan of the split still refused: 2 SSD heads of 32 on a
+    model axis of 3 split each head's channels over 3 ranks, which do not
+    divide 32 -- raised naming the ROADMAP entry, never run replicated."""
+    cfg = dataclasses.replace(smoke_config(ARCH), d_model=32)
+    with pytest.raises(NotImplementedError, match=sh.DEFERRED) as e:
+        check_sharded_supported(cfg, None, {"data": 1, "model": 3})
+    assert e.match("SSD heads")

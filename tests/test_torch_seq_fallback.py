@@ -203,9 +203,14 @@ def test_production_mesh_plans_are_supported(arch):
 
 
 def test_mla_on_the_fallback_still_raises():
-    """deepseek-v2 smoke's 8 MLA heads on a model axis of 16."""
+    """deepseek-v2 smoke's 8 MLA heads on a model axis of 16 take the
+    head_dim / seq fallback, which MLA now runs
+    (tests/test_torch_mla_seq.py holds it): accepted, its widths checked
+    against t on that path (dn + dr = 48, dn = 32, dv = 32), not
+    ``head_dim``; a width t does not divide is still refused."""
     cfg = smoke_config("deepseek-v2-236b")
     assert not sh.attn_head_sharded(cfg, 16)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        check_sharded_supported(cfg, train_config(1),
+    check_sharded_supported(cfg, train_config(1), {"data": 1, "model": 16})
+    with pytest.raises(NotImplementedError, match="v head dim"):
+        check_sharded_supported(cfg.scaled(v_head_dim=24), train_config(1),
                                 {"data": 1, "model": 16})

@@ -10,10 +10,11 @@ the weights at their serving specs' shards (over the data axes too where
 rows with its caches at ``prefill_cache_specs``' shards, or one decode
 step at position cache_len - 1 on a cache at ``cache_specs``' shards,
 through the plain versions (``dispatch.force("ref")``: the meta device
-has no kernels).  Each either runs, with its logits and every cache leaf at the rank's
-shard shape, or raises NotImplementedError naming ROADMAP queue 1 item
-10; ``REFUSED`` lists the combos that raise (ROADMAP gives the reason for
-each).
+has no kernels).  Every one runs, with its logits and every cache leaf
+at the rank's shard shape: mamba2-130m's too, its 24 SSD heads split over
+16 model ranks by heads and channels (``sharding.ssm_split``) and its SSD
+cache state whole on every rank, as ``cache_specs`` keeps it.  No combo
+raises.
 """
 import pytest
 import torch
@@ -34,10 +35,6 @@ from repro_torch.models import init_cache
 
 SERVE_SHAPES = ("prefill_32k", "decode_32k", "long_500k")
 MESHES = {"16x16": (1, 16, 16), "2x16x16": (2, 16, 16)}
-# the combos rank 0 refuses, with the reason (ROADMAP queue 1 item 10):
-# mamba2-130m's 24 SSM heads do not split over 16 model ranks
-REFUSED = {("mamba2-130m", shape, mesh) for shape in SERVE_SHAPES
-           for mesh in MESHES}
 COMBOS = [(arch, shape, mesh) for arch in ASSIGNED for shape in SERVE_SHAPES
           for mesh in MESHES if shape_applicable(arch, shape)]
 
@@ -95,10 +92,6 @@ def _rank0(arch, shape_name, mesh_name):
 @pytest.mark.parametrize("arch,shape,mesh", COMBOS,
                          ids=["-".join(c) for c in COMBOS])
 def test_serving_combo_resolves_on_rank0(arch, shape, mesh):
-    if (arch, shape, mesh) in REFUSED:
-        with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-            _rank0(arch, shape, mesh)
-        return
     assert _rank0(arch, shape, mesh) == []
 
 

@@ -486,7 +486,11 @@ def test_ssd_scan_refuses_what_it_does_not_take():
     bad[1] = bad[1][:, :4]                                # dt_raw
     with pytest.raises(ValueError, match="do not agree"):
         ssd_scan(*bad)
-    assert set(SHAPES) == {(32, 16), (64, 128)}
+    # mamba2-130m's, a model rank's of it at t = 16 (32 of each head's 64
+    # channels) and the smoke config's
+    assert set(SHAPES) == {(32, 16), (32, 128), (64, 128)}
+    with pytest.raises(ValueError, match="CUDA"):
+        ssd_scan(*_inputs(1, 8, 3, 32, 128, "float32"))
 
 
 # ------------------------------------------------------------- on the card --
@@ -505,6 +509,7 @@ class TestSsdScanOnCard:
                                        (2, 1000, 24, 64, 128),  # ragged
                                        (1, 4096, 24, 64, 128),  # segments
                                        (1, 4000, 24, 64, 128),  # mid-segment
+                                       (1, 4096, 3, 32, 128),   # a t=16 rank
                                        (2, 200, 16, 32, 16),    # smoke widths
                                        (3, 1, 4, 32, 16)])      # one row
     def test_ssd_scan_matches_plain(self, cuda, shape, dtype):
@@ -563,6 +568,8 @@ class TestSsdScanOnCard:
                                        (2, 1000, 24, 64, 128),  # ragged
                                        (4, 512, 24, 64, 128),   # b = 4
                                        (1, 100, 9, 64, 128),    # uneven groups
+                                       (1, 4096, 3, 32, 128),   # a t=16 rank
+                                       (2, 1000, 3, 32, 128),   # ragged rank
                                        (2, 200, 16, 32, 16),    # smoke widths
                                        (3, 1, 4, 32, 16)])      # one row
     def test_ssd_scan_bwd_matches_plain(self, cuda, shape, dtype, with_state):
