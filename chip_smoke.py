@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving paths (llama3.2-3b, deepseek-v2-236b,
-mamba2-130m, jamba-1.5-large-398b, stablelm-12b) and its training paths
-(gpt2-350m, mamba2-130m, deepseek-v2-236b, stablelm-12b) on one NVIDIA
-card.
+mamba2-130m, jamba-1.5-large-398b, stablelm-12b, starcoder2-7b,
+starcoder2-3b, gpt2-7b, musicgen-medium, mixtral-8x22b, llava-next-34b)
+and its training paths (gpt2-350m, mamba2-130m, deepseek-v2-236b,
+stablelm-12b) on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -42,7 +43,13 @@ Phases, each printing its lines before the last:
    deepseek-v2's MLA training shapes, GQA with a window, also against
    autograd, run twice, rows with no key, sq != sk, float32) and the
    GQA decode at 160 (stablelm-12b's decode, two whole splits masked, an
-   all-invalid row, non-finite masked slots, float32); each with its time,
+   all-invalid row, non-finite masked slots, float32); the GQA decode at
+   the query heads a KV head of phases 12-17 (``GROUP_DECODE``: G = 1 at
+   head dims 64 and 128, 6, 7 over llava's 3,424 slots, 9, 12, and one
+   row over starcoder2-7b's wrapped 4,096-slot ring) in bf16 and float32,
+   every row alone bit for bit equal to the batch, a lone row also
+   timed; the attention forward at llava's prefill and
+   starcoder2-7b's windowed 8,192-token prompt (``GROUP_PREFILL``); each with its time,
    the plain version's,
    one PyTorch library call's (none computes the SSD scan or its gradient)
    and the card's bound for the same work;
@@ -118,8 +125,8 @@ Phases, each printing its lines before the last:
 8. mamba2-130m at full width and depth, trained as gpt2-350m is (the
    same traffic), through ``ssd_scan``, its gradient ``ssd_scan_bwd`` and
    ``adam_update``;
-9. stablelm-12b whole (40 layers, d_model 5120, 32/8 heads of 160), bf16,
-   random from a seed: the same (a), (b) and (c) as llama's, through the
+9. stablelm-12b at published widths (d_model 5120, 32/8 heads of 160) and
+   ``STABLELM_SERVE_LAYERS`` of its 40 layers, bf16, random from a seed: the same (a), (b) and (c) as llama's, through the
    attention forward and the GQA decode at head dim 160, with the peak
    device memory of the whole run and of the decode steps alone beside
    the port's serving prediction (``serve_peak_bytes``, required equal to
@@ -132,6 +139,22 @@ Phases, each printing its lines before the last:
 11. stablelm-12b at its published widths and 8 of its 40 layers, trained
    as gpt2-350m is, through the attention forward and backward at head
    dim 160 and ``adam_update``;
+12.-17. starcoder2-7b, starcoder2-3b, gpt2-7b and musicgen-medium whole,
+   mixtral-8x22b at published widths and ``MIXTRAL_LAYERS`` of its 56
+   layers (MoE top-2 of 8, window 4,096), llava-next-34b at published
+   widths and ``LLAVA_LAYERS`` of its 60 (2,880 zero modal embeddings
+   before each prompt): each phase 9's (a), (b) and (c), its parameter
+   count held to ``param_count``, its peaks beside ``serve_peak_bytes``;
+   (b) relative, or for mixtral absolute (``MIXTRAL_LOGITS_ATOL``) with
+   the share of routing choices the paths agree on, on as many rows as
+   the plain attention leaves room for (``plain_rows``); starcoder2-7b
+   also (a'') one prompt of 8,192 tokens and 32 new over its wrapped
+   4,096-slot ring, every step's logits and greedy token held against
+   the plain path fed the same tokens (``long_prompt_vs_plain``).  Every
+   serving phase feeds its prompts through ``serve.prompt_batch`` and
+   decodes after the modal prefix, as ``greedy_decode`` does; where a
+   first decode step's row alone differs from the same row in a batch,
+   the first hooked output that differs is printed;
 (m) Fig 6 on the card: the ten plans of ``repro_torch.launch.memcheck``
    (gpt2-350m and gpt2-7b at full width under the JAX package's (d, t)
    plans and batches) at ZeRO 1, each as rank 0 of its plan under
@@ -285,6 +308,11 @@ prints each turn's times.
 
 times ``flash_decode_mla`` at deepseek-v2's decode shape, and at b=4 and
 b=1 of its cache, at every split count from one to nine (``mla_splits``).
+
+    python3 chip_smoke.py --gqa-splits
+
+times ``flash_decode_gqa`` at each served cell's decode shape, at its
+batch and at one row, at every split from 64 to 512 rows (``gqa_splits``).
 
     python3 chip_smoke.py --alloc-peaks
 
@@ -447,11 +475,17 @@ MMA_KERNELS = {"flash_attention": [(("flash_attention_mma",),
                "ssd_scan_bwd": [(("ssd_bwd_chunk_mma", "ssd_bwd_grads_mma"), (32, 64))],
                "flash_decode_mla": [(("mla_partials_mma",), (32, 512))]}
 
-# stablelm-12b whole: 40 layers, 32/8 heads of 160, bf16; the JAX
-# package's serve_peak_bytes(cfg, 8, 544, d=1, t=1) beside the card's peaks
-# (the whole run's and the decode steps' alone, which it models)
-STABLELM_PARAMS = 12_142_924_800
-SERVE_PREDICTED_PEAK = {"stablelm-12b": 25_182_382_080}
+# stablelm-12b's serving cell: STABLELM_SERVE_LAYERS of its 40 layers at
+# published widths (32/8 heads of 160), bf16 -- its training cell's cut.
+# Whole (12,142,924,800 parameters) it took 57.6-81.5 s of this script's
+# wall, where the six cells of phases 12-17 add ~340 s: the cut keeps the
+# script inside its time limit on a slow host.  The JAX package's
+# serve_peak_bytes(cfg, 8, 544, d=1, t=1) of the cut config beside the
+# card's peaks (the whole run's and the decode steps' alone, which it
+# models); whole it is 25,182,382,080 B.
+STABLELM_SERVE_LAYERS = 8
+STABLELM_PARAMS = 3_250_672_640
+SERVE_PREDICTED_PEAK = {"stablelm-12b": 6_684_846_080}
 
 SPIN_CYCLES = 2_000_000    # ~1 ms at the H100's ~2 GHz: covers a call's host work
 
@@ -675,6 +709,50 @@ LSE_MERGE = {"mla_decode_32k_b8_seq_pair": ("mla", "own",
                  LSE_DECODE["llama_decode_32k_rank"], S=4096))}
 SERVE_ATTENTION = {"llama_prefill_32k_r0": dict(b=2, sq=2048, sk=32_768, H=24,
                                                  K=8, D=128, q_offset=0)}
+
+# Phases 12-17: the six configs served nowhere before on the card, in this
+# order, at batch 8 x prompt 512 + 32 new tokens (``phase_model``):
+# starcoder2-7b, starcoder2-3b, gpt2-7b and musicgen-medium whole;
+# mixtral-8x22b at published widths and MIXTRAL_LAYERS of its 56 layers
+# (all 8 experts, top-2: 10,418,903,040 parameters, 20.8 GB in bf16; all
+# 56 layers are 140.6 B, 281 GB); llava-next-34b at published widths and
+# LLAVA_LAYERS of its 60 (17,653,214,208 parameters, 35.3 GB; all 60 are
+# 68.8 GB, which leaves no room on the card for a batch of 8 at 3,392
+# positions and its plain path).  llava's 2,880 zero modal embeddings
+# come before each prompt (``serve.prompt_batch``), so its prefill runs at
+# s = 3,392 and its cache holds 3,424 slots.
+MIXTRAL_LAYERS = 4
+LLAVA_LAYERS = 30
+# mixtral-8x22b kernel path vs plain path, max |logit delta|, absolute: as
+# for deepseek-v2, a bf16 difference in a router's input can flip a
+# near-tied top-2 choice, which swaps one of a token's two experts' whole
+# output; the JAX package's own MoE check loosens to atol 0.8 for this
+# reason (tests/test_models.py:38-43).
+MIXTRAL_LOGITS_ATOL = 0.8
+# starcoder2-7b's one long prompt (phase 12): 8,192 tokens + 32 new, so its
+# prefill crosses the 4,096-key window and its 4,096-slot ring wraps in
+# decode; held against the plain path (whose attention materialises the
+# (36, 8,192, 8,192) float32 scores, ~9.7 GB, and as much again of
+# probabilities) on the logits of every step and on the greedy tokens.
+STARCODER2_LONG = 8192
+# Phase 2's GQA decode at the new cells' query heads a KV head (G) and
+# head dims: musicgen-medium (G=1, D=64), gpt2-7b (G=1, D=128), mixtral
+# (G=6), llava (G=7, S = 2,880 + 512 + 32), starcoder2-7b (G=9) and
+# starcoder2-3b (G=12), at b=8; and starcoder2-7b's long prompt, one row
+# over its 4,096-slot ring, wrapped (every slot valid).
+GROUP_DECODE = {"musicgen_G1_D64": dict(b=8, S=544, H=24, K=24, D=64),
+                "gpt2_7b_G1": dict(b=8, S=544, H=32, K=32, D=128),
+                "mixtral_G6": dict(b=8, S=544, H=48, K=8, D=128),
+                "llava_G7": dict(b=8, S=3424, H=56, K=8, D=128),
+                "starcoder2_7b_G9": dict(b=8, S=544, H=36, K=4, D=128),
+                "starcoder2_3b_G12": dict(b=8, S=544, H=24, K=2, D=128),
+                "starcoder2_7b_ring_b1": dict(b=1, S=4096, H=36, K=4, D=128)}
+# and the attention forward at llava's prefill (b=8, s=3,392, causal) and
+# at starcoder2-7b's long prompt (b=1, s=8,192 under its 4,096-key window)
+GROUP_PREFILL = {"llava_prefill": dict(b=8, s=3392, H=56, K=8, D=128,
+                                       window=0),
+                 "starcoder2_7b_long_prefill": dict(b=1, s=8192, H=36, K=4,
+                                                    D=128, window=4096)}
 
 
 def seq_plan_config(arch, batch=SEQ_BATCH, mesh=SEQ_MESH):
@@ -1246,6 +1324,7 @@ def phase_kernels(peaks, flush):
               f" ms, plain {time_ms(lambda: attention_ref(q, k, v, **kw), flush):.4f}"
               f" ms, library (SDPA on the reached keys) {time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True, **lib_kw), flush):.4f} ms")
         del q, k, v, qt, kt, vt, got, lse, live
+    phase_decode_groups(peaks, flush, gen, randn)
     rows.update(phase_mla_kernels(peaks, flush, gen, randn))
     phase_lse_merge()
     rows.update(phase_attention_bwd(peaks, flush, randn))
@@ -1260,6 +1339,116 @@ def phase_kernels(peaks, flush):
               f" plain {r['plain_ms']:.4f} ms, library {library},"
               f" bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
     return rows
+
+
+def phase_decode_groups(peaks, flush, gen, randn):
+    """Phase 2's cases of the serving cells of phases 12-17: the GQA decode
+    at each ``GROUP_DECODE`` shape in bf16 and float32 against its plain
+    version and the split-KV oracle at the kernel's own split, each row
+    alone bit for bit equal to the same row in the batch (the lone ring
+    row as row 3 of 8), timed in bf16 beside its bound, its plain version
+    and SDPA, and its first row alone; then
+    the attention forward at each ``GROUP_PREFILL`` shape against its plain
+    version a row at a time, timed beside its bound, its plain version and
+    SDPA (a window as a boolean mask over the keys, K and V repeated to the
+    query heads)."""
+    from repro_torch.kernels.flash_attention import attention_ref, flash_attention
+    from repro_torch.kernels.flash_decode import (flash_decode_gqa,
+                                                  gqa_decode_ref,
+                                                  gqa_decode_splitk)
+    from repro_torch.kernels.flash_decode.flash_decode import block_s
+    bf16, f32 = torch.bfloat16, torch.float32
+    for name, c in GROUP_DECODE.items():
+        b, S, H, K, D = (c[x] for x in "bSHKD")
+        for dt in (bf16, f32):
+            q, k, v = randn(b, 1, H, D, dtype=dt), randn(b, S, K, D, dtype=dt), \
+                randn(b, S, K, D, dtype=dt)
+            # a lone row past its window: every slot of the ring valid
+            valid = (torch.ones((b, S), dtype=torch.bool, device="cuda")
+                     if b == 1 else ring_valid(gen, b, S))
+            bs = block_s(k)
+            got = flash_decode_gqa(q, k, v, valid)
+            tol = BF16_TOL if dt == bf16 else FP32_TOL
+            ok_split, err = close(got, gqa_decode_splitk(q, k, v, valid,
+                                                         block_s=bs), tol)
+            ok_ref, err_ref = close(got, gqa_decode_ref(q, k, v, valid), tol)
+            if b == 1:
+                others = [randn(7, *t.shape[1:], dtype=dt) for t in (q, k, v)]
+                batch = [torch.cat([o[:3], t, o[3:]]) for o, t in zip(others, (q, k, v))]
+                in_batch = flash_decode_gqa(*batch, torch.ones(
+                    (8, S), dtype=torch.bool, device="cuda"))[3:4]
+                alone = torch.equal(in_batch, got)
+                del others, batch
+            else:
+                alone = all(torch.equal(flash_decode_gqa(
+                    q[i:i + 1], k[i:i + 1], v[i:i + 1], valid[i:i + 1]),
+                    got[i:i + 1]) for i in range(b))
+            good = ok_split and ok_ref and alone
+            print(f"kernel flash_decode_gqa {name} b={b} S={S} H={H} K={K}"
+                  f" (G={H // K}) D={D} {str(dt)[6:]}, {bs}-row splits:"
+                  f" max_abs_err={err:.3e} (split-KV plain at the kernel's"
+                  f" split), {err_ref:.3e} (plain) tol={tol:g}; every row alone"
+                  f" bit-identical to the batch {alone} {'ok' if good else 'FAIL'}")
+            check(good, f"flash_decode_gqa {name} disagrees with its plain"
+                        f" versions or depends on the batch")
+            if dt != bf16:
+                continue
+            n_valid = int(valid.sum())
+            nbytes = (2 * (q.numel() + got.numel()) + 2 * 2 * K * D * n_valid
+                      + valid.numel())
+            bound_ms, bound_by = bound(nbytes, 4 * D * H * n_valid, peaks)
+            qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            mask = valid[:, None, None, :]
+            q1, k1, v1, m1 = q[:1], k[:1], v[:1], valid[:1]
+            print(f"time flash_decode_gqa {name} (G={H // K}, D={D}): {n_valid}"
+                  f" of {b * S} rows valid, {nbytes} bytes, bound"
+                  f" {bound_ms:.4f} ms ({bound_by}), kernel"
+                  f" {time_ms(lambda: flash_decode_gqa(q, k, v, valid), flush):.4f}"
+                  f" ms, plain {time_ms(lambda: gqa_decode_ref(q, k, v, valid), flush):.4f}"
+                  f" ms, library (SDPA) {time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True), flush):.4f}"
+                  f" ms; its row 0 alone"
+                  f" {time_ms(lambda: flash_decode_gqa(q1, k1, v1, m1), flush):.4f} ms")
+            del q, k, v, qt, kt, vt
+    for name, c in GROUP_PREFILL.items():
+        b, s, H, K, D, window = (c[x] for x in ("b", "s", "H", "K", "D",
+                                                 "window"))
+        kw = dict(causal=True, window=window)
+        q, k, v = randn(b, s, H, D, dtype=bf16), randn(b, s, K, D, dtype=bf16), \
+            randn(b, s, K, D, dtype=bf16)
+        got = flash_attention(q, k, v, **kw)
+        # the plain version a row at a time, here and in its time: its
+        # float32 scores and probabilities take 2 H s^2 4 bytes a row (5.2 GB
+        # at llava's prefill, ~41 GB for the batch at once)
+        def plain():
+            return torch.cat([attention_ref(q[i:i + 1], k[i:i + 1], v[i:i + 1],
+                                            **kw) for i in range(b)])
+
+        want = plain()
+        ok, err = close(got, want, BF16_TOL)
+        del want
+        print(f"kernel flash_attention {name} b={b} s={s} H={H} K={K} D={D}"
+              f" causal window={window} bf16: max_abs_err={err:.3e}"
+              f" tol={BF16_TOL:g} {'ok' if ok else 'FAIL'}")
+        check(ok, f"flash_attention {name} disagrees with its plain version")
+        live = live_pairs(s, s, 0, True, window)
+        pairs = int(live.sum())
+        nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+        bound_ms, bound_by = bound(nbytes, 4 * D * b * H * pairs, peaks)
+        if window:
+            qt, kt, vt = (t.repeat_interleave(g, dim=2).transpose(1, 2)
+                          .contiguous() for t, g in ((q, 1), (k, H // K),
+                                                     (v, H // K)))
+            lib_kw, lib = dict(attn_mask=live), "boolean mask"
+        else:
+            qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+            lib_kw, lib = dict(is_causal=True, enable_gqa=True), "is_causal"
+        print(f"time flash_attention {name} ({pairs} live pairs, {nbytes}"
+              f" bytes): bound {bound_ms:.4f} ms ({bound_by}), kernel"
+              f" {time_ms(lambda: flash_attention(q, k, v, **kw), flush):.4f}"
+              f" ms, plain (a row at a time) {time_ms(plain, flush, iters=3):.4f}"
+              f" ms, library (SDPA, {lib})"
+              f" {time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, **lib_kw), flush):.4f} ms")
+        del q, k, v, qt, kt, vt, got, live
 
 
 def phase_rms_norm(peaks, flush, gen):
@@ -2014,36 +2203,49 @@ def phase_ssd_bwd(peaks, flush, gen):
 
 def serve_main_path(cfg, params, prompt, new, want_launches):
     """(a) batch prefill + greedy decode with the launch counts set to 0
-    just before and read just after, after a warm-up run; then a
-    torch.profiler trace of one prefill and one decode step.  Returns
-    (tokens, launches)."""
+    just before and read just after, after a warm-up prefill and decode
+    step; then a torch.profiler trace of one prefill and one decode step.
+    The prompt goes in through ``serve.prompt_batch`` (a VLM's zero modal
+    embeddings before it) and decoding starts after the modal prefix, as
+    ``greedy_decode`` does.  Returns (tokens, launches, (the peak device
+    memory of the run, of its decode steps alone: the peak is reset after
+    the prefill and the ring caches' build))."""
     from repro_torch.kernels import LAUNCHES, reset_launches
-    from repro_torch.serve import prefill, serve_step
+    from repro_torch.serve import prefill, prompt_batch, serve_step
     b, s = prompt.shape
-    cache_len = s + new
+    pos0 = s + cfg.num_modal_tokens          # the first decode position
+    cache_len = pos0 + new
+    batch = prompt_batch(cfg, params, prompt)
 
-    def run_main():
-        logits, cache = prefill(cfg, params, {"tokens": prompt}, cache_len)
+    def run_main(steps):
+        logits, cache = prefill(cfg, params, batch, cache_len)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
+        peak = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
         tok = torch.argmax(logits[:, -1], dim=-1, keepdim=True)
         toks = [tok]
-        for i in range(new - 1):
-            logits, cache = serve_step(cfg, params, tok, cache, s + i)
+        for i in range(steps):
+            logits, cache = serve_step(cfg, params, tok, cache, pos0 + i)
             tok = torch.argmax(logits[:, -1], dim=-1, keepdim=True)
             toks.append(tok)
         torch.cuda.synchronize()
-        return torch.cat(toks, dim=1), logits, t1
+        return torch.cat(toks, dim=1), logits, t1, peak
 
-    run_main()                                          # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    run_main(1)                                         # warm-up
     reset_launches()
     t0 = time.perf_counter()
-    toks, last_logits, t1 = run_main()
+    toks, last_logits, t1, prefill_peak = run_main(new - 1)
     t2 = time.perf_counter()
     launches = dict(LAUNCHES)
-    prefill_tok_s = b * s / (t1 - t0)
+    decode_peak = torch.cuda.max_memory_allocated()
+    peaks = (max(prefill_peak, decode_peak), decode_peak)
+    prefill_tok_s = b * pos0 / (t1 - t0)
     decode_tok_s = b * (new - 1) / (t2 - t1)
-    print(f"(a) serve b={b} prompt={s} new={new} cache_len={cache_len}:"
+    print(f"(a) serve b={b} prompt={s}"
+          f"{f' + {cfg.num_modal_tokens} modal' if cfg.num_modal_tokens else ''}"
+          f" new={new} cache_len={cache_len}:"
           f" prefill {t1 - t0:.4f}s {prefill_tok_s:.1f} tok/s, decode"
           f" {new - 1} steps {t2 - t1:.4f}s {decode_tok_s:.1f} tok/s,"
           f" launches {launches}")
@@ -2056,12 +2258,12 @@ def serve_main_path(cfg, params, prompt, new, want_launches):
 
     # the device's busy time in one prefill and one decode step, against
     # their wall time above; the profiled runs are not counted in launches
-    _, cache = prefill(cfg, params, {"tokens": prompt}, cache_len)
+    _, cache = prefill(cfg, params, batch, cache_len)
     tok = toks[:, :1]
     for what, fn, n, wall_ms in (
-            ("prefill", lambda: prefill(cfg, params, {"tokens": prompt}, cache_len),
+            ("prefill", lambda: prefill(cfg, params, batch, cache_len),
              2, (t1 - t0) * 1e3),
-            ("decode step", lambda: serve_step(cfg, params, tok, cache, s),
+            ("decode step", lambda: serve_step(cfg, params, tok, cache, pos0),
              8, (t2 - t1) * 1e3 / (new - 1))):
         busy, kernels, _ = device_profile(fn, n)
         if busy == 0:
@@ -2072,7 +2274,7 @@ def serve_main_path(cfg, params, prompt, new, want_launches):
         print(f"(a) trace {what}: device busy {busy:.4f} ms of {wall_ms:.4f} ms"
               f" wall, idle share {1 - busy / wall_ms:.3f}; top kernels (ms per"
               f" call): {top}")
-    return toks, launches
+    return toks, launches, peaks
 
 
 # The functions of a decode step that the batch probe hooks, by module
@@ -2174,18 +2376,18 @@ def batch_probe(cfg, params, prompts, new, cls, r, t):
     (token, label) of that output, or None when none differs."""
     from repro_torch.serve import ServeRequest, engine, greedy_decode
     n, s = prompts.shape
-    cache_len = s + new
+    cache_len = s + cfg.num_modal_tokens + new
     rec = _Recorder(cfg.block_period)
     inner_step = engine.decode_step
     kept = {"greedy": {}, "batch": {}}
     side = {}
 
-    def step(cfg_, params_, tokens, cache, pos):
+    def step(cfg_, params_, tokens, cache, pos, par=None):
         k, row, ctx = side["where"]()
         if k is not None and 1 <= k <= t:
             rec.start(row)
         try:
-            out = inner_step(cfg_, params_, tokens, cache, pos)
+            out = inner_step(cfg_, params_, tokens, cache, pos, par)
         finally:
             rec.on = False
         if k is not None and 1 <= k <= t:
@@ -2223,29 +2425,40 @@ def batch_probe(cfg, params, prompts, new, cls, r, t):
         engine.decode_step = inner_step
     for k in range(1, t + 1):
         (bat, ctx), (alone, _) = kept["batch"][k], kept["greedy"][k]
-        check([c[0] for c in bat] == [c[0] for c in alone],
-              f"probe: the batch and the lone row ran other functions at"
-              f" token {k}")
-        for m, (cb_, ca) in enumerate(zip(bat, alone)):
-            diff = [(x.float() - y.float()).abs().max().item()
-                    for x, y in zip(cb_[2], ca[2])
-                    if x is not None and y is not None and not torch.equal(x, y)]
-            if not diff:
-                continue
-            print(f"(c) probe {cls.__name__}, request {r} (first leaves"
-                  f" per-request greedy at token {t}): its row first differs"
-                  f" at token {k}, output {m + 1} of {len(bat)} of the step,"
-                  f" {cb_[0]} (max|d| {max(diff):.3e}); ran at {cb_[1]} in"
-                  f" the batch ({ctx}), at {ca[1]} alone; every earlier"
-                  f" output and step bit-identical")
-            for where_, (_, _, _, fn, args, kw) in (("batch", cb_), ("alone", ca)):
-                if any(a.is_cuda for a in args if isinstance(a, torch.Tensor)):
-                    _, kernels, _ = device_profile(lambda: fn(*args, **kw), 1)
-                    print(f"(c) probe {cb_[0]} {where_}: kernels "
-                          + "; ".join(f"{kn[:90]}" for kn, _ in kernels[:8]))
-            return k, cb_[0]
+        label = first_difference(
+            bat, alone, f"probe {cls.__name__}, request {r} (first leaves"
+                        f" per-request greedy at token {t}): its row first"
+                        f" differs at token {k},", ctx)
+        if label is not None:
+            return k, label
     print(f"(c) probe {cls.__name__}, request {r}: no hooked output of its row"
           f" differs up to token {t}")
+    return None
+
+
+def first_difference(bat, alone, what, ctx):
+    """The first hooked call of one decode step (``_Recorder.calls``) whose
+    output row differs between the batch and the row alone: printed after
+    ``what`` with the shapes it ran at on both sides and the device kernels
+    of that call on each; returns its label, or None when none differs."""
+    check([c[0] for c in bat] == [c[0] for c in alone],
+          "probe: the batch and the lone row ran other functions")
+    for m, (cb_, ca) in enumerate(zip(bat, alone)):
+        diff = [(x.float() - y.float()).abs().max().item()
+                for x, y in zip(cb_[2], ca[2])
+                if x is not None and y is not None and not torch.equal(x, y)]
+        if not diff:
+            continue
+        print(f"(c) {what} output {m + 1} of {len(bat)} of the step,"
+              f" {cb_[0]} (max|d| {max(diff):.3e}); ran at {cb_[1]} in"
+              f" the batch ({ctx}), at {ca[1]} alone; every earlier"
+              f" output bit-identical")
+        for where_, (_, _, _, fn, args, kw) in (("batch", cb_), ("alone", ca)):
+            if any(a.is_cuda for a in args if isinstance(a, torch.Tensor)):
+                _, kernels, _ = device_profile(lambda: fn(*args, **kw), 1)
+                print(f"(c) probe {cb_[0]} {where_}: kernels "
+                      + "; ".join(f"{kn[:90]}" for kn, _ in kernels[:8]))
+        return cb_[0]
     return None
 
 
@@ -2253,16 +2466,19 @@ def serve_batchers(cfg, params, prompts, new):
     """(c) the requests through 8 slots of the continuous and the
     disaggregated batchers, against per-request greedy decoding: every
     request's tokens must equal its own (the reference's batcher contract,
-    kept since the norms sum each row in a fixed order); for each batcher,
-    the first request that leaves greedy goes through ``batch_probe`` before
-    the phase fails; then the first decode step of requests 0-7, each alone
-    against the same rows as one batch of 8, which measures how far a step's
-    logits depend on the batch around a row on this card."""
+    kept since the norms sum each row in a fixed order and the decode
+    kernels split by the cache alone); for each batcher, the first request
+    that leaves greedy goes through ``batch_probe`` before the phase fails;
+    then the first decode step of requests 0-7, each alone against the
+    same rows as one batch of 8, which measures how far a step's logits
+    depend on the batch around a row on this card -- where they do, the
+    first hooked output of the first such row that differs is printed."""
     from repro_torch.serve import (ContinuousBatcher, DisaggregatedBatcher,
                                    ServeRequest, greedy_decode, prefill,
-                                   serve_step)
+                                   prompt_batch, serve_step)
     n, s = prompts.shape
-    cache_len = s + new
+    pos0 = s + cfg.num_modal_tokens
+    cache_len = pos0 + new
     want = {i: greedy_decode(cfg, params, prompts[i:i + 1], new, cache_len)[0].tolist()
             for i in range(n)}
     shares = []
@@ -2285,116 +2501,226 @@ def serve_batchers(cfg, params, prompts, new):
                  for i in range(n) if out[i] != want[i]]
         print(f"(c) {cls.__name__}: {len(out)} requests, {n_tok} tokens,"
               f" {cb.decode_steps} decode steps, {dt:.3f}s {n_tok / dt:.1f} tok/s,"
-              f" share equal to per-request greedy {same:.3f}; the others"
-              f" first differ at token {first}")
+              f" {sum(out[i] == want[i] for i in range(n))} of {n} equal to"
+              f" per-request greedy ({same:.3f}); the others first differ at"
+              f" token {first}")
         if first:
             r = next(i for i in range(n) if out[i] != want[i])
             batch_probe(cfg, params, prompts, new, cls, r, first[0])
-    caches = [prefill(cfg, params, {"tokens": prompts[i:i + 1]}, cache_len)[1]
-              for i in range(8)]
+    caches = [prefill(cfg, params, prompt_batch(cfg, params, prompts[i:i + 1]),
+                      cache_len)[1] for i in range(8)]
     batch = {j: {k: torch.cat([c[j][k] for c in caches], dim=1) for k in sub}
              for j, sub in caches[0].items()}
-    tok = torch.tensor([[want[i][0]] for i in range(8)], device="cuda")
-    alone = torch.cat([serve_step(cfg, params, tok[i:i + 1], caches[i], s)[0]
+    tok = torch.tensor([[want[i][0]] for i in range(8)], device=prompts.device)
+    alone = torch.cat([serve_step(cfg, params, tok[i:i + 1], caches[i], pos0)[0]
                        for i in range(8)])
-    together, _ = serve_step(cfg, params, tok, batch, s)
+    together, _ = serve_step(cfg, params, tok, batch, pos0)
     print(f"(c) first decode step of requests 0-7, each alone vs as one batch"
           f" of 8: max|dlogit|/max|logit| {rel_max_err(together, alone):.3e}")
+    if not torch.equal(together, alone):
+        # the step again with the hooks on, row r alone and in the batch
+        # (each writes the same slot of its cache with the same values)
+        r = next(i for i in range(8) if not torch.equal(together[i], alone[i]))
+        rec, kept = _Recorder(cfg.block_period), []
+        with decode_hooks(rec):
+            for row, t, c in ((0, tok[r:r + 1], caches[r]), (r, tok, batch)):
+                rec.start(row)
+                serve_step(cfg, params, t, c, pos0)
+                rec.on = False
+                kept.append(rec.calls)
+        first_difference(kept[1], kept[0], f"first decode step, request {r}:",
+                         f"row {r} of 8")
     check(shares == [1.0, 1.0], f"{cfg.name}: the batchers' tokens leave"
                                 f" per-request greedy ({shares})")
 
 
-def phase_model(arch="llama3.2-3b", seed=2, want_params=None, serve_plan=None):
-    """A dense GQA model at full width and depth: llama3.2-3b, and
-    stablelm-12b (head dim 160) with its parameter count checked and its
-    peak device memory beside the JAX package's serving prediction; with
-    ``serve_plan`` (llama's, from the front door), its peaks beside the
-    plan's ``pred_bytes``."""
+def plain_rows(cfg, s, b):
+    """How many of b prompt rows the plain path's prefill takes at once
+    beside what the card already holds: its attention holds three (H, s, s)
+    float32 tensors a row at once (the scores, scaled, masked; then the
+    probabilities) in 3/4 of the free memory; at least one row."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    per_row = 3 * cfg.num_heads * s * s * 4
+    return max(1, min(b, int(0.75 * torch.cuda.mem_get_info()[0]) // per_row))
+
+
+def phase_model(arch="llama3.2-3b", seed=2, want_params=None, serve_plan=None,
+                cut=None, logits_atol=None, long_prompt=0):
+    """A GQA model at published widths: llama3.2-3b, stablelm-12b (head
+    dim 160), starcoder2-7b and -3b, gpt2-7b, musicgen-medium whole,
+    mixtral-8x22b and llava-next-34b cut to ``cut``'s depth; its parameter
+    count checked against ``param_count`` (and ``want_params``), its peak
+    device memory, whole run and decode alone, beside the port's
+    ``serve_peak_bytes`` (reported); with ``serve_plan`` (llama's, from the
+    front door) also beside the plan's ``pred_bytes``.  (b) holds the
+    kernel path's logits against the plain path's, relative, or with
+    ``logits_atol`` absolute with the routing choices' agreement (MoE), on
+    as many rows as the plain attention leaves room for; ``long_prompt``
+    adds one prompt of that many tokens (``long_prompt_vs_plain``)."""
     from repro_torch.configs import get_arch
     from repro_torch.core.memory_model import serve_bytes_split, serve_peak_bytes
     from repro_torch.kernels import LAUNCHES, dispatch
     from repro_torch.models import init_params, param_count
-    from repro_torch.serve import prefill, serve_step
-    cfg = get_arch(arch)
-    check(want_params is None or param_count(cfg) == want_params,
-          f"{arch} has {param_count(cfg)} parameters, not {want_params}")
+    from repro_torch.serve import prefill, prompt_batch, serve_step
+    cfg = get_arch(arch).scaled(**cut) if cut else get_arch(arch)
+    n_want = param_count(cfg)
+    check(want_params is None or n_want == want_params,
+          f"{arch} has {n_want} parameters, not {want_params}")
     t0 = time.perf_counter()
     params = init_params(cfg, 0, device="cuda")
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in _leaves(params))
     n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
-    print(f"model {cfg.name}: {cfg.num_layers} layers d_model={cfg.d_model}"
-          f" heads={cfg.num_heads}/{cfg.num_kv_heads} of {cfg.head_dim}"
-          f" d_ff={cfg.d_ff} vocab={cfg.vocab_size} params={n_params}"
-          f" ({n_bytes} bytes) bf16 init {time.perf_counter() - t0:.1f}s")
+    moe = (f" experts={cfg.num_experts} top-{cfg.top_k} of d_ff"
+           f" {cfg.moe_d_ff}" if cfg.num_experts else "")
+    print(f"model {cfg.name}: {cfg.num_layers}"
+          f"{f' of {get_arch(arch).num_layers}' if cut else ''} layers"
+          f" d_model={cfg.d_model} heads={cfg.num_heads}/{cfg.num_kv_heads}"
+          f" of {cfg.head_dim} d_ff={cfg.d_ff}{moe} vocab={cfg.vocab_size}"
+          f" window={cfg.sliding_window} modal={cfg.num_modal_tokens}"
+          f" params={n_params} (param_count {n_want}; {n_bytes} bytes) bf16"
+          f" init {time.perf_counter() - t0:.1f}s")
+    check(n_params == n_want, f"{arch}'s weights hold {n_params} parameters,"
+                              f" param_count says {n_want}")
     b, s, new = 8, 512, 32
-    cache_len = s + new
+    pos0 = s + cfg.num_modal_tokens          # the first decode position
+    cache_len = pos0 + new
     gen = torch.Generator(device="cuda").manual_seed(seed)
     prompt = torch.randint(0, cfg.vocab_size, (b, s), generator=gen, device="cuda")
     want = dict.fromkeys(LAUNCHES, 0)
     want.update(flash_attention=cfg.num_layers,
                 flash_decode_gqa=cfg.num_layers * (new - 1),
                 rms_norm=norms_per_pass(cfg) * new)
-    torch.cuda.reset_peak_memory_stats()
-    toks, launches = serve_main_path(cfg, params, prompt, new, want)
-    if arch in SERVE_PREDICTED_PEAK or serve_plan is not None:
-        peak = torch.cuda.max_memory_allocated()
-        print(f"(a) peak device memory over the serving run and its trace:"
-              f" {peak} B; the JAX package's serve_peak_bytes(b={b},"
-              f" cache_len={cache_len}) prediction"
-              f" {SERVE_PREDICTED_PEAK.get(arch, 'not on record')}"
-              f"{' B' if arch in SERVE_PREDICTED_PEAK else ''}")
-        # the decode steps alone, which serve_peak_bytes models (weights,
-        # cache, a small workspace): the peak is reset after the prefill
-        # and the ring caches' build
-        _, cache = prefill(cfg, params, {"tokens": prompt}, cache_len)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        for i in range(new - 1):
-            _, cache = serve_step(cfg, params, toks[:, i:i + 1], cache, s + i)
-        torch.cuda.synchronize()
-        decode_peak = torch.cuda.max_memory_allocated()
-        del cache
-        w, c, ws = serve_bytes_split(cfg, b, cache_len, 1, 1)
-        predicted = serve_peak_bytes(cfg, b, cache_len, 1, 1)
-        if arch in SERVE_PREDICTED_PEAK:
-            check(predicted == SERVE_PREDICTED_PEAK[arch],
-                  f"the port's serve_peak_bytes {predicted} != the JAX"
-                  f" package's")
-        if serve_plan is not None:
-            print(f"(s) {arch} serving plan d={serve_plan.d}"
-                  f" t={serve_plan.t} {serve_plan.n_devices}x"
-                  f" {serve_plan.device_type}: pred_bytes"
-                  f" {serve_plan.pred_bytes:.0f} B; the card's decode-only"
-                  f" peak {decode_peak} B"
-                  f" ({decode_peak / serve_plan.pred_bytes:.4f}), whole-run"
-                  f" peak {peak} B ({peak / serve_plan.pred_bytes:.4f})"
-                  f" (reported, not required)")
-        print(f"(a) peak device memory over the {new - 1} decode steps alone:"
-              f" {decode_peak} B; the port's serve_peak_bytes {predicted:.0f} B"
-              f" (weights {w:.0f}, cache {c:.0f}, workspace {ws:.0f});"
-              f" decode peak / predicted {decode_peak / predicted:.4f}, whole"
-              f" run / predicted {peak / predicted:.4f} (reported, not"
-              f" required)")
+    # the decode steps' peak is what serve_peak_bytes models (weights,
+    # cache, a small workspace)
+    toks, launches, (peak, decode_peak) = serve_main_path(cfg, params, prompt,
+                                                          new, want)
+    w, c, ws = serve_bytes_split(cfg, b, cache_len, 1, 1)
+    predicted = serve_peak_bytes(cfg, b, cache_len, 1, 1)
+    if arch in SERVE_PREDICTED_PEAK:
+        check(predicted == SERVE_PREDICTED_PEAK[arch],
+              f"the port's serve_peak_bytes {predicted} != the JAX package's")
+    if serve_plan is not None:
+        print(f"(s) {arch} serving plan d={serve_plan.d}"
+              f" t={serve_plan.t} {serve_plan.n_devices}x"
+              f" {serve_plan.device_type}: pred_bytes"
+              f" {serve_plan.pred_bytes:.0f} B; the card's decode-only"
+              f" peak {decode_peak} B"
+              f" ({decode_peak / serve_plan.pred_bytes:.4f}), whole-run"
+              f" peak {peak} B ({peak / serve_plan.pred_bytes:.4f})"
+              f" (reported, not required)")
+    print(f"(a) peak device memory over the serving run: {peak} B, over its"
+          f" {new - 1} decode steps alone: {decode_peak}"
+          f" B; the port's serve_peak_bytes(b={b}, cache_len={cache_len})"
+          f" {predicted:.0f} B (weights {w:.0f}, cache {c:.0f}, workspace"
+          f" {ws:.0f}); decode peak / predicted {decode_peak / predicted:.4f},"
+          f" whole run / predicted {peak / predicted:.4f} (reported, not"
+          f" required)")
 
     # (b) kernel path against the plain path: prefill logits, first decode
-    def first_two():
-        logits, cache = prefill(cfg, params, {"tokens": prompt}, cache_len)
-        step, _ = serve_step(cfg, params, tok_fixed, cache, s)
-        return logits[:, -1].float(), step[:, -1].float()
+    rows = plain_rows(cfg, pos0, b)
+    print(f"(b) on {rows} of {b} rows (the plain attention's float32 scores"
+          f" at s={pos0}: {3 * cfg.num_heads * pos0 * pos0 * 4} B a row at"
+          f" once)")
+    if logits_atol is not None:
+        logits_vs_plain(cfg, params, prompt[:rows], toks[:rows, :1],
+                        cache_len, logits_atol)
+    else:
+        def first_two():
+            logits, cache = prefill(cfg, params, prompt_batch(
+                cfg, params, prompt[:rows]), cache_len)
+            step, _ = serve_step(cfg, params, toks[:rows, :1], cache, pos0)
+            return logits[:, -1].float(), step[:, -1].float()
 
-    tok_fixed = toks[:, :1]
-    kern = first_two()
-    with dispatch.force("ref"):
-        plain = first_two()
-    rel = [((a - c).abs().max() / c.abs().max()).item() for a, c in zip(kern, plain)]
-    print(f"(b) kernel vs plain path: prefill max|dlogit|/max|logit|={rel[0]:.3e},"
-          f" first decode {rel[1]:.3e}, tol {LOGITS_TOL:g}")
-    check(max(rel) <= LOGITS_TOL, "kernel path logits differ from the plain path")
+        kern = first_two()
+        with dispatch.force("ref"):
+            plain = first_two()
+        rel = [rel_max_err(a, c) for a, c in zip(kern, plain)]
+        print(f"(b) kernel vs plain path: prefill max|dlogit|/max|logit|="
+              f"{rel[0]:.3e}, first decode {rel[1]:.3e}, tol {LOGITS_TOL:g}")
+        check(max(rel) <= LOGITS_TOL,
+              "kernel path logits differ from the plain path")
+        del kern, plain
+    if long_prompt:
+        long = long_prompt_vs_plain(cfg, params, long_prompt, new, gen)
+        launches = {k: launches[k] + long[k] for k in launches}
 
     # (c) 16 requests through 8 slots, against per-request greedy decoding
     prompts = torch.randint(0, cfg.vocab_size, (16, s), generator=gen, device="cuda")
     serve_batchers(cfg, params, prompts, new)
+    return launches
+
+
+def long_prompt_vs_plain(cfg, params, s_long, new, gen):
+    """(a'') One prompt of ``s_long`` tokens past the sliding window, and
+    ``new`` greedy tokens over the window's ring, which wraps: the launch
+    counts of the kernel path (set to 0 just before, read just after,
+    returned); its logits at every step within ``LOGITS_TOL`` of the plain
+    path's fed the same tokens; and each greedy token the plain path's own
+    choice at that step, or a flip at a near tie (the plain path's best
+    two logits closer than the limit)."""
+    from repro_torch.kernels import LAUNCHES, dispatch, reset_launches
+    from repro_torch.models.transformer import cache_slots
+    from repro_torch.serve import prefill, prompt_batch, serve_step
+    prompt = torch.randint(0, cfg.vocab_size, (1, s_long), generator=gen,
+                           device=gen.device)
+    pos0 = s_long + cfg.num_modal_tokens
+    cache_len = pos0 + new
+    S = cache_slots(cfg, cache_len)
+    check(0 < cfg.sliding_window == S < pos0,
+          f"{cfg.name}: a {pos0}-position prompt does not cross its window")
+
+    def run(fed=None):
+        """(tokens (1, new), logits (new, V) float32); with ``fed`` the
+        decode steps take its tokens instead of their own."""
+        logits, cache = prefill(cfg, params, prompt_batch(cfg, params, prompt),
+                                cache_len)
+        ring = next(t.shape[2] for sub in cache.values() for k, t in sub.items()
+                    if k == "k")
+        steps = [logits[0, -1].float()]
+        toks = [torch.argmax(logits[:, -1], dim=-1, keepdim=True)]
+        for i in range(new - 1):
+            tok = toks[-1] if fed is None else fed[:, i:i + 1]
+            logits, cache = serve_step(cfg, params, tok, cache, pos0 + i)
+            steps.append(logits[0, -1].float())
+            toks.append(torch.argmax(logits[:, -1], dim=-1, keepdim=True))
+        torch.cuda.synchronize()
+        return torch.cat(toks, dim=1), torch.stack(steps), ring
+
+    run()                                               # warm-up
+    reset_launches()
+    t0 = time.perf_counter()
+    toks, kern, ring = run()
+    dt = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    want = dict.fromkeys(LAUNCHES, 0)
+    want.update(flash_attention=cfg.num_layers,
+                flash_decode_gqa=cfg.num_layers * (new - 1),
+                rms_norm=norms_per_pass(cfg) * new)
+    print(f"(a'') serve b=1 prompt={s_long} new={new} cache_len={cache_len}"
+          f" over a ring of {ring} slots (window {cfg.sliding_window}; the"
+          f" last step writes slot {(pos0 + new - 2) % S}): {dt:.4f}s,"
+          f" launches {launches}")
+    check(ring == S and launches == want,
+          f"the long prompt's ring holds {ring} slots, not {S}, or its launch"
+          f" counts {launches} != {want}")
+    with dispatch.force("ref"):
+        _, plain, _ = run(fed=toks)
+    scale = plain.abs().amax(dim=-1)
+    rel = ((kern - plain).abs().amax(dim=-1) / scale).max().item()
+    top2 = plain.topk(2, dim=-1).values
+    near = (top2[:, 0] - top2[:, 1]) <= LOGITS_TOL * scale
+    own = plain.argmax(dim=-1) == toks[0]
+    print(f"(b'') long prompt, kernel vs plain path fed the same tokens:"
+          f" max|dlogit|/max|logit| over the prefill and {new - 1} steps"
+          f" {rel:.3e}, tol {LOGITS_TOL:g}; {int(own.sum())} of {new} greedy"
+          f" tokens the plain path's own choice, the others at steps"
+          f" {(~own).nonzero()[:, 0].tolist()} (near ties there:"
+          f" {near[~own].tolist()})")
+    check(rel <= LOGITS_TOL and bool((own | near).all()),
+          f"{cfg.name}'s long prompt leaves the plain path")
+    del kern, plain
     return launches
 
 
@@ -2464,7 +2790,7 @@ def phase_deepseek():
     want.update(flash_attention=cfg.num_layers,
                 flash_decode_mla=cfg.num_layers * (new - 1),
                 rms_norm=norms_per_pass(cfg) * new)
-    toks, launches = serve_main_path(cfg, params, prompt, new, want)
+    toks, launches, _ = serve_main_path(cfg, params, prompt, new, want)
 
     # (b1) layer 0's MLA, which no routing precedes: prefill output, and the
     # first decode step over the cache that prefill wrote
@@ -2528,7 +2854,7 @@ def phase_mamba2():
     prompt = torch.randint(0, cfg.vocab_size, (b, s), generator=gen, device="cuda")
     want = dict.fromkeys(LAUNCHES, 0)
     want.update(ssd_scan=cfg.num_layers, rms_norm=norms_per_pass(cfg) * new)
-    toks, launches = serve_main_path(cfg, params, prompt, new, want)
+    toks, launches, _ = serve_main_path(cfg, params, prompt, new, want)
 
     # (a') one prompt of 32,768 tokens, timed after a warm-up prefill
     s_long = SSD_LONG["s"]
@@ -2666,14 +2992,15 @@ def logits_vs_plain(cfg, params, prompt, first, cache_len, atol, faults=()):
     the limit tells a sound path from a broken one."""
     from repro_torch.kernels import dispatch
     from repro_torch.models import moe
-    from repro_torch.serve import prefill, serve_step
-    s = prompt.shape[1]
+    from repro_torch.serve import prefill, prompt_batch, serve_step
+    pos0 = prompt.shape[1] + cfg.num_modal_tokens
     routes, restore = routing_spy(moe)
 
     def first_two():
         routes.clear()
-        logits, cache = prefill(cfg, params, {"tokens": prompt}, cache_len)
-        step, _ = serve_step(cfg, params, first, cache, s)
+        logits, cache = prefill(cfg, params, prompt_batch(cfg, params, prompt),
+                                cache_len)
+        step, _ = serve_step(cfg, params, first, cache, pos0)
         return logits[:, -1].float(), step[:, -1].float(), list(routes)
 
     try:
@@ -2746,7 +3073,7 @@ def phase_jamba():
     want.update(flash_attention=n_attn, flash_decode_gqa=n_attn * (new - 1),
                 ssd_scan=cfg.num_layers - n_attn,
                 rms_norm=norms_per_pass(cfg) * new)
-    toks, launches = serve_main_path(cfg, params, prompt, new, want)
+    toks, launches, _ = serve_main_path(cfg, params, prompt, new, want)
 
     # (a') one prompt of 32,768 tokens, timed after a warm-up prefill
     s_long = SSD_LONG["s"]
@@ -3487,6 +3814,43 @@ def mla_splits():
     return 0
 
 
+def gqa_splits():
+    """--gqa-splits: ``flash_decode_gqa`` at each served cell's decode
+    shape (``DECODE``, ``JAMBA_DECODE``, ``STABLELM_DECODE``, the
+    ``LSE_DECODE`` ranks, ``GROUP_DECODE``), at its batch and at one row,
+    every cache row valid, at each split of 64 to 512 rows that gives
+    another split count: the mean time after an L2 flush and the error
+    against the split-KV oracle at that split; the plan's split is
+    marked."""
+    from repro_torch.kernels.flash_decode import gqa_decode_splitk
+    from repro_torch.kernels.flash_decode.flash_decode import _launch, block_s
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    print(f"device: {torch.cuda.get_device_name(0)}")
+    cases = {"llama": DECODE, "jamba": JAMBA_DECODE,
+             "stablelm": STABLELM_DECODE, **LSE_DECODE, **GROUP_DECODE}
+    for name, c in cases.items():
+        b, S, H, K, D = (c[x] for x in "bSHKD")
+        q, k, v = (torch.randn(*shape, generator=gen, device="cuda").bfloat16()
+                   for shape in ((b, 1, H, D), (b, S, K, D), (b, S, K, D)))
+        valid = torch.ones((b, S), dtype=torch.bool, device="cuda")
+        splits = sorted({64 * -(-S // (64 * n)) for n in range(1, -(-S // 64) + 1)
+                         if 64 * -(-S // (64 * n)) <= 512})
+        for rows in sorted({b, 1}, reverse=True):
+            args = (q[:rows], k[:rows], v[:rows], valid[:rows])
+            line = []
+            for bs in splits:
+                err = rel_max_err(_launch(*args, None, bs, False),
+                                  gqa_decode_splitk(*args, block_s=bs))
+                check(err <= BF16_TOL, f"flash_decode_gqa {name} at b={rows},"
+                                       f" {bs}-row splits disagrees")
+                ms = time_ms(lambda: _launch(*args, None, bs, False), flush)
+                line.append(f"{bs}{'*' if bs == block_s(k) else ''} {ms:.4f}")
+            print(f"gqa {name} b={rows} S={S} G={H // K} D={D}, ms by rows a"
+                  f" split (* the plan's): " + ", ".join(line))
+    return 0
+
+
 def ab(other):
     """--ab OTHER: --time-kernels on OTHER's tree and on this one, in turns
     (other, this, this, other), one process each."""
@@ -3534,6 +3898,8 @@ def main():
         return ab(sys.argv[sys.argv.index("--ab") + 1])
     if "--mla-splits" in sys.argv:
         return mla_splits()
+    if "--gqa-splits" in sys.argv:
+        return gqa_splits()
     if "--lse-merge" in sys.argv:
         i = sys.argv.index("--lse-merge")
         return lse_merge(int(sys.argv[i + 1]), int(sys.argv[i + 2]))
@@ -3579,11 +3945,27 @@ def main():
                      timed_phase("mamba2-130m training",
                                  lambda: phase_train(peaks, "mamba2-130m")),
                      timed_phase("stablelm-12b serving", lambda: phase_model(
-                         "stablelm-12b", seed=8, want_params=STABLELM_PARAMS)),
+                         "stablelm-12b", seed=8, want_params=STABLELM_PARAMS,
+                         cut=dict(num_layers=STABLELM_SERVE_LAYERS))),
                      timed_phase("deepseek-v2-236b training",
                                  lambda: phase_train(peaks, "deepseek-v2-236b")),
                      timed_phase("stablelm-12b training",
                                  lambda: phase_train(peaks, "stablelm-12b")),
+                     timed_phase("starcoder2-7b serving", lambda: phase_model(
+                         "starcoder2-7b", seed=12, long_prompt=STARCODER2_LONG)),
+                     timed_phase("starcoder2-3b serving",
+                                 lambda: phase_model("starcoder2-3b", seed=13)),
+                     timed_phase("gpt2-7b serving",
+                                 lambda: phase_model("gpt2-7b", seed=14)),
+                     timed_phase("musicgen-medium serving",
+                                 lambda: phase_model("musicgen-medium", seed=15)),
+                     timed_phase("mixtral-8x22b serving", lambda: phase_model(
+                         "mixtral-8x22b", seed=16,
+                         cut=dict(num_layers=MIXTRAL_LAYERS),
+                         logits_atol=MIXTRAL_LOGITS_ATOL)),
+                     timed_phase("llava-next-34b serving", lambda: phase_model(
+                         "llava-next-34b", seed=17,
+                         cut=dict(num_layers=LLAVA_LAYERS))),
                      timed_phase("(m) memcheck", phase_memcheck),
                      timed_phase("(f) family plans", phase_family),
                      timed_phase("(q) query offset", phase_seq),

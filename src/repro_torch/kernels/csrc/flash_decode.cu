@@ -16,11 +16,14 @@
 // Design:
 //  * Splits.  The grid is (split, KV head, batch); a split is `bs` cache rows,
 //    a multiple of TR = 64 rows chosen on the host (kernels/meta.py's
-//    gqa_block_s) from (b, S, K) and the SM count so that the grid has at
-//    least ~4 blocks per SM where the cache allows it: 64-row splits at
-//    llama's decode shape (9 x 8 x 8 = 576 blocks on 132 SMs), longer ones
-//    (up to 512 rows) for a long cache, so the partials stay a few percent
-//    of the cache's bytes.
+//    gqa_block_s) from S alone, never from b: one tile up to 64 splits a
+//    row (4,096 slots), longer splits (up to 512 rows) past that, so the
+//    merge stays short and the partials a few percent of the cache's
+//    bytes.  One-tile splits hold the least shared memory, so the most
+//    blocks share an SM: on the H100 they ran fastest at every measured
+//    shape, a batch of 8 or one row.  A row's partials and their merge
+//    order follow the cache alone: a row decoded alone and in a batch
+//    gives the same bits.
 //  * Loads.  A split's K tiles, then its V tiles, stream through a ring of up
 //    to four 64-row tiles in shared memory by 16-byte cp.async, each thread
 //    keeping 8 (bf16, D=128) of them in flight per tile, and the V tiles are
@@ -367,7 +370,7 @@ cudaError_t launch_d(int D, const void* q, const void* k, const void* v,
 // q (b, 1, H, D); k/v caches (b, S, K, D); valid (b, S) of 0/1 bytes;
 // scratch acc (b, ns, K, G, D), m and l (b, ns, K, G) float32 with
 // ns = ceil(S / bs), bs a multiple of 64 up to 512 (the wrapper's plan,
-// kernels/meta.py's gqa_block_s); out
+// kernels/meta.py's gqa_block_s, from S alone); out
 // (b, 1, H, D) in the caches' dtype, or float32 when lse (b, H) float32 is
 // not null.  Returns the cudaError_t of the launches (0 on success).
 extern "C" int repro_flash_decode_gqa(const void* q, const void* k,

@@ -7,7 +7,9 @@ It takes CUDA tensors and raises on anything the kernel does not take;
 ``repro_torch.kernels.dispatch.flash_decode`` sends CPU tensors to the
 plain version in ``ref.py`` instead.  On meta tensors it checks and
 allocates as on the card and stops before the launch.  The split is
-``kernels.meta.gqa_block_s``'s, on either device.
+``kernels.meta.gqa_block_s``'s, on either device: from the cache's slots
+alone, never its batch, so a row decoded alone and the same row in a
+batch give the same bits.
 """
 from __future__ import annotations
 
@@ -38,12 +40,10 @@ def _lib() -> ctypes.CDLL:
 
 def block_s(k_cache: torch.Tensor) -> int:
     """Cache rows per split the kernel uses for a (b, S, K, D) cache: a
-    multiple of 64 chosen from (b, S, K) and the card's SM count (at
-    llama3.2-3b's decode shape, 64).  The split-KV oracle
-    ``gqa_decode_splitk(..., block_s=block_s(k_cache))`` rounds as the
-    kernel does."""
-    b, S, K, _ = k_cache.shape
-    return meta.gqa_block_s(b, S, K, meta.sm_count(k_cache))
+    multiple of 64 chosen from S alone (64 up to 4,096 slots).  The
+    split-KV oracle ``gqa_decode_splitk(..., block_s=block_s(k_cache))``
+    rounds as the kernel does."""
+    return meta.gqa_block_s(k_cache.shape[1])
 
 
 def _check_inputs(q: torch.Tensor, k_cache: torch.Tensor,
@@ -89,11 +89,18 @@ def flash_decode_gqa(q: torch.Tensor, k_cache: torch.Tensor,
     merge_decode_partials``); a row with no valid entry gives out 0 and
     lse -inf."""
     _check_inputs(q, k_cache, v_cache, valid)
+    return _launch(q, k_cache, v_cache, valid, softmax_scale,
+                   block_s(k_cache), return_lse)
+
+
+def _launch(q, k_cache, v_cache, valid, softmax_scale, bs, return_lse):
+    """The launch at a split of ``bs`` rows (a multiple of 64, at most
+    512): ``flash_decode_gqa`` passes its plan's; ``chip_smoke.py`` times
+    others through it."""
     b, _, H, D = q.shape
     _, S, K, _ = k_cache.shape
     G = H // K
     scale = softmax_scale if softmax_scale is not None else 1.0 / math.sqrt(D)
-    bs = block_s(k_cache)
     ns = -(-S // bs)
     dev = q.device
     acc = torch.empty((b, ns, K, G, D), dtype=torch.float32, device=dev)

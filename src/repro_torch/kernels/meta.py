@@ -13,8 +13,8 @@ the dry run's peak), where the plain versions would hold the full
 The kernels' launch plans (the GQA decode's split, the MLA decode's split
 and merge, the SSD scan's segments) are computed here, for the card and
 for meta alike, and passed into the launches: where a plan reads the SM
-count, a CUDA tensor gives its card's and a meta tensor the H100's,
-``SM_COUNT``.
+count (the SSD scan's), a CUDA tensor gives its card's and a meta tensor
+the H100's, ``SM_COUNT``.
 
 Each stand-in reports its work to the tally open at the time
 (``launch.op_analysis``): its FLOPs by formula -- the count
@@ -31,8 +31,9 @@ import torch
 
 #: SMs of the NVIDIA H100 SXM5 (80GB HBM3), the card the dry run stands for
 SM_COUNT = 132
-#: rows per tile of ``csrc/flash_decode.cu`` and its most tiles a split
-GQA_TILE, GQA_MAX_TILES = 64, 8
+#: rows per tile of ``csrc/flash_decode.cu``, its most tiles a split, and
+#: the most splits a row has before a split takes more tiles
+GQA_TILE, GQA_MAX_TILES, GQA_MAX_SPLITS = 64, 8, 64
 #: ``csrc/flash_decode_mla.cu``: splits, their least and most rows, the
 #: most splits merged in one cluster
 MLA_SPLITS, MLA_SPLIT_MIN, MLA_SPLIT_MAX, MLA_MAX_CLUSTER = 6, 64, 1024, 8
@@ -77,12 +78,18 @@ def sm_count(t: torch.Tensor) -> int:
                           else index)
 
 
-def gqa_block_s(b: int, S: int, K: int, sm_count: int = SM_COUNT) -> int:
-    """Cache rows a split of ``csrc/flash_decode.cu``: 64 times the tiles
-    that still leave ~4 blocks an SM, at most 8 tiles."""
+def gqa_block_s(S: int) -> int:
+    """Cache rows a split of ``csrc/flash_decode.cu`` for S slots: one
+    64-row tile until a row would have more than ``GQA_MAX_SPLITS``
+    splits, then the fewest tiles that keep it to that many, at most 8.
+    The cache alone sets it, so a row decoded alone and in a batch is
+    summed over the same splits in the same order.  Short splits ran
+    fastest on the H100 at a batch of 8 and at one row (they hold the
+    least shared memory, so the most blocks share an SM); 64 splits keep
+    the merge loop short and the float32 partials ~5-11% of the cache's
+    bytes."""
     tiles = -(-S // GQA_TILE)
-    per = tiles * b * K // (4 * max(sm_count, 1))
-    return GQA_TILE * min(max(per, 1), GQA_MAX_TILES)
+    return GQA_TILE * min(-(-tiles // GQA_MAX_SPLITS), GQA_MAX_TILES)
 
 
 def mla_plan(b: int, S: int, H: int, bf16: bool, bs: int = 0) -> tuple:

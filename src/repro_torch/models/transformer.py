@@ -255,7 +255,16 @@ def _head(cfg: ModelConfig, params: Params, x: torch.Tensor,
     if par is not None:
         return par.head(x, params)
     head = params.get("lm_head")
-    return x @ head if head is not None else x @ params["embed"].T
+    if head is not None:
+        return x @ head
+    # A tied head reads the embedding transposed, its reduction axis
+    # contiguous: on the card cuBLAS takes one row (a lone decode) by a GEMV
+    # and a batch of rows by a GEMM, which sum in other orders, so a row's
+    # logits would depend on the rows beside it.  One position a row (the
+    # decode steps, the prefill's last logits) goes a row at a time.
+    if x.shape[1] == 1 and x.shape[0] > 1:
+        return torch.cat([r @ params["embed"].T for r in x.split(1)])
+    return x @ params["embed"].T
 
 
 def _sublayer(cfg: ModelConfig, j: int, p: Params, x: torch.Tensor,

@@ -189,7 +189,7 @@ def test_gqa_decode_stand_in(case):
     valid = _meta(b, S, dtype=torch.bool)
     with _Allocs() as al:
         out = dispatch.flash_decode(q, kc, vc, valid, return_lse=lse)
-    ns = -(-S // km.gqa_block_s(b, S, K))
+    ns = -(-S // km.gqa_block_s(S))
     want = [((b, ns, K, G, D), F32), ((b, ns, K, G), F32),
             ((b, ns, K, G), F32), ((b, 1, H, D), F32 if lse else dt)]
     assert al.made == want + ([((b, H), F32)] if lse else [])

@@ -534,6 +534,39 @@ class TestKernelsOnCard:
             rtol=tol)
 
     @pytest.mark.parametrize("dtype", list(DTYPES))
+    @pytest.mark.parametrize("shape", [(8, 544, 24, 24, 64),
+                                       (8, 544, 32, 32, 128),
+                                       (8, 544, 48, 8, 128),
+                                       (8, 3424, 56, 8, 128),
+                                       (8, 544, 36, 4, 128),
+                                       (8, 544, 24, 2, 128)],
+                             ids=["G1_D64", "G1_D128", "G6", "G7", "G9",
+                                  "G12"])
+    def test_flash_decode_at_new_groups(self, cuda, shape, dtype):
+        """The serving cells' query heads a KV head first launched with
+        the split planned from the cache alone -- musicgen-medium and
+        gpt2-7b (G = 1), mixtral (6), llava (7, 3,424 slots), starcoder2-7b
+        (9), starcoder2-3b (12) -- against the split-KV oracle at the
+        kernel's split and the plain version, and every row decoded alone
+        bit for bit the same row of the batch."""
+        (q, k, v), valid = _decode_inputs(*shape, dtype, seed=13)
+        q, k, v = q.to(cuda), k.to(cuda), v.to(cuda)
+        valid = torch.from_numpy(valid).to(cuda)
+        got = flash_decode_gqa(q, k, v, valid)
+        tol = DTYPES[dtype][1]
+        torch.testing.assert_close(
+            got.float(), gqa_decode_splitk(q, k, v, valid,
+                                           block_s=block_s(k)).float(),
+            atol=tol, rtol=tol)
+        torch.testing.assert_close(
+            got.float(), gqa_decode_ref(q, k, v, valid).float(), atol=tol,
+            rtol=tol)
+        for i in range(shape[0]):
+            assert torch.equal(flash_decode_gqa(
+                q[i:i + 1], k[i:i + 1], v[i:i + 1], valid[i:i + 1]),
+                got[i:i + 1]), f"row {i}"
+
+    @pytest.mark.parametrize("dtype", list(DTYPES))
     @pytest.mark.parametrize("shape", [(8, 2048, 24, 8, 128),
                                        (1, 2048, 64, 8, 128),
                                        (3, 300, 8, 2, 32)])
