@@ -3,7 +3,8 @@
 mamba2-130m, jamba-1.5-large-398b, stablelm-12b, starcoder2-7b,
 starcoder2-3b, gpt2-7b, musicgen-medium, mixtral-8x22b, llava-next-34b)
 and its training paths (gpt2-350m, mamba2-130m, deepseek-v2-236b,
-stablelm-12b) on one NVIDIA card.
+stablelm-12b, llava-next-34b, starcoder2-3b, mixtral-8x22b,
+musicgen-medium) on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -49,7 +50,10 @@ Phases, each printing its lines before the last:
    row over starcoder2-7b's wrapped 4,096-slot ring) in bf16 and float32,
    every row alone bit for bit equal to the batch, a lone row also
    timed; the attention forward at llava's prefill and
-   starcoder2-7b's windowed 8,192-token prompt (``GROUP_PREFILL``); each with its time,
+   starcoder2-7b's windowed 8,192-token prompt (``GROUP_PREFILL``); the
+   attention backward at starcoder2-3b's training shape (12 query heads a
+   KV head, ``STARCODER2_3B_TRAIN``) and the SSD gradient at jamba's 256
+   heads (``SSD_WIDE``); each with its time,
    the plain version's,
    one PyTorch library call's (none computes the SSD scan or its gradient)
    and the card's bound for the same work;
@@ -139,7 +143,8 @@ Phases, each printing its lines before the last:
 11. stablelm-12b at its published widths and 8 of its 40 layers, trained
    as gpt2-350m is, through the attention forward and backward at head
    dim 160 and ``adam_update``;
-12.-17. starcoder2-7b, starcoder2-3b, gpt2-7b and musicgen-medium whole,
+12.-17. starcoder2-7b, starcoder2-3b, gpt2-7b and musicgen-medium at
+   published widths and ``SERVE_LAYERS`` of their layers,
    mixtral-8x22b at published widths and ``MIXTRAL_LAYERS`` of its 56
    layers (MoE top-2 of 8, window 4,096), llava-next-34b at published
    widths and ``LLAVA_LAYERS`` of its 60 (2,880 zero modal embeddings
@@ -155,6 +160,12 @@ Phases, each printing its lines before the last:
    decodes after the modal prefix, as ``greedy_decode`` does; where a
    first decode step's row alone differs from the same row in a batch,
    the first hooked output that differs is printed;
+18.-21. llava-next-34b at published widths and 4 of its 60 layers at s =
+   4,096 (its 2,880 modal positions, then 1,216 text tokens), starcoder2-3b
+   whole (the attention backward at 12 query heads a KV head),
+   mixtral-8x22b at published widths and 1 of its 56 layers with all 8
+   experts and top-2, and musicgen-medium whole, trained as gpt2-350m is
+   (``NEW_TRAIN_CELLS``; cuts and their reasons at ``TRAIN_CUTS``);
 (m) Fig 6 on the card: the ten plans of ``repro_torch.launch.memcheck``
    (gpt2-350m and gpt2-7b at full width under the JAX package's (d, t)
    plans and batches) at ZeRO 1, each as rank 0 of its plan under
@@ -186,15 +197,17 @@ Phases, each printing its lines before the last:
    (t divides V) stay each model rank's V/t columns, reduced to the loss by
    the vocabulary-parallel cross-entropy, in this phase and (m), (q), (p).
 (q) the head_dim / seq fallback (``SEQ_PLANS``): rank 0 of the (16, 16)
-   train_4k plan (s = 4,096, global batch 16, ZeRO 3 above 20e9
-   parameters, else 1) of stablelm-12b, llama3.2-3b, mixtral-8x22b,
-   jamba-1.5-large-398b (all 72 layers and 16 experts), starcoder2-7b,
-   musicgen-medium and llava-next-34b, whole at published widths, whose
-   head counts do not divide t = 16; stablelm-12b and jamba also as rank
-   15, whose 256 query rows sit at offset 3,840.  As (f): one line a run
-   with the peak beside both predictions (reported, not required) and
-   beside the same rank's peak when every model rank gathered the whole
-   vocabulary's logits (``SEQ_GATHERED_PEAK``, a constant); it
+   train_4k plan (s = 4,096, global batch 16 -- llava-next-34b's at
+   train_4k's own 256, 16 rows and microbatches a data rank --, ZeRO 3
+   above 20e9 parameters, else 1) of stablelm-12b, llama3.2-3b,
+   mixtral-8x22b, jamba-1.5-large-398b (all 72 layers and 16 experts),
+   starcoder2-7b, musicgen-medium and llava-next-34b, whole at published
+   widths, whose head counts do not divide t = 16; stablelm-12b and jamba
+   also as rank 15, whose 256 query rows sit at offset 3,840.  As (f): one
+   line a run with the peak beside both predictions (reported, not
+   required) and, but for llava, beside the same rank's peak when every
+   model rank gathered the whole vocabulary's logits
+   (``SEQ_GATHERED_PEAK``, a constant); it
    fails on an out-of-memory, on a state that is not the rank's specs'
    shards, on a plan that never launched the attention forward and
    backward, Adam, RMSNorm (jamba: the SSD scan and gradient), and on a
@@ -264,7 +277,9 @@ Phases, each printing its lines before the last:
 
 (d) The dry run against the card (``repro_torch.launch.dryrun``): rank
    0's dry-run peak of each of phase (m)'s ten plans, of (f)'s plans
-   whose t does not divide the SSM heads and of each phase (v) plan (the
+   whose t does not divide the SSM heads, of (q)'s llava-next-34b plan
+   at batch 256 (its peak also required equal to its committed
+   ``experiments/dryrun_torch`` row's) and of each phase (v) plan (the
    step traced on the meta device, the kernels' wrappers allocating what
    they allocate here and launching nothing), plus the row's
    ``base_bytes``, beside the peak (m), (f) or (v) measured in this run
@@ -283,9 +298,11 @@ Phases, each printing its lines before the last:
    have launched.  Its op times are host times: the call's check,
    allocation and launch, not the kernel's run.
 
-Every training cell (7, 8, 10, 11) is started through (s)'s front door
-as gpt2-350m's is, and its peak over step 1 must equal the one-device
-path's (``ONE_DEVICE_PEAK``) to the byte.  The script sets the caching allocator's expandable segments as the entry
+Every training cell (7, 8, 10, 11, 18-21) is started through (s)'s front
+door as gpt2-350m's is, and its peak over step 1 must equal the one-device
+path's (``ONE_DEVICE_PEAK``) to the byte.  Each rank of a sharded step is
+fed only its rows of the global batch (``step.rows``), the modal
+embeddings at the compute dtype.  The script sets the caching allocator's expandable segments as the entry
 points do (``repro_torch.launch.configure_allocator``).  Each phase prints
 its wall time.  Then one JSON line of per-kernel numbers and, last, the
 JSON result line.
@@ -319,6 +336,12 @@ batch and at one row, at every split from 64 to 512 rows (``gqa_splits``).
 prints each training cell's peak device memory over step 1 with the
 allocator's expandable segments off and on, one process each
 (``--train-peak ARCH``).
+
+    python3 chip_smoke.py --sink-ab
+
+times three cells' one-device training step with its stacked leaves'
+layer gradients added into the fp32 sum in the backward and with them
+stacked first, in turns, beside each one's peak (``sink_ab``).
 """
 import gc
 import json
@@ -369,24 +392,44 @@ ADAM_ATOL, ADAM_RTOL = 1e-6, 1e-5
 # every gradient (the grad norm is dominated by the largest).  A wrong
 # mask, head mapping, decay or gradient term moves either by its own scale.
 LOSS_RTOL, GNORM_RTOL = 1e-2, 5e-2
-# The JAX package's exact_peak_bytes(cfg, 8, 1024, d=1, t=1, zero=1,
-# microbatch=1) for the training cells (cfg cut as TRAIN_CUTS says): the
+# The JAX package's exact_peak_bytes(cfg, 8, s, d=1, t=1, zero=1,
+# microbatch=1) for the training cells (cfg cut as TRAIN_CUTS says, s =
+# 1024 or TRAIN_SEQ's): the
 # port's own prediction (repro_torch.core.memory_model) and the pred_bytes
 # of the plan the port's MARP gives the cell on one H100 must equal it, and
 # the card's peak over step 1 must not exceed it -- MARP places a job by the
 # prediction, so a peak above it is an out-of-memory on a real cluster.
-# The training cells' peaks over step 1 on an NVIDIA H100 80GB HBM3 before
-# the sharded step existed (chip_smoke.py's own runs, equal in every run):
-# the one-device path must stay byte for byte what it was.
+# The training cells' peaks over step 1 on an NVIDIA H100 80GB HBM3
+# (chip_smoke.py's own runs, equal in every run): the one-device path must
+# stay byte for byte what it was.  gpt2-350m's and mamba2-130m's are those
+# of before the sharded step existed; the others are those of since each
+# stacked block leaf's layer gradients go into the step's fp32 sum in the
+# backward (``transformer.grad_sinks``), where ``unbind``'s backward had
+# stacked them into a second copy of the leaf's gradient first
+# (deepseek-v2-236b 67,179,781,120 B and stablelm-12b 65,401,494,016 B
+# before; starcoder2-3b's 65,747,433,984 B had exceeded its prediction).
 ONE_DEVICE_PEAK = {"gpt2-350m": 7_615_967_744, "mamba2-130m": 4_256_577_024,
-                   "deepseek-v2-236b": 67_179_781_120,
-                   "stablelm-12b": 65_401_494_016}
+                   "deepseek-v2-236b": 66_434_085_376,
+                   "stablelm-12b": 64_415_855_616,
+                   "llava-next-34b": 63_790_470_144,
+                   "starcoder2-3b": 63_570_609_152,
+                   "mixtral-8x22b": 58_055_003_136,
+                   "musicgen-medium": 27_420_804_096}
 JAX_PREDICTED_PEAK = {"gpt2-350m": 8_691_153_715, "mamba2-130m": 4_841_272_883,
                       "deepseek-v2-236b": 70_503_875_379,
-                      "stablelm-12b": 67_480_961_843}
+                      "stablelm-12b": 67_480_961_843,
+                      "llava-next-34b": 69_864_973_107,
+                      "starcoder2-3b": 65_528_423_219,
+                      "mixtral-8x22b": 60_276_855_603,
+                      "musicgen-medium": 28_634_557_235}
+# the JAX package's param_count of each training cell's config
 TRAIN_PARAMS = {"gpt2-350m": 353_503_232, "mamba2-130m": 167_598_528,
                 "deepseek-v2-236b": 3_344_552_960,
-                "stablelm-12b": 3_250_672_640}
+                "stablelm-12b": 3_250_672_640,
+                "llava-next-34b": 3_148_938_240,
+                "starcoder2-3b": 3_180_518_400,
+                "mixtral-8x22b": 2_906_720_256,
+                "musicgen-medium": 1_365_394_944}
 # deepseek-v2's training cell: 4 of its 60 layers (the serving cell's) and
 # 16 of its 160 routed experts, top-6 and both shared experts kept, so a
 # token sees the published per-token work (2,400,834,560 active parameters
@@ -399,8 +442,29 @@ TRAIN_PARAMS = {"gpt2-350m": 353_503_232, "mamba2-130m": 167_598_528,
 # predicted 67,480,961,843 B by the JAX model above; all 40 layers are
 # predicted 245.7 GB, and the card's training peaks have run at 0.88-0.95
 # of the prediction, so 8 layers fit its 80 GB (6 would be 56.3 GB).
+# llava-next-34b's training cell: 4 of its 60 layers at published widths
+# (56/8 heads of 128, d_model 7168, d_ff 20480), s = 4,096 (TRAIN_SEQ: its
+# 2,880 modal positions and 1,216 text tokens; at 1,024 no text is left):
+# 3,148,938,240 parameters, predicted 69,864,973,107 B; a fifth layer is
+# 557,856,768 parameters more (~11 GB of training state at ~20 B a
+# parameter), and all 60 layers are predicted 698.0 GB.
+# mixtral-8x22b's training cell: 1 of its 56 layers with all 8 experts and
+# top-2 (48/8 heads of 128, d_model 6144, expert d_ff 16384), so a token
+# sees the published per-token work: 2,906,720,256 parameters (1,094,780,928
+# active), predicted 60,276,855,603 B; two layers (5,410,781,184
+# parameters) are predicted 110.4 GB.
+# starcoder2-3b (30 layers, 24/2 heads of 128: the attention backward at 12
+# query heads a KV head) and musicgen-medium (48 layers, 24 MHA heads of
+# 64) train whole.
 TRAIN_CUTS = {"deepseek-v2-236b": dict(num_layers=4, num_experts=16),
-              "stablelm-12b": dict(num_layers=8)}
+              "stablelm-12b": dict(num_layers=8),
+              "llava-next-34b": dict(num_layers=4),
+              "mixtral-8x22b": dict(num_layers=1)}
+# a training cell's sequence length where it is not 1024
+TRAIN_SEQ = {"llava-next-34b": 4096}
+# phases 18-21: the training cells of configs the card had only served
+NEW_TRAIN_CELLS = ["llava-next-34b", "starcoder2-3b", "mixtral-8x22b",
+                   "musicgen-medium"]
 # The cluster the serverless front door places the card's jobs on: one
 # node of one H100-80G (``repro_torch.core.orchestrator.make_cluster``).
 ONE_H100 = [(1, 1, "H100-80G")]
@@ -518,6 +582,9 @@ MLA_TRAIN = dict(b=1, s=1024, H=128, D=192)
 # stablelm-12b's training microbatch: b=1, s=1024, 32 query heads on 8 KV
 # heads of 160, causal
 STABLELM_TRAIN = dict(b=1, s=1024, H=32, K=8, D=160)
+# starcoder2-3b's training microbatch: b=1, s=1024, 24 query heads on 2 KV
+# heads of 128 (12 a KV head), causal (its 4,096-key window is wider)
+STARCODER2_3B_TRAIN = dict(b=1, s=1024, H=24, K=2, D=128)
 # one rank of gpt2-7b's (d=8, t=2) plan in phase (m): b=1, s=1024, 16 of its
 # 32 heads of 128, causal
 GPT2_7B_T2 = dict(b=1, s=1024, H=16, D=128)
@@ -537,6 +604,10 @@ RANK_ATTENTION = {"mla_t16": dict(b=1, s=1024, H=8, K=8, D=192),
 SSD_RANKS = {"jamba_t8_h32": (1024, 32, 64), "mamba2_t4_h6": (1024, 6, 64),
              "mamba2_t8_h3": (1024, 3, 64),
              "mamba2_t16_h3_p32": (4096, 3, 32)}
+# the SSD gradient at jamba's whole d_inner, 256 heads of P = 64 (N = 128),
+# at a training microbatch b=1, s=1024: one device's jamba training step
+# (ROADMAP queue 1 item 7) launches it at this shape
+SSD_WIDE = {"jamba_train_h256": (1024, 256, 64)}
 
 # Phase (f): rank 0 of multi-device plans of the MLA, MoE and Mamba2
 # families, as phase (m) runs the Fig 6 combos (fake process group, s=1024,
@@ -587,21 +658,27 @@ FAMILY_SEQ = {("mamba2-130m", 16, 16): 4096}
 # offset 0 and rank 15 at 3,840, the largest offset and the most causal
 # work.  Whole configs at published widths and depth, global batch 16
 # (microbatch 1, one row a data rank), one step, ZeRO from
-# ``launch.inputs.default_train_config`` (3 above 20e9 parameters, else 1).
+# ``launch.inputs.default_train_config`` (3 above 20e9 parameters, else 1);
+# llava-next-34b at train_4k's own global batch of 256 (``SEQ_PLAN_BATCH``:
+# 16 rows a data rank, fed only those, in 16 microbatches), its peak also
+# held to the dry run's in phase (d).
 # The port's exact_peak_bytes for each, on the CPU: stablelm-12b 5.45 GB,
 # llama3.2-3b 2.70, mixtral-8x22b 15.17, jamba-1.5-large-398b (all 72
 # layers, 16 experts) 37.53, starcoder2-7b 3.92, musicgen-medium 1.86,
-# llava-next-34b 7.65 (its 2,880 modal positions inside the 4,096).
+# llava-next-34b 7.65 (its 2,880 modal positions inside the 4,096; at
+# batch 256).
 # (arch, ranks)
 SEQ_PLANS = [("stablelm-12b", (0, 15)), ("llama3.2-3b", (0,)),
              ("mixtral-8x22b", (0,)), ("jamba-1.5-large-398b", (0, 15)),
              ("starcoder2-7b", (0,)), ("musicgen-medium", (0,)),
              ("llava-next-34b", (0,))]
 SEQ_MESH, SEQ_LEN, SEQ_BATCH = (16, 16), 4096, 16
+SEQ_PLAN_BATCH = {"llava-next-34b": 256}
 # The same ranks' peaks before the logits were kept sharded over the
 # vocabulary (every model rank gathered all of them), NVIDIA H100 80GB
 # HBM3 at 700.00 W, phase (q) of this script at the commit that added it:
-# {(arch, rank): bytes}; each plan's prediction is unchanged.
+# {(arch, rank): bytes}; each plan's prediction is unchanged.  (llava's
+# ran at global batch 16, each rank fed the whole batch: 13,271,535,616 B.)
 SEQ_GATHERED_PEAK = {("stablelm-12b", 0): 13_148_228_096,
                      ("stablelm-12b", 15): 13_148_228_096,
                      ("llama3.2-3b", 0): 12_980_440_576,
@@ -609,8 +686,7 @@ SEQ_GATHERED_PEAK = {("stablelm-12b", 0): 13_148_228_096,
                      ("jamba-1.5-large-398b", 0): 41_960_960_000,
                      ("jamba-1.5-large-398b", 15): 41_960_960_000,
                      ("starcoder2-7b", 0): 7_167_567_360,
-                     ("musicgen-medium", 0): 1_177_666_560,
-                     ("llava-next-34b", 0): 13_271_535_616}
+                     ("musicgen-medium", 0): 1_177_666_560}
 
 # Phase (p): rank 0 of the two-pod (2, 16, 16) train_4k plan, ("pod",
 # "data", "model"), whose 32 data shards run over the flattened pod and
@@ -712,17 +788,24 @@ SERVE_ATTENTION = {"llama_prefill_32k_r0": dict(b=2, sq=2048, sk=32_768, H=24,
 
 # Phases 12-17: the six configs served nowhere before on the card, in this
 # order, at batch 8 x prompt 512 + 32 new tokens (``phase_model``):
-# starcoder2-7b, starcoder2-3b, gpt2-7b and musicgen-medium whole;
-# mixtral-8x22b at published widths and MIXTRAL_LAYERS of its 56 layers
-# (all 8 experts, top-2: 10,418,903,040 parameters, 20.8 GB in bf16; all
-# 56 layers are 140.6 B, 281 GB); llava-next-34b at published widths and
-# LLAVA_LAYERS of its 60 (17,653,214,208 parameters, 35.3 GB; all 60 are
-# 68.8 GB, which leaves no room on the card for a batch of 8 at 3,392
-# positions and its plain path).  llava's 2,880 zero modal embeddings
-# come before each prompt (``serve.prompt_batch``), so its prefill runs at
-# s = 3,392 and its cache holds 3,424 slots.
+# starcoder2-7b, starcoder2-3b, gpt2-7b and musicgen-medium at published
+# widths and SERVE_LAYERS of their layers; mixtral-8x22b at published
+# widths and MIXTRAL_LAYERS of its 56 layers (all 8 experts, top-2:
+# 10,418,903,040 parameters, 20.8 GB in bf16; all 56 layers are 140.6 B,
+# 281 GB); llava-next-34b at published widths and LLAVA_LAYERS of its 60
+# (5,380,365,312 parameters; all 60 are 68.8 GB, which leaves no room on
+# the card for a batch of 8 at 3,392 positions and its plain path).
+# llava's 2,880 zero modal embeddings come before each prompt
+# (``serve.prompt_batch``), so its prefill runs at s = 3,392 and its cache
+# holds 3,424 slots.  Each layer launches the same kernels at the same
+# shapes, so the cuts keep every kernel shape and check; they keep the
+# script inside its time limit beside the four training cells of phases
+# 18-21 (~300 s): served whole (llava at 30 layers) these five phases took
+# 325 s of a 1,252 s run on a slow host (their whole runs: PERF.md).
+SERVE_LAYERS = {"starcoder2-7b": 8, "starcoder2-3b": 8, "gpt2-7b": 8,
+                "musicgen-medium": 8}
 MIXTRAL_LAYERS = 4
-LLAVA_LAYERS = 30
+LLAVA_LAYERS = 8
 # mixtral-8x22b kernel path vs plain path, max |logit delta|, absolute: as
 # for deepseek-v2, a bf16 difference in a router's input can flip a
 # near-tied top-2 choice, which swaps one of a token's two experts' whole
@@ -755,13 +838,15 @@ GROUP_PREFILL = {"llava_prefill": dict(b=8, s=3392, H=56, K=8, D=128,
                                                     D=128, window=4096)}
 
 
-def seq_plan_config(arch, batch=SEQ_BATCH, mesh=SEQ_MESH):
-    """(cfg, tc, *mesh) of a ``SEQ_PLANS`` plan, or at another global
-    batch on another mesh (a ``POD_PLANS`` plan: ``pod_plan_config``)."""
+def seq_plan_config(arch, batch=None, mesh=SEQ_MESH):
+    """(cfg, tc, *mesh) of a ``SEQ_PLANS`` plan (at ``SEQ_PLAN_BATCH`` or
+    ``SEQ_BATCH``), or at another global batch on another mesh (a
+    ``POD_PLANS`` plan: ``pod_plan_config``)."""
     import dataclasses
     from repro_torch.configs.base import INPUT_SHAPES
     from repro_torch.configs.registry import get_arch
     from repro_torch.launch.inputs import default_train_config
+    batch = batch or SEQ_PLAN_BATCH.get(arch, SEQ_BATCH)
     cfg = get_arch(arch)
     shape = dataclasses.replace(INPUT_SHAPES["train_4k"], seq_len=SEQ_LEN,
                                 global_batch=batch)
@@ -1759,6 +1844,8 @@ def phase_attention_bwd(peaks, flush, randn):
         ("stablelm_fp32_ragged", 1, 130, 130, 8, 2, 160, True, 0, 0, f32),
         ("gpt2_7b_t2", *(GPT2_7B_T2[k] for k in "bss"),
          *(GPT2_7B_T2[k] for k in "HHD"), True, 0, 0, bf16),
+        ("starcoder2_3b_train", *(STARCODER2_3B_TRAIN[k] for k in "bss"),
+         *(STARCODER2_3B_TRAIN[k] for k in "HKD"), True, 0, 0, bf16),
         *((name, c["b"], c["s"], c["s"], c["H"], c["K"], c["D"], True, 0, 0,
            bf16) for name, c in RANK_ATTENTION.items()),
         *((name, 1, sq, sk, H, K, D, True, window, offset, bf16)
@@ -1813,8 +1900,8 @@ def phase_attention_bwd(peaks, flush, randn):
                   f" versions, is not deterministic or leaves unreached"
                   f" keys' dK/dV nonzero")
         if dt != bf16 or name not in ("train", "mla_train", "stablelm_train",
-                                      "gpt2_7b_t2", *RANK_ATTENTION,
-                                      *SEQ_ATTENTION):
+                                      "gpt2_7b_t2", "starcoder2_3b_train",
+                                      *RANK_ATTENTION, *SEQ_ATTENTION):
             continue
         pairs = int(live.sum())
         # each input read once and each output written once: q, o, dO and
@@ -1873,6 +1960,7 @@ def phase_attention_bwd(peaks, flush, randn):
             cell = {"mla_train": "deepseek-v2 MLA training",
                     "stablelm_train": "stablelm-12b training",
                     "gpt2_7b_t2": "gpt2-7b at t=2, phase (m)",
+                    "starcoder2_3b_train": "starcoder2-3b training, G=12",
                     "mla_t16": "deepseek-v2 at t=16, phase (f)",
                     "mla_t16_s4096": "deepseek-v2 at t=16, s=4,096, phase"
                                      " (p)",
@@ -2101,7 +2189,7 @@ def phase_ssd_bwd(peaks, flush, gen):
             ("smoke_dims", (2, 200, 16, 32, 16), bf16, True),
             ("smoke_dims_fp32", (3, 77, 16, 32, 16), f32, False),
             *((name, (1, s, h, P, 128), bf16, False)
-              for name, (s, h, P) in SSD_RANKS.items())]:
+              for name, (s, h, P) in {**SSD_RANKS, **SSD_WIDE}.items())]:
         args = ssd_inputs(gen, b, s, h, P, N, dt)
         dy = torch.randn(b, s, h, P, generator=gen, device="cuda").to(dt)
         ds = (torch.randn(b, h, P, N, generator=gen, device="cuda")
@@ -2140,7 +2228,7 @@ def phase_ssd_bwd(peaks, flush, gen):
               + auto + f", rerun bit-identical {same} tol={tol:g}"
               f" {'ok' if ok else 'FAIL'}")
         check(ok, f"ssd_scan_bwd {name} disagrees with its plain versions")
-        if name != "train" and name not in SSD_RANKS:
+        if name != "train" and name not in SSD_RANKS and name not in SSD_WIDE:
             continue
         # reads x, dt_raw, B, C, dy and the (h,) vectors, writes dx,
         # ddt_raw, dB, dC and the (h,) gradients; the products that every
@@ -2156,12 +2244,15 @@ def phase_ssd_bwd(peaks, flush, gen):
                   + 4 * 6 * h)
         flops = b * h * s * 2 * 6 * P * N
         bound_ms, bound_by = bound(nbytes, flops, peaks)
-        if name in SSD_RANKS:
+        if name in SSD_RANKS or name in SSD_WIDE:
             ms = time_ms(lambda: ssd_scan_bwd(*args, dy, ds), flush)
             plain_ms = time_ms(lambda: ssd_scan_bwd_ref(*args, dy, ds), flush)
-            print(f"time ssd_scan_bwd {name} (one rank, phase (f)): {nbytes}"
+            what = ("one rank, phase (f)" if name in SSD_RANKS
+                    else "jamba's 256 heads, one device's microbatch")
+            print(f"time ssd_scan_bwd {name} ({what}): {nbytes}"
                   f" bytes, {flops} flops: kernel {ms:.4f} ms, plain"
-                  f" {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+                  f" {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by});"
+                  f" no PyTorch call computes the gradient")
             continue
         # the call's scratch: its peak allocated memory less what was
         # allocated before it (the inputs among it) and its outputs
@@ -2547,8 +2638,8 @@ def plain_rows(cfg, s, b):
 
 def phase_model(arch="llama3.2-3b", seed=2, want_params=None, serve_plan=None,
                 cut=None, logits_atol=None, long_prompt=0):
-    """A GQA model at published widths: llama3.2-3b, stablelm-12b (head
-    dim 160), starcoder2-7b and -3b, gpt2-7b, musicgen-medium whole,
+    """A GQA model at published widths: llama3.2-3b whole, stablelm-12b
+    (head dim 160), starcoder2-7b and -3b, gpt2-7b, musicgen-medium,
     mixtral-8x22b and llava-next-34b cut to ``cut``'s depth; its parameter
     count checked against ``param_count`` (and ``want_params``), its peak
     device memory, whole run and decode alone, beside the port's
@@ -3170,7 +3261,8 @@ def submit_train(arch):
     from repro_torch.core.serverless import submit
     orch = Orchestrator(make_cluster(ONE_H100))
     res = submit(orch, train_cfg(arch),
-                 TrainConfig(global_batch=8, seq_len=1024, zero=1))
+                 TrainConfig(global_batch=8, seq_len=TRAIN_SEQ.get(arch, 1024),
+                             zero=1))
     job = res.job
     plan = job.allocation.plan if job.allocation else None
     print(f"(s) {arch} submitted: {len(res.plans)} feasible plans;"
@@ -3201,14 +3293,15 @@ def train_cfg(arch):
 
 def phase_train(peaks, arch):
     """Training ``arch`` at full width (and depth, but for TRAIN_CUTS):
-    global batch 8 x 1024, microbatch 1, block remat, 1 warm-up + 12 timed
-    steps."""
+    global batch 8 x 1024 (or TRAIN_SEQ's length), microbatch 1, block
+    remat, 1 warm-up + 12 timed steps."""
     from repro_torch.core import memtrace
     from repro_torch.core.marp import predict_plans
     from repro_torch.core.serverless import report_oom
     from repro_torch.data import SyntheticTokens
     from repro_torch.kernels import LAUNCHES, dispatch, reset_launches
-    from repro_torch.launch.train import loss_fell, to_device, train
+    from repro_torch.launch.train import (compute_dtype, loss_fell,
+                                          to_device, train)
     from repro_torch.models import active_param_count, moe, param_count
     from repro_torch.train import accumulate_grads, build_train_step
     from repro_torch.train.optimizer import global_norm, tree_leaves
@@ -3317,7 +3410,8 @@ def phase_train(peaks, arch):
     # the device's busy time in one step against its wall time above
     state = out["state"]
     step, _ = build_train_step(cfg, tc, b, s)
-    batch = to_device(next(SyntheticTokens(cfg, b, s, seed=1)), "cuda")
+    batch = to_device(next(SyntheticTokens(cfg, b, s, seed=1)), "cuda",
+                      compute_dtype(state))
     busy, kernels, n_events = device_profile(lambda: step(state, batch), 1)
     if busy == 0:
         print("(t) trace step: the profiler saw no device time; idle share"
@@ -3364,8 +3458,9 @@ def phase_train(peaks, arch):
     return launches
 
 
-# phase (m)'s and (v)'s rows and phase (f)'s of the SSD split, for phase (d)
-MEASURED = {"m": [], "f": [], "v": []}
+# phase (m)'s and (v)'s rows, phase (f)'s of the SSD split and phase (q)'s
+# at train_4k's own batch, for phase (d)
+MEASURED = {"m": [], "f": [], "q": [], "v": []}
 
 
 def phase_memcheck():
@@ -3478,14 +3573,21 @@ def phase_seq():
             launches = {k: n for k, n in LAUNCHES.items() if n}
             total.update(launches)
             offset = (rank % t) * tc.seq_len // t
-            before = SEQ_GATHERED_PEAK[arch, rank]
+            before = SEQ_GATHERED_PEAK.get((arch, rank))
+            if before is None:                 # for phase (d)
+                MEASURED["q"].append(row)
+                gathered = (f" global batch {tc.global_batch}, its"
+                            f" {tc.global_batch // d} rows a data rank fed"
+                            f" alone")
+            else:
+                gathered = (f" with the logits gathered {before} B (exact"
+                            f" accuracy"
+                            f" {1 - abs(row['pred_exact'] - before) / before:.4f}"
+                            f"), now {row['actual_bytes'] - before:+d} B")
             print(f"(q) rank {rank} (query offset {offset}): {describe(row)};"
                   f" observed <= exact prediction"
-                  f" {row['actual_bytes'] <= row['pred_exact']}; with the"
-                  f" logits gathered {before} B (exact accuracy"
-                  f" {1 - abs(row['pred_exact'] - before) / before:.4f}),"
-                  f" now {row['actual_bytes'] - before:+d} B; the rank's"
-                  f" state {row['state_bytes']} B, held before it"
+                  f" {row['actual_bytes'] <= row['pred_exact']};{gathered};"
+                  f" the rank's state {row['state_bytes']} B, held before it"
                   f" {row['base_bytes']} B; launches {launches};"
                   f" {time.perf_counter() - t0:.1f} s")
             for k in want + (["flash_attention_offset",
@@ -3576,9 +3678,11 @@ def phase_serve():
 
 def phase_dryrun():
     """(d) rank 0's dry-run peak (meta device, the kernels' stand-ins) of
-    each plan phases (m) and (v) ran, plus the row's ``base_bytes``,
-    against the peak they measured in this run, each within
-    ``dryrun.MEMCHECK_TOLERANCE`` (1%); the dry run launches nothing.  The stand-ins plan
+    each plan phases (m) and (v) ran (and (f)'s SSD split, (q)'s llava at
+    batch 256), plus the row's ``base_bytes``, against the peak they
+    measured in this run, each within ``dryrun.MEMCHECK_TOLERANCE`` (1%);
+    the dry run launches nothing, and (q)'s plan's peak equals its
+    committed ``experiments/dryrun_torch`` row's.  The stand-ins plan
     their launches for ``kernels.meta.SM_COUNT`` SMs, the card for its
     own."""
     from repro_torch.configs.registry import get_arch
@@ -3590,20 +3694,30 @@ def phase_dryrun():
     n_sm = meta.sm_count(torch.empty(0, device="cuda"))
     print(f"(d) the card has {n_sm} SMs, the dry run plans for"
           f" {meta.SM_COUNT}; {smi['device']}, {smi['power_limit']}")
-    check(MEASURED["m"] and MEASURED["v"] and MEASURED["f"],
-          "phase (d) runs after (m), (f) and (v)")
+    check(MEASURED["m"] and MEASURED["v"] and MEASURED["f"]
+          and MEASURED["q"], "phase (d) runs after (m), (f), (q) and (v)")
     before = dict(LAUNCHES)
     ratios = []
-    for tag in ("m", "f"):
+    for tag in ("m", "f", "q"):
         for row in MEASURED[tag]:
             t0 = time.perf_counter()
             got = dryrun.memcheck_row(row)
             ratios.append(got["ratio"])
+            kept = ""
+            if tag == "q":
+                with open(os.path.join(
+                        dryrun.DEFAULT_OUT, f"{row['arch']}__train_4k__"
+                        f"{row['d']}x{row['t']}.json")) as f:
+                    kept = json.load(f)["memory"]["peak_bytes"]
+                check(kept == got["peak_bytes"],
+                      f"{row['arch']}'s committed dry-run row has peak {kept}"
+                      f" B, this dry run {got['peak_bytes']} B")
+                kept = f", the committed dry-run row's peak {kept} B"
             print(f"(d) {row['arch']} b={row['batch']} s={row['seq']}"
                   f" d={row['d']} t={row['t']} zero={row['zero']}: dry-run"
                   f" peak {got['peak_bytes']} B + base {row['base_bytes']} B"
                   f" against ({tag})'s {row['actual_bytes']} B (predicted"
-                  f" {row['pred_exact']} B): {got['ratio']:.4f};"
+                  f" {row['pred_exact']} B): {got['ratio']:.4f}{kept};"
                   f" {time.perf_counter() - t0:.1f} s")
     for row in MEASURED["v"]:
         t0 = time.perf_counter()
@@ -3687,8 +3801,9 @@ def train_peak(arch):
     over step 1 of ARCH's training cell, under the PYTORCH_CUDA_ALLOC_CONF
     this process was started with, on one JSON line."""
     from repro_torch.launch.train import train
-    out = train(train_cfg(arch), train_config(1), device="cuda",
-                log=lambda line: None)
+    out = train(train_cfg(arch), train_config(
+        1, seq=TRAIN_SEQ.get(arch, 1024)), device="cuda",
+        log=lambda line: None)
     print(json.dumps({"arch": arch,
                       "alloc_conf": os.environ.get("PYTORCH_CUDA_ALLOC_CONF"),
                       "expandable": expandable_segments(),
@@ -3722,6 +3837,51 @@ def alloc_peaks():
                   f" step 1 {line['peak_bytes']} B, peak reserved"
                   f" {line['peak_reserved_bytes']} B; the JAX package's"
                   f" prediction {JAX_PREDICTED_PEAK[arch]} B")
+    return 0
+
+
+def sink_ab():
+    """--sink-ab: the one-device training step of starcoder2-3b,
+    deepseek-v2-236b and musicgen-medium (their cells' configs and traffic)
+    with each stacked block leaf's layer gradients added into the fp32
+    sum in the backward (``transformer.grad_sinks``, the path) and with
+    ``unbind``'s backward stacking them first (no sum opened), in turns
+    (stack, sinks, sinks, stack): 1 warm-up and 4 timed steps a turn, its
+    mean step time and its peak over step 1."""
+    from contextlib import contextmanager
+    from repro_torch.kernels import _build
+    from repro_torch.launch import configure_allocator
+    from repro_torch.launch.train import train
+    from repro_torch.train import train_loop as tl
+
+    @contextmanager
+    def stacked(pairs):
+        yield set()
+
+    configure_allocator()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip().splitlines()[0]
+    print(f"device: {smi}")
+    _build.build()
+    sinks = tl.grad_sinks
+    for arch in ("starcoder2-3b", "deepseek-v2-236b", "musicgen-medium"):
+        for name in ("stack", "sinks", "sinks", "stack"):
+            tl.grad_sinks = sinks if name == "sinks" else stacked
+            try:
+                out = train(train_cfg(arch), train_config(
+                    5, seq=TRAIN_SEQ.get(arch, 1024)), device="cuda",
+                    log=lambda line: None)
+            finally:
+                tl.grad_sinks = sinks
+            step_s = out["step_s"][1:]
+            print(f"sink-ab {arch} {name}: step"
+                  f" {1e3 * sum(step_s) / len(step_s):.2f} ms (min"
+                  f" {1e3 * min(step_s):.2f}, max {1e3 * max(step_s):.2f}),"
+                  f" peak over step 1 {out['peak_bytes']} B", flush=True)
+            del out
+            gc.collect()
+            torch.cuda.empty_cache()
     return 0
 
 
@@ -3907,6 +4067,8 @@ def main():
         return train_peak(sys.argv[sys.argv.index("--train-peak") + 1])
     if "--alloc-peaks" in sys.argv:
         return alloc_peaks()
+    if "--sink-ab" in sys.argv:
+        return sink_ab()
     from repro_torch.kernels import _build
     from repro_torch.launch import configure_allocator
 
@@ -3952,13 +4114,13 @@ def main():
                      timed_phase("stablelm-12b training",
                                  lambda: phase_train(peaks, "stablelm-12b")),
                      timed_phase("starcoder2-7b serving", lambda: phase_model(
-                         "starcoder2-7b", seed=12, long_prompt=STARCODER2_LONG)),
-                     timed_phase("starcoder2-3b serving",
-                                 lambda: phase_model("starcoder2-3b", seed=13)),
-                     timed_phase("gpt2-7b serving",
-                                 lambda: phase_model("gpt2-7b", seed=14)),
-                     timed_phase("musicgen-medium serving",
-                                 lambda: phase_model("musicgen-medium", seed=15)),
+                         "starcoder2-7b", seed=12, long_prompt=STARCODER2_LONG,
+                         cut=dict(num_layers=SERVE_LAYERS["starcoder2-7b"]))),
+                     *(timed_phase(f"{arch} serving", lambda arch=arch, seed=seed:
+                                   phase_model(arch, seed=seed, cut=dict(
+                                       num_layers=SERVE_LAYERS[arch])))
+                       for arch, seed in (("starcoder2-3b", 13), ("gpt2-7b", 14),
+                                          ("musicgen-medium", 15))),
                      timed_phase("mixtral-8x22b serving", lambda: phase_model(
                          "mixtral-8x22b", seed=16,
                          cut=dict(num_layers=MIXTRAL_LAYERS),
@@ -3966,6 +4128,9 @@ def main():
                      timed_phase("llava-next-34b serving", lambda: phase_model(
                          "llava-next-34b", seed=17,
                          cut=dict(num_layers=LLAVA_LAYERS))),
+                     *(timed_phase(f"{arch} training",
+                                   lambda arch=arch: phase_train(peaks, arch))
+                       for arch in NEW_TRAIN_CELLS),
                      timed_phase("(m) memcheck", phase_memcheck),
                      timed_phase("(f) family plans", phase_family),
                      timed_phase("(q) query offset", phase_seq),

@@ -5,11 +5,15 @@ Zipf-distributed tokens with injected copy/repeat structure so the LM has
 learnable signal (loss decreases), which the end-to-end examples rely on.
 
 A copy of the JAX package's ``repro.data.pipeline``: the same numpy draws
-from the same seed, so the two give the same batches.
+from the same seed, so the two give the same batches.  ``rows`` selects
+some of each global batch's rows (a data rank's, ``step.rows``): the draws
+stay those of the whole batch, in the same order, so each row is the JAX
+pipeline's row of that index, while the modal embeddings are built for
+the selected rows alone.
 """
 from __future__ import annotations
 
-from typing import Dict, Iterator, Optional
+from typing import Dict, Iterator, Optional, Sequence
 
 import numpy as np
 
@@ -20,9 +24,12 @@ class SyntheticTokens:
     """Iterator of {tokens, labels[, modal_embeds]} numpy batches."""
 
     def __init__(self, cfg: ModelConfig, global_batch: int, seq_len: int,
-                 seed: int = 0, zipf_a: float = 1.2):
+                 seed: int = 0, zipf_a: float = 1.2,
+                 rows: Optional[Sequence[int]] = None):
         self.cfg = cfg
         self.batch = global_batch
+        self.rows = None if rows is None else np.asarray(rows, np.int64)
+        self.n_rows = global_batch if rows is None else len(self.rows)
         # text positions exclude the modal prefix
         self.text_len = seq_len - cfg.num_modal_tokens
         assert self.text_len > 1, "seq_len must exceed modal prefix"
@@ -49,12 +56,14 @@ class SyntheticTokens:
 
     def __next__(self) -> Dict[str, np.ndarray]:
         toks = self._sample_tokens()
+        if self.rows is not None:
+            toks = toks[self.rows]
         out = {"tokens": toks}
         if self.cfg.num_modal_tokens:
             out["modal_embeds"] = np.broadcast_to(
-                self._modal[None], (self.batch,) + self._modal.shape).copy()
+                self._modal[None], (self.n_rows,) + self._modal.shape).copy()
             # labels span the full sequence; modal positions get label 0
-            pad = np.zeros((self.batch, self.cfg.num_modal_tokens), np.int32)
+            pad = np.zeros((self.n_rows, self.cfg.num_modal_tokens), np.int32)
             out["labels"] = np.concatenate([pad, toks], axis=1)
         else:
             out["labels"] = toks

@@ -58,6 +58,7 @@ from repro_torch.launch.memcheck import fake_world, local_state_bytes
 from repro_torch.launch.mesh import make_plan_mesh
 from repro_torch.launch.op_analysis import (Analysis, OpStats,
                                             alloc_bytes)
+from repro_torch.launch.train import compute_dtype
 from repro_torch.parallel.sharding import DEFERRED
 from repro_torch.train import train_loop as tl
 from repro_torch.train.train_loop import (build_train_step, make_local_state,
@@ -78,14 +79,17 @@ def _meta(shape, dtype) -> torch.Tensor:
     return torch.empty(tuple(shape), dtype=dtype, device="meta")
 
 
-def train_batch(cfg: ModelConfig, batch: int, seq: int) -> Dict[str, Any]:
-    """The global batch's stand-ins, in the dtypes ``data.SyntheticTokens``
-    gives them."""
-    out = {"tokens": _meta((batch, seq - cfg.num_modal_tokens), torch.int32),
-           "labels": _meta((batch, seq), torch.int32)}
+def train_batch(cfg: ModelConfig, rows: int, seq: int,
+                dtype: torch.dtype = torch.bfloat16) -> Dict[str, Any]:
+    """Stand-ins of ``rows`` rows of a batch, in the dtypes the card is fed
+    them (``launch.train.to_device``): ``data.SyntheticTokens``' int32
+    tokens and labels, the modal embeddings at the compute dtype
+    ``dtype``."""
+    out = {"tokens": _meta((rows, seq - cfg.num_modal_tokens), torch.int32),
+           "labels": _meta((rows, seq), torch.int32)}
     if cfg.num_modal_tokens:
-        out["modal_embeds"] = _meta((batch, cfg.num_modal_tokens,
-                                     cfg.d_model), torch.bfloat16)
+        out["modal_embeds"] = _meta((rows, cfg.num_modal_tokens,
+                                     cfg.d_model), dtype)
     return out
 
 
@@ -99,9 +103,11 @@ def trace_train(cfg: ModelConfig, tc: TrainConfig, pods: int, d: int,
                 t: int, rank: int = 0, every_micro: bool = False
                 ) -> Tuple[OpStats, Dict[str, Any]]:
     """Rank ``rank``'s train step of the (pods, d, t) plan on meta tensors,
-    under the fake process group: its ``OpStats`` and the row's fields.
-    A step of n > 2 microbatches is traced as a step of 2 and extrapolated
-    (``OpStats.extended``), unless ``every_micro``."""
+    under the fake process group, fed the rank's rows of the global batch
+    as the card is: its ``OpStats`` and the row's fields.  A step of n > 2
+    microbatches is traced as a step of 2 and extrapolated
+    (``OpStats.extended``), unless ``every_micro``; the entry then holds
+    the rank's rows of all n microbatches, as on the card."""
     B, S = tc.global_batch, tc.seq_len
     with fake_world(pods * d * t, rank):
         mesh = make_plan_mesh(d, t, device_type="cpu", pods=pods)
@@ -112,7 +118,8 @@ def trace_train(cfg: ModelConfig, tc: TrainConfig, pods: int, d: int,
         b = B // n_micro * n
         step, _ = build_train_step(cfg, dataclasses.replace(
             tc, global_batch=b), b, S, mesh=mesh)
-        data = train_batch(cfg, b, S)
+        dtype = compute_dtype(state)
+        data = train_batch(cfg, len(step.rows), S, dtype)
         analysis, marks = Analysis(live=(state, data)), []
         tl.MICRO_DONE = lambda i: marks.append(analysis.snapshot())
         try:
@@ -120,8 +127,11 @@ def trace_train(cfg: ModelConfig, tc: TrainConfig, pods: int, d: int,
                 step(state, data)
         finally:
             tl.MICRO_DONE = None
-        # the card's step holds the whole global batch
-        st.entry_bytes += _alloc(train_batch(cfg, B, S)) - _alloc(data)
+        # the card's rank holds its rows of every microbatch, n of whose
+        # n_micro were traced
+        rows = len(step.rows) // n * n_micro
+        st.entry_bytes += (_alloc(train_batch(cfg, rows, S, dtype))
+                           - _alloc(data))
         del step, data
         state_bytes = local_state_bytes(cfg, tc, mesh)
         del state

@@ -18,16 +18,18 @@ local state is drawn on the card one shard at a time, at the shard's own
 shape (``make_local_state(whole_leaves=False)``: the whole gpt2-7b state
 is ~140 GB, one stacked expert leaf of deepseek-v2-236b 151 GB; the
 values, which the fake group makes meaningless anyway, are not the
-one-device state's), the peak statistics are reset, one
-sharded train step runs (``train.build_train_step(..., mesh=)``), and the
-caching allocator's peak over that step is the row's actual (with
-whatever the process held before the state, ``base_bytes``: cuBLAS's
-workspace once an earlier step made it, as a run of its own makes it in
-its step).  Each row carries ``core.memory_model``'s exact and paper
-predictions, both accuracies (``1 - |pred - actual| / actual``) and the
-card's name and power limit, and records the sample to ``core.memtrace``
-(source "memcheck").  The values the fake group leaves in gathered buffers
-mean nothing (losses may be NaN): only the allocator's peak is read.
+one-device state's), the rank's rows of the global batch are fed to the
+card (``step.rows``; the modal embeddings at the compute dtype), the peak
+statistics are reset, one sharded train step runs
+(``train.build_train_step(..., mesh=)``), and the caching allocator's
+peak over that step is the row's actual (with whatever the process held
+before the state, ``base_bytes``: cuBLAS's workspace once an earlier step
+made it, as a run of its own makes it in its step).  Each row carries
+``core.memory_model``'s exact and paper predictions, both accuracies
+(``1 - |pred - actual| / actual``) and the card's name and power limit,
+and records the sample to ``core.memtrace`` (source "memcheck").  The
+values the fake group leaves in gathered buffers mean nothing (losses may
+be NaN): only the allocator's peak is read.
 NCCL's own buffers lie outside the caching allocator, so the actual
 counts none, as a real run's would not either.
 
@@ -72,6 +74,7 @@ from repro_torch.core import memtrace
 from repro_torch.data import SyntheticTokens
 from repro_torch.launch.inputs import params_inputs
 from repro_torch.launch.mesh import make_plan_mesh
+from repro_torch.launch.train import compute_dtype, to_device
 from repro_torch.parallel import collectives as col
 from repro_torch.train.optimizer import tree_leaves
 from repro_torch.train.train_loop import (build_train_step, make_local_state,
@@ -174,9 +177,9 @@ def run_one(arch: str, batch: int, seq: int, d: int, t: int, zero: int = 0, *,
                 f"{arch} d={d} t={t} zero={zero}: rank {rank}'s state holds {held}"
                 f" B ({grown} B allocated), its specs' shards {want} B")
         step, _ = build_train_step(cfg, tc, batch, seq, mesh=mesh)
-        raw = next(SyntheticTokens(cfg, batch, seq, seed=tc.seed))
-        data = {k: torch.from_numpy(raw[k]).to(device)
-                for k in ("tokens", "labels", "modal_embeds") if k in raw}
+        data = to_device(next(SyntheticTokens(cfg, batch, seq, seed=tc.seed,
+                                              rows=step.rows)),
+                         device, compute_dtype(state))
         torch.cuda.synchronize(device)
         torch.cuda.reset_peak_memory_stats(device)
         step(state, data)

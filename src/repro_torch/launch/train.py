@@ -17,7 +17,8 @@ under ``torchrun``.
 The flags are the JAX driver's (``repro.launch.train``) plus ``--device``.
 Under ``torchrun`` (``WORLD_SIZE`` > 1) the mesh is sized as the JAX
 driver sizes it: d = min(world, batch) data shards, t = world // d model
-shards; each rank holds its shards of the state and runs the sharded step
+shards; each rank holds its shards of the state, draws only its rows of
+each global batch (``step.rows``) and runs the sharded step
 (``train.build_train_step(..., mesh=)``; ``gloo`` on the CPU, ``nccl`` on
 cards, one card a rank), and ``--zero`` chooses how the state shards over
 data (0: optimizer state replicated, 1: sharded, 3: params too).  With one
@@ -61,11 +62,23 @@ from repro_torch.train import (build_train_step, make_local_state,
 from repro_torch.train.train_loop import n_data_shards, state_specs
 
 
-def to_device(raw: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
+def to_device(raw: Dict[str, np.ndarray], device, dtype: torch.dtype
+              ) -> Dict[str, torch.Tensor]:
     """A SyntheticTokens batch on ``device``: tokens, labels and, for a VLM
-    config, the modal embeddings (float32, cast by the forward)."""
-    return {k: torch.from_numpy(raw[k]).to(device)
-            for k in ("tokens", "labels", "modal_embeds") if k in raw}
+    config, the modal embeddings cast to the compute dtype ``dtype`` on the
+    host (the params' dtype, ``compute_dtype``: what the forward would cast
+    them to), so the device holds them at its width and never in float32."""
+    out = {k: torch.from_numpy(raw[k]).to(device)
+           for k in ("tokens", "labels") if k in raw}
+    if "modal_embeds" in raw:
+        out["modal_embeds"] = torch.from_numpy(raw["modal_embeds"]).to(
+            dtype).to(device)
+    return out
+
+
+def compute_dtype(state: Dict[str, Any]) -> torch.dtype:
+    """The dtype the step computes in: its params' (the embedding's)."""
+    return state["params"]["embed"].dtype
 
 
 def accuracy(pred: float, actual: float) -> float:
@@ -107,8 +120,9 @@ def train(cfg: ModelConfig, tc: TrainConfig, *, device="cuda",
           mesh=None) -> Dict[str, Any]:
     """Run ``tc.steps`` steps on SyntheticTokens drawn from ``tc.seed``:
     on one device, or with ``mesh`` (a ("data", "model") DeviceMesh) as
-    this rank of the plan, on its shards of the state and the whole
-    global batch.  Returns the per-step losses and wall times (each step
+    this rank of the plan, on its shards of the state and its rows of the
+    global batch (``step.rows``; the host draws no other row's modal
+    embeddings).  Returns the per-step losses and wall times (each step
     ends in a device synchronise), the peak allocated device memory over
     step 1 (None off a card) and ``memory_report``'s numbers, the final
     state and the number of microbatches."""
@@ -123,10 +137,12 @@ def train(cfg: ModelConfig, tc: TrainConfig, *, device="cuda",
         d, t = n_data_shards(mesh), sizes.get("model", 1)
     step, n_micro = build_train_step(cfg, tc, tc.global_batch, tc.seq_len,
                                      mesh=mesh)
-    data = SyntheticTokens(cfg, tc.global_batch, tc.seq_len, seed=tc.seed)
+    data = SyntheticTokens(cfg, tc.global_batch, tc.seq_len, seed=tc.seed,
+                           rows=step.rows)
+    dtype = compute_dtype(state)
     losses, step_s, peak, memory = [], [], None, None
     for i in range(tc.steps):
-        batch = to_device(next(data), device)
+        batch = to_device(next(data), device, dtype)
         if on_card:
             torch.cuda.synchronize(device)
             if i == 0:

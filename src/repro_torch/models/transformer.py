@@ -22,6 +22,7 @@ tokens (``_embed_inputs``).
 from __future__ import annotations
 
 import math
+from contextlib import contextmanager
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
@@ -215,12 +216,64 @@ def active_param_count(cfg: ModelConfig) -> int:
     return total - n_moe * per_expert * (cfg.num_experts - cfg.top_k)
 
 
+# the fp32 gradient sums the one-device step adds its stacked leaves'
+# layer gradients into, by the leaf's id: (sum, the ids of the leaves
+# whose gradients went to their sums while it is open)
+_SINKS: Dict[int, Tuple[torch.Tensor, set]] = {}
+
+
+@contextmanager
+def grad_sinks(pairs):
+    """While open, the backward of each stacked block leaf of ``pairs``
+    ((leaf, fp32 sum of its shape) pairs) adds every layer's gradient into
+    the sum (``_UnbindInto``) and leaves the leaf without a gradient.
+    Yields the ids of the leaves whose gradients went there."""
+    sunk = set()
+    added = {id(leaf): (acc, sunk) for leaf, acc in pairs}
+    _SINKS.update(added)
+    try:
+        yield sunk
+    finally:
+        for key in added:
+            del _SINKS[key]
+
+
+class _UnbindInto(torch.autograd.Function):
+    """``leaf.unbind(0)`` whose backward adds each layer's gradient into
+    the fp32 sum ``sink`` (the step's accumulator of the leaf) and gives
+    the leaf none: ``unbind``'s backward would stack every layer's
+    gradient into a new tensor while they are all alive, the leaf's
+    gradient twice at once, then the step adds that into the sum."""
+
+    @staticmethod
+    def forward(ctx, leaf, sink):
+        ctx.sink = sink
+        return leaf.unbind(0)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        torch._foreach_add_(ctx.sink.unbind(0), grads)
+        return None, None
+
+
+def _unbind(leaf: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """Each layer's view of a stacked leaf, through ``_UnbindInto`` where a
+    ``grad_sinks`` sum is open for it and a gradient will flow."""
+    if id(leaf) not in _SINKS or not (torch.is_grad_enabled()
+                                      and leaf.requires_grad):
+        return leaf.unbind(0)
+    sink, sunk = _SINKS[id(leaf)]
+    sunk.add(id(leaf))
+    return _UnbindInto.apply(leaf, sink)
+
+
 def layer_params(blocks: Params) -> List[Params]:
     """Each layer's slice of the stacked block parameters (views, no copy),
-    from one ``unbind`` per leaf: its backward is one ``stack`` per leaf,
-    where indexing each layer would fill and add a zero tensor the size of
-    the whole stacked leaf for every layer."""
-    per_leaf = _map_tree(lambda _, leaf: leaf.unbind(0), blocks)
+    from one ``unbind`` per leaf (``_unbind``): its backward is one
+    ``stack`` per leaf, or the layers' gradients added into the leaf's
+    ``grad_sinks`` sum, where indexing each layer would fill and add a
+    zero tensor the size of the whole stacked leaf for every layer."""
+    per_leaf = _map_tree(lambda _, leaf: _unbind(leaf), blocks)
     n = len(next(_leaves(per_leaf)))
     return [_map_tree(lambda _, views: views[i], per_leaf) for i in range(n)]
 

@@ -22,7 +22,7 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Any, Dict, Mapping, Optional, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import torch
 
@@ -288,6 +288,22 @@ def batch_specs(cfg: ModelConfig, shape: ShapeConfig, mesh) -> Dict[str, Spec]:
     if shape.kind == "train":
         specs["labels"] = (bshard, None)
     return specs
+
+
+def data_rows(global_batch: int, n_micro: int, mesh, r: int) -> List[int]:
+    """The global batch rows data rank ``r`` holds, in microbatch order:
+    microbatch i's rows i * mb * nd + r * mb + [0, mb), mb = global_batch /
+    (n_micro * nd), with r counted pod-major over the data axes -- the
+    rows the JAX package's reshape of a batch sharded over ("pod", "data")
+    (``batch_specs``) into microbatches leaves on that rank."""
+    nd = _n_data(mesh)
+    if global_batch % (n_micro * nd):
+        raise ValueError(f"global batch {global_batch} does not split into "
+                         f"{n_micro} microbatches on {nd} data shards")
+    if not 0 <= r < nd:
+        raise ValueError(f"data rank {r} is not one of {nd}")
+    mb = global_batch // (n_micro * nd)
+    return [(i * nd + r) * mb + j for i in range(n_micro) for j in range(mb)]
 
 
 def cache_specs(cfg: ModelConfig, shape: ShapeConfig, mesh) -> Dict:

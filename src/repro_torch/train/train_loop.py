@@ -29,6 +29,7 @@ import torch
 from repro_torch.configs.base import ModelConfig, TrainConfig
 from repro_torch.kernels import dispatch
 from repro_torch.models import cross_entropy, forward, init_params, param_shapes
+from repro_torch.models.transformer import grad_sinks
 from repro_torch.parallel import act
 from repro_torch.parallel import collectives as col
 from repro_torch.parallel import sharding as sh
@@ -124,9 +125,12 @@ def accumulate_grads(cfg: ModelConfig, tc: TrainConfig, params: Dict[str, Any],
     """Mean fp32 gradients over ``n_micro`` microbatches and the mean
     cross-entropy.  Each microbatch differentiates ce + AUX_WEIGHT * aux,
     aux being the MoE load-balance loss summed over the layers (0 without
-    MoE), as the JAX step does.  Marks the params as requiring grad.  Each microbatch's
-    grads (in the params' dtype) are added into the fp32 sum and cleared,
-    as the JAX step casts each microbatch's grads to fp32 before summing."""
+    MoE), as the JAX step does.  Marks the params as requiring grad.  Each
+    microbatch's grads (in the params' dtype) are added into the fp32 sum,
+    as the JAX step casts each microbatch's grads to fp32 before summing:
+    a stacked block leaf's by its layers' views in the backward
+    (``transformer.grad_sinks``), every other leaf's after it, its
+    gradient then cleared."""
     leaves = tree_leaves(params)
     for p in leaves:
         p.requires_grad_(True)
@@ -135,21 +139,23 @@ def accumulate_grads(cfg: ModelConfig, tc: TrainConfig, params: Dict[str, Any],
     mb = batch["tokens"].shape[0] // n_micro
     loss_sum = torch.zeros((), dtype=torch.float32,
                            device=batch["tokens"].device)
-    for i in range(n_micro):
-        micro = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
-        inputs = {k: micro[k] for k in ("tokens", "modal_embeds")
-                  if k in micro}
-        logits, _, aux = forward(cfg, params, inputs,
-                                 remat=tc.remat != "none", want_aux=True)
-        # labels cover the whole (modal + text) sequence
-        ce = cross_entropy(logits[:, :-1], micro["labels"][:, 1:])
-        (ce + AUX_WEIGHT * aux).backward()
-        for a, p in zip(acc, leaves):
-            a.add_(p.grad)
-            p.grad = None
-        loss_sum = loss_sum + ce.detach()
-        if MICRO_DONE is not None:
-            MICRO_DONE(i)
+    with grad_sinks(zip(leaves, acc)) as sunk:
+        for i in range(n_micro):
+            micro = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
+            inputs = {k: micro[k] for k in ("tokens", "modal_embeds")
+                      if k in micro}
+            logits, _, aux = forward(cfg, params, inputs,
+                                     remat=tc.remat != "none", want_aux=True)
+            # labels cover the whole (modal + text) sequence
+            ce = cross_entropy(logits[:, :-1], micro["labels"][:, 1:])
+            (ce + AUX_WEIGHT * aux).backward()
+            for a, p in zip(acc, leaves):
+                if id(p) not in sunk:
+                    a.add_(p.grad)
+                    p.grad = None
+            loss_sum = loss_sum + ce.detach()
+            if MICRO_DONE is not None:
+                MICRO_DONE(i)
     for a in acc:
         a.div_(n_micro)
     return tree_unflatten(params, acc), loss_sum / n_micro
@@ -164,9 +170,10 @@ def build_train_step(cfg: ModelConfig, tc: TrainConfig, global_batch: int,
     seq_len - num_modal_tokens text positions, and modal_embeds
     (global_batch, num_modal_tokens, d) come before them.
 
-    With a mesh of more than one device, every rank passes the whole global
-    batch and its own shards of the state (``make_local_state``); see
-    ``build_sharded_step``."""
+    With a mesh of more than one device, every rank passes its own rows of
+    the global batch (``step.rows``, the global row indices, in microbatch
+    order) and its own shards of the state (``make_local_state``); see
+    ``build_sharded_step``.  On one device ``step.rows`` is every row."""
     if mesh is not None and math.prod(sh.axis_sizes(mesh).values()) > 1:
         return build_sharded_step(cfg, tc, global_batch, seq_len, mesh)
     n_micro = resolve_microbatches(tc, global_batch)
@@ -186,6 +193,7 @@ def build_train_step(cfg: ModelConfig, tc: TrainConfig, global_batch: int,
         state["step"] += 1
         return state, {"loss": loss, "grad_norm": gnorm}
 
+    step.rows = list(range(global_batch))
     return step, n_micro
 
 
@@ -197,9 +205,12 @@ def build_sharded_step(cfg: ModelConfig, tc: TrainConfig, global_batch: int,
     ("data", "model") or ("pod", "data", "model") over the process group
     that is up; d counts the pod and data axes together).
 
-    The rank's microbatch i holds global rows i * mb * d + r * mb + [0, mb)
-    for its index r along the data axes, pod-major (the JAX package's
-    reshape of the batch into microbatches sharded over ("pod", "data")).
+    Each rank is fed only its rows of the global batch, ``step.rows``
+    (``sharding.data_rows``): its microbatch i holds global rows
+    i * mb * d + r * mb + [0, mb) for its index r along the data axes,
+    pod-major (the JAX package's reshape of the batch into microbatches
+    sharded over ("pod", "data")), and is rows i * mb + [0, mb) of what
+    it is fed.  A batch of any other row count raises ValueError.
     Each rank differentiates the mean cross-entropy of its rows; the
     gradients are summed over the data axes and divided by n_micro * d,
     the mean over the global batch.
@@ -214,6 +225,9 @@ def build_sharded_step(cfg: ModelConfig, tc: TrainConfig, global_batch: int,
         raise ValueError(f"global batch {global_batch} does not split into "
                          f"{n_micro} microbatches on {nd} data shards")
     mb = global_batch // (n_micro * nd)
+    data_group, _, r = col.data_group(mesh)
+    rows = sh.data_rows(global_batch, n_micro, mesh, r)
+    text = seq_len - cfg.num_modal_tokens
     shapes = param_shapes(cfg)
     full_shapes = tree_leaves(shapes)
     specs = state_specs(cfg, tc, mesh, shapes)
@@ -221,7 +235,6 @@ def build_sharded_step(cfg: ModelConfig, tc: TrainConfig, global_batch: int,
     o_specs = tree_leaves(specs["opt"]["master"])
     model_specs = sh.param_specs(cfg, shapes, mesh)
     sizes = sh.axis_sizes(mesh)
-    data_group, _, r = col.data_group(mesh)
     model_group = mesh.get_group("model") if sizes.get("model", 1) > 1 \
         else None
     par = col.ModelParallel(
@@ -246,6 +259,11 @@ def build_sharded_step(cfg: ModelConfig, tc: TrainConfig, global_batch: int,
                         if a not in col.spec_axes(os_)) for os_ in o_specs]
 
     def accumulate(params: Dict[str, Any], batch: Batch):
+        if tuple(batch["tokens"].shape) != (len(rows), text):
+            raise ValueError(
+                f"data rank {r} of {nd} takes its {len(rows)} rows of the "
+                f"global batch {global_batch} (step.rows), each of {text} "
+                f"text positions; fed {tuple(batch['tokens'].shape)}")
         leaves = tree_leaves(params)
         for p in leaves:
             p.requires_grad_(True)
@@ -254,9 +272,8 @@ def build_sharded_step(cfg: ModelConfig, tc: TrainConfig, global_batch: int,
                for p, shape, os_ in zip(leaves, full_shapes, o_specs)]
         loss_sum = torch.zeros((), dtype=torch.float32,
                                device=batch["tokens"].device)
-        text = seq_len - cfg.num_modal_tokens
         for i in range(n_micro):
-            lo = (i * nd + r) * mb
+            lo = i * mb
             micro = {k: v[lo:lo + mb] for k, v in batch.items()}
             act.constrain(micro["tokens"], (mb * nd, text), "batch", None)
             inputs = {k: micro[k] for k in ("tokens", "modal_embeds")
@@ -324,10 +341,6 @@ def build_sharded_step(cfg: ModelConfig, tc: TrainConfig, global_batch: int,
             del shard
 
     def step(state: Dict[str, Any], batch: Batch):
-        want = (global_batch, seq_len - cfg.num_modal_tokens)
-        if batch["tokens"].shape != want:
-            raise ValueError(f"batch {tuple(batch['tokens'].shape)} != "
-                             f"{want}")
         with act.activation_sharding(mesh, cfg):
             acc, loss = accumulate(state["params"], batch)
         gnorm = global_norm(acc)
@@ -337,4 +350,5 @@ def build_sharded_step(cfg: ModelConfig, tc: TrainConfig, global_batch: int,
 
     step.accumulate = accumulate
     step.global_norm = global_norm
+    step.rows = rows
     return step, n_micro

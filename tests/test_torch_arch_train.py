@@ -144,13 +144,16 @@ def test_param_counts_match_jax(arch):
 
 def test_train_driver_trains_llava_with_its_prefix(capsys):
     """llava-next's smoke config through the driver: each batch carries
-    the modal embeddings to the device with the tokens and labels, 12
-    steps of 8 microbatches, the loss falling."""
+    the modal embeddings to the device with the tokens and labels, the
+    embeddings at the compute dtype, 12 steps of 8 microbatches, the loss
+    falling."""
     cfg = smoke_config("llava-next-34b")
     raw = next(SyntheticTokens(cfg, 2, 40, seed=0))
-    moved = train_main.to_device(raw, "cpu")
+    moved = train_main.to_device(raw, "cpu", torch.bfloat16)
     assert sorted(moved) == ["labels", "modal_embeds", "tokens"]
-    assert torch.equal(moved["modal_embeds"], torch.from_numpy(raw["modal_embeds"]))
+    assert moved["modal_embeds"].dtype == torch.bfloat16
+    assert torch.equal(moved["modal_embeds"],
+                       torch.from_numpy(raw["modal_embeds"]).bfloat16())
     losses = train_main.main(["--arch", "llava-next-34b", "--smoke", "--device",
                               "cpu", "--steps", "12", "--seq", "64"])
     assert len(losses) == 12 and all(np.isfinite(losses))

@@ -14,7 +14,7 @@ from repro.kernels import dispatch as jdispatch
 from repro_torch import obs
 from repro_torch.configs import TrainConfig, smoke_config
 from repro_torch.data import SyntheticTokens
-from repro_torch.launch.train import to_device
+from repro_torch.launch.train import compute_dtype, to_device
 from repro_torch.obs.metrics import METRICS
 from repro_torch.serve import prefill, serve_step
 from repro_torch.train import build_train_step, make_train_state
@@ -60,7 +60,8 @@ def _run(cfg, what):
                          remat="block")
         state = make_train_state(cfg, tc, device="cpu")
         step, n_micro = build_train_step(cfg, tc, 2, 32)
-        batch = to_device(next(SyntheticTokens(cfg, 2, 32, seed=0)), "cpu")
+        batch = to_device(next(SyntheticTokens(cfg, 2, 32, seed=0)), "cpu",
+                          compute_dtype(state))
         obs.enable()
         step(state, batch)
         return n_micro, len(tree_leaves(state["params"]))

@@ -390,7 +390,7 @@ def _gloo_collectives(rank, world, out_dir):
         mesh = make_plan_mesh(2, 2, device_type="cpu")
         state = make_local_state(cfg, tc, mesh, device="cpu")
         step, _ = build_train_step(cfg, tc, CB, CS, mesh=mesh)
-        raw = next(SyntheticTokens(cfg, CB, CS, seed=3))
+        raw = next(SyntheticTokens(cfg, CB, CS, seed=3, rows=step.rows))
         data = {k: torch.from_numpy(raw[k]) for k in ("tokens", "labels")}
         seen = {}
 
@@ -496,7 +496,7 @@ def _flop_counter_step(cfg, tc, pods, d, t):
                                  whole_leaves=False)
         step, _ = build_train_step(cfg, tc, tc.global_batch, tc.seq_len,
                                    mesh=mesh)
-        data = dryrun.train_batch(cfg, tc.global_batch, tc.seq_len)
+        data = dryrun.train_batch(cfg, len(step.rows), tc.seq_len)
         km.TALLY = lambda op, flops, nbytes: kernel.append(flops)
         try:
             with FlopCounterMode(display=False) as fc:

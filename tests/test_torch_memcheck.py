@@ -24,7 +24,7 @@ from repro_torch.configs import TrainConfig, get_arch, smoke_config
 from repro_torch.data import SyntheticTokens
 from repro_torch.launch import memcheck
 from repro_torch.launch.mesh import make_plan_mesh
-from repro_torch.launch.train import to_device
+from repro_torch.launch.train import compute_dtype, to_device
 from repro_torch.models import param_shapes
 from repro_torch.parallel import collectives as col
 from repro_torch.train.optimizer import tree_leaves
@@ -118,8 +118,9 @@ def test_one_sharded_step_runs_under_the_fake_group(arch, batch, seq, d, t):
         state = make_local_state(cfg, tc, mesh, device="cpu")
         before = [tuple(x.shape) for x in tree_leaves(state["params"])]
         step, _ = build_train_step(cfg, tc, batch, 64, mesh=mesh)
-        batch_ = to_device(next(SyntheticTokens(cfg, batch, 64, seed=0)),
-                           "cpu")
+        batch_ = to_device(next(SyntheticTokens(
+            cfg, batch, 64, seed=0, rows=step.rows)), "cpu",
+            compute_dtype(state))
         state, _ = step(state, batch_)
         assert state["step"] == 1
         assert [tuple(x.shape) for x in tree_leaves(state["params"])] == before
@@ -176,7 +177,9 @@ def test_family_plan_step_runs_under_the_fake_group(arch, cut, batch, d, t,
         _assert_specs_shards(cfg, tc, mesh, state)
         before = [tuple(x.shape) for x in tree_leaves(state["params"])]
         step, _ = build_train_step(cfg, tc, 4, 64, mesh=mesh)
-        batch_ = to_device(next(SyntheticTokens(cfg, 4, 64, seed=0)), "cpu")
+        batch_ = to_device(next(SyntheticTokens(
+            cfg, 4, 64, seed=0, rows=step.rows)), "cpu",
+            compute_dtype(state))
         state, metrics = step(state, batch_)
         assert state["step"] == 1
         assert math.isfinite(float(metrics["loss"]))
@@ -214,7 +217,9 @@ def test_seq_fallback_step_runs_under_the_fake_group(rank):
                                  whole_leaves=False)
         before = [tuple(x.shape) for x in tree_leaves(state["params"])]
         step, _ = build_train_step(cfg, tc, 4, 64, mesh=mesh)
-        batch_ = to_device(next(SyntheticTokens(cfg, 4, 64, seed=0)), "cpu")
+        batch_ = to_device(next(SyntheticTokens(
+            cfg, 4, 64, seed=0, rows=step.rows)), "cpu",
+            compute_dtype(state))
         state, metrics = step(state, batch_)
         assert math.isfinite(float(metrics["loss"]))
         assert [tuple(x.shape) for x in tree_leaves(state["params"])] == before
@@ -279,7 +284,9 @@ def test_pod_step_runs_under_the_fake_group(arch, rank):
         _assert_specs_shards(cfg, tc, mesh, state)
         before = [tuple(x.shape) for x in tree_leaves(state["params"])]
         step, _ = build_train_step(cfg, tc, 4, 64, mesh=mesh)
-        batch_ = to_device(next(SyntheticTokens(cfg, 4, 64, seed=0)), "cpu")
+        batch_ = to_device(next(SyntheticTokens(
+            cfg, 4, 64, seed=0, rows=step.rows)), "cpu",
+            compute_dtype(state))
         state, metrics = step(state, batch_)
         assert math.isfinite(float(metrics["loss"]))
         assert [tuple(x.shape) for x in tree_leaves(state["params"])] == before

@@ -104,8 +104,8 @@ def _case(arch, d, t, zero):
     cfg, tc = config(arch), train_config(zero)
     mesh = make_plan_mesh(d, t, device_type="cpu")
     specs = state_specs(cfg, tc, mesh, param_shapes(cfg))
-    data = batches(cfg)
     step, _ = build_train_step(cfg, tc, B, S, mesh=mesh)
+    data = batches(cfg, step.rows)
 
     state = as_fp32(make_local_state(cfg, tc, mesh, device="cpu"))
     acc, _ = step.accumulate(state["params"], data[0])

@@ -50,9 +50,11 @@ def train_config(zero, microbatch=MB):
                        steps=STEPS, warmup_steps=1, zero=zero)
 
 
-def batches(cfg):
-    data = SyntheticTokens(cfg, B, S, seed=3)
-    return [to_device(next(data), "cpu") for _ in range(STEPS)]
+def batches(cfg, rows=None):
+    """STEPS batches of SyntheticTokens(seed=3): the global batch, or a
+    data rank's ``rows`` of it (a sharded step's ``step.rows``)."""
+    data = SyntheticTokens(cfg, B, S, seed=3, rows=rows)
+    return [to_device(next(data), "cpu", torch.float32) for _ in range(STEPS)]
 
 
 def as_fp32(state):

@@ -69,8 +69,8 @@ def _case(arch, mesh_shape, zero):
     pods, d, t = mesh_shape
     mesh = make_plan_mesh(d, t, device_type="cpu", pods=pods)
     specs = state_specs(cfg, tc, mesh, param_shapes(cfg))
-    data = batches(cfg)
     step, _ = build_train_step(cfg, tc, B, S, mesh=mesh)
+    data = batches(cfg, step.rows)
     state = as_fp32(make_local_state(cfg, tc, mesh, device="cpu"))
     acc, _ = step.accumulate(state["params"], data[0])
     grads = [col.gather_leaf(g, s, mesh).numpy()

@@ -84,8 +84,8 @@ def _train_case(key, zero):
     cfg, tc = config(key), train_config(zero)
     mesh = _mesh(key)
     specs = state_specs(cfg, tc, mesh, param_shapes(cfg))
-    data = batches(cfg)
     step, _ = build_train_step(cfg, tc, B, S, mesh=mesh)
+    data = batches(cfg, step.rows)
     state = as_fp32(make_local_state(cfg, tc, mesh, device="cpu"))
     acc, _ = step.accumulate(state["params"], data[0])
     names = [p.split("/")[-1] for p in paths(param_shapes(cfg))]

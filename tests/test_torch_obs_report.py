@@ -34,7 +34,7 @@ from repro_torch.core import memtrace as tmt
 from repro_torch.core import reliability as trel
 from repro_torch.data import SyntheticTokens
 from repro_torch.kernels import dispatch
-from repro_torch.launch.train import to_device
+from repro_torch.launch.train import compute_dtype, to_device
 from repro_torch.obs import report as treport
 from repro_torch.obs.churn import churn_oom_sim
 from repro_torch.obs.export import export_chrome_trace, export_metrics
@@ -103,7 +103,8 @@ def _serve_and_train():
     tc = TrainConfig(global_batch=2, seq_len=32, microbatch=1, steps=1)
     state = make_train_state(cfg, tc, device="cpu")
     step, _ = build_train_step(cfg, tc, 2, 32)
-    step(state, to_device(next(SyntheticTokens(cfg, 2, 32, seed=0)), "cpu"))
+    step(state, to_device(next(SyntheticTokens(cfg, 2, 32, seed=0)), "cpu",
+                          compute_dtype(state)))
 
 
 def test_report_text_equals_jax_on_the_demo_exports(tmp_path):

@@ -567,6 +567,7 @@ class TestSsdScanOnCard:
     @pytest.mark.parametrize("shape", [(1, 1024, 24, 64, 128),  # training
                                        (2, 1000, 24, 64, 128),  # ragged
                                        (4, 512, 24, 64, 128),   # b = 4
+                                       (1, 1024, 256, 64, 128),  # jamba's 256
                                        (1, 100, 9, 64, 128),    # uneven groups
                                        (1, 4096, 3, 32, 128),   # a t=16 rank
                                        (2, 1000, 3, 32, 128),   # ragged rank

@@ -152,13 +152,14 @@ def test_one_h100_starts_the_training_cells():
     predicted, cuts = smoke.JAX_PREDICTED_PEAK, smoke.TRAIN_CUTS
     for arch, want in predicted.items():
         cfg = registry.get_arch(arch).scaled(**cuts.get(arch, {}))
+        seq = smoke.TRAIN_SEQ.get(arch, 1024)
         orch = torch_orch.Orchestrator(torch_orch.make_cluster(ONE_H100))
-        res = tsrv.submit(orch, cfg, TrainConfig(global_batch=8, seq_len=1024,
+        res = tsrv.submit(orch, cfg, TrainConfig(global_batch=8, seq_len=seq,
                                                  zero=1))
         plan = res.job.allocation.plan
         assert res.started
         assert (plan.d, plan.t, plan.device_type) == (1, 1, "H100-80G")
-        assert plan.pred_bytes == mm.exact_peak_bytes(cfg, 8, 1024, 1, 1,
+        assert plan.pred_bytes == mm.exact_peak_bytes(cfg, 8, seq, 1, 1,
                                                       zero=1) == want
         orch.release(res.job.job_id)
         assert res.job.state == "done"

@@ -119,8 +119,8 @@ def _case(kind, d, t, zero):
     cfg, tc = config(kind), train_config(zero)
     mesh = make_plan_mesh(d, t, device_type="cpu")
     specs = state_specs(cfg, tc, mesh, param_shapes(cfg))
-    data = batches(cfg)
     step, _ = build_train_step(cfg, tc, B, S, mesh=mesh)
+    data = batches(cfg, step.rows)
     state = as_fp32(make_local_state(cfg, tc, mesh, device="cpu"))
     acc, _ = step.accumulate(state["params"], data[0])
     grads = [col.gather_leaf(g, s, mesh).numpy()
@@ -141,7 +141,7 @@ def _wide(kind, d, t):
     mesh = make_plan_mesh(d, t, device_type="cpu")
     step, _ = build_train_step(cfg, tc, B, S, mesh=mesh)
     state = make_local_state(cfg, tc, mesh, device="cpu")
-    batch = batches(cfg)[0]
+    batch = batches(cfg, step.rows)[0]
     with WideTensors(cfg.vocab_size) as mode:
         step.accumulate(state["params"], batch)
     return mode.seen
