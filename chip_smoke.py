@@ -4,7 +4,8 @@ mamba2-130m, jamba-1.5-large-398b, stablelm-12b, starcoder2-7b,
 starcoder2-3b, gpt2-7b, musicgen-medium, mixtral-8x22b, llava-next-34b)
 and its training paths (gpt2-350m, mamba2-130m, deepseek-v2-236b,
 stablelm-12b, llava-next-34b, starcoder2-3b, mixtral-8x22b,
-musicgen-medium) on one NVIDIA card.
+musicgen-medium, llama3.2-3b, starcoder2-7b, gpt2-7b,
+jamba-1.5-large-398b) on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -52,8 +53,10 @@ Phases, each printing its lines before the last:
    timed; the attention forward at llava's prefill and
    starcoder2-7b's windowed 8,192-token prompt (``GROUP_PREFILL``); the
    attention backward at starcoder2-3b's training shape (12 query heads a
-   KV head, ``STARCODER2_3B_TRAIN``) and the SSD gradient at jamba's 256
-   heads (``SSD_WIDE``); each with its time,
+   KV head, ``STARCODER2_3B_TRAIN``), the attention forward and backward
+   at the training shapes of phases 22-25 (``TRAIN_ATTENTION``: 24/8,
+   36/4, 32/32 and 64/8 heads of 128) and the SSD scan and its gradient
+   at jamba's 256 heads (``SSD_WIDE``); each with its time,
    the plain version's,
    one PyTorch library call's (none computes the SSD scan or its gradient)
    and the card's bound for the same work;
@@ -162,10 +165,18 @@ Phases, each printing its lines before the last:
    the first hooked output that differs is printed;
 18.-21. llava-next-34b at published widths and 4 of its 60 layers at s =
    4,096 (its 2,880 modal positions, then 1,216 text tokens), starcoder2-3b
-   whole (the attention backward at 12 query heads a KV head),
-   mixtral-8x22b at published widths and 1 of its 56 layers with all 8
-   experts and top-2, and musicgen-medium whole, trained as gpt2-350m is
-   (``NEW_TRAIN_CELLS``; cuts and their reasons at ``TRAIN_CUTS``);
+   at 8 of its 30 layers (the attention backward at 12 query heads a KV
+   head), mixtral-8x22b at published widths and 1 of its 56 layers with
+   all 8 experts and top-2, and musicgen-medium at 8 of its 48 layers,
+   trained as gpt2-350m is (``NEW_TRAIN_CELLS``; cuts and their reasons at
+   ``TRAIN_CUTS``);
+22.-25. llama3.2-3b whole, starcoder2-7b at 14 of its 32 layers (the
+   attention backward at 9 query heads a KV head), gpt2-7b at 16 of its
+   32 and jamba-1.5-large-398b cut to its layer pattern's period 2 -- one
+   attention layer of 64/8 heads with a dense SwiGLU, then one Mamba2
+   layer of 256 SSD heads with a MoE of 2 experts at top-2 -- trained as
+   gpt2-350m is, jamba through the SSD scan and its gradient at 256 heads
+   (``LAST_TRAIN_CELLS``);
 (m) Fig 6 on the card: the ten plans of ``repro_torch.launch.memcheck``
    (gpt2-350m and gpt2-7b at full width under the JAX package's (d, t)
    plans and batches) at ZeRO 1, each as rank 0 of its plan under
@@ -298,7 +309,7 @@ Phases, each printing its lines before the last:
    have launched.  Its op times are host times: the call's check,
    allocation and launch, not the kernel's run.
 
-Every training cell (7, 8, 10, 11, 18-21) is started through (s)'s front
+Every training cell (7, 8, 10, 11, 18-25) is started through (s)'s front
 door as gpt2-350m's is, and its peak over step 1 must equal the one-device
 path's (``ONE_DEVICE_PEAK``) to the byte.  Each rank of a sharded step is
 fed only its rows of the global batch (``step.rows``), the modal
@@ -407,29 +418,43 @@ LOSS_RTOL, GNORM_RTOL = 1e-2, 5e-2
 # backward (``transformer.grad_sinks``), where ``unbind``'s backward had
 # stacked them into a second copy of the leaf's gradient first
 # (deepseek-v2-236b 67,179,781,120 B and stablelm-12b 65,401,494,016 B
-# before; starcoder2-3b's 65,747,433,984 B had exceeded its prediction).
+# before; starcoder2-3b's 65,747,433,984 B, whole, had exceeded its
+# prediction).  starcoder2-3b's and musicgen-medium's are of their 8-layer
+# cuts.
 ONE_DEVICE_PEAK = {"gpt2-350m": 7_615_967_744, "mamba2-130m": 4_256_577_024,
                    "deepseek-v2-236b": 66_434_085_376,
                    "stablelm-12b": 64_415_855_616,
                    "llava-next-34b": 63_790_470_144,
-                   "starcoder2-3b": 63_570_609_152,
+                   "starcoder2-3b": 21_352_236_032,
                    "mixtral-8x22b": 58_055_003_136,
-                   "musicgen-medium": 27_420_804_096}
+                   "musicgen-medium": 4_769_104_896,
+                   "llama3.2-3b": 64_679_232_512,
+                   "starcoder2-7b": 69_694_269_440,
+                   "gpt2-7b": 68_840_219_648,
+                   "jamba-1.5-large-398b": 68_253_034_496}
 JAX_PREDICTED_PEAK = {"gpt2-350m": 8_691_153_715, "mamba2-130m": 4_841_272_883,
                       "deepseek-v2-236b": 70_503_875_379,
                       "stablelm-12b": 67_480_961_843,
                       "llava-next-34b": 69_864_973_107,
-                      "starcoder2-3b": 65_528_423_219,
+                      "starcoder2-3b": 23_171_638_067,
                       "mixtral-8x22b": 60_276_855_603,
-                      "musicgen-medium": 28_634_557_235}
+                      "musicgen-medium": 5_857_028_915,
+                      "llama3.2-3b": 66_943_230_771,
+                      "starcoder2-7b": 71_883_815_731,
+                      "gpt2-7b": 70_572_202_803,
+                      "jamba-1.5-large-398b": 71_832_916_787}
 # the JAX package's param_count of each training cell's config
 TRAIN_PARAMS = {"gpt2-350m": 353_503_232, "mamba2-130m": 167_598_528,
                 "deepseek-v2-236b": 3_344_552_960,
                 "stablelm-12b": 3_250_672_640,
                 "llava-next-34b": 3_148_938_240,
-                "starcoder2-3b": 3_180_518_400,
+                "starcoder2-3b": 1_069_599_744,
                 "mixtral-8x22b": 2_906_720_256,
-                "musicgen-medium": 1_365_394_944}
+                "musicgen-medium": 232_809_984,
+                "llama3.2-3b": 3_212_749_824,
+                "starcoder2-7b": 3_491_891_712,
+                "gpt2-7b": 3_427_213_312,
+                "jamba-1.5-large-398b": 3_443_681_280}
 # deepseek-v2's training cell: 4 of its 60 layers (the serving cell's) and
 # 16 of its 160 routed experts, top-6 and both shared experts kept, so a
 # token sees the published per-token work (2,400,834,560 active parameters
@@ -453,18 +478,55 @@ TRAIN_PARAMS = {"gpt2-350m": 353_503_232, "mamba2-130m": 167_598_528,
 # sees the published per-token work: 2,906,720,256 parameters (1,094,780,928
 # active), predicted 60,276,855,603 B; two layers (5,410,781,184
 # parameters) are predicted 110.4 GB.
-# starcoder2-3b (30 layers, 24/2 heads of 128: the attention backward at 12
-# query heads a KV head) and musicgen-medium (48 layers, 24 MHA heads of
-# 64) train whole.
+# starcoder2-3b (24/2 heads of 128: the attention backward at 12 query
+# heads a KV head) and musicgen-medium (24 MHA heads of 64) fit the card
+# whole, and trained whole until four more cells took their place in the
+# script's 1,200 s: the host holds both back (44,571 and 68,911 device
+# events a step whole, the H100 idle 0.64 and 0.86 of it), so their phases'
+# walls went with their depth (72.2 s at 30 layers, 96.1 s at 48).
+# 8 layers each keep every width and kernel shape: 1,069,599,744 and
+# 232,809,984 parameters, predicted 23,171,638,067 B and 5,857,028,915 B.
+# llama3.2-3b trains whole (28 layers, 24/8 heads of 128, tied head):
+# 3,212,749,824 parameters, predicted 66,943,230,771 B.
+# starcoder2-7b's training cell: 14 of its 32 layers at published widths
+# (36/4 heads of 128: the attention backward at 9 query heads a KV head;
+# its 4,096-key window does not bind at s = 1,024): 3,491,891,712
+# parameters, predicted 71,883,815,731 B; 16 layers are predicted 80.59 GB,
+# beyond the card's 80 GB, and all 32 150.2 GB.
+# gpt2-7b's training cell: 16 of its 32 layers (32 MHA heads of 128, GELU,
+# tied head): 3,427,213,312 parameters, predicted 70,572,202,803 B; all 32
+# are predicted 135.1 GB.
+# jamba-1.5-large-398b's training cell cuts its layer pattern, not only its
+# depth: ``block_period`` requires num_layers to be a multiple of the
+# pattern's period (8), and the cheapest whole 8-layer block, at 2 of its
+# 16 experts, is predicted 229.49 GB.  At period 2 with the attention at
+# offset 0 it keeps Jamba's pairing -- the attention layer with a dense
+# SwiGLU, MoE on a Mamba2 layer (the published block's layers 1, 3, 5, 7)
+# -- and every published width: d_model 8192, 64/8 heads of 128, 256 SSD
+# heads of 64 with state 128, expert d_ff 24,576 at top-2.  With 2 experts
+# at top-2 every token goes to both: the dispatch, the combine, the gate's
+# renormalisation and the aux loss run, the choice of experts does not
+# (the mixtral and deepseek-v2 cells choose).  3,443,681,280 parameters,
+# predicted 71,832,916,787 B; 3 experts are predicted 83.82 GB.
 TRAIN_CUTS = {"deepseek-v2-236b": dict(num_layers=4, num_experts=16),
               "stablelm-12b": dict(num_layers=8),
               "llava-next-34b": dict(num_layers=4),
-              "mixtral-8x22b": dict(num_layers=1)}
+              "mixtral-8x22b": dict(num_layers=1),
+              "starcoder2-3b": dict(num_layers=8),
+              "musicgen-medium": dict(num_layers=8),
+              "starcoder2-7b": dict(num_layers=14),
+              "gpt2-7b": dict(num_layers=16),
+              "jamba-1.5-large-398b": dict(num_layers=2, attn_layer_period=2,
+                                           attn_layer_offset=0,
+                                           num_experts=2)}
 # a training cell's sequence length where it is not 1024
 TRAIN_SEQ = {"llava-next-34b": 4096}
 # phases 18-21: the training cells of configs the card had only served
 NEW_TRAIN_CELLS = ["llava-next-34b", "starcoder2-3b", "mixtral-8x22b",
                    "musicgen-medium"]
+# phases 22-25: the last four configs' training cells
+LAST_TRAIN_CELLS = ["llama3.2-3b", "starcoder2-7b", "gpt2-7b",
+                    "jamba-1.5-large-398b"]
 # The cluster the serverless front door places the card's jobs on: one
 # node of one H100-80G (``repro_torch.core.orchestrator.make_cluster``).
 ONE_H100 = [(1, 1, "H100-80G")]
@@ -585,6 +647,13 @@ STABLELM_TRAIN = dict(b=1, s=1024, H=32, K=8, D=160)
 # starcoder2-3b's training microbatch: b=1, s=1024, 24 query heads on 2 KV
 # heads of 128 (12 a KV head), causal (its 4,096-key window is wider)
 STARCODER2_3B_TRAIN = dict(b=1, s=1024, H=24, K=2, D=128)
+# the training microbatches of phases 22-25, b=1, s=1024, causal, heads of
+# 128, {name: (query heads, KV heads)}: llama3.2-3b 24/8, starcoder2-7b 36/4
+# (9 query heads a KV head; its 4,096-key window is wider than s), gpt2-7b
+# 32/32 and jamba's attention layer 64/8
+TRAIN_ATTENTION = {"llama3_2_3b_train": (24, 8),
+                   "starcoder2_7b_train": (36, 4),
+                   "gpt2_7b_train": (32, 32), "jamba_train": (64, 8)}
 # one rank of gpt2-7b's (d=8, t=2) plan in phase (m): b=1, s=1024, 16 of its
 # 32 heads of 128, causal
 GPT2_7B_T2 = dict(b=1, s=1024, H=16, D=128)
@@ -604,9 +673,9 @@ RANK_ATTENTION = {"mla_t16": dict(b=1, s=1024, H=8, K=8, D=192),
 SSD_RANKS = {"jamba_t8_h32": (1024, 32, 64), "mamba2_t4_h6": (1024, 6, 64),
              "mamba2_t8_h3": (1024, 3, 64),
              "mamba2_t16_h3_p32": (4096, 3, 32)}
-# the SSD gradient at jamba's whole d_inner, 256 heads of P = 64 (N = 128),
-# at a training microbatch b=1, s=1024: one device's jamba training step
-# (ROADMAP queue 1 item 7) launches it at this shape
+# the SSD scan and its gradient at jamba's whole d_inner, 256 heads of P =
+# 64 (N = 128), at a training microbatch b=1, s=1024: phase 25's jamba
+# training step launches both at this shape
 SSD_WIDE = {"jamba_train_h256": (1024, 256, 64)}
 
 # Phase (f): rank 0 of multi-device plans of the MLA, MoE and Mamba2
@@ -1807,8 +1876,9 @@ def phase_attention_bwd(peaks, flush, randn):
     autograd through the plain forward), run twice for bit-identical
     gradients, with dK and dV exactly zero on the keys no query row
     reaches.  The cases at a query offset (``SEQ_ATTENTION``'s local shapes
-    of phase (q)'s plans, and float32 at two head dims with a window) also
-    check the forward and its lse, and time both directions.  Each timed
+    of phase (q)'s plans, and float32 at two head dims with a window) and
+    the training shapes of phases 22-25 (``TRAIN_ATTENTION``) also check
+    the forward and its lse, and time both directions.  Each timed
     shape stands beside its bound, its plain version and SDPA on the keys
     some row reaches (K and V repeated to the query heads), never called on
     a path."""
@@ -1846,6 +1916,8 @@ def phase_attention_bwd(peaks, flush, randn):
          *(GPT2_7B_T2[k] for k in "HHD"), True, 0, 0, bf16),
         ("starcoder2_3b_train", *(STARCODER2_3B_TRAIN[k] for k in "bss"),
          *(STARCODER2_3B_TRAIN[k] for k in "HKD"), True, 0, 0, bf16),
+        *((name, 1, 1024, 1024, H, K, 128, True, 0, 0, bf16)
+          for name, (H, K) in TRAIN_ATTENTION.items()),
         *((name, c["b"], c["s"], c["s"], c["H"], c["K"], c["D"], True, 0, 0,
            bf16) for name, c in RANK_ATTENTION.items()),
         *((name, 1, sq, sk, H, K, D, True, window, offset, bf16)
@@ -1869,7 +1941,7 @@ def phase_attention_bwd(peaks, flush, randn):
         ok = err <= tol and same and all(
             bool(torch.isfinite(g.float()).all()) for g in got)
         forward = ""
-        if at_offset:
+        if at_offset or name in TRAIN_ATTENTION:
             ok_f, err_f = close(o, attention_ref(q, k, v, **kw), tol)
             ok_l, err_l = close(lse, attention_lse_ref(q, k, **kw), FP32_TOL)
             ok = ok and ok_f and ok_l
@@ -1901,7 +1973,8 @@ def phase_attention_bwd(peaks, flush, randn):
                   f" keys' dK/dV nonzero")
         if dt != bf16 or name not in ("train", "mla_train", "stablelm_train",
                                       "gpt2_7b_t2", "starcoder2_3b_train",
-                                      *RANK_ATTENTION, *SEQ_ATTENTION):
+                                      *TRAIN_ATTENTION, *RANK_ATTENTION,
+                                      *SEQ_ATTENTION):
             continue
         pairs = int(live.sum())
         # each input read once and each output written once: q, o, dO and
@@ -1961,6 +2034,10 @@ def phase_attention_bwd(peaks, flush, randn):
                     "stablelm_train": "stablelm-12b training",
                     "gpt2_7b_t2": "gpt2-7b at t=2, phase (m)",
                     "starcoder2_3b_train": "starcoder2-3b training, G=12",
+                    "llama3_2_3b_train": "llama3.2-3b training, G=3",
+                    "starcoder2_7b_train": "starcoder2-7b training, G=9",
+                    "gpt2_7b_train": "gpt2-7b training, G=1",
+                    "jamba_train": "jamba training, G=8",
                     "mla_t16": "deepseek-v2 at t=16, phase (f)",
                     "mla_t16_s4096": "deepseek-v2 at t=16, s=4,096, phase"
                                      " (p)",
@@ -1972,7 +2049,8 @@ def phase_attention_bwd(peaks, flush, randn):
                   f" {plain_ms:.4f} ms, library (SDPA's backward alone) "
                   f"{library} ms, bound {bound_ms:.4f} ms ({bound_by});"
                   f" kernels (traced, L2 warm) {parts}")
-            continue
+            if name not in TRAIN_ATTENTION:
+                continue
         fwd_bytes = 2 * (2 * q.numel() + kv_reached)
         fwd_bound = bound(fwd_bytes, 4 * D * b * H * pairs, peaks)
         G = H // K
@@ -1983,11 +2061,14 @@ def phase_attention_bwd(peaks, flush, randn):
                time_ms(lambda: F.scaled_dot_product_attention(
                    qt, kt, vt, **lib_kw), flush)]
         del qt, kt, vt
-        print(f"time flash_attention offset {name} (D={D}, q_offset={q_offset},"
-              f" {pairs} live pairs, keys {lo}-{hi} reached, {fwd_bytes}"
-              f" bytes): bound {fwd_bound[0]:.4f} ms ({fwd_bound[1]}), kernel"
-              f" {fwd[0]:.4f} ms, plain {fwd[1]:.4f} ms, library (SDPA on the"
-              f" reached keys, {lib_mask}) {fwd[2]:.4f} ms")
+        print(f"time flash_attention {'offset ' * at_offset}{name} (D={D},"
+              f" q_offset={q_offset}, {pairs} live pairs, keys {lo}-{hi}"
+              f" reached, {fwd_bytes} bytes): bound {fwd_bound[0]:.4f} ms"
+              f" ({fwd_bound[1]}), kernel {fwd[0]:.4f} ms, plain {fwd[1]:.4f}"
+              f" ms, library (SDPA on the reached keys, {lib_mask})"
+              f" {fwd[2]:.4f} ms")
+        if not at_offset:
+            continue
         print(f"time flash_attention_bwd offset {name} ({nbytes} bytes,"
               f" {10 * D * b * H * pairs} flops): bound {bound_ms:.4f} ms"
               f" ({bound_by}), kernel {ms:.4f} ms, plain {plain_ms:.4f} ms,"
@@ -2104,7 +2185,7 @@ def phase_ssd_kernel(peaks, flush, gen):
             ("smoke_dims", 2, 200, 16, 32, 16, bf16),
             ("smoke_dims_fp32", 3, 77, 16, 32, 16, f32),
             *((name, 1, s, h, P, 128, bf16)
-              for name, (s, h, P) in SSD_RANKS.items())]:
+              for name, (s, h, P) in {**SSD_RANKS, **SSD_WIDE}.items())]:
         args = ssd_inputs(gen, b, s, h, P, N, dt)
         x, dt_raw, A_log, B, C, D, dt_bias = args
         got = ssd_scan(*args)
@@ -2121,7 +2202,8 @@ def phase_ssd_kernel(peaks, flush, gen):
               f" {want[1].abs().max().item():.3f}) tol={tol:g}"
               f" {'ok' if ok_y and ok_s else 'FAIL'}")
         check(ok_y and ok_s, f"ssd_scan {name} disagrees with its plain version")
-        if "prefill" not in name and name not in SSD_RANKS:
+        if ("prefill" not in name and name not in SSD_RANKS
+                and name not in SSD_WIDE):
             continue
         # reads x, dt_raw, B, C and the (h,) vectors, writes y and the
         # float32 state; the products that every chunk length L needs, per
@@ -4130,7 +4212,7 @@ def main():
                          cut=dict(num_layers=LLAVA_LAYERS))),
                      *(timed_phase(f"{arch} training",
                                    lambda arch=arch: phase_train(peaks, arch))
-                       for arch in NEW_TRAIN_CELLS),
+                       for arch in NEW_TRAIN_CELLS + LAST_TRAIN_CELLS),
                      timed_phase("(m) memcheck", phase_memcheck),
                      timed_phase("(f) family plans", phase_family),
                      timed_phase("(q) query offset", phase_seq),

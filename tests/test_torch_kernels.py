@@ -914,14 +914,18 @@ class TestKernelsOnCard:
                    zip(got, flash_attention_bwd(q, k, v, o, lse, do, **kw)))
 
     @pytest.mark.parametrize("dtype", list(DTYPES))
+    @pytest.mark.parametrize("heads", [(24, 2), (36, 4), (64, 8)])
     def test_flash_attention_bwd_at_twelve_query_heads_a_kv_head(self, cuda,
+                                                                 heads,
                                                                  dtype):
-        """starcoder2-3b's training microbatch (b=1 x 1,024, 24 query heads
-        on 2 KV heads of 128, causal): each dK/dV block sums the gradients
-        of 12 query heads, against the explicit formulas and autograd
-        through the plain forward, bit-identical on a rerun."""
+        """The training microbatches (b=1 x 1,024, heads of 128, causal)
+        whose KV heads each serve many query heads: starcoder2-3b's 24 on 2
+        (each dK/dV block sums the gradients of 12 query heads),
+        starcoder2-7b's 36 on 4 (9) and jamba's 64 on 8 (8), against the
+        explicit formulas and autograd through the plain forward,
+        bit-identical on a rerun."""
         self.test_flash_attention_bwd_matches_plain(
-            cuda, (1, 1024, 1024, 24, 2, 128, True, 0), dtype)
+            cuda, (1, 1024, 1024, *heads, 128, True, 0), dtype)
 
     @pytest.mark.parametrize("dtype", list(DTYPES))
     @pytest.mark.parametrize("case", [c for c in WIDE_ATTN_CASES

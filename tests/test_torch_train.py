@@ -289,12 +289,14 @@ def _load_jax_state(state, jstate):
                 t.copy_(torch.from_numpy(np.array(a, np.float32)))
 
 
-def _three_steps(arch, resync):
+def _three_steps(arch, resync, cut=None):
     """Three steps of the JAX step (jitted, one-device mesh) and of the
     port's step from the same fp32 params on the same batches; returns
     what each side had after each step.  With ``resync`` each port step
-    starts from the JAX state of the step before."""
-    jcfg, cfg = jax_smoke_config(arch), smoke_config(arch)
+    starts from the JAX state of the step before.  ``cut``: fields the
+    smoke config is ``scaled`` by on both sides."""
+    jcfg = jax_smoke_config(arch).scaled(**(cut or {}))
+    cfg = smoke_config(arch).scaled(**(cut or {}))
     kw = dict(global_batch=4, seq_len=32, microbatch=2, steps=3,
               warmup_steps=1)
     jtc, tc = JaxTrainConfig(**kw), TrainConfig(**kw)
@@ -351,6 +353,24 @@ def _assert_grads_match(steps):
     for got, want in zip(rec["port"]["m"], rec["jax"]["m"]):
         assert got.shape == want.shape
         assert np.abs(got - want).max() <= 1e-4 * np.abs(want).max()
+
+
+def _assert_resynced_params_match(rec):
+    """Each step from the same state: an element further from JAX's than
+    the Adam tolerance is one whose first moment is within the moments'
+    tolerance of 0 (1e-4 of the leaf's largest, as
+    ``_assert_grads_match``), so that the two sides may hold it, and Adam's
+    direction m / sqrt(v), with other signs; it moves at most 2 lr, and
+    such elements are at most 1e-4 of all."""
+    n_off = n_all = 0
+    for got, want, m in zip(rec["port"]["params"], rec["jax"]["params"],
+                            rec["jax"]["m"]):
+        assert got.shape == want.shape
+        off = np.abs(got - want) > ADAM_TOL["atol"] + ADAM_TOL["rtol"] * np.abs(want)
+        assert (np.abs(m[off]) <= 1e-4 * np.abs(m).max()).all()
+        assert np.abs(got - want).max() <= 2.5 * 3e-4
+        n_off, n_all = n_off + off.sum(), n_all + off.size
+    assert n_off <= 1e-4 * n_all, (n_off, n_all)
 
 
 def test_train_step_loss_and_grad_norm_match_jax(three_steps):

@@ -10,9 +10,9 @@ import numpy as np
 import pytest
 
 from repro_torch.launch import train as train_main
-from test_torch_train import (ADAM_TOL, RESYNC_ARCHS,
-                              _assert_grads_match,
-                              _assert_loss_and_grad_norm_match, _three_steps)
+from test_torch_train import (RESYNC_ARCHS, _assert_grads_match,
+                              _assert_loss_and_grad_norm_match,
+                              _assert_resynced_params_match, _three_steps)
 
 
 @pytest.fixture(scope="module", params=RESYNC_ARCHS)
@@ -31,22 +31,7 @@ def test_resynced_train_step_grads_match_jax(three_resynced_steps):
 @pytest.mark.parametrize("after", [1, 3])
 def test_train_step_params_of_the_hybrid_match_jax(three_resynced_steps,
                                                    after):
-    """Each step from the same state: an element further from JAX's than
-    the Adam tolerance is one whose first moment is within the moments'
-    tolerance of 0 (1e-4 of the leaf's largest, as
-    ``test_train_step_grads_match_jax``), so that the two sides may hold
-    it, and Adam's direction m / sqrt(v), with other signs; it moves at
-    most 2 lr, and such elements are at most 1e-4 of all."""
-    rec = three_resynced_steps[after - 1]
-    n_off = n_all = 0
-    for got, want, m in zip(rec["port"]["params"], rec["jax"]["params"],
-                            rec["jax"]["m"]):
-        assert got.shape == want.shape
-        off = np.abs(got - want) > ADAM_TOL["atol"] + ADAM_TOL["rtol"] * np.abs(want)
-        assert (np.abs(m[off]) <= 1e-4 * np.abs(m).max()).all()
-        assert np.abs(got - want).max() <= 2.5 * 3e-4
-        n_off, n_all = n_off + off.sum(), n_all + off.size
-    assert n_off <= 1e-4 * n_all, (n_off, n_all)
+    _assert_resynced_params_match(three_resynced_steps[after - 1])
 
 
 def test_train_driver_trains_mamba2(capsys):
