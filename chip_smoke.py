@@ -326,11 +326,19 @@ no result.
 times the redesigned kernels (``ssd_scan_bwd`` at mamba2-130m's training
 shape and at b=2 of a ragged 1,000 rows, ``ssd_scan`` at the b=8 prefill
 and at 32k, ``flash_decode_gqa`` and ``flash_decode_mla`` at their decode
-shapes) in
+shapes, RMSNorm and the gated norm forward and backward at llama's
+prefill and the training microbatches of ``NORM_CASES``) in
 another checkout of the repository and in this one, in turns (other,
 this, this, other), each in a process of its own that builds its own
 tree's kernels (``--time-kernels``, with ``--src`` naming the tree), and
 prints each turn's times.
+
+    python3 chip_smoke.py --train-ab OTHER_CHECKOUT ARCH...
+
+runs each ARCH's training phase (its (t) lines: step ms, idle share,
+device events a step) from another checkout and from this one, in turns
+(other, this, this, other), each in a process of its own that imports
+that checkout's ``chip_smoke.py`` and kernels (``--train-in``).
 
     python3 chip_smoke.py --mla-splits
 
@@ -420,18 +428,22 @@ LOSS_RTOL, GNORM_RTOL = 1e-2, 5e-2
 # (deepseek-v2-236b 67,179,781,120 B and stablelm-12b 65,401,494,016 B
 # before; starcoder2-3b's 65,747,433,984 B, whole, had exceeded its
 # prediction).  starcoder2-3b's and musicgen-medium's are of their 8-layer
-# cuts.
+# cuts.  Since the norms' gradient is a kernel (``csrc/rms_norm.cu``) in
+# place of the plain backward's float32 temporaries, nine peaks are 18.9
+# to 189.8 MB lower (llama3.2-3b 64,679,232,512 B, llava-next-34b
+# 63,790,470,144 B before) and deepseek-v2-236b's 131,072 B higher (was
+# 66,434,085,376 B); gpt2-350m's and mamba2-130m's did not move.
 ONE_DEVICE_PEAK = {"gpt2-350m": 7_615_967_744, "mamba2-130m": 4_256_577_024,
-                   "deepseek-v2-236b": 66_434_085_376,
-                   "stablelm-12b": 64_415_855_616,
-                   "llava-next-34b": 63_790_470_144,
-                   "starcoder2-3b": 21_352_236_032,
-                   "mixtral-8x22b": 58_055_003_136,
-                   "musicgen-medium": 4_769_104_896,
-                   "llama3.2-3b": 64_679_232_512,
-                   "starcoder2-7b": 69_694_269_440,
-                   "gpt2-7b": 68_840_219_648,
-                   "jamba-1.5-large-398b": 68_253_034_496}
+                   "deepseek-v2-236b": 66_434_216_448,
+                   "stablelm-12b": 64_321_462_784,
+                   "llava-next-34b": 63_600_648_704,
+                   "starcoder2-3b": 21_302_415_872,
+                   "mixtral-8x22b": 57_986_959_360,
+                   "musicgen-medium": 4_750_223_872,
+                   "llama3.2-3b": 64_629_412_352,
+                   "starcoder2-7b": 69_609_315_840,
+                   "gpt2-7b": 68_765_229_568,
+                   "jamba-1.5-large-398b": 68_102_006_272}
 JAX_PREDICTED_PEAK = {"gpt2-350m": 8_691_153_715, "mamba2-130m": 4_841_272_883,
                       "deepseek-v2-236b": 70_503_875_379,
                       "stablelm-12b": 67_480_961_843,
@@ -1605,53 +1617,120 @@ def phase_decode_groups(peaks, flush, gen, randn):
         del q, k, v, qt, kt, vt, got, live
 
 
+# Phase 2's RMSNorm cases, name: (rows, d, x's dtype, scale's dtype, gated,
+# x's row stride or 0 for contiguous rows).  llama's prefill and the decode
+# rows are the serving paths'; the "_train" cases a training microbatch of
+# 1,024 rows (b=1, s=1,024), each held forward and backward: llama3.2-3b's
+# d_model, Mamba2's gated norm at mamba2-130m's and jamba's d_inner, and
+# deepseek-v2's kv latent read in place from its (r_kv + dr)-wide
+# projection.  The norm scales are bf16 parameters.
+NORM_CASES = {
+    "llama_prefill": (4096, 3072, torch.bfloat16, torch.bfloat16, False, 0),
+    "llama_decode": (8, 3072, torch.bfloat16, torch.bfloat16, False, 0),
+    "mamba2_gated": (8, 1536, torch.bfloat16, torch.bfloat16, True, 0),
+    "jamba_gated": (8, 16384, torch.bfloat16, torch.bfloat16, True, 0),
+    "stablelm_decode": (8, 5120, torch.bfloat16, torch.bfloat16, False, 0),
+    "fp32_rows37": (37, 768, torch.float32, torch.float32, False, 0),
+    "bf16_x_fp32_scale": (8, 4096, torch.bfloat16, torch.float32, False, 0),
+    "llama_train": (1024, 3072, torch.bfloat16, torch.bfloat16, False, 0),
+    "mamba2_gated_train": (1024, 1536, torch.bfloat16, torch.bfloat16, True, 0),
+    "jamba_gated_train": (1024, 16384, torch.bfloat16, torch.bfloat16, True, 0),
+    "mla_kv_train": (1024, 512, torch.bfloat16, torch.bfloat16, False, 576)}
+# timed, forward (and backward for "_train"); the kernels line's rows
+NORM_TIMED = ("llama_prefill", "llama_decode", "llama_train",
+              "mamba2_gated_train", "jamba_gated_train", "mla_kv_train")
+
+
+def norm_inputs(gen, rows, d, dt, sdt, gated, stride):
+    """(x, z or None, g, scale) of a ``NORM_CASES`` case on the card."""
+    base = 3 * torch.randn(rows, 1, stride or d, generator=gen, device="cuda")
+    x = base.to(dt)[..., :d]
+    z = ((2 * torch.randn(rows, 1, d, generator=gen, device="cuda")).to(dt)
+         if gated else None)
+    g = torch.randn(rows, 1, d, generator=gen, device="cuda").to(dt)
+    scale = torch.randn(d, generator=gen, device="cuda").to(sdt)
+    return x, z, g, scale
+
+
 def phase_rms_norm(peaks, flush, gen):
-    """The RMSNorm kernel against its plain version (within the kernels'
-    tolerance: they sum in other orders), rerun bit-identical, and 8 rows
-    at once against each alone bit for bit, at the main paths' widths:
-    llama's prefill (its row for the kernels line) and decode, Mamba2's
-    gated norm (mamba2-130m's d_inner 1536, jamba's 16384), stablelm's
-    5120, float32, and a bf16 x with a float32 scale."""
-    from repro_torch.kernels.rms_norm import rms_norm, rms_norm_ref
-    bf16, f32 = torch.bfloat16, torch.float32
+    """The RMSNorm kernels (``csrc/rms_norm.cu``) against their plain
+    versions (within the kernels' tolerance: they sum in other orders),
+    rerun bit-identical, and 8 rows at once against each alone bit for bit,
+    at ``NORM_CASES``: the forward (plain and gated) at every case, the
+    gradient (dx, dz and dscale) at the training microbatches, MLA's
+    strided latent also against its contiguous copy bit for bit.  Each
+    ``NORM_TIMED`` case is timed beside its bound, its plain version and
+    ``F.rms_norm`` (its autograd backward for the gradient; no PyTorch call
+    computes the gated norm).  Returns the kernels line's rows: the forward
+    at llama's prefill, the gradient at its training microbatch."""
+    from repro_torch.kernels import meta
+    from repro_torch.kernels.rms_norm import (gated_rms_norm_bwd_ref,
+                                              gated_rms_norm_ref, rms_norm,
+                                              rms_norm_bwd, rms_norm_bwd_ref,
+                                              rms_norm_ref)
     row = {}
-    for name, rows_, d, dt, sdt in [
-            ("llama_prefill", 4096, 3072, bf16, bf16),
-            ("llama_decode", 8, 3072, bf16, bf16),
-            ("mamba2_gated", 8, 1536, bf16, bf16),
-            ("jamba_gated", 8, 16384, bf16, bf16),
-            ("stablelm_decode", 8, 5120, bf16, bf16),
-            ("fp32_rows37", 37, 768, f32, f32),
-            ("bf16_x_fp32_scale", 8, 4096, bf16, f32)]:
-        x = (3 * torch.randn(rows_, 1, d, generator=gen, device="cuda")).to(dt)
-        scale = torch.randn(d, generator=gen, device="cuda").to(sdt)
-        got, _ = rms_norm(x, scale)
-        want = rms_norm_ref(x, scale)
-        tol = BF16_TOL if dt == bf16 else FP32_TOL
+    for name, (rows_, d, dt, sdt, gated, stride) in NORM_CASES.items():
+        x, z, g, scale = norm_inputs(gen, rows_, d, dt, sdt, gated, stride)
+        fwd = (lambda a, b: rms_norm(a, scale, z=b))
+        plain = ((lambda a, b: gated_rms_norm_ref(a, b, scale)) if gated
+                 else (lambda a, b: rms_norm_ref(a, scale)))
+        got, rstd = fwd(x, z)
+        want = plain(x, z)
+        tol = BF16_TOL if dt == torch.bfloat16 else FP32_TOL
         err = rel_max_err(got, want)
-        same = torch.equal(rms_norm(x, scale)[0], got)
-        alone = torch.cat([rms_norm(x[i:i + 1], scale)[0] for i in range(8)])
+        same = torch.equal(fwd(x, z)[0], got)
+        zi = (lambda i: None) if z is None else (lambda i: z[i:i + 1])
+        alone = torch.cat([fwd(x[i:i + 1], zi(i))[0] for i in range(8)])
         invariant = torch.equal(alone, got[:8])
-        plain_alone = torch.cat([rms_norm_ref(x[i:i + 1], scale) for i in range(8)])
+        plain_alone = torch.cat([plain(x[i:i + 1], zi(i)) for i in range(8)])
         ok = err <= tol and same and invariant
+        if stride:                        # read in place = the copy's bits
+            flat = x.contiguous()
+            ok &= torch.equal(fwd(flat, z)[0], got)
         print(f"kernel rms_norm {name} rows={rows_} d={d} {str(dt)[6:]} scale"
-              f" {str(sdt)[6:]}: max|d|/max|ref| {err:.3e} tol={tol:g},"
-              f" bit-identical rerun {same}, 8 rows alone = in a batch"
-              f" {invariant} (plain version: {torch.equal(plain_alone, want[:8])})"
-              f" {'ok' if ok else 'FAIL'}")
+              f" {str(sdt)[6:]}{' gated' if gated else ''}"
+              f"{f' row stride {stride}' if stride else ''}: max|d|/max|ref|"
+              f" {err:.3e} tol={tol:g}, bit-identical rerun {same}, 8 rows"
+              f" alone = in a batch {invariant} (plain version:"
+              f" {torch.equal(plain_alone, want[:8])}) {'ok' if ok else 'FAIL'}")
         check(ok, f"rms_norm {name} disagrees with its plain version or"
                   f" depends on the rows beside it")
-        if name not in ("llama_prefill", "llama_decode"):
+        train = name.endswith("_train")
+        if train:
+            bwd = (lambda: rms_norm_bwd(g, x, scale, rstd, z=z))
+            bwd_plain = ((lambda: gated_rms_norm_bwd_ref(g, x, z, scale, rstd))
+                         if gated else (lambda: rms_norm_bwd_ref(g, x, scale, rstd)))
+            grads, wants = bwd(), bwd_plain()
+            errs = [rel_max_err(a, b) for a, b in zip(grads, wants)]
+            same_b = all(torch.equal(a, b) for a, b in zip(bwd(), grads))
+            ok = max(errs) <= tol and same_b
+            if stride:
+                ok &= all(torch.equal(a, b) for a, b in zip(
+                    rms_norm_bwd(g, x.contiguous(), scale, rstd), grads))
+            names = ("dx", "dz", "dscale") if gated else ("dx", "dscale")
+            print(f"kernel rms_norm_bwd {name}: max|d|/max|ref| "
+                  + ", ".join(f"{n} {e:.3e}" for n, e in zip(names, errs))
+                  + f" tol={tol:g}, bit-identical rerun (dscale included)"
+                  f" {same_b} {'ok' if ok else 'FAIL'}")
+            check(ok, f"rms_norm_bwd {name} disagrees with its plain version"
+                      f" or differs on a rerun")
+        if name not in NORM_TIMED:
             continue
-        # x in, y out, the scale and the row scales: one pass of each
-        nbytes = 2 * x.numel() * x.element_size() + d * scale.element_size() \
-            + 4 * rows_
-        bound_ms, bound_by = bound(nbytes, 4 * x.numel(), peaks, rate=peaks[2])
-        ms = time_ms(lambda: rms_norm(x, scale), flush)
-        plain_ms = time_ms(lambda: rms_norm_ref(x, scale), flush)
-        library_ms = time_ms(lambda: F.rms_norm(x, (d,), scale, 1e-5), flush)
-        print(f"time rms_norm {name} ({nbytes} bytes): kernel {ms:.4f} ms, plain"
-              f" {plain_ms:.4f} ms, library (F.rms_norm) {library_ms:.4f} ms,"
+        # each input read once, each output written once: x (z), scale in;
+        # y and the row scales out; ~4 flops an element (6 gated)
+        size = x.element_size()
+        n = rows_ * d
+        nbytes = (2 + gated) * n * size + d * scale.element_size() + 4 * rows_
+        bound_ms, bound_by = bound(nbytes, (4 + 6 * gated) * n, peaks,
+                                   rate=peaks[2])
+        ms = time_ms(lambda: fwd(x, z), flush)
+        plain_ms = time_ms(lambda: plain(x, z), flush)
+        library_ms = None if gated else time_ms(
+            lambda: F.rms_norm(x, (d,), scale, 1e-5), flush)
+        library = ("none (no one PyTorch call gates)" if library_ms is None
+                   else f"(F.rms_norm) {library_ms:.4f} ms")
+        print(f"time rms_norm {name} ({nbytes} bytes): kernel {ms:.4f} ms,"
+              f" plain {plain_ms:.4f} ms, library {library},"
               f" bound {bound_ms:.6f} ms ({bound_by})")
         if name == "llama_prefill":
             row["rms_norm"] = dict(
@@ -1662,6 +1741,41 @@ def phase_rms_norm(peaks, flush, gen):
                 max_abs_err=(got.float() - want.float()).abs().max().item(),
                 ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                 library_ms=library_ms)
+        if not train:
+            continue
+        # g, x (z), scale and the row scales in; dx (dz) and dscale out;
+        # ~10 flops an element (~24 gated)
+        nbytes = ((3 + 2 * gated) * n * size + 2 * d * scale.element_size()
+                  + 4 * rows_)
+        bound_ms, bound_by = bound(nbytes, (10 + 14 * gated) * n, peaks,
+                                   rate=peaks[2])
+        ms = time_ms(bwd, flush)
+        plain_ms = time_ms(bwd_plain, flush)
+        library_ms = None
+        if not gated:
+            xl = x.detach().requires_grad_(True)
+            sl = scale.detach().clone().requires_grad_(True)
+            yl = F.rms_norm(xl, (d,), sl, 1e-5)
+            library_ms = time_ms(lambda: torch.autograd.grad(
+                yl, (xl, sl), g, retain_graph=True), flush)
+            del xl, sl, yl
+        library = ("none (no one PyTorch call gates)" if library_ms is None
+                   else f"(F.rms_norm's autograd backward) {library_ms:.4f} ms")
+        print(f"time rms_norm_bwd {name} ({nbytes} bytes, scratch"
+              f" {4 * d * meta.rms_norm_bwd_blocks(rows_, d)} B): kernel {ms:.4f} ms,"
+              f" plain (the backward it replaces) {plain_ms:.4f} ms, library"
+              f" {library}, bound {bound_ms:.6f} ms ({bound_by})")
+        if name == "llama_train":
+            row["rms_norm_bwd"] = dict(
+                name="rms_norm_bwd", route="cuda",
+                source="src/repro_torch/kernels/csrc/rms_norm.cu",
+                replaces="src/repro/models/common.py:8 (rms_norm's gradient,"
+                         " JAX autodiff; no Pallas kernel)",
+                max_abs_err=max((a.float() - b.float()).abs().max().item()
+                                for a, b in zip(grads, wants)),
+                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=library_ms)
+        del grads, wants
     return row
 
 
@@ -3423,9 +3537,10 @@ def phase_train(peaks, arch):
     n_micro = out["n_micro"]
     # a layer's forward kernel runs twice a microbatch (the forward, and its
     # recompute under block remat in the backward), its gradient once; the
-    # final norm, outside the blocks, once
+    # final norm, outside the blocks, once; every norm's gradient once
     want = dict.fromkeys(LAUNCHES, 0)
     want.update(rms_norm=(2 * norms_per_pass(cfg) - 1) * n_micro * steps,
+                rms_norm_bwd=norms_per_pass(cfg) * n_micro * steps,
                 flash_attention=2 * n_attn * n_micro * steps,
                 flash_attention_bwd=n_attn * n_micro * steps,
                 ssd_scan=2 * n_ssm * n_micro * steps,
@@ -3577,7 +3692,7 @@ def phase_memcheck():
           f" experiments/memcheck_torch/memcheck_zero1.json rows:"
           f" {[r['actual_bytes'] for r in rows] == kept}")
     for k in ("flash_attention", "flash_attention_bwd", "adam_update",
-              "rms_norm"):
+              "rms_norm", "rms_norm_bwd"):
         check(launches[k] > 0, f"phase (m) never launched {k}")
     return launches
 
@@ -3598,7 +3713,7 @@ def phase_family():
         cfg = get_arch(arch).scaled(**cut) if cut else get_arch(arch)
         s = FAMILY_SEQ.get((arch, d, t), 1024)
         kinds = {_mixer_kind(cfg, j) for j in range(cfg.block_period)}
-        want = ["adam_update", "rms_norm"]
+        want = ["adam_update", "rms_norm", "rms_norm_bwd"]
         if kinds - {"ssm"}:
             want += ["flash_attention", "flash_attention_bwd"]
         if "ssm" in kinds:
@@ -3643,7 +3758,7 @@ def phase_seq():
         cfg, tc, d, t = seq_plan_config(arch)
         check(not sh.attn_head_sharded(cfg, t),
               f"phase (q) {arch}: its heads divide t={t}")
-        want = ["adam_update", "rms_norm", "flash_attention",
+        want = ["adam_update", "rms_norm", "rms_norm_bwd", "flash_attention",
                 "flash_attention_bwd"]
         if "ssm" in {_mixer_kind(cfg, j) for j in range(cfg.block_period)}:
             want += ["ssd_scan", "ssd_scan_bwd"]
@@ -3705,7 +3820,7 @@ def phase_pod():
               f" {row['base_bytes']} B; launches {launches};"
               f" {time.perf_counter() - t0:.1f} s")
         for k in ("flash_attention", "flash_attention_bwd", "adam_update",
-                  "rms_norm"):
+                  "rms_norm", "rms_norm_bwd"):
             check(launches.get(k, 0) > 0,
                   f"phase (p) {arch} on {POD_MESH} never launched {k}")
     return total
@@ -3969,7 +4084,10 @@ def sink_ab():
 
 def time_kernels():
     """--time-kernels: the redesigned kernels' times at their main-path
-    shapes, from whichever tree ``--src`` names, on one JSON line."""
+    shapes, from whichever tree ``--src`` names, on one JSON line; RMSNorm
+    through ``models.common`` (forward, and the gradient autograd takes
+    through it) at llama's prefill and the ``NORM_CASES`` training
+    microbatches."""
     from repro_torch.kernels.flash_decode import flash_decode_gqa, flash_decode_mla
     from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_bwd
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
@@ -4012,6 +4130,30 @@ def time_kernels():
         out["flash_decode_mla decode_ring" + ("" if b == d["b"] else f" b={b}")] = \
             time_ms(lambda: flash_decode_mla(*mla, denom=math.sqrt(128 + d["dr"])),
                     flush)
+    # RMSNorm through the models' entry points, which both trees have: the
+    # forward, and the gradient autograd takes through it (the plain
+    # backward before the gradient kernel)
+    from repro_torch.models.common import gated_rms_norm, rms_norm
+    for name in ("llama_prefill", "llama_train", "mamba2_gated_train",
+                 "jamba_gated_train", "mla_kv_train"):
+        rows, d, dt, sdt, gated, stride = NORM_CASES[name]
+        x, z, g, scale = norm_inputs(gen, rows, d, dt, sdt, gated, stride)
+        fwd = ((lambda a, b, c: gated_rms_norm(a, b, c)) if gated
+               else (lambda a, b, c: rms_norm(a, c)))
+        with torch.no_grad():
+            out[f"rms_norm fwd {name}"] = time_ms(lambda: fwd(x, z, scale),
+                                                 flush)
+        if not name.endswith("_train"):
+            continue
+        leaves = [t.detach().clone().requires_grad_(True) if t is not None
+                  else None for t in (x, z, scale)]
+        if stride:                        # a view of the wider projection
+            leaves[0] = x.detach().requires_grad_(True)
+        y = fwd(*leaves)
+        need = [t for t in leaves if t is not None]
+        out[f"rms_norm bwd {name}"] = time_ms(lambda: torch.autograd.grad(
+            y, need, g, retain_graph=True), flush)
+        del y, leaves, need
     print(json.dumps({"src": SRC, "ms": out}))
     return 0
 
@@ -4113,6 +4255,49 @@ def ab(other):
     return 0
 
 
+def train_in(tree, arch):
+    """--train-in TREE ARCH: ARCH's training phase as TREE's checkout runs
+    it (its ``chip_smoke.py``, its constants, its kernels)."""
+    tree = os.path.abspath(tree)
+    sys.path[:0] = [os.path.join(tree, "src"), tree]
+    os.chdir(tree)
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke_of_tree", os.path.join(tree, "chip_smoke.py"))
+    other = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(other)
+    from repro_torch.kernels import _build
+    from repro_torch.launch import configure_allocator
+    configure_allocator()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _build.build()
+    other.phase_train(other.PEAKS["H100 80GB HBM3"], arch)
+    return 0
+
+
+def train_ab(other, archs):
+    """--train-ab OTHER ARCH...: each ARCH's training phase from OTHER's
+    checkout and from this one, in turns (other, this, this, other), one
+    process each; prints each turn's (t) lines."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip().splitlines()[0]
+    print(f"device: {smi}")
+    for arch in archs:
+        for turn, tree in enumerate((other, ROOT, ROOT, other)):
+            res = subprocess.run([sys.executable, os.path.abspath(__file__),
+                                  "--train-in", tree, arch],
+                                 capture_output=True, text=True)
+            check(res.returncode == 0, f"{arch} turn {turn} ({tree}) failed:"
+                                       f"\n{res.stderr[-4000:]}")
+            for line in res.stdout.splitlines():
+                if line.startswith(("(t) train:", "(t) trace step")):
+                    print(f"train-ab {arch} turn {turn}"
+                          f" {'this' if tree == ROOT else 'other'}: {line}")
+    return 0
+
+
 def timed_phase(name, fn):
     """Run one phase, print its wall time, and free what it left on the
     card (its weights) before the next phase starts."""
@@ -4138,6 +4323,12 @@ def main():
         return time_kernels()
     if "--ab" in sys.argv:
         return ab(sys.argv[sys.argv.index("--ab") + 1])
+    if "--train-ab" in sys.argv:
+        i = sys.argv.index("--train-ab")
+        return train_ab(sys.argv[i + 1], sys.argv[i + 2:])
+    if "--train-in" in sys.argv:
+        i = sys.argv.index("--train-in")
+        return train_in(sys.argv[i + 1], sys.argv[i + 2])
     if "--mla-splits" in sys.argv:
         return mla_splits()
     if "--gqa-splits" in sys.argv:
@@ -4227,7 +4418,7 @@ def main():
     print(json.dumps({"kernels": [rows[k] for k in (
         "flash_attention", "flash_attention_bwd", "flash_decode_gqa",
         "flash_decode_mla", "adam_update", "ssd_scan", "ssd_scan_bwd",
-        "rms_norm")]}))
+        "rms_norm", "rms_norm_bwd")]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))
     return 0

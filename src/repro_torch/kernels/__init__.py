@@ -15,6 +15,7 @@ LAUNCHES: Dict[str, int] = {"flash_attention": 0, "flash_attention_bwd": 0,
                             "flash_decode_gqa": 0, "flash_decode_mla": 0,
                             "adam_update": 0, "ssd_scan": 0,
                             "ssd_scan_bwd": 0, "rms_norm": 0,
+                            "rms_norm_bwd": 0,
                             "flash_attention_offset": 0,
                             "flash_attention_bwd_offset": 0}
 

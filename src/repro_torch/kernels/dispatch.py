@@ -2,10 +2,9 @@
 input tensors.
 
 * a CUDA tensor goes to the hand-written kernel, which launches or raises
-  (attention and the SSD scan that must be differentiated go through the
-  autograd ops whose forward and backward are kernels; RMSNorm through
-  one whose forward is the kernel and whose backward is PyTorch, as the
-  JAX package has no kernel for it);
+  (attention, the SSD scan and the norms, where they must be
+  differentiated, go through the autograd ops whose forward and backward
+  are kernels);
 * a CPU tensor goes to the plain PyTorch version in the kernel's ``ref.py``
   (whose gradient, where one is taken, is PyTorch's autograd);
 * a meta tensor goes to the kernel's wrapper and autograd op, as a CUDA
@@ -21,8 +20,8 @@ hold the kernel path against the plain path on the card.
 With the observability plane's metrics enabled (``repro_torch.obs``), each
 op counts its calls as ``ops/<op>`` under the JAX package's op names
 (``attention``, ``flash_decode``, ``mla_flash_decode``, ``ssd_scan``,
-``adam_update``; RMSNorm, which the JAX package does not dispatch, as
-``rms_norm``); disabled, that costs two attribute reads a call.  With
+``adam_update``; RMSNorm and the gated norm, which the JAX package does
+not dispatch, as ``rms_norm``); disabled, that costs two attribute reads a call.  With
 ``op_timing=True`` too, each call's host time goes to the histogram
 ``ops_s/<op>``, as the JAX package's dispatch records it: the call is not
 synchronized, so on the card it is the time to check, allocate and
@@ -47,7 +46,9 @@ from repro_torch.kernels.flash_decode import (flash_decode_gqa,
                                               gqa_decode_ref, mla_decode_ref)
 from repro_torch.kernels.ssd_scan import (ssd_scan, ssd_scan_ref,
                                           ssd_scan_trainable)
-from repro_torch.kernels.rms_norm import (rms_norm_ref, rms_norm_trainable)
+from repro_torch.kernels.rms_norm import (gated_rms_norm_ref,
+                                          gated_rms_norm_trainable,
+                                          rms_norm_ref, rms_norm_trainable)
 from repro_torch.kernels.rms_norm import rms_norm as rms_norm_kernel
 from repro_torch.obs.metrics import METRICS
 
@@ -162,15 +163,31 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5
              ) -> torch.Tensor:
     """RMSNorm over the last axis, float32 inside, output in x's dtype.
     On the card each row's output depends on that row alone (the kernel's
-    fixed summation order); a strided x is made contiguous first."""
+    fixed summation order); x may be strided rows (the last axis
+    contiguous, rows evenly spaced), read in place."""
     if METRICS.enabled:
         METRICS.inc("ops/rms_norm")
     if _use_kernel(x):
-        x = x.contiguous()
         if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad):
             return _call("rms_norm", x, rms_norm_trainable, x, scale, eps)
         return _call("rms_norm", x, rms_norm_kernel, x, scale, eps)[0]
     return _call("rms_norm", x, rms_norm_ref, x, scale, eps)
+
+
+def gated_rms_norm(x: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
+                   eps: float = 1e-5) -> torch.Tensor:
+    """Mamba2's gated norm, RMSNorm(x * silu(z)) with the gate in float32
+    rounded to x's dtype; on the card the gate, the product and the norm
+    are one kernel (and its gradient one more), counted as ``rms_norm``."""
+    if METRICS.enabled:
+        METRICS.inc("ops/rms_norm")
+    if _use_kernel(x):
+        if torch.is_grad_enabled() and (x.requires_grad or z.requires_grad
+                                        or scale.requires_grad):
+            return _call("rms_norm", x, gated_rms_norm_trainable, x, z, scale,
+                         eps)
+        return _call("rms_norm", x, rms_norm_kernel, x, scale, eps, z=z)[0]
+    return _call("rms_norm", x, gated_rms_norm_ref, x, z, scale, eps)
 
 
 @torch.no_grad()

@@ -11,7 +11,8 @@ the dry run's peak), where the plain versions would hold the full
 (b, H, s, s) scores or Adam's temporaries instead.
 
 The kernels' launch plans (the GQA decode's split, the MLA decode's split
-and merge, the SSD scan's segments) are computed here, for the card and
+and merge, the SSD scan's segments, RMSNorm's warps a row and its
+gradient's blocks) are computed here, for the card and
 for meta alike, and passed into the launches: where a plan reads the SM
 count (the SSD scan's), a CUDA tensor gives its card's and a meta tensor
 the H100's, ``SM_COUNT``.
@@ -40,6 +41,11 @@ MLA_SPLITS, MLA_SPLIT_MIN, MLA_SPLIT_MAX, MLA_MAX_CLUSTER = 6, 64, 1024, 8
 MLA_HEADS_BF16, MLA_HEADS_F32 = 64, 16
 #: rows per chunk of ``csrc/ssd_scan.cu`` and ``csrc/ssd_scan_bwd.cu``
 SSD_CHUNK = SSD_BWD_CHUNK = 64
+#: ``csrc/rms_norm.cu``: values a row a warp takes, warps a block, the
+#: widest row, and the most blocks of the gradient (the H100's SM count,
+#: fixed: a card with more SMs sums dscale in the same order)
+NORM_WARP_VALUES, NORM_BLOCK_WARPS, NORM_MAX_WIDTH = 2048, 8, 16384
+NORM_BWD_BLOCKS = SM_COUNT
 #: the chunk of the plain SSD scan (``dispatch.ssd``'s default), whose
 #: FLOPs the SSD stand-ins count
 SSD_REF_CHUNK = 128
@@ -106,6 +112,35 @@ def mla_plan(b: int, S: int, H: int, bf16: bool, bs: int = 0) -> tuple:
     ns = -(-S // bs)
     heads = MLA_HEADS_BF16 if bf16 else MLA_HEADS_F32
     return bs, (ns, -(-H // heads), b), bf16 and ns <= MLA_MAX_CLUSTER
+
+
+def rms_norm_plan(d: int) -> tuple:
+    """The launch of ``csrc/rms_norm.cu`` for rows of d values: (warps a
+    row, rows a block).  From d alone, so a row's sums run in one order
+    whatever the rows beside it: one warp up to 2,048 values, 8 at
+    16,384, and 8 / warps rows a 256-thread block."""
+    warps = -(-d // NORM_WARP_VALUES)
+    return warps, max(NORM_BLOCK_WARPS // warps, 1)
+
+
+def rms_norm_fwd_plan(rows: int, d: int) -> tuple:
+    """The forward's launch: ``rms_norm_plan(d)``, but no more rows a
+    block than give each of the H100's SMs a block (a decode step's few
+    rows then spread over as many SMs).  A row's sums follow the warps a
+    row alone, never the rows a block."""
+    warps, per_block = rms_norm_plan(d)
+    return warps, max(1, min(per_block, rows // SM_COUNT))
+
+
+def rms_norm_bwd_blocks(rows: int, d: int) -> int:
+    """Blocks of ``csrc/rms_norm.cu``'s gradient, each a contiguous range
+    of rows and one row of the (blocks, d) float32 scratch of dscale's
+    partial sums: a row group each while that is at most
+    ``NORM_BWD_BLOCKS``, else that many ranges of equal rows.  From
+    (rows, d) alone."""
+    per_block = -(-rows // min(-(-rows // rms_norm_plan(d)[1]),
+                               NORM_BWD_BLOCKS))
+    return -(-rows // per_block)
 
 
 def ssd_segment_chunks(b: int, s: int, h: int,

@@ -23,8 +23,11 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-5
 def gated_rms_norm(x: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
                    eps: float = 1e-5) -> torch.Tensor:
     """Mamba2's gated norm: RMSNorm(x * silu(z)), the gate computed in fp32
-    and rounded to x's dtype before the product."""
-    return rms_norm(x * F.silu(z.float()).to(x.dtype), scale, eps)
+    and rounded to x's dtype before the product.  On the card one kernel
+    computes the gate, the product and the norm (``kernels/csrc/
+    rms_norm.cu``), and its gradient one more; on the CPU, the plain
+    version."""
+    return dispatch.gated_rms_norm(x, z, scale, eps)
 
 
 def gated_rms_norm_sharded(x: torch.Tensor, z: torch.Tensor,
@@ -34,9 +37,10 @@ def gated_rms_norm_sharded(x: torch.Tensor, z: torch.Tensor,
     and scale are this rank's slice of the channels, and the row's mean
     of squares spans every rank's (its float32 sum of squares summed over
     the model axis by ``par.sum_model``).  Plain PyTorch, as the plain
-    RMSNorm computes it: the JAX package computes this norm in XLA, so
-    it is no TPU kernel, and the one-device norm (the batch-invariant
-    kernel on the card) is not touched."""
+    RMSNorm computes it, on the card too: the sum of squares needs an
+    all-reduce between the sum and the scale, which the one-pass norm
+    kernel (``gated_rms_norm``'s on one device) has no place for.  The JAX
+    package computes this norm in XLA, so it is no TPU kernel."""
     g = (x * F.silu(z.float()).to(x.dtype)).float()
     ss = par.sum_model(g.square().sum(dim=-1, keepdim=True))
     return (g * torch.rsqrt(ss / width + eps) * scale.float()).to(x.dtype)

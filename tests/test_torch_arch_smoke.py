@@ -39,6 +39,18 @@ from repro_torch.serve import (ContinuousBatcher, DisaggregatedBatcher,
                                ServeRequest, greedy_decode, prefill,
                                prompt_batch)
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread for this file's tests, restored after: the CPU
+    ops here are small, and a pool of spinning threads per test process
+    only crowds the other processes of a parallel run."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 NEW_ARCHS = ["stablelm-12b", "llava-next-34b", "musicgen-medium",
              "mixtral-8x22b", "starcoder2-7b", "gpt2-7b"]
 TOL = dict(atol=1e-4, rtol=1e-4)

@@ -39,6 +39,18 @@ from repro_torch.models import active_param_count, param_count
 from repro_torch.train import build_train_step, init_opt_state
 from repro_torch.train.optimizer import tree_leaves
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread for this file's tests, restored after: the CPU
+    ops here are small, and a pool of spinning threads per test process
+    only crowds the other processes of a parallel run."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 NEW_ARCHS = ["stablelm-12b", "llava-next-34b", "musicgen-medium",
              "mixtral-8x22b", "starcoder2-7b", "gpt2-7b"]
 ADAM_TOL = dict(atol=1e-6, rtol=1e-5)

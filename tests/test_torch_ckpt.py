@@ -23,6 +23,18 @@ from repro_torch.interop import params_from_numpy
 from repro_torch.launch import train as train_main
 from repro_torch.models import init_params
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread for this file's tests, restored after: the CPU
+    ops here are small, and a pool of spinning threads per test process
+    only crowds the other processes of a parallel run."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ARCHS = sorted(jax_registry.ARCHS)
 
 

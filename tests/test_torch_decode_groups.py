@@ -35,6 +35,18 @@ from repro_torch.kernels.flash_decode.flash_decode import block_s
 from repro_torch.models import param_count
 from repro_torch.models.transformer import cache_slots
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread for this file's tests, restored after: the CPU
+    ops here are small, and a pool of spinning threads per test process
+    only crowds the other processes of a parallel run."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ROOT = Path(__file__).resolve().parents[1]
 DTYPES = {"float32": (torch.float32, 2e-5), "bfloat16": (torch.bfloat16, 2e-2)}
 PROMPT, NEW = 512, 32        # chip_smoke.py's serving cells

@@ -20,6 +20,18 @@ from repro_torch.serve import prefill, serve_step
 from repro_torch.train import build_train_step, make_train_state
 from repro_torch.train.optimizer import tree_leaves
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread for this file's tests, restored after: the CPU
+    ops here are small, and a pool of spinning threads per test process
+    only crowds the other processes of a parallel run."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ROOT = Path(__file__).resolve().parents[1]
 ARCHS = ["llama3.2-3b", "deepseek-v2-236b", "mamba2-130m",
          "jamba-1.5-large-398b"]

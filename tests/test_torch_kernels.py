@@ -37,6 +37,18 @@ from repro_torch.kernels.flash_decode.flash_decode_mla import (_launch,
                                                              launch_plan)
 from repro_torch.kernels.ssd_scan import ssd_scan
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread for this file's tests, restored after: the CPU
+    ops here are small, and a pool of spinning threads per test process
+    only crowds the other processes of a parallel run."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 DTYPES = {"float32": (torch.float32, 2e-5), "bfloat16": (torch.bfloat16, 2e-2)}
 # A decode's log-sum-exp against the plain version's on the same values in
 # float32, absolute in nats: a sharded decode weighs each rank's result by

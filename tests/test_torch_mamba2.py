@@ -29,6 +29,18 @@ from repro_torch.models.mamba2 import (_causal_conv, c_dot_state,
                                        mamba2_decode, mamba2_forward,
                                        mamba2_param_shapes)
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread for this file's tests, restored after: the CPU
+    ops here are small, and a pool of spinning threads per test process
+    only crowds the other processes of a parallel run."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ARCH = "mamba2-130m"
 TOL = dict(atol=1e-4, rtol=1e-4)
 

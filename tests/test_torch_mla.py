@@ -32,6 +32,18 @@ from repro_torch.kernels.flash_decode import mla_decode_ref, mla_decode_splitk
 from repro_torch.models.attention import (mla_attend_decode, mla_attend_train,
                                           mla_param_shapes, ring_index)
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread for this file's tests, restored after: the CPU
+    ops here are small, and a pool of spinning threads per test process
+    only crowds the other processes of a parallel run."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ARCH = "deepseek-v2-236b"
 TOL = dict(atol=1e-4, rtol=1e-4)
 DTYPES = {"float32": (torch.float32, 2e-5), "bfloat16": (torch.bfloat16, 2e-2)}

@@ -34,6 +34,18 @@ from repro_torch.models import (cache_from_prefill, decode_step, forward,
 from repro_torch.models.attention import apply_rope
 from repro_torch.models.common import rms_norm
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread for this file's tests, restored after: the CPU
+    ops here are small, and a pool of spinning threads per test process
+    only crowds the other processes of a parallel run."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ARCHS = ["llama3.2-3b", "starcoder2-3b", "deepseek-v2-236b", "mamba2-130m",
          "jamba-1.5-large-398b"]
 TOL = dict(atol=1e-4, rtol=1e-4)

@@ -33,6 +33,18 @@ from repro_torch.serve import (local_serve_params, prefill, serve_parallel,
                                serve_step)
 from repro_torch.models import init_cache
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread for this file's tests, restored after: the CPU
+    ops here are small, and a pool of spinning threads per test process
+    only crowds the other processes of a parallel run."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 SERVE_SHAPES = ("prefill_32k", "decode_32k", "long_500k")
 MESHES = {"16x16": (1, 16, 16), "2x16x16": (2, 16, 16)}
 COMBOS = [(arch, shape, mesh) for arch in ASSIGNED for shape in SERVE_SHAPES

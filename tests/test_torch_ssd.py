@@ -27,6 +27,18 @@ from repro_torch.kernels.ssd_scan import (ssd_chunked, ssd_naive, ssd_scan,
 from repro_torch.kernels.ssd_scan.ssd_scan import (SHAPES, bwd_scratch, chunk,
                                                    segment_chunks)
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread for this file's tests, restored after: the CPU
+    ops here are small, and a pool of spinning threads per test process
+    only crowds the other processes of a parallel run."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 DTYPES = {"float32": (torch.float32, 2e-3), "bfloat16": (torch.bfloat16, 5e-2)}
 
 # the shapes of tests/test_kernels.py::test_ssd_scan_sweep: (b, s, h, p, n,

@@ -46,6 +46,18 @@ from test_torch_train import (_assert_grads_match,
                               _assert_loss_and_grad_norm_match,
                               _assert_resynced_params_match, _three_steps)
 
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread for this file's tests, restored after: the CPU
+    ops here are small, and a pool of spinning threads per test process
+    only crowds the other processes of a parallel run."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ROOT = Path(__file__).resolve().parents[1]
 JAMBA = "jamba-1.5-large-398b"
 # the model tests' whole-model tolerance (tests/test_torch_models.py) and
